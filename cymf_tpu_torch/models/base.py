@@ -1,0 +1,222 @@
+"""Shared trainer machinery: input coercion, init, early stopping,
+persistence.  Port of `cymf_tpu/models/base.py`.
+
+The sklearn-style contract of the reference trainers
+(`cymf/bpr.pyx:50-68`): ``Model(...)`` holds
+hyperparameters, ``fit(X, num_epochs, num_threads, valid_evaluator,
+early_stopping, verbose)`` trains, the learned factors are numpy
+``model.W`` / ``model.H`` and warm-start a later fit.  During ``fit`` the
+live tables are tensors on the model's device in ``self._state``.  The
+tables are training state, not layers, so nothing here is an
+``nn.Module``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from scipy import sparse
+
+from .. import config
+
+
+def as_csr(X) -> sparse.csr_matrix:
+    """Input coercion per `cymf/bpr.pyx:81-87`."""
+    if X is None:
+        raise ValueError()
+    if sparse.issparse(X):
+        X = X.tocsr()
+    elif isinstance(X, np.ndarray):
+        X = sparse.csr_matrix(X)
+    else:
+        raise ValueError()
+    X = X.astype(np.float64)
+    X.sort_indices()
+    return X
+
+
+def uniform_init(shape, scale_div: float, low=-0.1, high=0.1,
+                 seed: Optional[int] = None) -> np.ndarray:
+    """U(low, high)/num_components init (`bpr.pyx:97-101`).
+
+    The reference seeds numpy with 4321 immediately before drawing W (and
+    draws H from the advanced state); callers pass ``seed=4321`` for W and
+    ``seed=None`` for H to replicate the stream.
+    """
+    if seed is not None:
+        np.random.seed(seed)
+    return np.random.uniform(low=low, high=high, size=shape) / scale_div
+
+
+class EarlyStopper:
+    """Exact early-stopping state machine of the reference trainers.
+
+    From `cymf/bpr.pyx:173-183`: track best validation DCG@5;
+    on a non-improving epoch increment a counter, breaking once the counter
+    exceeds 10; on improvement reset the counter and snapshot best weights.
+    Best weights are restored only when ``early_stopping`` is on
+    (`bpr.pyx:188-190`).
+    """
+
+    def __init__(self, early_stopping: bool):
+        self.early_stopping = early_stopping
+        self.best_dcg = -np.inf
+        self.count = 0
+        self.best_snapshot = None
+
+    def update(self, dcg: float, snapshot_fn) -> bool:
+        """Returns True if training should stop now."""
+        if self.best_dcg > dcg:
+            if self.early_stopping and self.count > 10:
+                return True
+            if self.early_stopping:
+                self.count += 1
+        else:
+            self.count = 0
+            self.best_dcg = dcg
+            if self.early_stopping:
+                self.best_snapshot = snapshot_fn()
+        return False
+
+
+def _to_host(t: torch.Tensor, n: int) -> np.ndarray:
+    """First ``n`` rows of a device table as a host copy that later
+    in-place updates of the table cannot reach."""
+    return t[:n].detach().to("cpu", copy=True).numpy()
+
+
+class MFTrainerBase:
+    """Base for the two-table (W: users, H: items) trainers.
+
+    ``model.W`` / ``model.H`` are numpy copies of the learned factors
+    (`bpr.pyx:46-47`); during ``fit`` they are read from the device
+    tables on access.
+    """
+
+    def __init__(self, num_components: int, device=None):
+        self.num_components = int(num_components)
+        self.device = torch.device(device) if device is not None \
+            else config.default_device()
+        self._W_host: Optional[np.ndarray] = None
+        self._H_host: Optional[np.ndarray] = None
+        self._state = None  # dict with device tensors "W", "H" during fit
+        self._num_users = 0
+        self._num_items = 0
+        self.valid_evaluator = None
+        self.valid_dcg = -np.inf
+        self.early_stopping = False
+
+    @property
+    def W(self):
+        if self._state is not None:
+            return _to_host(self._state["W"], self._num_users)
+        return self._W_host
+
+    @W.setter
+    def W(self, value):
+        self._drop_device_state()
+        self._W_host = None if value is None else np.asarray(value)
+
+    @property
+    def H(self):
+        if self._state is not None:
+            return _to_host(self._state["H"], self._num_items)
+        return self._H_host
+
+    @H.setter
+    def H(self, value):
+        self._drop_device_state()
+        self._H_host = None if value is None else np.asarray(value)
+
+    def _drop_device_state(self):
+        """Move the learned tables to host and drop device state (after a
+        fit, or when a table is set by hand: both host copies are kept
+        first so the untouched table survives)."""
+        if self._state is not None:
+            self._W_host = _to_host(self._state["W"], self._num_users)
+            self._H_host = _to_host(self._state["H"], self._num_items)
+            self._state = None
+
+    def _ensure_tables(self, num_rows_w: int, num_rows_h: int) -> None:
+        """Lazy init W,H ~ U(-0.1, 0.1)/K with np.random.seed(4321) before W
+        only (`bpr.pyx:97-101`); existing tables are kept (warm start)."""
+        K = self.num_components
+        if self.W is None:
+            self.W = uniform_init((num_rows_w, K), K, seed=4321)
+        if self.H is None:
+            self.H = uniform_init((num_rows_h, K), K)
+
+    def _run_epochs(self, num_epochs: int, epoch_fn, snapshot_fn, restore_fn,
+                    verbose: bool):
+        """Run ``epoch_fn(epoch)`` with validation and early stopping.
+
+        Mirrors the loop at `bpr.pyx:160-190`: per-epoch validation via
+        ``valid_evaluator.evaluate(W, H)["DCG@5"]``, stop after >10
+        consecutive non-improving epochs, restore the best weights at the
+        end.  ``verbose`` prints one progress line per epoch.
+        """
+        from ..utils.profiling import Throughput
+        stopper = EarlyStopper(self.early_stopping)
+        valid_dcg = None
+        thr = Throughput()
+        samples_per_epoch = getattr(self, "_samples_per_epoch", 0)
+        thr.tick(0)
+        for epoch in range(num_epochs):
+            epoch_fn(epoch)
+            thr.tick(samples_per_epoch)
+            if self.valid_evaluator:
+                valid_dcg = self.valid_evaluator.evaluate(
+                    self.W, self.H)["DCG@5"]
+                if stopper.update(valid_dcg, snapshot_fn):
+                    break
+                self.valid_dcg = stopper.best_dcg
+            if verbose:
+                print(f"EPOCH={epoch + 1:{len(str(num_epochs))}}"
+                      + (f", DCG@5={np.round(valid_dcg, 3)}"
+                         if self.valid_evaluator else "")
+                      + (f", {thr.format()}" if samples_per_epoch
+                         and thr.rate else ""), flush=True)
+        if self.valid_evaluator and self.early_stopping \
+                and stopper.best_snapshot is not None:
+            restore_fn(stopper.best_snapshot)
+
+
+def _model_to_arrays(model) -> dict:
+    arrays = {"W": model.W, "H": model.H,
+              "num_components": np.asarray(model.num_components)}
+    for name in ("learning_rate", "weight_decay", "weight", "clip_value",
+                 "lam_y"):
+        if hasattr(model, name):
+            arrays[f"hyper_{name}"] = np.asarray(getattr(model, name))
+    return arrays
+
+
+class PersistenceMixin:
+    """``model.save(path)`` / ``Model.load(path)``: learned factors and
+    hyperparameters as one npz, in the JAX package's format, so either
+    package loads a model the other saved."""
+
+    def save(self, path: str) -> None:
+        if self.W is None or self.H is None:
+            raise ValueError("model has no learned factors to save")
+        d = _model_to_arrays(self)
+        import os
+        os.makedirs(os.path.dirname(os.path.abspath(path)) or ".",
+                    exist_ok=True)
+        np.savez(path, **d)
+
+    @classmethod
+    def load(cls, path: str, device=None):
+        with np.load(path) as z:
+            kwargs = {"num_components": int(z["num_components"])}
+            for k in z.files:
+                if k.startswith("hyper_"):
+                    kwargs[k[len("hyper_"):]] = float(z[k])
+            model = cls(**kwargs, device=device)
+            model.W = z["W"]
+            model.H = z["H"]
+            model._num_users = z["W"].shape[0]
+            model._num_items = z["H"].shape[0]
+        return model

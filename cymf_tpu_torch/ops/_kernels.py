@@ -1,0 +1,141 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The sources under ``cymf_tpu_torch/csrc/`` are compiled at first use with
+``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
+``build/cymf_tpu_torch/libcymf_kernels_<hash>.so`` beside the package,
+keyed by a hash of the sources, and loaded with :mod:`ctypes`.  Nothing
+includes PyTorch's headers, so the build takes seconds.  Importing this
+module builds nothing: the CPU tests import every module of the port.
+
+Each C entry point takes device pointers, ints and the CUDA stream, and
+returns ``cudaGetLastError()`` after its launch; :func:`check` raises on
+anything but 0.  A failed build raises too: there is no fallback.
+
+:data:`launches` counts kernel launches per wrapper.  A wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that the
+main path went through each kernel.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cymf_tpu_torch"
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+launches: collections.Counter = collections.Counter()
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# entry point -> argument types (pointers, ints, floats; the stream last)
+_SIGNATURES = {
+    "cymf_bpr_sample_blocks": [_I],
+    "cymf_bpr_sample_phase": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "cymf_sorted_accum": [_P] * 5 + [_I] * 3 + [_P],
+    "cymf_sorted_accum_dual": [_P] * 9 + [_I] * 5 + [_P],
+}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        path = Path(cand) / "bin" / "nvcc"
+        if cand and path.exists():
+            return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                           "(set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libcymf_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels unless a library for these exact sources
+    exists.  Returns its path; raises ``RuntimeError`` with the compiler's
+    output if ``nvcc`` fails."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
+           "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.cymf_error_string.argtypes = [ctypes.c_int]
+        handle.cymf_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        msg = lib().cymf_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")
+
+
+def stream(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as the C entry points take
+    it."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+            device: torch.device, ndim: int | None = None) -> None:
+    """Raise ``ValueError`` unless ``t`` is a contiguous ``dtype`` tensor
+    on ``device``, 16-byte aligned if it holds floats (the kernels read
+    float rows as ``float4``)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-d, got shape "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.is_floating_point() and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")

@@ -19,6 +19,8 @@ setup(
     description=("TPU-native matrix-factorization framework "
                  "(JAX/XLA/pjit/Pallas)"),
     packages=find_packages(exclude=("tests",)),
+    # the PyTorch port builds its CUDA kernels from these at first use
+    package_data={"cymf_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     ext_modules=[
         Extension(
             "cymf_tpu.native._native",
@@ -31,5 +33,6 @@ setup(
     install_requires=[
         "jax", "numpy", "scipy", "scikit-learn", "pandas", "tqdm",
     ],
+    extras_require={"torch": ["torch"]},
     python_requires=">=3.10",
 )
