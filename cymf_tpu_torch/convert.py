@@ -2,9 +2,10 @@
 
 :func:`packed_state_from_jax` turns the packed engine's arrays (fetched to
 numpy, e.g. with ``jax.device_get``) into the port's tensors, so a step
-can continue from the JAX engine's exact state.  :func:`bpr_from_arrays`
-builds a model that warm-starts from learned tables.  A model saved with
-``cymf_tpu.BPR.save`` loads with :meth:`cymf_tpu_torch.BPR.load`: both
+can continue from the JAX engine's exact state.  :func:`from_arrays`
+(and :func:`bpr_from_arrays` for BPR) builds a model that warm-starts from
+learned tables, such as a JAX model's ``W`` and ``H``.  A model saved with
+``cymf_tpu.<Model>.save`` loads with ``cymf_tpu_torch.<Model>.load``: both
 packages share the npz format.
 """
 
@@ -31,14 +32,20 @@ def packed_state_from_jax(Wp, Hp, ow, oh, device):
             {k: _tensor(v, device) for k, v in oh.items()})
 
 
-def bpr_from_arrays(W, H, **hyper) -> BPR:
-    """A :class:`BPR` holding the learned ``W`` (users x K) and ``H``
-    (items x K); ``hyper`` goes to the constructor (``num_components``
-    defaults to ``W``'s width).  Its next ``fit`` warm-starts from them."""
+def from_arrays(cls, W, H, **hyper):
+    """A ``cls`` model (:class:`BPR`, :class:`WMF` or :class:`ExpoMF`)
+    holding the learned ``W`` (users x K) and ``H`` (items x K); ``hyper``
+    goes to the constructor (``num_components`` defaults to ``W``'s width).
+    Its next ``fit`` warm-starts from them."""
     W = np.asarray(W, np.float32)
     H = np.asarray(H, np.float32)
     hyper.setdefault("num_components", W.shape[1])
-    model = BPR(**hyper)
+    model = cls(**hyper)
     model.W, model.H = W, H
     model._num_users, model._num_items = W.shape[0], H.shape[0]
     return model
+
+
+def bpr_from_arrays(W, H, **hyper) -> BPR:
+    """:func:`from_arrays` for :class:`BPR`."""
+    return from_arrays(BPR, W, H, **hyper)

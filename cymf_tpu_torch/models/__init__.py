@@ -1,3 +1,5 @@
 from .bpr import BPR
+from .expomf import ExpoMF
+from .wmf import WMF
 
-__all__ = ["BPR"]
+__all__ = ["BPR", "WMF", "ExpoMF"]

@@ -11,6 +11,13 @@ Each C entry point takes device pointers, ints and the CUDA stream, and
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises on
 anything but 0.  A failed build raises too: there is no fallback.
 
+The kernels, by source and the wrapper that launches them:
+
+- ``bpr_sample.cu``: ``fused_sample.bpr_sample_phase``;
+- ``sorted_accum.cu``: ``sorted_accum.sorted_accum`` and
+  ``sorted_accum.sorted_accum_dual``;
+- ``chol_inv.cu``: ``chol_kernel.chol_inv_batched``.
+
 :data:`launches` counts kernel launches per wrapper.  A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that the
 main path went through each kernel.
@@ -34,13 +41,15 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 launches: collections.Counter = collections.Counter()
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # entry point -> argument types (pointers, ints, floats; the stream last)
 _SIGNATURES = {
     "cymf_bpr_sample_blocks": [_I],
     "cymf_bpr_sample_phase": [_P] * 7 + [_I] * 4 + [_F, _P],
     "cymf_sorted_accum": [_P] * 5 + [_I] * 3 + [_P],
     "cymf_sorted_accum_dual": [_P] * 9 + [_I] * 5 + [_P],
+    "cymf_chol_inv_batched": [_P, _L, _L, _P, _P, _I, _I, _P],
 }
 
 _lib = None

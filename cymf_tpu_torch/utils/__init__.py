@@ -1,3 +1,3 @@
-from .profiling import Throughput
+from .profiling import Throughput, annotate
 
-__all__ = ["Throughput"]
+__all__ = ["Throughput", "annotate"]

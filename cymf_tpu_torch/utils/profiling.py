@@ -1,13 +1,21 @@
-"""Throughput instrumentation (`cymf_tpu/utils/profiling.py`).
+"""Throughput and trace instrumentation (`cymf_tpu/utils/profiling.py`).
 
-Only :class:`Throughput` is ported so far; the trace helpers come with the
-``torch.profiler`` work.
+:class:`Throughput` and :func:`annotate` are ported; ``trace`` comes with
+the ``torch.profiler`` work.
 """
 
 from __future__ import annotations
 
 import time
 from typing import Optional
+
+import torch
+
+
+def annotate(name: str):
+    """Named region inside a ``torch.profiler`` trace, as a context
+    manager.  With no profiler running it costs a few microseconds."""
+    return torch.profiler.record_function(name)
 
 
 class Throughput:

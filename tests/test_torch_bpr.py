@@ -189,8 +189,13 @@ def test_import_leaves_jax_and_sklearn_stack_out():
         "    importlib.import_module(m.name)\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
         "print(sorted(new & {'jax', 'jaxlib', 'sklearn', 'tqdm', "
-        "'pandas', 'cymf_tpu'}))\n")
+        "'pandas', 'cymf_tpu'}))\n"
+        "print(sorted(m for m in sys.modules if m.startswith("
+        "('cymf_tpu_torch.models.', 'cymf_tpu_torch.ops.'))))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+    jax_stack, modules = out.stdout.strip().splitlines()
+    assert jax_stack == "[]"
+    for m in ("models.wmf", "models.expomf", "ops.als", "ops.chol_kernel"):
+        assert f"'cymf_tpu_torch.{m}'" in modules

@@ -9,7 +9,10 @@ also runs where JAX is absent:
 
 Tolerances: sample-phase outputs ``rtol 1e-5, atol 1e-6`` and the loss
 relative ``1e-5`` (row sums reduce in another order); accumulations
-``1e-5 * max|plain|`` absolute (summation order, atomics).
+``1e-5 * max|plain|`` absolute (summation order, atomics); the batched
+Cholesky ``|dL| <= 1e-4 max|L|`` and ``|Linv L - I| <= 1e-3``, the JAX
+package's own bounds for its kernel; ALS fits ``rtol 2e-3, atol 2e-4``,
+its bound between solver forms.
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from cymf_tpu_torch.ops import _kernels
+from cymf_tpu_torch.ops import chol_kernel as ck
 from cymf_tpu_torch.ops import fused_sample as fs
 from cymf_tpu_torch.ops import packed as pk
 from cymf_tpu_torch.ops import sorted_accum as sa
@@ -151,3 +155,79 @@ def test_bpr_fit_on_card_matches_cpu(dev):
     np.testing.assert_allclose(Wg, Wc, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(Hg, Hc, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(lg, lc, rtol=1e-5)
+
+
+def _spd(rng, C, B, dev):
+    X = torch.from_numpy(rng.standard_normal((C, B, 8)).astype(np.float32))
+    return (X @ X.mT / 8 + torch.eye(B)).to(dev)
+
+
+def _close_chol(L, Linv, Lp):
+    torch.cuda.synchronize()
+    L, Linv, Lp = L.double(), Linv.double(), Lp.double()
+    assert torch.isfinite(L).all() and torch.isfinite(Linv).all()
+    assert float((L - Lp).abs().max()) <= 1e-4 * float(Lp.abs().max())
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    assert float((Linv @ Lp - eye).abs().max()) <= 1e-3
+    assert (L.triu(1) == 0).all() and (Linv.triu(1) == 0).all()
+
+
+@pytest.mark.parametrize("B", [32, 64, 128])
+@pytest.mark.parametrize("C", [1, 7, 262, 2048])
+def test_chol_inv_kernel(dev, C, B):
+    A = _spd(np.random.default_rng(C * B), C, B, dev)
+    _kernels.reset_launches()
+    L, Linv = ck.chol_inv_batched(A, B)
+    assert _kernels.launches["chol_inv_batched"] == 1
+    _close_chol(L, Linv, ck.chol_inv_batched_plain(A)[0])
+
+
+def test_chol_inv_kernel_strided_view_and_not_spd(dev):
+    big = _spd(np.random.default_rng(1), 300, 256, dev)
+    view = big[:, 64:128, 64:128]          # read in place, strided
+    L, Linv = ck.chol_inv_batched(view, 64)
+    _close_chol(L, Linv, ck.chol_inv_batched_plain(view.contiguous())[0])
+    A = _spd(np.random.default_rng(2), 5, 64, dev)
+    A[2] = -A[2]
+    A[4, 10, 10] = float("nan")
+    for what, (L, Linv) in (("kernel", ck.chol_inv_batched(A, 64)),
+                            ("plain", ck.chol_inv_batched_plain(A))):
+        for c in (2, 4):
+            assert torch.isnan(L[c]).all() and torch.isnan(Linv[c]).all(), \
+                (what, c)
+        assert torch.isfinite(L[[0, 1, 3]]).all(), what
+
+
+def test_chol_inv_raises_on_what_it_does_not_take(dev):
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.chol_inv_batched(torch.eye(160, device=dev).expand(2, -1, -1), 160)
+    with pytest.raises(ValueError, match="dtype"):
+        ck.chol_inv_batched(torch.eye(64, device=dev, dtype=torch.float64)
+                            .expand(2, -1, -1), 64)
+    with pytest.raises(ValueError, match="column stride"):
+        ck.chol_inv_batched(torch.eye(64, device=dev).expand(2, -1, -1).mT,
+                            64)
+
+
+@pytest.mark.parametrize("model", ["WMF", "ExpoMF"])
+def test_als_fit_on_card_matches_cpu(dev, monkeypatch, model):
+    """Two epochs at K=128 on the card (kernel diagonal) and on the CPU
+    (plain diagonal) from the same init, every WMF chunk in the standard
+    form."""
+    from scipy import sparse
+
+    import cymf_tpu_torch as ct
+    monkeypatch.delenv("CYMF_TPU_ALS_CHOL", raising=False)
+    monkeypatch.setenv("CYMF_TPU_ALS_WOODBURY", "off")
+    X = sparse.random(500, 300, density=0.06, random_state=4, format="csr",
+                      data_rvs=lambda n: np.ones(n))
+    out = {}
+    for d in ("cpu", dev):
+        m = getattr(ct, model)(128, weight_decay=1.0, device=d)
+        _kernels.reset_launches()
+        m.fit(X, num_epochs=2, verbose=False)
+        out[str(d)] = (m.W, m.H, dict(_kernels.launches))
+    (Wc, Hc, nc), (Wg, Hg, ng) = out["cpu"], out[str(dev)]
+    assert nc == {} and ng.get("chol_inv_batched", 0) > 0
+    np.testing.assert_allclose(Wg, Wc, rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(Hg, Hc, rtol=2e-3, atol=2e-4)
