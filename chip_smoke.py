@@ -13,21 +13,38 @@ Phases, one line each; any failure raises and exits non-zero:
    131,072; first step of the port's own prep), the sample kernel also at
    d=64.  The batched Cholesky on the first diagonal block (C=2048, B=64)
    of the first standard-form user chunk of the WMF d=256 fit, and at
-   C=1, C=262 and B=128;
-4. quickstart: BPR on a small synthetic dataset with validation and
+   C=1, C=262 and B=128.  The GloVe/RelMF sample kernel and both of the
+   step's windowed accumulations (W side, H side) on step 0 of the
+   device-prep RelMF epoch at ML-20M (d=20, batch 131,072, the port's own
+   draws and hash-set labels) and on step 0 of the GloVe fit on the
+   ``glove_packed`` bench stream (50,000 words, ~3M triples, d=50);
+4. relmf-ml20m: 1,000 steps of the device-prep RelMF epoch at ML-20M
+   shapes (a depth cut of the 28,259-step epoch); ms a step, cells/s,
+   peak device memory against its reckoned bound;
+5. quickstart: BPR on a small synthetic dataset with validation and
    early stopping must beat an untrained model's test DCG@5 by 0.1;
-5. full width: 3 epochs of BPR at ML-20M shapes through the public
+6. full width: 3 epochs of BPR at ML-20M shapes through the public
    ``fit``; every BPR kernel must run once per step;
-6. ALS quickstart: WMF d=128 must beat an untrained model's test DCG@5 by
+7. ALS quickstart: WMF d=128 must beat an untrained model's test DCG@5 by
    0.1 through the Cholesky kernel; WMF and ExpoMF d=128 must match the
    same fits with the plain diagonal factor (``CYMF_TPU_ALS_CHOL=blocked``);
-7. WMF full width: 2 epochs of WMF d=256 at ML-20M shapes through the
+8. WMF full width: 2 epochs of WMF d=256 at ML-20M shapes through the
    public ``fit``; the Cholesky kernel must run K/64 = 4 times per
-   standard-form chunk.
+   standard-form chunk;
+9. relmf-quickstart: RelMF d=20 with device prep on the quickstart data
+   must beat an untrained model's test DCG@5 by 0.1;
+10. relmf-full: 3 device-prep epochs of RelMF d=20 at ml-1m shapes (6040
+    x 3706 cells an epoch, 171 steps) through the public ``fit``; the
+    sample kernel must run once a step and the accumulation twice;
+11. glove-full: 3 epochs of GloVe d=50 on the ``glove_packed`` stream
+    through the public ``fit``; the same launch counts, and the
+    constant-one columns must stay exactly one.
 
 Then it prints the kernels' JSON line and, last, the device JSON line.
 ``--profile`` adds a ``torch.profiler`` split of one WMF d=256 epoch,
-written to ``chiprun_out/wmf_profile.txt``.  Imports nothing of JAX.
+written to ``chiprun_out/wmf_profile.txt``, and of 50 device-prep RelMF
+steps at ML-20M shapes with the card's idle share, written to
+``chiprun_out/relmf_profile.txt``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -61,8 +78,12 @@ BPR_KERNELS = {
 }
 KERNELS = {**BPR_KERNELS,
            "chol_inv_batched": ("cymf_tpu_torch/csrc/chol_inv.cu",
-                                "cymf_tpu/ops/chol_kernel.py:109")}
+                                "cymf_tpu/ops/chol_kernel.py:109"),
+           "glove_sample_phase": ("cymf_tpu_torch/csrc/glove_sample.cu",
+                                  "cymf_tpu/ops/glove_epoch.py:161")}
 ALS_TOL = dict(rtol=2e-3, atol=2e-4)
+RELMF_K, RELMF_EPOCHS, ML20M_STEPS = 20, 3, 1000
+GLOVE_K, GLOVE_V, GLOVE_NNZ, GLOVE_EPOCHS = 50, 50_000, 3_000_000, 3
 
 
 def phase(name: str, msg: str) -> None:
@@ -451,6 +472,295 @@ def wmf_full_width(X, dev):
     return launches
 
 
+def record_calls(module, keep, run):
+    """Runs ``run()`` with the first ``keep[name]`` calls of each
+    ``module.<name>`` recording clones of their arguments before they go
+    through; returns ``{name: [(args, kwargs), ...]}``."""
+    got = {name: [] for name in keep}
+    origs = {name: getattr(module, name) for name in keep}
+
+    def recorder(name):
+        def call(*args, **kw):
+            if len(got[name]) < keep[name]:
+                got[name].append((tuple(a.clone() if torch.is_tensor(a)
+                                        else a for a in args), kw))
+            return origs[name](*args, **kw)
+        return call
+
+    for name in keep:
+        setattr(module, name, recorder(name))
+    try:
+        run()
+    finally:
+        for name, fn in origs.items():
+            setattr(module, name, fn)
+    for name, n in keep.items():
+        if len(got[name]) < n:
+            raise AssertionError(f"{name} ran {len(got[name])} times, "
+                                 f"expected {n}")
+    return got
+
+
+def check_glove_sample(Du, Dx, Kp, what):
+    """Phase 3 for the GloVe/RelMF sample kernel at one main-path shape.
+    Limits: SW and Q rtol 1e-5, atol 1e-6; the loss relative 1e-5."""
+    from cymf_tpu_torch.ops import glove_epoch as ge
+
+    SW, Q, loss = ge.glove_sample_phase(Du, Dx, Kp=Kp)
+    SWp, Qp, lossp = ge.glove_sample_phase_plain(Du, Dx, Kp=Kp)
+    torch.cuda.synchronize()
+    e_sw = close(SW, SWp, 1e-5, 1e-6, f"SW {what}")
+    e_q = close(Q, Qp, 1e-5, 1e-6, f"Q {what}")
+    e_l = close(loss, lossp, 1e-5, 0.0, f"loss {what}")
+    ms = time_ms(lambda: ge.glove_sample_phase(Du, Dx, Kp=Kp))
+    pms = time_ms(lambda: ge.glove_sample_phase_plain(Du, Dx, Kp=Kp))
+    live = int((Q[:, Kp] != 0).sum())
+    phase("kernels", f"glove_sample_phase {what} (B={Du.shape[0]}, Kp={Kp},"
+          f" {live} live rows): SW max abs {e_sw[0]:.3e} rel {e_sw[1]:.3e};"
+          f" Q max abs {e_q[0]:.3e} rel {e_q[1]:.3e}; loss {float(loss):.6f}"
+          f" vs {float(lossp):.6f} (rel {e_l[1]:.3e}); {ms:.4f} ms vs plain"
+          f" {pms:.4f} ms")
+    return dict(max_abs_err=max(e_sw[0], e_q[0]), ms=ms, plain_ms=pms)
+
+
+def check_sorted_accum(args, kw, what):
+    """Phase 3 for the windowed accumulation at one main-path call.
+    Limit: |kernel - plain| <= 1e-5 max|plain|."""
+    from cymf_tpu_torch.ops import sorted_accum as sa
+
+    got = sa.sorted_accum(*args, **kw)
+    want = sa.sorted_accum_plain(*args, **kw)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    e = close(got, want, 0.0, 1e-5 * scale, f"sorted_accum {what}")
+    ms = time_ms(lambda: sa.sorted_accum(*args, **kw))
+    pms = time_ms(lambda: sa.sorted_accum_plain(*args, **kw))
+    phase("kernels", f"sorted_accum {what} (B={args[1].shape[0]}, r_pad="
+          f"{kw['r_pad']}): max abs {e[0]:.3e} (limit {1e-5 * scale:.3e} "
+          f"= 1e-5 max|plain|), max rel {e[1]:.3e}; {ms:.4f} ms vs plain "
+          f"{pms:.4f} ms")
+
+
+def relmf_ml20m_state(X, dev):
+    """The state of a device-prep RelMF fit at ML-20M shapes, built as
+    ``RelMF.fit`` builds it: the model's init packed, ``1 / max(p_i, M)``
+    on lane K of the item table, Adam states, the pair hash set of X's
+    distinct pairs on the card."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.ops import packed as pk
+    from cymf_tpu_torch.ops.hashset import build_pair_hashset, to_device
+    from cymf_tpu_torch.ops.packed_epoch import make_packed_optimizer
+
+    K = RELMF_K
+    m = ct.RelMF(K, batch_size=BATCH, device=dev)
+    m._ensure_tables(U, I)
+    rw = pk.packed_rows(U, K, multiple=WROWS)
+    rh = pk.logical_rows(I, multiple=WROWS)
+    col_mean = np.asarray(X.mean(axis=0)).flatten()
+    props = np.maximum(col_mean / col_mean.max(), 1e-5) ** 0.5
+    Wp = torch.from_numpy(pk.pack_array(m.W, K, multiple=WROWS)).to(dev)
+    Hp = torch.from_numpy(pk.pack_logical(m.H, K, multiple=WROWS)).to(dev)
+    Hp[:I, K] = torch.from_numpy(
+        (1.0 / np.maximum(props, m.clip_value)).astype(np.float32)).to(dev)
+    opt = make_packed_optimizer(m.optimizer, m.learning_rate)
+    coo = X.tocoo()
+    t0 = time.perf_counter()
+    hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
+    build_s = time.perf_counter() - t0
+    kw = dict(B=BATCH, num_users=U, num_items=I, opt_name=m.optimizer,
+              lr=m.learning_rate, weight_decay=m.weight_decay, K=K, rw=rw,
+              rh=rh, wrows_w=WROWS, wrows_h=WROWS)
+    return dict(Wp=Wp, Hp=Hp, ow=opt.init(Wp), oh=opt.init(Hp), hs=hs,
+                kw=kw, hs_build_s=build_s)
+
+
+def glove_matrix():
+    """The ``glove_packed`` bench stream's co-occurrence matrix: 50,000
+    words, 3,000,000 uniform (row, col) draws with counts in [1, 50)."""
+    from scipy import sparse
+    rng = np.random.default_rng(0)
+    r = rng.integers(0, GLOVE_V, GLOVE_NNZ)
+    c = rng.integers(0, GLOVE_V, GLOVE_NNZ)
+    return sparse.csr_matrix(
+        (rng.integers(1, 50, GLOVE_NNZ).astype(np.float64), (r, c)),
+        shape=(GLOVE_V, GLOVE_V))
+
+
+def check_glove_kernels(relmf, G, dev):
+    """Phase 3 for the sample kernel and both accumulations of a step: step
+    0 of the device-prep RelMF epoch at ML-20M (the port's own draws and
+    labels, on a copy of the state) and step 0 of the GloVe fit on the
+    ``glove_packed`` stream."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.ops import glove_epoch as ge
+    from cymf_tpu_torch.ops import relmf_epoch as tre
+
+    st = relmf
+    keep = {"glove_sample_phase": 1, "sorted_accum": 2}
+
+    def relmf_step0():
+        tre.packed_relmf_epoch_device(
+            st["Wp"].clone(), st["Hp"].clone(),
+            {k: v.clone() for k, v in st["ow"].items()},
+            {k: v.clone() for k, v in st["oh"].items()}, st["hs"],
+            tre.epoch_generator(1234, 0, dev), 1, 1.0, **st["kw"])
+
+    def glove_epoch0():
+        np.random.seed(0)
+        ct.GloVe(GLOVE_K, batch_size=BATCH, device=dev).fit(G, num_epochs=1)
+
+    out = None
+    for module, run, what in ((tre, relmf_step0, "RelMF ML-20M step 0"),
+                              (ge, glove_epoch0, "GloVe 50k-word step 0")):
+        got = record_calls(module, keep, run)
+        (Du, Dx), kw = got["glove_sample_phase"][0]
+        res = check_glove_sample(Du, Dx, kw["Kp"], what)
+        out = out or res
+        for (args, kw), side in zip(got["sorted_accum"], ("W", "H")):
+            check_sorted_accum(args, kw, f"{what}, {side} side")
+        del got, Du, Dx
+    return out
+
+
+def relmf_ml20m(st, dev):
+    """1,000 steps of ``packed_relmf_epoch_device`` (the function the
+    device-prep fit calls) at ML-20M shapes: the depth cut of the JAX
+    bench's BENCH_SMALL slice, at full width."""
+    from cymf_tpu_torch.ops import _kernels
+    from cymf_tpu_torch.ops import relmf_epoch as tre
+
+    full_steps = -(-U * I // BATCH)
+    n_valid = float(full_steps) * BATCH
+    args = (st["Wp"], st["Hp"], st["ow"], st["oh"], st["hs"])
+    tre.packed_relmf_epoch_device(*args, tre.epoch_generator(1, 0, dev), 20,
+                                  n_valid, **st["kw"])        # warm-up
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss = tre.packed_relmf_epoch_device(
+        *args, tre.epoch_generator(1234, 0, dev), ML20M_STEPS, n_valid,
+        **st["kw"])
+    torch.cuda.synchronize(dev)
+    sec = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # reckoned bound: the hash set, both tables with two Adam moments
+    # each, eight (B, 128) float32 buffers of a step (five live at once:
+    # Du, Dx, SW, Q, Q[si]; the level-1 hash probe's row gather before
+    # them) and eight table-sized optimizer temporaries
+    hs_b = sum(t.numel() * 4 for t in st["hs"])
+    tab_b = (st["Wp"].numel() + st["Hp"].numel()) * 4
+    reckon = hs_b + 3 * tab_b + 8 * BATCH * 128 * 4 + 8 * tab_b
+    ms = 1e3 * sec / ML20M_STEPS
+    phase("relmf-ml20m", f"{ML20M_STEPS} steps of B={BATCH} at ({U}, {I}), "
+          f"K={RELMF_K}: {ms:.4f} ms/step, {ML20M_STEPS * BATCH / sec:.4e} "
+          f"cells/s; full epoch of {full_steps} steps extrapolated "
+          f"{full_steps * ms / 1e3:.1f} s (extrapolation, not run); hash "
+          f"set {hs_b / 2**20:.1f} MiB built on the host in "
+          f"{st['hs_build_s']:.1f} s; peak device memory "
+          f"{peak / 2**30:.3f} GiB (state held before the steps "
+          f"{held / 2**30:.3f} GiB; reckoned bound {reckon / 2**30:.3f} GiB)"
+          f"; loss {float(loss) * n_valid / (ML20M_STEPS * BATCH):.6f} a "
+          f"cell; launches {launches}")
+    if peak > reckon:
+        raise AssertionError("peak device memory above the reckoned bound")
+    if launches != {"glove_sample_phase": ML20M_STEPS,
+                    "sorted_accum": 2 * ML20M_STEPS}:
+        raise AssertionError(f"launches {launches}")
+    if not (torch.isfinite(st["Wp"]).all() and torch.isfinite(st["Hp"]).all()
+            and np.isfinite(float(loss))):
+        raise AssertionError("non-finite tables or loss")
+    return ms
+
+
+def relmf_quickstart(dev):
+    """RelMF on the README quickstart's data with device prep: test DCG@5
+    must beat an untrained model's by 0.1."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.dataset import SyntheticImplicitDataset
+
+    d = SyntheticImplicitDataset(num_user=600, num_item=300, rank=6,
+                                 density=0.08, seed=7)
+    test = ct.AoaEvaluator(d.test, d.train, k=5, device=dev)
+    kw = dict(num_components=RELMF_K, learning_rate=0.01, weight_decay=1e-4,
+              batch_size=8192, device=dev)
+    m0 = ct.RelMF(**kw)
+    m0.fit(d.train, num_epochs=0)
+    base = test.evaluate(m0.W, m0.H)["DCG@5"]
+    m = ct.RelMF(**kw)
+    m.fit(d.train, num_epochs=20)
+    res = test.evaluate(m.W, m.H)
+    phase("relmf-quickstart", f"test {res}; untrained DCG@5 {base:.4f}; "
+          f"prep {m.prep_backend_}; last loss {m.last_loss:.6f}")
+    if m.prep_backend_ != "device-torch":
+        raise AssertionError("the fit did not take device prep")
+    if not res["DCG@5"] >= base + 0.1:
+        raise AssertionError("the RelMF quickstart did not learn")
+
+
+def relmf_full(dev):
+    """3 device-prep epochs of the public RelMF fit at the JAX ``relmf``
+    bench mode's shapes (ml-1m 6040 x 3706, every cell an epoch)."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.dataset import SyntheticImplicitDataset
+    from cymf_tpu_torch.ops import _kernels
+
+    d = SyntheticImplicitDataset(num_user=6040, num_item=3706, rank=8,
+                                 density=0.04, seed=0)
+    m = ct.RelMF(num_components=RELMF_K, batch_size=BATCH, device=dev)
+    probe = _DeviceProbe(m)
+    S = -(-6040 * 3706 // BATCH)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    m.fit(d.train, num_epochs=RELMF_EPOCHS, valid_evaluator=probe)
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    for e, st in enumerate(m.epoch_times_):
+        phase("relmf-full", f"epoch {e}: device {st['device_s']:.3f} s, "
+              f"{m._samples_per_epoch / st['device_s']:.4e} cells/s")
+    phase("relmf-full", f"fit wall {wall:.2f} s; prep {m.prep_backend_}; "
+          f"last loss {m.last_loss:.6f}; launches {launches}, S={S}")
+    want = {"glove_sample_phase": RELMF_EPOCHS * S,
+            "sorted_accum": 2 * RELMF_EPOCHS * S}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if probe.calls != RELMF_EPOCHS or m.prep_backend_ != "device-torch":
+        raise AssertionError("the fit left the card or took host prep")
+    if not (np.isfinite(m.last_loss) and np.isfinite(m.W).all()
+            and np.isfinite(m.H).all()):
+        raise AssertionError("non-finite loss or tables")
+    return launches
+
+
+def glove_full(G, dev):
+    """3 epochs of the public GloVe fit on the ``glove_packed`` stream."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.ops import _kernels
+
+    np.random.seed(0)
+    m = ct.GloVe(GLOVE_K, batch_size=BATCH, device=dev)
+    _kernels.reset_launches()
+    m.fit(G, num_epochs=GLOVE_EPOCHS)
+    launches = dict(_kernels.launches)
+    S = -(-G.nnz // BATCH)
+    for e, sec in enumerate(m.epoch_times_):
+        phase("glove-full", f"epoch {e}: {sec:.3f} s, {G.nnz / sec:.4e} "
+              "triples/s")
+    ones = all(bool((c == 1).all()) for c in m.constant_columns_)
+    phase("glove-full", f"{G.nnz} triples, S={S}; once-per-fit prep "
+          f"{m.prep_s_:.2f} s; last loss {m.last_loss:.6f}; constant "
+          f"columns exactly one: {ones}; launches {launches}")
+    if launches != {"glove_sample_phase": GLOVE_EPOCHS * S,
+                    "sorted_accum": 2 * GLOVE_EPOCHS * S}:
+        raise AssertionError(f"launches {launches}")
+    if not ones:
+        raise AssertionError("a constant-one column moved")
+    if not (np.isfinite(m.last_loss) and np.isfinite(m.W).all()):
+        raise AssertionError("non-finite loss or embeddings")
+
+
 _SCOPES = {"als.woodbury": "Woodbury chunk solves",
            "als.blocked": "panel + substitution products (blocked solve)",
            "als.correction": "correction products (standard form)",
@@ -531,6 +841,56 @@ def profile_wmf(X, dev):
         raise AssertionError("the profile shows no Cholesky kernel")
 
 
+def profile_relmf(st, dev, ms_step: float, steps: int = 50):
+    """``--profile``: device time by kernel of ``steps`` device-prep RelMF
+    steps at ML-20M shapes, and the card's busy share of a step against
+    the unprofiled ``ms_step`` of phase 4."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cymf_tpu_torch.ops import relmf_epoch as tre
+
+    def run():
+        tre.packed_relmf_epoch_device(
+            st["Wp"], st["Hp"], st["ow"], st["oh"], st["hs"],
+            tre.epoch_generator(7, 0, dev), steps, 1.0, **st["kw"])
+        torch.cuda.synchronize(dev)
+
+    run()                                          # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    if not spans:
+        raise AssertionError("the profile holds no device time")
+    busy, last = 0.0, -np.inf
+    by_name = collections.Counter()
+    for t0, t1, name in spans:
+        busy += max(t1 - max(t0, last), 0)
+        last = max(last, t1)
+        by_name[name[:70]] += (t1 - t0) / 1e3
+    busy_step = busy / 1e3 / steps
+    lines = [f"{steps} device-prep RelMF steps at ML-20M shapes, "
+             f"{torch.cuda.get_device_name(0)}: card busy {busy_step:.3f} "
+             f"ms a step (kernel and copy intervals merged) against "
+             f"{ms_step:.3f} ms a step unprofiled: idle share "
+             f"{100 * max(1 - busy_step / ms_step, 0):.1f}%"]
+    total = sum(by_name.values())
+    for name, ms in by_name.most_common(12):
+        lines.append(f"  {name}: {ms / steps:.4f} ms a step "
+                     f"({100 * ms / total:.1f}%)")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "relmf_profile.txt").write_text(
+        "\n".join(lines) + "\n\n" + prof.key_averages().table(
+            sort_by="self_cuda_time_total", row_limit=30))
+    for line in lines:
+        phase("profile", line)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -562,10 +922,20 @@ def main() -> int:
           f"interactions in {time.perf_counter() - t0:.1f} s")
     results = check_kernels(X, dev)
     results["chol_inv_batched"] = check_chol(X, dev)
+    relmf = relmf_ml20m_state(X, dev)
+    G = glove_matrix()
+    results["glove_sample_phase"] = check_glove_kernels(relmf, G, dev)
+    ms_step = relmf_ml20m(relmf, dev)
+    if "--profile" in sys.argv[1:]:
+        profile_relmf(relmf, dev, ms_step)
+    del relmf
     quickstart(dev)
     launches = full_width(X, dev)
     als_quickstart(dev)
     launches.update(wmf_full_width(X, dev))
+    relmf_quickstart(dev)
+    launches["glove_sample_phase"] = relmf_full(dev)["glove_sample_phase"]
+    glove_full(G, dev)
     if "--profile" in sys.argv[1:]:
         profile_wmf(X, dev)
 

@@ -22,21 +22,30 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def packed_state_from_jax(Wp, Hp, ow, oh, device):
-    """``(Wp, Hp, ow, oh)`` as tensors on ``device``: the packed user
-    table, the logical item table and the two optimizer-state dicts
-    (``{}`` for sgd, ``{"accum"}`` for adagrad, ``{"m", "v"}`` for adam),
-    in the layout :func:`~cymf_tpu_torch.ops.packed_epoch.packed_bpr_epoch`
-    updates."""
+    """``(Wp, Hp, ow, oh)`` as tensors on ``device``: a packed engine's
+    packed table, logical table and their optimizer-state dicts (``{}``
+    for sgd, ``{"accum"}`` for adagrad, ``{"m", "v"}`` for adam).  This
+    covers each packed engine's state in the layout its port updates:
+
+    - BPR and RelMF: the packed user table, the logical item table (for
+      RelMF under device prep with ``1 / max(p_i, M)`` on lane ``K``) and
+      the two states, as :func:`~cymf_tpu_torch.ops.packed_epoch.
+      packed_bpr_epoch` and :mod:`~cymf_tpu_torch.ops.relmf_epoch` take
+      them;
+    - GloVe: ``(Zc, Zx, {"accum"}, {"accum"})``, the packed augmented
+      central table, the logical augmented context table and their
+      AdaGrad accumulators, as :func:`~cymf_tpu_torch.ops.glove_epoch.
+      packed_glove_epoch` takes them."""
     return (_tensor(Wp, device), _tensor(Hp, device),
             {k: _tensor(v, device) for k, v in ow.items()},
             {k: _tensor(v, device) for k, v in oh.items()})
 
 
 def from_arrays(cls, W, H, **hyper):
-    """A ``cls`` model (:class:`BPR`, :class:`WMF` or :class:`ExpoMF`)
-    holding the learned ``W`` (users x K) and ``H`` (items x K); ``hyper``
-    goes to the constructor (``num_components`` defaults to ``W``'s width).
-    Its next ``fit`` warm-starts from them."""
+    """A ``cls`` model (:class:`BPR`, :class:`WMF`, :class:`ExpoMF` or
+    :class:`RelMF`) holding the learned ``W`` (users x K) and ``H``
+    (items x K); ``hyper`` goes to the constructor (``num_components``
+    defaults to ``W``'s width).  Its next ``fit`` warm-starts from them."""
     W = np.asarray(W, np.float32)
     H = np.asarray(H, np.float32)
     hyper.setdefault("num_components", W.shape[1])

@@ -20,24 +20,23 @@
 // per tensor).  The slot extraction and placement, which the TPU kernel does
 // with lane rotations, read the row from a per-warp shared-memory copy; the
 // three row sums are warp shuffles.  Each block writes one loss partial, and
-// a second one-block kernel sums the partials in a fixed order.
+// a second one-block kernel (reduce.cuh) sums the partials in a fixed
+// order.
 
 #include <cuda_runtime.h>
 
+#include "reduce.cuh"
+
 namespace {
+
+using cymf::sum_partials_kernel;
+using cymf::SUM_THREADS;
+using cymf::warp_sum;
 
 constexpr int LANES = 128;
 constexpr int WARPS = 8;
 constexpr int SAMPLES_PER_WARP = 8;
 constexpr int SAMPLES_PER_BLOCK = WARPS * SAMPLES_PER_WARP;
-constexpr int SUM_THREADS = 1024;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
 
 __global__ void __launch_bounds__(WARPS * 32)
 bpr_sample_kernel(const float* __restrict__ du, const float* __restrict__ di,
@@ -120,21 +119,6 @@ bpr_sample_kernel(const float* __restrict__ du, const float* __restrict__ di,
     for (int w = 0; w < WARPS; ++w) t += warp_loss[w];
     partials[blockIdx.x] = t;
   }
-}
-
-__global__ void __launch_bounds__(SUM_THREADS)
-sum_partials_kernel(const float* __restrict__ partials, int n,
-                    float* __restrict__ out) {
-  __shared__ float sm[SUM_THREADS];
-  float t = 0.f;
-  for (int i = threadIdx.x; i < n; i += SUM_THREADS) t += partials[i];
-  sm[threadIdx.x] = t;
-  __syncthreads();
-  for (int w = SUM_THREADS / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) sm[threadIdx.x] += sm[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *out = sm[0];
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The sources under ``cymf_tpu_torch/csrc/`` are compiled at first use with
-``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
+``nvcc`` for ``sm_90a``, one ``nvcc`` process per source, all started
+together, and linked into one shared library with a plain C interface,
 ``build/cymf_tpu_torch/libcymf_kernels_<hash>.so`` beside the package,
 keyed by a hash of the sources, and loaded with :mod:`ctypes`.  Nothing
 includes PyTorch's headers, so the build takes seconds.  Importing this
@@ -14,6 +15,8 @@ anything but 0.  A failed build raises too: there is no fallback.
 The kernels, by source and the wrapper that launches them:
 
 - ``bpr_sample.cu``: ``fused_sample.bpr_sample_phase``;
+- ``glove_sample.cu``: ``glove_epoch.glove_sample_phase`` (GloVe and
+  RelMF);
 - ``sorted_accum.cu``: ``sorted_accum.sorted_accum`` and
   ``sorted_accum.sorted_accum_dual``;
 - ``chol_inv.cu``: ``chol_kernel.chol_inv_batched``.
@@ -47,6 +50,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "cymf_bpr_sample_blocks": [_I],
     "cymf_bpr_sample_phase": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "cymf_glove_sample_blocks": [_I],
+    "cymf_glove_sample_phase": [_P] * 6 + [_I] * 4 + [_P],
     "cymf_sorted_accum": [_P] * 5 + [_I] * 3 + [_P],
     "cymf_sorted_accum_dual": [_P] * 9 + [_I] * 5 + [_P],
     "cymf_chol_inv_batched": [_P, _L, _L, _P, _P, _I, _I, _P],
@@ -91,16 +96,37 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-           "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    nvcc, tag = _nvcc(), f"{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, ARCH, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    tmp = out.with_suffix(f".{tag}.tmp")
+    link = [nvcc, ARCH, "-shared", "-o", str(tmp),
+            *[str(obj) for _, obj, _ in jobs]]
+    try:
+        logs = [(cmd, p.communicate()[0], p.returncode) for cmd, _, p in jobs]
+        for cmd, log, rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                                   f"{log}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+    finally:
+        for _, obj, p in jobs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            obj.unlink(missing_ok=True)
     if verbose:
-        print(proc.stdout + proc.stderr)
+        print("".join(log for _, log, _ in logs))
     os.replace(tmp, out)
     return out
 

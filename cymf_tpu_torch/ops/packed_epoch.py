@@ -205,6 +205,30 @@ def _sorted_side(vals2, r_pad, wrows, tile):
     return perm, rows, win
 
 
+def _packed_windows(u2, s: int, rw: int, wrows: int, tile: int):
+    """Per-step windows of a lane-packed side over its sorted physical
+    rows ``u2 // s`` (``u2`` int [S, B], ascending within each step):
+    int32 ``[S, 2, rw / wrows]``."""
+    S = u2.shape[0]
+    win = np.empty((S, 2, rw // wrows), np.int32)
+    for t in range(S):
+        pu = np.minimum(u2[t].astype(np.int64) // s, np.iinfo(np.int32).max)
+        win[t, 0], win[t, 1] = window_ranges(pu, rw, wrows, tile, align=128)
+    return win
+
+
+def _reject_mask(u2, j2, pos_keys, num_users: int, num_items: int):
+    """``1`` (uint8) where the sample is in-data and ``(u, j)`` is not a
+    known positive (``pos_keys``: sorted ``u * num_items + i``)."""
+    u64 = u2.astype(np.int64)
+    in_data = u64 < num_users
+    keys = u64 * num_items + j2
+    idx = np.searchsorted(pos_keys, keys)
+    idx = np.minimum(idx, max(len(pos_keys) - 1, 0))
+    collide = (pos_keys[idx] == keys) if len(pos_keys) else \
+        np.zeros_like(keys, bool)
+    return (in_data & ~collide).astype(np.uint8)
+
 
 def prep_static(u2, i2, K: int, rw: int, rh: int, wrows_w: int,
                 wrows_h: int, tile: int = TILE):
@@ -213,14 +237,7 @@ def prep_static(u2, i2, K: int, rw: int, rh: int, wrows_w: int,
     prep (batch composition is fixed across epochs, `bpr.pyx:104`).
 
     Returns ``(winw, si, rowsi, wini)``."""
-    S, B = u2.shape
-    s = pk.num_slots(K)
-    nb = rw // wrows_w
-    winw = np.empty((S, 2, nb), np.int32)
-    for t in range(S):
-        pu = np.minimum(u2[t].astype(np.int64) // s, np.iinfo(np.int32).max)
-        winw[t, 0], winw[t, 1] = window_ranges(pu, rw, wrows_w, tile,
-                                               align=128)
+    winw = _packed_windows(u2, pk.num_slots(K), rw, wrows_w, tile)
     si, rowsi, wini = _sorted_side(i2, rh, wrows_h, tile)
     return winw, si, rowsi, wini
 
@@ -237,13 +254,6 @@ def prep_epoch(rng: np.random.Generator, u2: np.ndarray, i2: np.ndarray,
     Returns ``(j2, mask uint8, sj, rowsj, winj)``."""
     S, B = u2.shape
     j2 = rng.integers(0, num_items, (S, B)).astype(np.int32)
-    u64 = u2.astype(np.int64)
-    in_data = u64 < num_users
-    keys = u64 * num_items + j2
-    idx = np.searchsorted(pos_keys, keys)
-    idx = np.minimum(idx, max(len(pos_keys) - 1, 0))
-    collide = (pos_keys[idx] == keys) if len(pos_keys) else \
-        np.zeros_like(keys, bool)
-    mask = (in_data & ~collide).astype(np.uint8)
+    mask = _reject_mask(u2, j2, pos_keys, num_users, num_items)
     sj, rowsj, winj = _sorted_side(j2, rh, wrows_h, tile)
     return j2, mask, sj, rowsj, winj

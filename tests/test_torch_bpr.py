@@ -184,6 +184,7 @@ def test_import_leaves_jax_and_sklearn_stack_out():
         "import sys, importlib, pkgutil, numpy, scipy.sparse, torch\n"
         "before = set(sys.modules)\n"
         "import cymf_tpu_torch\n"
+        "from cymf_tpu_torch import GloVe, RelMF\n"
         "for m in pkgutil.walk_packages(cymf_tpu_torch.__path__,\n"
         "                               'cymf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -197,5 +198,7 @@ def test_import_leaves_jax_and_sklearn_stack_out():
     assert out.returncode == 0, out.stderr
     jax_stack, modules = out.stdout.strip().splitlines()
     assert jax_stack == "[]"
-    for m in ("models.wmf", "models.expomf", "ops.als", "ops.chol_kernel"):
+    for m in ("models.wmf", "models.expomf", "ops.als", "ops.chol_kernel",
+              "models.relmf", "models.glove", "ops.relmf_epoch",
+              "ops.glove_epoch", "ops.hashset"):
         assert f"'cymf_tpu_torch.{m}'" in modules

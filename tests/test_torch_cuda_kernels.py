@@ -22,6 +22,7 @@ import torch
 from cymf_tpu_torch.ops import _kernels
 from cymf_tpu_torch.ops import chol_kernel as ck
 from cymf_tpu_torch.ops import fused_sample as fs
+from cymf_tpu_torch.ops import glove_epoch as ge
 from cymf_tpu_torch.ops import packed as pk
 from cymf_tpu_torch.ops import sorted_accum as sa
 
@@ -110,6 +111,37 @@ def test_bpr_sample_kernel(dev, K, B):
     torch.testing.assert_close(loss, lossp, rtol=1e-5, atol=0.0)
 
 
+@pytest.mark.parametrize("Kp", [10, 20, 52])
+@pytest.mark.parametrize("B", [1024, 131072])
+def test_glove_sample_kernel(dev, B, Kp):
+    """Every slot count of RelMF (Kp = K) and GloVe (Kp = K + 2), a tenth
+    of the rows dead (mask 0: padding, masked samples)."""
+    rng = np.random.default_rng(B + Kp)
+    s = pk.num_slots(Kp)
+    Zc = torch.from_numpy(pk.pack_array(
+        rng.normal(size=(3000, Kp)) * 0.3, Kp).astype(np.float32)).to(dev)
+    Zx = torch.from_numpy(pk.pack_logical(
+        rng.normal(size=(2000, Kp)) * 0.3, Kp).astype(np.float32)).to(dev)
+    c = torch.from_numpy(np.sort(rng.integers(0, 3000, B)).astype(np.int32)
+                         ).to(dev)
+    mf = torch.from_numpy((rng.random(B) > 0.1).astype(np.float32)).to(dev)
+    Du = fs.decorate(Zc.index_select(0, c // s), c % s, mf, Kp)
+    f = torch.from_numpy(rng.uniform(0.1, 1.0, B).astype(np.float32)).to(dev)
+    logcnt = torch.from_numpy(np.log(rng.uniform(1, 50, B)).astype(
+        np.float32)).to(dev)
+    Dx = ge.decorate_x(Zx.index_select(0, torch.from_numpy(
+        rng.integers(0, 2000, B)).to(dev)), f, logcnt, Kp)
+    _kernels.reset_launches()
+    SW, Q, loss = ge.glove_sample_phase(Du, Dx, Kp=Kp)
+    assert _kernels.launches["glove_sample_phase"] == 1
+    SWp, Qp, lossp = ge.glove_sample_phase_plain(Du, Dx, Kp=Kp)
+    torch.testing.assert_close(SW, SWp, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(Q, Qp, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(loss, lossp, rtol=1e-5, atol=0.0)
+    dead = mf == 0
+    assert not SW[dead].any() and not Q[dead].any()
+
+
 def test_wrappers_raise_on_what_kernels_do_not_take(dev):
     g = torch.zeros(1024, 128, device=dev)
     rows = torch.zeros(1024, dtype=torch.int32, device=dev)
@@ -126,6 +158,10 @@ def test_wrappers_raise_on_what_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="aligned"):
         x = torch.zeros(65 * 128 + 1, device=dev)[1:].view(65, 128)
         fs.bpr_sample_phase(x, x, x, K=20, wd=0.0)
+    with pytest.raises(ValueError, match="aligned"):
+        ge.glove_sample_phase(x, x, Kp=20)
+    with pytest.raises(ValueError, match="dtype"):
+        ge.glove_sample_phase(g.double(), g.double(), Kp=20)
 
 
 def test_bpr_fit_on_card_matches_cpu(dev):
@@ -231,3 +267,57 @@ def test_als_fit_on_card_matches_cpu(dev, monkeypatch, model):
     assert nc == {} and ng.get("chol_inv_batched", 0) > 0
     np.testing.assert_allclose(Wg, Wc, rtol=2e-3, atol=2e-4)
     np.testing.assert_allclose(Hg, Hc, rtol=2e-3, atol=2e-4)
+
+
+def test_relmf_fit_on_card_matches_cpu(dev, monkeypatch):
+    """Two sgd epochs of RelMF on host prep (one stream for both devices)
+    on the card and on the CPU from the same init: equal to summation
+    order.  The card's fit launches the sample kernel once a step and the
+    accumulation twice."""
+    from scipy import sparse
+
+    import cymf_tpu_torch as ct
+    monkeypatch.setenv("CYMF_TPU_RELMF_PREP", "host")
+    X = sparse.random(300, 200, density=0.06, random_state=2, format="csr")
+    X.data[:] = 1.0
+    out = {}
+    for d in ("cpu", dev):
+        m = ct.RelMF(12, learning_rate=0.05, optimizer="sgd",
+                     batch_size=4096, device=d)
+        _kernels.reset_launches()
+        m.fit(X, num_epochs=2, verbose=False, seed=5)
+        out[str(d)] = (m.W, m.H, m.last_loss, dict(_kernels.launches))
+    (Wc, Hc, lc, nc), (Wg, Hg, lg, ng) = out["cpu"], out[str(dev)]
+    steps = 2 * -(-300 * 200 // 4096)
+    assert nc == {} and ng == {"glove_sample_phase": steps,
+                               "sorted_accum": 2 * steps}
+    np.testing.assert_allclose(Wg, Wc, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(Hg, Hc, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+
+
+def test_glove_fit_on_card_matches_cpu(dev):
+    """Three epochs of GloVe on the card and on the CPU under the same
+    ``np.random.seed``: equal to summation order, constant columns exactly
+    one on both."""
+    from scipy import sparse
+
+    import cymf_tpu_torch as ct
+    rng = np.random.default_rng(3)
+    dense = np.where(rng.random((400, 400)) < 0.05,
+                     rng.integers(1, 60, (400, 400)), 0).astype(np.float64)
+    X = sparse.csr_matrix(dense)
+    out = {}
+    for d in ("cpu", dev):
+        np.random.seed(11)
+        m = ct.GloVe(num_components=20, batch_size=2048, device=d)
+        _kernels.reset_launches()
+        m.fit(X, num_epochs=3)
+        out[str(d)] = (m.W, m.bias, m.context_bias, m.last_loss,
+                       dict(_kernels.launches))
+        assert all((c == 1).all() for c in m.constant_columns_)
+    (*tc, lc, nc), (*tg, lg, ng) = out["cpu"], out[str(dev)]
+    assert nc == {} and set(ng) == {"glove_sample_phase", "sorted_accum"}
+    for g, c in zip(tg, tc):
+        np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
