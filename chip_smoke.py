@@ -38,9 +38,26 @@ Phases, one line each; any failure raises and exits non-zero:
     sample kernel must run once a step and the accumulation twice;
 11. glove-full: 3 epochs of GloVe d=50 on the ``glove_packed`` stream
     through the public ``fit``; the same launch counts, and the
-    constant-one columns must stay exactly one.
+    constant-one columns must stay exactly one;
+12. kernels, the sequential engine (``engine="pallas"``): each of its
+    three kernels against its plain version on the first 2 chunks (8,192
+    samples) of its first launch in a full-width fit: BPR and RelMF d=20
+    at ml-100k shapes (943 x 1682; BPR on 55,296 distinct interactions)
+    under sgd, adagrad and adam, GloVe d=50 on the JAX bench's small
+    stream (5,000 words, 200,000 draws), each at group 1 and 8;
+13. pallas-quickstart: ``BPR(engine="pallas")`` on the quickstart data
+    must beat an untrained model's test DCG@5 by 0.1;
+14. pallas-full: the sequential engine through the public ``fit`` at
+    those shapes: BPR 10 epochs without a validator must launch its
+    kernel exactly once, BPR and RelMF 3 epochs with a validator and
+    GloVe 3 epochs once an epoch; GloVe's constant-one columns must stay
+    exactly one.
 
-Then it prints the kernels' JSON line and, last, the device JSON line.
+Then it prints the kernels' JSON line, with each kernel's bound (the
+larger of bytes over 3.35 TB/s and float32 operations over 67 TFLOP/s,
+counted on this run's inputs) and, for ``sorted_accum``, the time of the
+``index_add_`` that computes the same function, and, last, the device JSON
+line.
 ``--profile`` adds a ``torch.profiler`` split of one WMF d=256 epoch,
 written to ``chiprun_out/wmf_profile.txt``, and of 50 device-prep RelMF
 steps at ML-20M shapes with the card's idle share, written to
@@ -76,14 +93,28 @@ BPR_KERNELS = {
     "sorted_accum_dual": ("cymf_tpu_torch/csrc/sorted_accum.cu",
                           "cymf_tpu/ops/sorted_accum.py:345"),
 }
+SEQ_SRC = "cymf_tpu_torch/csrc/seq_epoch.cu"
+PALLAS_KERNELS = {
+    "bpr_pallas_epoch": (SEQ_SRC, "cymf_tpu/ops/pallas_engine.py:212"),
+    "relmf_pallas_epoch": (SEQ_SRC, "cymf_tpu/ops/pallas_engine.py:333"),
+    "glove_pallas_epoch": (SEQ_SRC, "cymf_tpu/ops/pallas_engine.py:435"),
+}
 KERNELS = {**BPR_KERNELS,
            "chol_inv_batched": ("cymf_tpu_torch/csrc/chol_inv.cu",
                                 "cymf_tpu/ops/chol_kernel.py:109"),
            "glove_sample_phase": ("cymf_tpu_torch/csrc/glove_sample.cu",
-                                  "cymf_tpu/ops/glove_epoch.py:161")}
+                                  "cymf_tpu/ops/glove_epoch.py:161"),
+           **PALLAS_KERNELS}
 ALS_TOL = dict(rtol=2e-3, atol=2e-4)
 RELMF_K, RELMF_EPOCHS, ML20M_STEPS = 20, 3, 1000
 GLOVE_K, GLOVE_V, GLOVE_NNZ, GLOVE_EPOCHS = 50, 50_000, 3_000_000, 3
+# the sequential engine: the JAX bpr_pallas bench's ml-100k shapes, and
+# its small GloVe stream (5,000 words, 200,000 draws)
+ML100K_U, ML100K_I, ML100K_N, PALLAS_K = 943, 1682, 55_296, 20
+GLOVE_SMALL_V, GLOVE_SMALL_NNZ, SEQ_CHUNKS, PALLAS_EPOCHS = 5000, 200_000, 2, 3
+# the H100 SXM's published peaks: HBM3 bytes/s
+# and float32 operations/s outside the tensor cores
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 
 
 def phase(name: str, msg: str) -> None:
@@ -104,6 +135,17 @@ def time_ms(fn, reps: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """``bound_ms``, the least time the card could take for the work: the
+    larger of ``nbytes`` (each input read once, each output written once)
+    over the memory rate and ``ops`` over the float32 rate; and which of
+    the two it is (``bound_by``)."""
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_S
+    by_ops = 1e3 * ops / PEAK_F32_S
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
 def close(got, want, rtol, atol, what):
@@ -136,12 +178,13 @@ def bench_matrix():
 
 def first_step(X, K: int, dev):
     """Inputs of the three kernels at step 0 of the port's prep over X."""
-    from cymf_tpu_torch.models.bpr import sorted_batches
+    from cymf_tpu_torch.models.bpr import (shuffled_interactions,
+                                           sorted_batches)
     from cymf_tpu_torch.ops import packed as pk
     from cymf_tpu_torch.ops.fused_sample import decorate
     from cymf_tpu_torch.ops.packed_epoch import prep_epoch, prep_static
 
-    u2, i2 = sorted_batches(X, BATCH)
+    u2, i2 = sorted_batches(*shuffled_interactions(X), BATCH)
     u2, i2 = u2[:1], i2[:1]
     rw = pk.packed_rows(U, K, multiple=WROWS)
     rh = pk.logical_rows(I, multiple=WROWS)
@@ -170,6 +213,7 @@ def first_step(X, K: int, dev):
 def check_kernels(X, dev):
     """Phase 3: every kernel against its plain version on the card."""
     from cymf_tpu_torch.ops import fused_sample as fs
+    from cymf_tpu_torch.ops import packed as pk
     from cymf_tpu_torch.ops import sorted_accum as sa
 
     results = {}
@@ -190,8 +234,15 @@ def check_kernels(X, dev):
             ms = time_ms(lambda: fs.bpr_sample_phase(*args, K=K, wd=0.01))
             pms = time_ms(lambda: fs.bpr_sample_phase_plain(*args, K=K,
                                                             wd=0.01))
+            # three (B, 128) rows read, SW and Q written; per row the slot
+            # extraction and placement (2 x 128 x slots) and ~20
+            # elementwise operations a lane
+            B = args[0].shape[0]
             results["bpr_sample_phase"] = dict(
-                max_abs_err=max(e_sw[0], e_q[0]), ms=ms, plain_ms=pms)
+                max_abs_err=max(e_sw[0], e_q[0]), ms=ms, plain_ms=pms,
+                **bound(5 * B * 128 * 4,
+                        B * 128 * (2 * pk.num_slots(K) + 20)),
+                library_ms=None)
             msg += f"; {ms:.4f} ms vs plain {pms:.4f} ms"
         phase("kernels", msg)
         if K != 20:
@@ -218,11 +269,40 @@ def check_kernels(X, dev):
             e = close(got, want, 0.0, 1e-5 * scale, name)
             ms = time_ms(lambda: fn(*a, **kw))
             pms = time_ms(lambda: plain(*a, **kw))
-            results[name] = dict(max_abs_err=e[0], ms=ms, plain_ms=pms)
-            phase("kernels", f"{name}: max abs {e[0]:.3e} (limit "
-                  f"{1e-5 * scale:.3e} = 1e-5 max|plain|), max rel "
-                  f"{e[1]:.3e}; {ms:.4f} ms vs plain {pms:.4f} ms")
+            results[name] = dict(max_abs_err=e[0], ms=ms, plain_ms=pms,
+                                 **accum_bound(a, kw["r_pad"]),
+                                 library_ms=None)
+            msg = (f"{name}: max abs {e[0]:.3e} (limit {1e-5 * scale:.3e} = "
+                   f"1e-5 max|plain|), max rel {e[1]:.3e}; {ms:.4f} ms vs "
+                   f"plain {pms:.4f} ms")
+            if name == "sorted_accum":
+                # the library call computing the same function: index_add_
+                # of the in-range rows into a zeroed (r_pad, 128) buffer
+                rows = a[0].reshape(-1)[:a[1].shape[0]].long()
+                keep = rows < kw["r_pad"]
+                rows, g = rows[keep], a[1][keep]
+
+                def lib():
+                    return torch.zeros_like(want).index_add_(0, rows, g)
+
+                close(lib(), want, 0.0, 1e-5 * scale, "index_add_")
+                results[name]["library_ms"] = time_ms(lib)
+                msg += (f"; index_add_ "
+                        f"{results[name]['library_ms']:.4f} ms")
+            phase("kernels", msg)
     return results
+
+
+def accum_bound(args, r_pad: int) -> dict:
+    """:func:`bound` of a windowed accumulation: its rows, gradients and
+    windows read, the (r_pad, 128) output written; an add per gradient
+    element that lands in range."""
+    nbytes = sum(t.numel() * t.element_size() for t in args) + r_pad * 512
+    streams = [(args[0], args[1])] + ([(args[4], args[5])] if len(args) > 4
+                                      else [])
+    ops = sum(int((rows.reshape(-1)[:g.shape[0]] < r_pad).sum()) * 128
+              for rows, g in streams)
+    return bound(nbytes, ops)
 
 
 def quickstart(dev):
@@ -358,7 +438,12 @@ def check_chol(X, dev):
         if err > lim or inv_err > 1e-3 or upper:
             raise AssertionError(f"chol_inv_batched {what} disagrees")
         if out is None:
-            out = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+            # A read, L and Linv written; B^3 / 3 operations for the
+            # factor and as many for the inverse, per matrix
+            C = blk.shape[0]
+            out = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                       **bound(3 * C * B * B * 4, C * 2 * B ** 3 / 3),
+                       library_ms=None)
     return out
 
 
@@ -505,6 +590,7 @@ def check_glove_sample(Du, Dx, Kp, what):
     """Phase 3 for the GloVe/RelMF sample kernel at one main-path shape.
     Limits: SW and Q rtol 1e-5, atol 1e-6; the loss relative 1e-5."""
     from cymf_tpu_torch.ops import glove_epoch as ge
+    from cymf_tpu_torch.ops import packed as pk
 
     SW, Q, loss = ge.glove_sample_phase(Du, Dx, Kp=Kp)
     SWp, Qp, lossp = ge.glove_sample_phase_plain(Du, Dx, Kp=Kp)
@@ -520,7 +606,13 @@ def check_glove_sample(Du, Dx, Kp, what):
           f" Q max abs {e_q[0]:.3e} rel {e_q[1]:.3e}; loss {float(loss):.6f}"
           f" vs {float(lossp):.6f} (rel {e_l[1]:.3e}); {ms:.4f} ms vs plain"
           f" {pms:.4f} ms")
-    return dict(max_abs_err=max(e_sw[0], e_q[0]), ms=ms, plain_ms=pms)
+    # Du and Dx read, SW and Q written; per row the slot extraction and
+    # placement (2 x 128 x slots) and ~12 elementwise operations a lane
+    B = Du.shape[0]
+    return dict(max_abs_err=max(e_sw[0], e_q[0]), ms=ms, plain_ms=pms,
+                **bound(4 * B * 128 * 4,
+                        B * 128 * (2 * pk.num_slots(Kp) + 12)),
+                library_ms=None)
 
 
 def check_sorted_accum(args, kw, what):
@@ -574,16 +666,17 @@ def relmf_ml20m_state(X, dev):
                 kw=kw, hs_build_s=build_s)
 
 
-def glove_matrix():
-    """The ``glove_packed`` bench stream's co-occurrence matrix: 50,000
-    words, 3,000,000 uniform (row, col) draws with counts in [1, 50)."""
+def glove_matrix(V: int = GLOVE_V, nnz: int = GLOVE_NNZ):
+    """A JAX GloVe bench stream's co-occurrence matrix (``_glove_stream``):
+    ``nnz`` uniform (row, col) draws over ``V`` words with counts in
+    [1, 50); by default the ``glove_packed`` stream, 50,000 words and
+    3,000,000 draws."""
     from scipy import sparse
     rng = np.random.default_rng(0)
-    r = rng.integers(0, GLOVE_V, GLOVE_NNZ)
-    c = rng.integers(0, GLOVE_V, GLOVE_NNZ)
+    r = rng.integers(0, V, nnz)
+    c = rng.integers(0, V, nnz)
     return sparse.csr_matrix(
-        (rng.integers(1, 50, GLOVE_NNZ).astype(np.float64), (r, c)),
-        shape=(GLOVE_V, GLOVE_V))
+        (rng.integers(1, 50, nnz).astype(np.float64), (r, c)), shape=(V, V))
 
 
 def check_glove_kernels(relmf, G, dev):
@@ -759,6 +852,243 @@ def glove_full(G, dev):
         raise AssertionError("a constant-one column moved")
     if not (np.isfinite(m.last_loss) and np.isfinite(m.W).all()):
         raise AssertionError("non-finite loss or embeddings")
+
+
+def ml100k_matrix():
+    """55,296 distinct interactions (the JAX ``bpr_pallas`` bench's N) in
+    a 943 x 1682 matrix, drawn without replacement from
+    ``default_rng(0)``."""
+    from scipy import sparse
+    keys = np.random.default_rng(0).choice(ML100K_U * ML100K_I, ML100K_N,
+                                           replace=False)
+    return sparse.csr_matrix(
+        (np.ones(ML100K_N), (keys // ML100K_I, keys % ML100K_I)),
+        shape=(ML100K_U, ML100K_I))
+
+
+def pallas_models(dev):
+    """Builders of the three sequential-engine trainers at full width:
+    BPR and RelMF d=20 (Adam; BPR at the bench's lr 0.01), GloVe d=50."""
+    import cymf_tpu_torch as ct
+    return {
+        "bpr_pallas_epoch": lambda: ct.BPR(
+            PALLAS_K, learning_rate=0.01, weight_decay=0.01,
+            optimizer="adam", engine="pallas", device=dev),
+        "relmf_pallas_epoch": lambda: ct.RelMF(PALLAS_K, engine="pallas",
+                                               device=dev),
+        "glove_pallas_epoch": lambda: ct.GloVe(GLOVE_K, engine="pallas",
+                                               device=dev)}
+
+
+def seq_first_launches(X, G, dev):
+    """The arguments of each sequential kernel's first launch in a
+    one-epoch public fit at full width (X for BPR and RelMF, G for
+    GloVe), recorded before the launch runs."""
+    from cymf_tpu_torch.ops import pallas_engine as pe
+    make = pallas_models(dev)
+
+    def run():
+        make["bpr_pallas_epoch"]().fit(X, num_epochs=1, verbose=False)
+        make["relmf_pallas_epoch"]().fit(X, num_epochs=1)
+        np.random.seed(0)
+        make["glove_pallas_epoch"]().fit(G, num_epochs=1)
+
+    got = record_calls(pe, dict.fromkeys(PALLAS_KERNELS, 1), run)
+    return {name: calls[0] for name, calls in got.items()}
+
+
+def seq_close(got, want, optimizer, lr, what):
+    """The sequential kernels' table limit: rtol 1e-4, atol 1e-5 under sgd
+    and adagrad (the dot products' summation order compounding over the
+    chain); under adam fewer than 1% of elements outside that and each
+    within 2.5 lr (a first touch whose tiny gradient flips sign moves a
+    row by +-lr).  Returns (max abs, max rel over |want| > 1e-6,
+    elements outside rtol/atol)."""
+    got, want = got.double(), want.double()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    err = (got - want).abs()
+    n_bad = int((err > 1e-5 + 1e-4 * want.abs()).sum())
+    max_abs = float(err.max())
+    big = want.abs() > 1e-6
+    max_rel = float((err[big] / want.abs()[big]).max()) if big.any() else 0.0
+    ok = n_bad == 0 if optimizer != "adam" else (
+        n_bad < 0.01 * got.numel() and max_abs <= 2.5 * lr)
+    if not ok:
+        raise AssertionError(f"{what}: {n_bad} of {got.numel()} elements "
+                             f"off, max abs {max_abs:.3e} (lr {lr})")
+    return max_abs, max_rel, n_bad
+
+
+# float32 operations of an optimizer step, per element
+_OPT_OPS = {"sgd": 2, "adagrad": 6, "adam": 12}
+
+
+def seq_bound(name, tables, streams, optimizer) -> dict:
+    """:func:`bound` of a sequential launch on this run's data: the
+    streams read; each row that a kept sample touches read once and
+    written once (a masked sample's reads change nothing); per kept
+    sample the loss, gradient and optimizer operations over the segment
+    width Kp."""
+    n_state = {"sgd": 0, "adagrad": 1, "adam": 2}[optimizer]
+    row_bytes = tables[0].shape[1] * 4
+    Kp = tables[0].shape[1] // (1 + n_state)
+    host = [s.reshape(-1).cpu().numpy() for s in streams]
+    keep = host[-1] != 0
+    if name == "bpr_pallas_epoch":
+        rows = [host[0][keep], np.concatenate([host[1][keep],
+                                               host[2][keep]])]
+        per = 18 * Kp + 3 * Kp * _OPT_OPS[optimizer] + 10
+    else:
+        rows = [host[0][keep], host[1][keep]]
+        per = (12 if name == "relmf_pallas_epoch" else 8) * Kp \
+            + 2 * Kp * _OPT_OPS[optimizer] + 10
+    touched = sum(len(np.unique(r)) for r in rows)
+    nbytes = sum(s.numel() * s.element_size() for s in streams) \
+        + 2 * touched * row_bytes + 4
+    return bound(nbytes, int(keep.sum()) * per)
+
+
+def check_seq_kernels(first, dev):
+    """Phase 3 for the sequential kernels: each against its plain version
+    on the first SEQ_CHUNKS chunks (8,192 samples) of its first launch in
+    the full-width fit, from the fit's initial parameters, under every
+    optimizer it takes and at group 1 and 8.  Limits as
+    :func:`seq_close`; the loss within 1e-5 relative; GloVe's
+    constant-one columns stay exactly one."""
+    from cymf_tpu_torch.ops import pallas_engine as pe
+    spec = {"bpr_pallas_epoch": (pe.bpr_pallas_epoch,
+                                 pe.bpr_pallas_epoch_plain, PALLAS_K),
+            "relmf_pallas_epoch": (pe.relmf_pallas_epoch,
+                                   pe.relmf_pallas_epoch_plain, PALLAS_K),
+            "glove_pallas_epoch": (pe.glove_pallas_epoch,
+                                   pe.glove_pallas_epoch_plain, GLOVE_K + 2)}
+    results = {}
+    for name, (args, kw) in first.items():
+        fn, plain, width = spec[name]
+        params = [pe.unpack_table(t, width).cpu().numpy() for t in args[:2]]
+        streams = [a[:SEQ_CHUNKS].contiguous() for a in args[2:]]
+        main_opt = kw.get("optimizer", "adagrad")
+        opts = ("sgd", "adagrad", "adam") if "optimizer" in kw \
+            else ("adagrad",)
+        for opt, group in [(o, g) for o in opts for g in (1, 8)]:
+            k2 = dict(kw, group=group)
+            if "optimizer" in kw:
+                k2["optimizer"] = opt
+            base = [pe.pack_table(p, opt, dev) for p in params]
+            got = fn(*(t.clone() for t in base), *streams, **k2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain(*(t.clone() for t in base), *streams, **k2)
+            torch.cuda.synchronize()
+            pms = 1e3 * (time.perf_counter() - t0)
+            what = f"{name} {opt} group={group}"
+            errs = [seq_close(g, w, opt, kw["lr"], f"{what} {side}")
+                    for g, w, side in zip(got[:2], want[:2], "WH")]
+            e_l = close(got[2], want[2], 1e-5, 0.0, f"{what} loss")
+            scratch = [t.clone() for t in base]
+            ms = time_ms(lambda: fn(*scratch, *streams, **k2))
+            msg = (f"{what} ({SEQ_CHUNKS} chunks of {streams[0].shape[-1]},"
+                   f" tables {tuple(base[0].shape)} {tuple(base[1].shape)}):"
+                   f" W max abs {errs[0][0]:.3e} rel {errs[0][1]:.3e} "
+                   f"({errs[0][2]} outside rtol/atol), H max abs "
+                   f"{errs[1][0]:.3e} rel {errs[1][1]:.3e} ({errs[1][2]}); "
+                   f"loss {float(got[2]):.6f} vs {float(want[2]):.6f} (rel "
+                   f"{e_l[1]:.3e}); {ms:.4f} ms vs plain {pms:.1f} ms (once)")
+            if name == "glove_pallas_epoch":
+                ones = bool((got[0][:, GLOVE_K + 1] == 1).all()
+                            and (got[1][:, GLOVE_K] == 1).all())
+                msg += f"; constant columns exactly one: {ones}"
+                if not ones:
+                    raise AssertionError("a constant-one column moved")
+            phase("kernels", msg)
+            if opt == main_opt and group == kw["group"]:
+                results[name] = dict(
+                    max_abs_err=max(errs[0][0], errs[1][0]), ms=ms,
+                    plain_ms=pms, **seq_bound(name, base, streams, opt),
+                    library_ms=None)
+    return results
+
+
+def pallas_quickstart(dev):
+    """BPR(engine="pallas") on the quickstart data with validation and
+    early stopping must beat an untrained model's test DCG@5 by 0.1."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.dataset import SyntheticImplicitDataset
+
+    d = SyntheticImplicitDataset(num_user=600, num_item=300, rank=6,
+                                 density=0.08, seed=7)
+    valid = ct.AoaEvaluator(d.valid, d.train, metrics=["DCG"], k=5,
+                            device=dev)
+    test = ct.AoaEvaluator(d.test, d.train, k=5, device=dev)
+    kw = dict(num_components=20, learning_rate=0.01, weight_decay=0.01,
+              engine="pallas", device=dev)
+    m0 = ct.BPR(**kw)
+    m0.fit(d.train, num_epochs=0, verbose=False)
+    base = test.evaluate(m0.W, m0.H)["DCG@5"]
+    m = ct.BPR(**kw)
+    m.fit(d.train, num_epochs=30, valid_evaluator=valid, early_stopping=True,
+          verbose=False)
+    res = test.evaluate(m.W, m.H)
+    phase("pallas-quickstart", f"test {res}; untrained DCG@5 {base:.4f}; "
+          f"best valid DCG@5 {m.valid_dcg:.4f}; {len(m.epoch_times_)} "
+          f"epochs; last loss {m.last_loss:.4f}")
+    if not res["DCG@5"] >= base + 0.1:
+        raise AssertionError("the pallas quickstart did not learn")
+
+
+def pallas_full(X, G, dev):
+    """Each sequential engine through the public ``fit`` at full width:
+    BPR 10 epochs without a validator (one launch for the whole fit), BPR
+    and RelMF 3 epochs with a validator (a launch an epoch), GloVe 3
+    epochs.  Returns each kernel's launches on its main path."""
+    from cymf_tpu_torch.ops import _kernels
+    make = pallas_models(dev)
+    out = {}
+    for what, name, epochs, validate, want in (
+            ("BPR, no validator", "bpr_pallas_epoch", 10, False, 1),
+            ("BPR, validator", "bpr_pallas_epoch", PALLAS_EPOCHS, True,
+             PALLAS_EPOCHS),
+            ("RelMF, validator", "relmf_pallas_epoch", PALLAS_EPOCHS, True,
+             PALLAS_EPOCHS),
+            ("GloVe", "glove_pallas_epoch", PALLAS_EPOCHS, False,
+             PALLAS_EPOCHS)):
+        m = make[name]()
+        probe = _DeviceProbe(m) if validate else None
+        np.random.seed(0)
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        if name == "glove_pallas_epoch":
+            m.fit(G, num_epochs=epochs)
+        elif name == "relmf_pallas_epoch":
+            m.fit(X, num_epochs=epochs, valid_evaluator=probe)
+        else:
+            m.fit(X, num_epochs=epochs, valid_evaluator=probe, verbose=False)
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.launches)
+        if name == "glove_pallas_epoch":
+            dev_s, n = sum(m.epoch_times_), G.nnz
+            ones = all(bool((c == 1).all()) for c in m.constant_columns_)
+            extra = f"; constant columns exactly one: {ones}"
+            if not ones:
+                raise AssertionError("a constant-one column moved")
+        else:
+            dev_s = sum(e["device_s"] for e in m.epoch_times_)
+            n, extra = m._samples_per_epoch, ""
+        phase("pallas-full", f"{what}, {epochs} epochs ({n} samples an "
+              f"epoch): {1e3 * dev_s / epochs:.3f} ms an epoch on the "
+              f"device, {epochs / dev_s:.2f} epochs/s, "
+              f"{n * epochs / dev_s:.4e} samples/s; fit wall {wall:.2f} s; "
+              f"last loss {m.last_loss:.6f}; launches {launches}{extra}")
+        if launches != {name: want}:
+            raise AssertionError(f"launches {launches}, expected "
+                                 f"{ {name: want} }")
+        if validate and probe.calls != epochs:
+            raise AssertionError("the device probe did not run every epoch")
+        if not (np.isfinite(m.last_loss) and np.isfinite(m.W).all()):
+            raise AssertionError("non-finite loss or tables")
+        out.setdefault(name, launches[name])
+    return out
 
 
 _SCOPES = {"als.woodbury": "Woodbury chunk solves",
@@ -938,6 +1268,14 @@ def main() -> int:
     glove_full(G, dev)
     if "--profile" in sys.argv[1:]:
         profile_wmf(X, dev)
+    del X, G
+
+    X100k = ml100k_matrix()
+    G5k = glove_matrix(GLOVE_SMALL_V, GLOVE_SMALL_NNZ)
+    results.update(check_seq_kernels(seq_first_launches(X100k, G5k, dev),
+                                     dev))
+    pallas_quickstart(dev)
+    launches.update(pallas_full(X100k, G5k, dev))
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

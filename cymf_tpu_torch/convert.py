@@ -2,7 +2,9 @@
 
 :func:`packed_state_from_jax` turns the packed engine's arrays (fetched to
 numpy, e.g. with ``jax.device_get``) into the port's tensors, so a step
-can continue from the JAX engine's exact state.  :func:`from_arrays`
+can continue from the JAX engine's exact state, and
+:func:`pallas_state_from_jax` does the same for a fused table of the
+sequential engine (``engine="pallas"``).  :func:`from_arrays`
 (and :func:`bpr_from_arrays` for BPR) builds a model that warm-starts from
 learned tables, such as a JAX model's ``W`` and ``H``.  A model saved with
 ``cymf_tpu.<Model>.save`` loads with ``cymf_tpu_torch.<Model>.load``: both
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from .models.bpr import BPR
+from .ops.pallas_engine import _N_STATE, LANES, segment_width
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -39,6 +42,43 @@ def packed_state_from_jax(Wp, Hp, ow, oh, device):
     return (_tensor(Wp, device), _tensor(Hp, device),
             {k: _tensor(v, device) for k, v in ow.items()},
             {k: _tensor(v, device) for k, v in oh.items()})
+
+
+def pallas_state_from_jax(Wp, K: int, optimizer: str, device
+                          ) -> torch.Tensor:
+    """A JAX fused table of the sequential engine (numpy, ``[rows, (1 +
+    n_state) * 128]``, :func:`cymf_tpu.ops.pallas_engine.pack_table`) as
+    the port's fused table on ``device``: each 128-lane segment cut to its
+    first ``Kp = segment_width(K)`` columns.  ``K`` is the payload width
+    (GloVe's augmented tables: ``K + 2``).  The lanes cut off carry no
+    gradient in either package."""
+    Wp = np.asarray(Wp, np.float32)
+    n = 1 + _N_STATE[optimizer]
+    if Wp.ndim != 2 or Wp.shape[1] != n * LANES:
+        raise ValueError(f"a JAX fused {optimizer} table is [rows, "
+                         f"{n * LANES}], got {Wp.shape}")
+    Kp = segment_width(K)
+    out = Wp.reshape(len(Wp), n, LANES)[:, :, :Kp].reshape(len(Wp), n * Kp)
+    return _tensor(out, device)
+
+
+def pallas_state_to_jax(P: torch.Tensor, K: int, optimizer: str
+                        ) -> np.ndarray:
+    """The inverse of :func:`pallas_state_from_jax`: the port's fused
+    table as the JAX package's, numpy ``[rows, (1 + n_state) * 128]``,
+    lanes beyond ``Kp`` as the JAX package packs them (parameters and adam
+    moments 0, adagrad accumulators 1)."""
+    n = 1 + _N_STATE[optimizer]
+    Kp = segment_width(K)
+    if P.dim() != 2 or P.shape[1] != n * Kp:
+        raise ValueError(f"a fused {optimizer} table of K={K} is [rows, "
+                         f"{n * Kp}], got {tuple(P.shape)}")
+    rows = P.shape[0]
+    out = np.zeros((rows, n, LANES), np.float32)
+    if optimizer == "adagrad":
+        out[:, 1, :] = 1.0
+    out[:, :, :Kp] = P.detach().cpu().numpy().reshape(rows, n, Kp)
+    return out.reshape(rows, n * LANES)
 
 
 def from_arrays(cls, W, H, **hyper):

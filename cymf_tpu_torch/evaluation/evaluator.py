@@ -139,7 +139,9 @@ class Evaluator:
 
     ``evaluate(W, H, seed)`` returns ``{f"{metric}@{k}": float}`` averaged
     over all users of the test matrix.  ``W``/``H`` may be numpy arrays or
-    tensors; the work runs on ``device``.
+    tensors; the work runs on ``device``: by default
+    :func:`cymf_tpu_torch.config.default_device`, the card;
+    ``device="cpu"`` runs on the CPU.
     """
 
     def __init__(self, X, X_train=None,

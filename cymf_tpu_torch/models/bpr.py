@@ -9,18 +9,27 @@ if it is a known positive, and descend the pairwise loss
 with gradients exactly as in `model.pyx:80-87` (weight decay folded into the
 gradient, no factor 2).
 
-Port of `cymf_tpu/models/bpr.py` on its single-chip packed path
-(``_fit_packed``, kernel pipeline v4, numpy host prep): synchronous
-minibatches over packed tables, the fused sample kernel and the sorted
-accumulations (`ops/packed_epoch.py`).  Initialization, the shuffle, the
-batch sort and the negative streams replay the JAX package's numpy
-streams, so both packages train on identical inputs.
+Port of `cymf_tpu/models/bpr.py` on two engines:
+
+- ``engine="xla"``: its single-chip packed path (``_fit_packed``, kernel
+  pipeline v4, numpy host prep): synchronous minibatches over packed
+  tables, the fused sample kernel and the sorted accumulations
+  (`ops/packed_epoch.py`);
+- ``engine="pallas"``: the sequential small-catalog engine
+  (``_fit_pallas``, `ops/pallas_engine.py`): per-sample updates in groups
+  of 8, one kernel launch an epoch, or one for the whole fit when no
+  validator watches the epochs.
+
+Initialization, the shuffle, the batch sort and the negative streams
+replay the JAX package's numpy streams, so both packages train on
+identical inputs.
 
 Not ported yet (see ROADMAP.md, queue 1): the XLA batch engine
-(``packed="off"``), the sequential Pallas engine (``engine="pallas"``),
-shared negative pools (``neg_pool``), the wide engine (``K >= 128``),
-checkpoints, the native C++ prep, device-side prep and the multi-device
-engines.  Each raises ``NotImplementedError``.
+(``packed="off"``), shared negative pools (``neg_pool``), the wide engine
+(``K >= 128``), checkpoints, the native C++ prep, device-side prep and the
+multi-device engines.  Each raises ``NotImplementedError`` under
+``engine="xla"``; ``engine="pallas"`` takes none of them, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import numpy as np
 import torch
 
 from ..ops import packed as pk
+from ..ops import pallas_engine as pe
 from ..ops.packed_epoch import (make_packed_optimizer, packed_bpr_epoch,
                                 prep_epoch, prep_static, unpack_device)
 from .base import MFTrainerBase, PersistenceMixin, as_csr
@@ -40,18 +50,22 @@ PAD_USER = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
 _LATER = "is not ported to cymf_tpu_torch yet (ROADMAP.md, queue 1)"
 
 
-def sorted_batches(X, batch_size: int):
-    """The trainer's minibatches of ``X``'s interactions: ``(u2, i2)``,
-    int32 ``[S, B]``.  The interactions are shuffled once with numpy's
-    global RandomState (as ``sklearn.utils.shuffle`` does in the JAX
-    package), padded with ``PAD_USER`` to ``S x B`` with ``B`` rounded up
-    to 1024, and each step is sorted by user (order within a synchronous
-    batch is semantically irrelevant; the W-side accumulation needs it)."""
+def shuffled_interactions(X):
+    """``X``'s interactions ``(users, positives)``, int32, shuffled once
+    with numpy's global RandomState (the draw of ``sklearn.utils.shuffle``
+    in the JAX package)."""
     users, positives = X.nonzero()
     order = np.arange(len(users))
     np.random.shuffle(order)
-    users = users[order].astype(np.int32)
-    positives = positives[order].astype(np.int32)
+    return users[order].astype(np.int32), positives[order].astype(np.int32)
+
+
+def sorted_batches(users, positives, batch_size: int):
+    """The packed engine's minibatches of the shuffled interactions
+    (:func:`shuffled_interactions`): ``(u2, i2)``, int32 ``[S, B]``,
+    padded with ``PAD_USER`` to ``S x B`` with ``B`` rounded up to 1024,
+    each step sorted by user (order within a synchronous batch is
+    semantically irrelevant; the W-side accumulation needs it)."""
     N = len(users)
     B = min(int(batch_size), max(N, 1))
     B = -(-B // 1024) * 1024
@@ -69,17 +83,18 @@ def sorted_batches(X, batch_size: int):
 
 class BPR(MFTrainerBase, PersistenceMixin):
     """API-compatible rebuild of ``cymf.BPR`` (`bpr.pyx:37-68`), on
-    ``device`` (default :func:`cymf_tpu_torch.config.default_device`)."""
+    ``device``: by default :func:`cymf_tpu_torch.config.default_device`,
+    the card; ``device="cpu"`` runs on the CPU."""
 
     def __init__(self, num_components: int = 20, learning_rate: float = 0.001,
                  optimizer: str = "adam", weight_decay: float = 0.01,
                  batch_size: int = 1024, update_mode: str = "auto",
                  engine: str = "xla", packed: str = "auto",
                  neg_pool: int = 0, device=None):
-        """Arguments as ``cymf_tpu.BPR``.  ``packed="auto"`` and ``"on"``
-        both run the packed engine, the only one ported so far;
-        ``update_mode`` is validated and, as in the JAX package's packed
-        engine, has no effect."""
+        """Arguments as ``cymf_tpu.BPR``.  Under ``engine="xla"``,
+        ``packed="auto"`` and ``"on"`` both run the packed engine, the only
+        XLA engine ported so far; ``update_mode`` is validated and, as in
+        the JAX package's packed and sequential engines, has no effect."""
         super().__init__(num_components, device=device)
         self.learning_rate = float(learning_rate)
         self.optimizer = optimizer
@@ -105,13 +120,12 @@ class BPR(MFTrainerBase, PersistenceMixin):
             raise ValueError("neg_pool requires the packed engine")
         if self.optimizer not in ("sgd", "adagrad", "adam"):
             raise Exception(f"{self.optimizer} is invalid.")
-        if engine == "pallas":
-            raise NotImplementedError(f"engine='pallas' {_LATER}")
-        if packed == "off":
+        # the sequential engine takes none of these, as in the JAX package
+        if engine == "xla" and packed == "off":
             raise NotImplementedError(f"packed='off' {_LATER}")
-        if self.neg_pool:
+        if engine == "xla" and self.neg_pool:
             raise NotImplementedError(f"neg_pool {_LATER}")
-        if not pk.packable(self.num_components):
+        if engine == "xla" and not pk.packable(self.num_components):
             raise NotImplementedError(
                 f"num_components >= 128 (the wide engine) {_LATER}")
 
@@ -125,8 +139,11 @@ class BPR(MFTrainerBase, PersistenceMixin):
 
         ``num_threads`` is accepted and ignored.  ``seed`` drives the
         negative sampler (`bpr.pyx:148`).  After the fit,
-        ``epoch_times_`` holds per epoch the host-prep seconds and the
-        device seconds (the epoch's uploads and steps, synchronised).
+        ``epoch_times_`` holds per epoch the device seconds (``device_s``:
+        the epoch's uploads and steps, synchronised) and, on the packed
+        engine, the host-prep seconds (``prep_s``).  The sequential engine
+        logs one entry per launch, with the epochs it ran (``epochs``):
+        one entry for a fit that runs as one launch.
         """
         if checkpoint_path is not None or resume:
             raise NotImplementedError(f"checkpoints {_LATER}")
@@ -141,8 +158,12 @@ class BPR(MFTrainerBase, PersistenceMixin):
         self._num_users, self._num_items = U, I
         self._ensure_tables(U, I)
 
-        u2, i2 = sorted_batches(X, self.batch_size)
-        self._samples_per_epoch = int(X.count_nonzero())
+        users, positives = shuffled_interactions(X)
+        self._samples_per_epoch = len(users)
+        if self.engine == "pallas":
+            self._fit_pallas(X, users, positives, num_epochs, verbose, seed)
+            return
+        u2, i2 = sorted_batches(users, positives, self.batch_size)
         self._fit_packed(X, u2, i2, num_epochs, verbose, seed)
 
     def _fit_packed(self, X, u2, i2, num_epochs, verbose, seed):
@@ -211,4 +232,89 @@ class BPR(MFTrainerBase, PersistenceMixin):
                          verbose)
         if loss is not None:
             self.last_loss = float(loss)
+        self._drop_device_state()
+
+    def _fit_pallas(self, X, users, positives, num_epochs, verbose, seed,
+                    chunk: int = 4096, group: int = 8):
+        """Sequential per-sample training (`ops/pallas_engine.py`), as
+        ``cymf_tpu.BPR._fit_pallas``: chunks of 4096 samples in groups of
+        8, every epoch's negatives drawn in one host pass."""
+        U, I = X.shape
+        if not pe.fits_vmem(U + I, self.optimizer):
+            raise ValueError(
+                "tables + optimizer state exceed the sequential engine's "
+                "budget (the JAX package's VMEM gate); use engine='xla' for "
+                "catalogs of this size")
+        dev = self.device
+        K = self.num_components
+        N = len(users)
+        chunk = min(chunk, max(N, group))
+        chunk = max(group, (chunk // group) * group)
+        S = max(1, -(-N // chunk))
+        pad = S * chunk - N
+        u_pad = np.concatenate([users, np.zeros(pad, np.int32)])
+        i_pad = np.concatenate([positives, np.zeros(pad, np.int32)])
+        in_data = np.concatenate([np.ones(N, np.int32),
+                                  np.zeros(pad, np.int32)])
+        coo = X.tocoo()
+        pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+        # every epoch's negatives and rejection masks in one host pass
+        # (fresh draws per epoch, as the reference samples at bpr.pyx:165)
+        j_all, keep_all = pe.generate_epoch_negatives(
+            np.random.default_rng(seed), np.tile(u_pad, num_epochs), I,
+            pos_keys)
+        mask_all = np.tile(in_data, num_epochs) & keep_all.astype(np.int32)
+
+        def put(a, epochs=1):
+            return torch.from_numpy(np.ascontiguousarray(
+                a.reshape(epochs * S, 1, chunk))).to(dev)
+
+        Wp = pe.pack_table(self.W, self.optimizer, dev)
+        Hp = pe.pack_table(self.H, self.optimizer, dev)
+        self._state = {"W": pe.unpack_table(Wp, K),
+                       "H": pe.unpack_table(Hp, K)}
+        self.last_loss = None
+        self.epoch_times_ = []
+        kw = dict(optimizer=self.optimizer, lr=self.learning_rate,
+                  wd=self.weight_decay, group=group)
+
+        def launch(u, i, j, mask, epochs):
+            t0 = time.perf_counter()
+            loss = pe.bpr_pallas_epoch(Wp, Hp, u, i, j, mask, **kw)[2]
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            self.epoch_times_.append(
+                {"device_s": time.perf_counter() - t0, "epochs": epochs})
+            return loss
+
+        if self.valid_evaluator is None and num_epochs > 1:
+            # no per-epoch validation: the whole fit is one launch
+            loss = launch(put(np.tile(u_pad, num_epochs), num_epochs),
+                          put(np.tile(i_pad, num_epochs), num_epochs),
+                          put(j_all, num_epochs), put(mask_all, num_epochs),
+                          num_epochs)
+            self.last_loss = float(loss) / max(N * num_epochs, 1)
+            self._drop_device_state()
+            return
+
+        u_d, i_d = put(u_pad), put(i_pad)
+        j_all = j_all.reshape(num_epochs, S * chunk)
+        mask_all = mask_all.reshape(num_epochs, S * chunk)
+        loss = None
+
+        def epoch_fn(epoch):
+            nonlocal loss
+            loss = launch(u_d, i_d, put(j_all[epoch]), put(mask_all[epoch]),
+                          1)
+
+        def snapshot_fn():
+            return (self.W, self.H)
+
+        def restore_fn(snap):
+            self.W, self.H = snap
+
+        self._run_epochs(num_epochs, epoch_fn, snapshot_fn, restore_fn,
+                         verbose)
+        if loss is not None:
+            self.last_loss = float(loss / max(N, 1))     # float32, as JAX
         self._drop_device_state()

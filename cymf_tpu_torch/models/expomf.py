@@ -99,7 +99,8 @@ def expomf_chunk(E_src, E_other, Y, mu_term, rows, idx_pad, valid,
 
 class ExpoMF(MFTrainerBase, PersistenceMixin):
     """API-compatible rebuild of ``cymf.ExpoMF`` (`expomf.pyx:40-64`), on
-    ``device`` (default :func:`cymf_tpu_torch.config.default_device`).
+    ``device``: by default :func:`cymf_tpu_torch.config.default_device`,
+    the card; ``device="cpu"`` runs on the CPU.
     After a fit, ``mu`` holds the per-item exposure priors."""
 
     def __init__(self, num_components: int = 20, lam_y: float = 1.0,

@@ -18,12 +18,19 @@ one AdaGrad update per sample.  Initialization, the shuffle, the padding
 and the per-step sort replay the JAX package's numpy streams, so both
 packages train on identical inputs under the same ``np.random.seed``.
 
+``engine="pallas"`` runs the sequential small-catalog engine
+(``_fit_pallas``, `ops/pallas_engine.py`) on the same augmented tables:
+per-sample AdaGrad updates in groups of 8 over the shuffled stream, one
+kernel launch an epoch; ``last_loss`` is then the epoch's loss sum, as in
+the JAX package.
+
 Not ported yet (ROADMAP.md, queue 1): the in-jit engine
-(``packed="off"``, and ``num_components > 124``), the reference-exact ``bias_mode="kfold"``, the
-sequential Pallas engine (``engine="pallas"``), checkpoints,
-``read_text`` and the co-occurrence builders.  Each option raises
-``NotImplementedError``.  The port trains on one device; the JAX
-package's sharded packed engine has no counterpart yet.
+(``packed="off"`` and ``num_components > 124`` under ``engine="xla"``),
+the reference-exact ``bias_mode="kfold"`` (which ``engine="pallas"``
+refuses in the JAX package too), checkpoints, ``read_text`` and the
+co-occurrence builders.  Each option raises ``NotImplementedError``.  The
+port trains on one device; the JAX package's sharded packed engine has no
+counterpart yet.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from scipy import sparse
 
 from .. import config
 from ..ops import packed as pk
+from ..ops import pallas_engine as pe
 from ..ops.glove_epoch import (augment_tables, packed_glove_epoch,
                                prep_glove_static, supports_packed_glove)
 from ..ops.packed_epoch import PackedAdaGrad
@@ -47,16 +55,18 @@ PAD_CENTRAL = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
 
 class GloVe:
     """API-compatible rebuild of ``cymf.GloVe`` (`glove.pyx:46-75`), on
-    ``device`` (default :func:`cymf_tpu_torch.config.default_device`)."""
+    ``device``: by default :func:`cymf_tpu_torch.config.default_device`,
+    the card; ``device="cpu"`` runs on the CPU."""
 
     def __init__(self, num_components: int = 50, learning_rate: float = 0.01,
                  alpha: float = 0.75, x_max: float = 10.0,
                  batch_size: int = 4096, update_mode: str = "auto",
                  bias_mode: str = "fused", engine: str = "xla",
                  packed: str = "auto", device=None):
-        """Arguments as ``cymf_tpu.GloVe``.  ``packed="auto"`` and ``"on"``
-        both run the packed engine, the only one ported; ``update_mode``
-        is validated and has no effect on it."""
+        """Arguments as ``cymf_tpu.GloVe``.  Under ``engine="xla"``,
+        ``packed="auto"`` and ``"on"`` both run the packed engine, the only
+        XLA engine ported; ``update_mode`` is validated and has no effect on
+        either engine."""
         self.num_components = int(num_components)
         self.learning_rate = float(learning_rate)
         self.alpha = float(alpha)
@@ -74,11 +84,13 @@ class GloVe:
         if packed not in ("auto", "on", "off"):
             raise ValueError("packed must be auto|on|off")
         self.packed = packed
+        if bias_mode == "kfold" and engine == "pallas":
+            raise NotImplementedError(
+                "engine='pallas' implements bias_mode='fused' only (as in "
+                "the JAX package)")
         if bias_mode == "kfold":
             raise NotImplementedError(f"bias_mode='kfold' {_LATER}")
-        if engine == "pallas":
-            raise NotImplementedError(f"engine='pallas' {_LATER}")
-        if packed == "off":
+        if engine == "xla" and packed == "off":
             raise NotImplementedError(f"packed='off' (the in-jit engine) "
                                       f"{_LATER}")
         self.device = torch.device(device) if device is not None \
@@ -92,7 +104,9 @@ class GloVe:
         """Train on a sparse co-occurrence matrix (`glove.pyx:75-112`).
         ``num_threads`` is accepted and ignored.  After the fit,
         ``epoch_times_`` holds each epoch's synchronised device seconds;
-        the once-per-fit host prep is ``prep_s_``."""
+        the once-per-fit host prep is ``prep_s_``.  ``constant_columns_``
+        holds the augmented tables' constant-one columns, for checking
+        that they stayed one."""
         if X is None:
             raise ValueError()
         if not sparse.issparse(X):
@@ -100,7 +114,7 @@ class GloVe:
         if checkpoint_path is not None or resume:
             raise NotImplementedError(f"checkpoints {_LATER}")
         K = self.num_components
-        if not supports_packed_glove(K):
+        if self.engine == "xla" and not supports_packed_glove(K):
             # as in the JAX package: "on" rejects the width, "auto" would
             # take the in-jit engine
             if self.packed == "on":
@@ -129,13 +143,20 @@ class GloVe:
         counts = coo.data.astype(np.float64)[order]
 
         N = len(central)
-        B = -(-min(self.batch_size, max(N, 1)) // 1024) * 1024
+        B = min(self.batch_size, max(N, 1))
+        if self.engine == "xla":
+            B = -(-B // 1024) * 1024
         S = max(1, -(-N // B))
         pad = S * B - N
         if pad:
             central = np.concatenate([central, np.full(pad, PAD_CENTRAL)])
             context = np.concatenate([context, np.zeros(pad, np.int32)])
             counts = np.concatenate([counts, np.ones(pad)])
+        if self.engine == "pallas":
+            self._fit_pallas(W_central, central_bias, W_context,
+                             context_bias, central, context, counts, N,
+                             num_epochs, verbose, V1, V2, t0)
+            return
         # per-step sort by central word (order within a synchronous batch
         # is semantically irrelevant; padding sorts last and is masked)
         c2 = central.reshape(S, B)
@@ -198,6 +219,69 @@ class GloVe:
         self.last_loss = float(loss) if loss is not None else None
         Zc_log = pk.unpack_array(Zc.cpu().numpy(), V1, Kp)
         Zx_log = Zx[:V2, :Kp].cpu().numpy()
+        self._set_outputs(Zc_log, Zx_log, K)
+
+    def _fit_pallas(self, W_central, central_bias, W_context, context_bias,
+                    central, context, counts, N, num_epochs, verbose, V1, V2,
+                    t0, chunk: int = 4096, group: int = 8):
+        """Sequential per-triple training (`ops/pallas_engine.py`), as
+        ``cymf_tpu.GloVe._fit_pallas``: the padded stream re-chunked, the
+        keep mask, ``f`` and ``log(count)`` computed once on the host."""
+        K = self.num_components
+        if K + 2 > 126 or not pe.fits_vmem(V1 + V2, "adagrad"):
+            raise ValueError(
+                "vocab/table size exceeds the sequential engine's budget "
+                "(the JAX package's VMEM gate); use engine='xla'")
+        dev = self.device
+        Np = len(central)             # padded to S * B by fit; re-chunk
+        chunk = max(group, (min(chunk, Np) // group) * group)
+        S = max(1, -(-Np // chunk))
+        pad = S * chunk - Np
+        central = np.concatenate([central, np.full(pad, PAD_CENTRAL)])
+        context = np.concatenate([context, np.zeros(pad, np.int32)])
+        counts = np.concatenate([counts, np.ones(pad)])
+        keep = (central != PAD_CENTRAL) & (central < V1) \
+            & (np.arange(len(central)) < N)
+        f = np.minimum((counts / self.x_max) ** self.alpha, 1.0)
+        logcnt = np.log(np.maximum(counts, 1e-30))
+
+        def put(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(
+                a.astype(dtype).reshape(S, 1, chunk))).to(dev)
+
+        Zc_np, Zx_np = augment_tables(W_central, central_bias, W_context,
+                                      context_bias)
+        Zc = pe.pack_table(Zc_np, "adagrad", dev)
+        Zx = pe.pack_table(Zx_np, "adagrad", dev)
+        # a masked sample reads row 0 and writes nothing
+        streams = [put(np.where(keep, central, 0), np.int32),
+                   put(context, np.int32), put(f, np.float32),
+                   put(logcnt, np.float32), put(keep, np.int32)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.prep_s_ = time.perf_counter() - t0
+        self.epoch_times_ = []
+        loss = None
+        for it in range(num_epochs):
+            t1 = time.perf_counter()
+            loss = pe.glove_pallas_epoch(Zc, Zx, *streams,
+                                         lr=self.learning_rate, k_dim=K,
+                                         group=group)[2]
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            self.epoch_times_.append(time.perf_counter() - t1)
+            if verbose:
+                print(f"ITER={it + 1:{len(str(num_epochs))}}, "
+                      f"LOSS: {float(loss):.4f}", flush=True)
+
+        self.packed_engine_ = False
+        self.last_loss = float(loss) if loss is not None else None
+        Zc_log = Zc[:V1, :K + 2].cpu().numpy()
+        Zx_log = Zx[:V2, :K + 2].cpu().numpy()
+        self._set_outputs(Zc_log, Zx_log, K)
+
+    def _set_outputs(self, Zc_log, Zx_log, K):
+        """The learned tables from the augmented ones (``[rows, K + 2]``)."""
         self.W_central = Zc_log[:, :K].astype(np.float64)
         self.bias = Zc_log[:, K].astype(np.float64)
         self.W_context = Zx_log[:, :K].astype(np.float64)

@@ -21,13 +21,19 @@ on the host (``CYMF_TPU_RELMF_PREP=host``: the JAX package's numpy
 stream, capped at :data:`HOST_PREP_MAX_CELLS` cells an epoch; device prep
 has no cap).
 
+``engine="pallas"`` runs the sequential small-catalog engine
+(``_fit_pallas``, `ops/pallas_engine.py`): every epoch's ``U * I`` cells
+drawn on the host from ``default_rng(seed)`` as the JAX package draws
+them, labels from X's values (a non-binary X is taken), and per-sample
+updates in groups of 8, one kernel launch an epoch.
+
 One deliberate difference: ``packed="auto"`` picks the packed engine on
-any device, since it is the port's only engine; the JAX package picks it
-on a TPU only.  Not ported yet (ROADMAP.md, queue 1): the in-jit engine
-(``packed="off"``, and what only it takes: a non-binary ``X``,
-``num_components > 126``, host-prep epochs above the cap), the
-sequential Pallas engine (``engine="pallas"``), checkpoints and the
-multi-device engines.  Each raises ``NotImplementedError``.
+any device, since it is the port's only XLA engine; the JAX package picks
+it on a TPU only.  Not ported yet (ROADMAP.md, queue 1): the in-jit engine
+(``packed="off"`` under ``engine="xla"``, and what only it takes there: a
+non-binary ``X``, ``num_components > 126``, host-prep epochs above the
+cap), checkpoints and the multi-device engines.  Each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 
 from ..ops import packed as pk
+from ..ops import pallas_engine as pe
 from ..ops.hashset import build_pair_hashset, to_device
 from ..ops.packed_epoch import make_packed_optimizer, unpack_device
 from ..ops.relmf_epoch import (epoch_generator, packed_relmf_epoch,
@@ -54,16 +61,18 @@ HOST_PREP_MAX_CELLS = 1 << 27
 
 class RelMF(MFTrainerBase, PersistenceMixin):
     """API-compatible rebuild of ``cymf.RelMF`` (`relmf.pyx:37-67`), on
-    ``device`` (default :func:`cymf_tpu_torch.config.default_device`)."""
+    ``device``: by default :func:`cymf_tpu_torch.config.default_device`,
+    the card; ``device="cpu"`` runs on the CPU."""
 
     def __init__(self, num_components: int = 20, clip_value: float = 0.1,
                  learning_rate: float = 0.001, optimizer: str = "adam",
                  weight_decay: float = 0.01, batch_size: int = 8192,
                  update_mode: str = "auto", engine: str = "xla",
                  packed: str = "auto", device=None):
-        """Arguments as ``cymf_tpu.RelMF``.  ``packed="auto"`` and ``"on"``
-        both run the packed engine; ``update_mode`` is validated and, as in
-        the JAX package's packed engine, has no effect."""
+        """Arguments as ``cymf_tpu.RelMF``.  Under ``engine="xla"``,
+        ``packed="auto"`` and ``"on"`` both run the packed engine;
+        ``update_mode`` is validated and, as in the JAX package's packed
+        and sequential engines, has no effect."""
         super().__init__(num_components, device=device)
         if engine not in ("xla", "pallas"):
             raise ValueError("engine must be 'xla' or 'pallas'")
@@ -84,9 +93,7 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         if packed == "on" and engine != "xla":
             raise ValueError("packed='on' requires engine='xla' "
                              f"(got engine={engine!r})")
-        if engine == "pallas":
-            raise NotImplementedError(f"engine='pallas' {_LATER}")
-        if packed == "off":
+        if engine == "xla" and packed == "off":
             raise NotImplementedError(f"packed='off' (the in-jit engine) "
                                       f"{_LATER}")
 
@@ -134,8 +141,8 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         ``num_threads`` is accepted and ignored; ``seed`` drives the cell
         draws.  After the fit, ``epoch_times_`` holds per epoch the
         device seconds (``device_s``: the epoch's uploads and steps,
-        synchronised) and, under host prep, the host prep seconds
-        (``prep_s``)."""
+        synchronised) and, under host prep or ``engine="pallas"``, the
+        host prep seconds (``prep_s``)."""
         if checkpoint_path is not None or resume:
             raise NotImplementedError(f"checkpoints {_LATER}")
         X = as_csr(X)
@@ -151,6 +158,10 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         # propensities per relmf.pyx:88 (column means of the full matrix)
         col_mean = np.asarray(X.mean(axis=0)).flatten()
         props = np.maximum(col_mean / col_mean.max(), 1e-5) ** 0.5
+        if self.engine == "pallas":
+            self._samples_per_epoch = U * I
+            self._fit_pallas(X, props, num_epochs, verbose, seed)
+            return
 
         binary = bool(X.nnz == 0 or np.all(X.data == 1.0))
         B = -(-self.batch_size // 1024) * 1024
@@ -241,4 +252,80 @@ class RelMF(MFTrainerBase, PersistenceMixin):
                          verbose)
         if loss is not None:
             self.last_loss = float(loss)
+        self._drop_device_state()
+
+    def _fit_pallas(self, X, props, num_epochs, verbose, seed,
+                    chunk: int = 4096, group: int = 8):
+        """Sequential per-cell training (`ops/pallas_engine.py`), as
+        ``cymf_tpu.RelMF._fit_pallas``: each epoch draws ``u`` then ``i``
+        over ``Np`` cells (``U * I`` padded to whole chunks) from one
+        ``default_rng(seed)`` and looks the labels up in X's sorted keys;
+        ``w = r / max(p_i, M)``, the mask covers the padding only."""
+        U, I = X.shape
+        if not pe.fits_vmem(U + I, self.optimizer):
+            raise ValueError(
+                "tables + optimizer state exceed the sequential engine's "
+                "budget (the JAX package's VMEM gate); use engine='xla' for "
+                "catalogs of this size")
+        dev = self.device
+        K = self.num_components
+        N = U * I  # cells per epoch (relmf.pyx:128)
+        chunk = max(group, (min(chunk, N) // group) * group)
+        S = max(1, -(-N // chunk))
+        Np = S * chunk
+        clipped = np.maximum(props, self.clip_value)
+        rng = np.random.default_rng(seed)
+        coo = X.tocoo()
+        keys = coo.row.astype(np.int64) * I + coo.col
+        order = np.argsort(keys)
+        pos_keys, pos_vals = keys[order], coo.data[order].astype(np.float32)
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(
+                a.reshape(S, 1, chunk))).to(dev)
+
+        Wp = pe.pack_table(self.W, self.optimizer, dev)
+        Hp = pe.pack_table(self.H, self.optimizer, dev)
+        self._state = {"W": pe.unpack_table(Wp, K),
+                       "H": pe.unpack_table(Hp, K)}
+        self.prep_backend_ = "numpy"
+        self.last_loss = None
+        self.epoch_times_ = []
+        mask = put(np.arange(Np) < N).to(torch.int32)
+        loss = None
+
+        def epoch_fn(epoch):
+            nonlocal loss
+            t0 = time.perf_counter()
+            u = rng.integers(0, U, Np).astype(np.int32)
+            i = rng.integers(0, I, Np).astype(np.int32)
+            # the label r = X[u, i] by a sorted-key lookup
+            q = u.astype(np.int64) * I + i
+            if len(pos_keys):
+                pos = np.minimum(np.searchsorted(pos_keys, q),
+                                 len(pos_keys) - 1)
+                r = np.where(pos_keys[pos] == q, pos_vals[pos], 0.0)
+            else:
+                r = np.zeros(Np, np.float32)
+            w = (r / clipped[i]).astype(np.float32)
+            streams = [put(a) for a in (u, i, w)]
+            t1 = time.perf_counter()
+            loss = pe.relmf_pallas_epoch(
+                Wp, Hp, *streams, mask, optimizer=self.optimizer,
+                lr=self.learning_rate, wd=self.weight_decay, group=group)[2]
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            self.epoch_times_.append({"prep_s": t1 - t0,
+                                      "device_s": time.perf_counter() - t1})
+
+        def snapshot_fn():
+            return (self.W, self.H)
+
+        def restore_fn(snap):
+            self.W, self.H = snap
+
+        self._run_epochs(num_epochs, epoch_fn, snapshot_fn, restore_fn,
+                         verbose)
+        if loss is not None:
+            self.last_loss = float(loss / max(N, 1))     # float32, as JAX
         self._drop_device_state()

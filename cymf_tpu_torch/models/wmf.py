@@ -69,7 +69,8 @@ def woodbury_max_p(num_components: int, weight: float, weight_decay: float,
 
 class WMF(MFTrainerBase, PersistenceMixin):
     """API-compatible rebuild of ``cymf.WMF`` (`wmf.pyx:32-59`), on
-    ``device`` (default :func:`cymf_tpu_torch.config.default_device`)."""
+    ``device``: by default :func:`cymf_tpu_torch.config.default_device`,
+    the card; ``device="cpu"`` runs on the CPU."""
 
     def __init__(self, num_components: int = 20, weight_decay: float = 0.01,
                  weight: float = 10.0, chunk_size: int = 2048,

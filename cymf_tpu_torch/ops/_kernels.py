@@ -19,7 +19,10 @@ The kernels, by source and the wrapper that launches them:
   RelMF);
 - ``sorted_accum.cu``: ``sorted_accum.sorted_accum`` and
   ``sorted_accum.sorted_accum_dual``;
-- ``chol_inv.cu``: ``chol_kernel.chol_inv_batched``.
+- ``chol_inv.cu``: ``chol_kernel.chol_inv_batched``;
+- ``seq_epoch.cu``: ``pallas_engine.bpr_pallas_epoch``,
+  ``pallas_engine.relmf_pallas_epoch`` and
+  ``pallas_engine.glove_pallas_epoch``.
 
 :data:`launches` counts kernel launches per wrapper.  A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that the
@@ -55,6 +58,13 @@ _SIGNATURES = {
     "cymf_sorted_accum": [_P] * 5 + [_I] * 3 + [_P],
     "cymf_sorted_accum_dual": [_P] * 9 + [_I] * 5 + [_P],
     "cymf_chol_inv_batched": [_P, _L, _L, _P, _P, _I, _I, _P],
+    "cymf_seq_epoch_max_group": [],
+    "cymf_bpr_seq_epoch": [_P, _P, _I, _I] + [_P] * 4 + [_L] + [_I] * 4
+    + [_F] * 7 + [_P, _P],
+    "cymf_relmf_seq_epoch": [_P, _P, _I, _I] + [_P] * 4 + [_L] + [_I] * 4
+    + [_F] * 7 + [_P, _P],
+    "cymf_glove_seq_epoch": [_P, _P, _I, _I] + [_P] * 5 + [_L] + [_I] * 4
+    + [_F, _P, _P],
 }
 
 _lib = None

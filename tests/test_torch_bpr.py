@@ -18,6 +18,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 from scipy import sparse
 
 import cymf_tpu
@@ -123,14 +124,34 @@ def test_warm_start_continues(data):
     (dict(neg_pool=4096), ValueError),
     (dict(neg_pool=256, packed="off"), ValueError),
     (dict(optimizer="rmsprop"), Exception),
-    (dict(engine="pallas"), NotImplementedError),
+    (dict(engine="pallas"), ValueError),          # past the engine's gate
     (dict(packed="off"), NotImplementedError),
     (dict(neg_pool=256), NotImplementedError),
     (dict(num_components=128), NotImplementedError),
 ])
 def test_invalid_arguments(kwargs, exc):
+    """Each raises when built or, on an ML-20M-sized catalog, when fit."""
     with pytest.raises(exc):
-        ct.BPR(**kwargs)
+        ct.BPR(device="cpu", **kwargs).fit(_ml20m_sized(), num_epochs=1,
+                                           verbose=False)
+
+
+def _ml20m_sized():
+    """5,000 interactions in a 150,000 x 30,000 matrix: past the
+    sequential engine's gate (tests/test_pallas_engine.py's case)."""
+    rng = np.random.default_rng(0)
+    return sparse.coo_matrix(
+        (np.ones(5000), (rng.integers(0, 150000, 5000),
+                         rng.integers(0, 30000, 5000))),
+        shape=(150000, 30000)).tocsr()
+
+
+def test_default_device_is_the_card():
+    """No fallback that hides the device: without a device the port names
+    the card, visible or not, and fails at its first allocation there."""
+    from cymf_tpu_torch import config
+    assert config.default_device() == torch.device("cuda", 0)
+    assert ct.BPR().device == torch.device("cuda", 0)
 
 
 def test_invalid_fit_arguments(data):

@@ -12,7 +12,12 @@ relative ``1e-5`` (row sums reduce in another order); accumulations
 ``1e-5 * max|plain|`` absolute (summation order, atomics); the batched
 Cholesky ``|dL| <= 1e-4 max|L|`` and ``|Linv L - I| <= 1e-3``, the JAX
 package's own bounds for its kernel; ALS fits ``rtol 2e-3, atol 2e-4``,
-its bound between solver forms.
+its bound between solver forms.  The sequential epochs: tables ``rtol
+1e-4, atol 1e-5`` under sgd and adagrad (the dot products' summation
+order compounding over the chain), under adam fewer than 1% of elements
+outside that and none off by more than ``2.5 lr`` (a first touch whose
+tiny gradient flips sign moves a row by ``+-lr``), the loss relative
+``1e-5``.
 """
 
 import numpy as np
@@ -24,6 +29,7 @@ from cymf_tpu_torch.ops import chol_kernel as ck
 from cymf_tpu_torch.ops import fused_sample as fs
 from cymf_tpu_torch.ops import glove_epoch as ge
 from cymf_tpu_torch.ops import packed as pk
+from cymf_tpu_torch.ops import pallas_engine as pe
 from cymf_tpu_torch.ops import sorted_accum as sa
 
 pytestmark = pytest.mark.cuda
@@ -321,3 +327,121 @@ def test_glove_fit_on_card_matches_cpu(dev):
     for g, c in zip(tg, tc):
         np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(lg, lc, rtol=1e-5)
+
+
+def _close_seq(got, want, optimizer, lr):
+    """The sequential epochs' table tolerance (module docstring)."""
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    err = (got.double() - want.double()).abs()
+    bad = err > 1e-5 + 1e-4 * want.double().abs()
+    if optimizer != "adam":
+        assert not bad.any(), float(err.max())
+        return
+    assert int(bad.sum()) < 0.01 * got.numel(), int(bad.sum())
+    assert float(err.max()) <= 2.5 * lr
+
+
+def _seq_streams(rng, rows_a, rows_b, S, chunk, n_idx, dev):
+    n = S * chunk
+    a = rng.integers(0, rows_a, n)
+    idx = [a] + [rng.integers(0, rows_b, n) for _ in range(n_idx - 1)]
+    keep = rng.random(n) > 0.1
+    if n_idx == 3:
+        keep &= idx[1] != idx[2]      # a kept BPR sample has i != j
+    return [torch.from_numpy(x.astype(np.int32).reshape(S, 1, chunk)).to(dev)
+            for x in idx + [keep]]
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "adam"])
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("I,S,chunk", [(200, 4, 256), (3, 3, 32)])
+def test_bpr_seq_epoch_kernel(dev, optimizer, group, I, S, chunk):
+    """Against the plain version; a 3-item catalog makes rows collide
+    inside a group, which pins the later-write-wins order."""
+    rng = np.random.default_rng(I + group)
+    u, i, j, mask = _seq_streams(rng, 300, I, S, chunk, 3, dev)
+    W0 = pe.pack_table(rng.normal(size=(300, 20)) * 0.1, optimizer, dev)
+    H0 = pe.pack_table(rng.normal(size=(I, 20)) * 0.1, optimizer, dev)
+    kw = dict(optimizer=optimizer, lr=0.05, wd=0.01, group=group)
+    _kernels.reset_launches()
+    W, H, loss = pe.bpr_pallas_epoch(W0.clone(), H0.clone(), u, i, j, mask,
+                                     **kw)
+    assert _kernels.launches["bpr_pallas_epoch"] == 1
+    Wp, Hp, lossp = pe.bpr_pallas_epoch_plain(W0.clone(), H0.clone(), u, i,
+                                              j, mask, **kw)
+    _close_seq(W, Wp, optimizer, 0.05)
+    _close_seq(H, Hp, optimizer, 0.05)
+    torch.testing.assert_close(loss, lossp, rtol=1e-5, atol=0.0)
+    W2, H2, _ = pe.bpr_pallas_epoch(W0.clone(), H0.clone(), u, i, j, mask,
+                                    **kw)
+    assert torch.equal(W, W2) and torch.equal(H, H2)    # deterministic
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "adam"])
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("I,S,chunk", [(200, 4, 256), (3, 3, 32)])
+def test_relmf_seq_epoch_kernel(dev, optimizer, group, I, S, chunk):
+    rng = np.random.default_rng(2 * I + group)
+    u, i, mask = _seq_streams(rng, 300, I, S, chunk, 2, dev)
+    w = torch.from_numpy(((rng.random(S * chunk) < 0.3)
+                          * rng.uniform(1, 5, S * chunk)).astype(np.float32)
+                         .reshape(S, 1, chunk)).to(dev)
+    W0 = pe.pack_table(rng.normal(size=(300, 12)) * 0.1, optimizer, dev)
+    H0 = pe.pack_table(rng.normal(size=(I, 12)) * 0.1, optimizer, dev)
+    kw = dict(optimizer=optimizer, lr=0.02, wd=0.01, group=group)
+    _kernels.reset_launches()
+    W, H, loss = pe.relmf_pallas_epoch(W0.clone(), H0.clone(), u, i, w, mask,
+                                       **kw)
+    assert _kernels.launches["relmf_pallas_epoch"] == 1
+    Wp, Hp, lossp = pe.relmf_pallas_epoch_plain(W0.clone(), H0.clone(), u, i,
+                                                w, mask, **kw)
+    _close_seq(W, Wp, optimizer, 0.02)
+    _close_seq(H, Hp, optimizer, 0.02)
+    torch.testing.assert_close(loss, lossp, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("V,S,chunk", [(500, 4, 256), (3, 3, 32)])
+def test_glove_seq_epoch_kernel(dev, group, V, S, chunk):
+    """Against the plain version; the constant-one columns stay exactly
+    one."""
+    from cymf_tpu_torch.ops.glove_epoch import augment_tables
+    rng = np.random.default_rng(V + group)
+    K = 50
+    c, x, mask = _seq_streams(rng, V, V, S, chunk, 2, dev)
+    cnt = rng.integers(1, 50, S * chunk).astype(np.float64)
+    f = torch.from_numpy(np.minimum((cnt / 10) ** 0.75, 1.0).astype(
+        np.float32).reshape(S, 1, chunk)).to(dev)
+    lc = torch.from_numpy(np.log(cnt).astype(np.float32).reshape(
+        S, 1, chunk)).to(dev)
+    Zc, Zx = augment_tables(*(rng.uniform(-0.5, 0.5, shape) / K for shape in
+                              ((V, K), (V,), (V, K), (V,))))
+    Zc0 = pe.pack_table(Zc, "adagrad", dev)
+    Zx0 = pe.pack_table(Zx, "adagrad", dev)
+    _kernels.reset_launches()
+    A, B, loss = pe.glove_pallas_epoch(Zc0.clone(), Zx0.clone(), c, x, f, lc,
+                                       mask, lr=0.05, k_dim=K, group=group)
+    assert _kernels.launches["glove_pallas_epoch"] == 1
+    Ap, Bp, lossp = pe.glove_pallas_epoch_plain(
+        Zc0.clone(), Zx0.clone(), c, x, f, lc, mask, lr=0.05, k_dim=K,
+        group=group)
+    _close_seq(A, Ap, "adagrad", 0.05)
+    _close_seq(B, Bp, "adagrad", 0.05)
+    torch.testing.assert_close(loss, lossp, rtol=1e-5, atol=0.0)
+    assert (A[:, K + 1] == 1).all() and (B[:, K] == 1).all()
+
+
+def test_seq_epoch_raises_on_what_it_does_not_take(dev):
+    W = pe.pack_table(np.zeros((10, 8)), "sgd", dev)
+    idx = torch.zeros((1, 1, 32), dtype=torch.int32, device=dev)
+    kw = dict(optimizer="sgd", lr=0.1, wd=0.0)
+    with pytest.raises(ValueError, match="group"):
+        pe.bpr_pallas_epoch(W, W.clone(), idx, idx, idx, idx, group=32, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        pe.bpr_pallas_epoch(W, W.clone(), idx.long(), idx.long(), idx.long(),
+                            idx.long(), **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        pe.bpr_pallas_epoch(W, W.clone(), idx.cpu(), idx, idx, idx, **kw)
+    with pytest.raises(ValueError, match="tables are on"):
+        pe.bpr_pallas_epoch(W, W.cpu(), idx, idx, idx, idx, **kw)

@@ -164,7 +164,7 @@ def test_save_word2vec_format_matches_jax(tmp_path):
     (dict(engine="cuda"), ValueError),
     (dict(packed="maybe"), ValueError),
     (dict(bias_mode="kfold"), NotImplementedError),
-    (dict(engine="pallas"), NotImplementedError),
+    (dict(engine="pallas", bias_mode="kfold"), NotImplementedError),
     (dict(packed="off"), NotImplementedError),
 ])
 def test_invalid_arguments(kwargs, exc):

@@ -281,12 +281,18 @@ def test_warm_start_and_from_arrays(data):
     (dict(packed="yes"), ValueError),
     (dict(packed="on", engine="pallas"), ValueError),
     (dict(optimizer="rmsprop"), Exception),
-    (dict(engine="pallas"), NotImplementedError),
+    (dict(engine="pallas"), ValueError),          # past the engine's gate
     (dict(packed="off"), NotImplementedError),
 ])
 def test_invalid_arguments(kwargs, exc):
+    """Each raises when built or, on an ML-20M-sized catalog, when fit."""
+    rng = np.random.default_rng(0)
+    X = sparse.coo_matrix(
+        (np.ones(5000), (rng.integers(0, 150000, 5000),
+                         rng.integers(0, 30000, 5000))),
+        shape=(150000, 30000)).tocsr()
     with pytest.raises(exc):
-        ct.RelMF(**kwargs)
+        ct.RelMF(device="cpu", **kwargs).fit(X, num_epochs=1)
 
 
 def test_fit_gates(monkeypatch):
