@@ -11,53 +11,73 @@ Phases, one line each; any failure raises and exits non-zero:
    with timings.  The BPR kernels at the BPR main-path shapes (ML-20M:
    138,493 users x 26,744 items, 20,000,263 interactions, d=20, batch
    131,072; first step of the port's own prep), the sample kernel also at
-   d=64.  The batched Cholesky on the first diagonal block (C=2048, B=64)
-   of the first standard-form user chunk of the WMF d=256 fit, and at
-   C=1, C=262 and B=128.  The GloVe/RelMF sample kernel and both of the
-   step's windowed accumulations (W side, H side) on step 0 of the
-   device-prep RelMF epoch at ML-20M (d=20, batch 131,072, the port's own
-   draws and hash-set labels) and on step 0 of the GloVe fit on the
-   ``glove_packed`` bench stream (50,000 words, ~3M triples, d=50);
+   d=64; the v5 sample kernel (#4) and the v6 block step (#5) on step 0 of
+   the ml-1m stream (6040 x 3706, 725,248 interactions, d=20, batch
+   131,072) at ``wrows`` 256 and 512, which the data gate sends to v5 and
+   v6; the v7 range step (#6) and the v8 pool step (#7, P = 1024) on the
+   ML-20M step and on its last step (the padding tail), their ``Aw`` and
+   ``Apool`` lane group by lane group; both windowed accumulations at the
+   JAX default ``wrows``
+   512 on that step's H side.  The batched Cholesky on the first diagonal
+   block (C=2048, B=64) of the first standard-form user chunk of the WMF
+   d=256 fit, and at C=1, C=262 and B=128.  The GloVe/RelMF sample kernel
+   and both of the step's windowed accumulations (W side, H side) on step
+   0 of the device-prep RelMF epoch at ML-20M (d=20, batch 131,072, the
+   port's own draws and hash-set labels) and on step 0 of the GloVe fit on
+   the ``glove_packed`` bench stream (50,000 words, ~3M triples, d=50);
 4. relmf-ml20m: 1,000 steps of the device-prep RelMF epoch at ML-20M
    shapes (a depth cut of the 28,259-step epoch); ms a step, cells/s,
    peak device memory against its reckoned bound;
 5. quickstart: BPR on a small synthetic dataset with validation and
-   early stopping must beat an untrained model's test DCG@5 by 0.1;
+   early stopping must beat an untrained model's test DCG@5 by 0.1,
+   through pipeline v5, each of its kernels once a step;
 6. full width: 3 epochs of BPR at ML-20M shapes through the public
-   ``fit``; every BPR kernel must run once per step;
-7. ALS quickstart: WMF d=128 must beat an untrained model's test DCG@5 by
+   ``fit``; the sparse streams must keep pipeline v4, every BPR kernel
+   run once per step;
+7. the other BPR pipelines, each at full width (d=20) through its main
+   path: bpr-ml1m, 3 epochs of ``fit`` on the ml-1m data (v5: #4 and both
+   accumulations once a step, #1 never); bpr-v6, 3 sgd epochs of
+   ``packed_bpr_epoch(kernel_v=6)`` on the ml-1m streams at ``wrows`` 512
+   against ``kernel_v=4`` on the same streams; bpr-v7, 1 epoch of ``fit``
+   at ML-20M under ``CYMF_TPU_PACKED_KERNEL=7`` (#6 and the H-side
+   accumulation once a step, #1 and #2 never); bpr-pool, 2 epochs of
+   ``BPR(neg_pool=1024).fit`` at ML-20M (#7 and the i-side accumulation
+   once a step); pool-quickstart, ``neg_pool=128`` on the quickstart data
+   must beat an untrained model by 0.1;
+8. ALS quickstart: WMF d=128 must beat an untrained model's test DCG@5 by
    0.1 through the Cholesky kernel; WMF and ExpoMF d=128 must match the
    same fits with the plain diagonal factor (``CYMF_TPU_ALS_CHOL=blocked``);
-8. WMF full width: 2 epochs of WMF d=256 at ML-20M shapes through the
+9. WMF full width: 2 epochs of WMF d=256 at ML-20M shapes through the
    public ``fit``; the Cholesky kernel must run K/64 = 4 times per
    standard-form chunk;
-9. relmf-quickstart: RelMF d=20 with device prep on the quickstart data
-   must beat an untrained model's test DCG@5 by 0.1;
-10. relmf-full: 3 device-prep epochs of RelMF d=20 at ml-1m shapes (6040
+10. relmf-quickstart: RelMF d=20 with device prep on the quickstart data
+    must beat an untrained model's test DCG@5 by 0.1;
+11. relmf-full: 3 device-prep epochs of RelMF d=20 at ml-1m shapes (6040
     x 3706 cells an epoch, 171 steps) through the public ``fit``; the
     sample kernel must run once a step and the accumulation twice;
-11. glove-full: 3 epochs of GloVe d=50 on the ``glove_packed`` stream
+12. glove-full: 3 epochs of GloVe d=50 on the ``glove_packed`` stream
     through the public ``fit``; the same launch counts, and the
     constant-one columns must stay exactly one;
-12. kernels, the sequential engine (``engine="pallas"``): each of its
+13. kernels, the sequential engine (``engine="pallas"``): each of its
     three kernels against its plain version on the first 2 chunks (8,192
     samples) of its first launch in a full-width fit: BPR and RelMF d=20
     at ml-100k shapes (943 x 1682; BPR on 55,296 distinct interactions)
     under sgd, adagrad and adam, GloVe d=50 on the JAX bench's small
     stream (5,000 words, 200,000 draws), each at group 1 and 8;
-13. pallas-quickstart: ``BPR(engine="pallas")`` on the quickstart data
+14. pallas-quickstart: ``BPR(engine="pallas")`` on the quickstart data
     must beat an untrained model's test DCG@5 by 0.1;
-14. pallas-full: the sequential engine through the public ``fit`` at
+15. pallas-full: the sequential engine through the public ``fit`` at
     those shapes: BPR 10 epochs without a validator must launch its
     kernel exactly once, BPR and RelMF 3 epochs with a validator and
     GloVe 3 epochs once an epoch; GloVe's constant-one columns must stay
     exactly one.
 
-Then it prints the kernels' JSON line, with each kernel's bound (the
-larger of bytes over 3.35 TB/s and float32 operations over 67 TFLOP/s,
-counted on this run's inputs) and, for ``sorted_accum``, the time of the
-``index_add_`` that computes the same function, and, last, the device JSON
-line.
+Then it prints the kernels' JSON line (all twelve), with each kernel's
+launches on its main path, its bound (the larger of bytes over 3.35 TB/s
+and float32 operations over 67 TFLOP/s, counted on this run's inputs)
+and, for ``sorted_accum``, the time of the ``index_add_`` that computes
+the same function (no single PyTorch call computes any other kernel's
+function), and, last, the device JSON line.
 ``--profile`` adds a ``torch.profiler`` split of one WMF d=256 epoch,
 written to ``chiprun_out/wmf_profile.txt``, and of 50 device-prep RelMF
 steps at ML-20M shapes with the card's idle share, written to
@@ -93,13 +113,21 @@ BPR_KERNELS = {
     "sorted_accum_dual": ("cymf_tpu_torch/csrc/sorted_accum.cu",
                           "cymf_tpu/ops/sorted_accum.py:345"),
 }
+FUSED_SRC = "cymf_tpu_torch/csrc/bpr_fused.cu"
+# the v5-v8 pipelines' kernels (#4-#7)
+FUSED_KERNELS = {
+    "bpr_sample_phase_v5": (FUSED_SRC, "cymf_tpu/ops/fused_sample.py:285"),
+    "bpr_block_step_v6": (FUSED_SRC, "cymf_tpu/ops/fused_step.py:748"),
+    "bpr_range_step_v7": (FUSED_SRC, "cymf_tpu/ops/fused_step.py:431"),
+    "bpr_pool_step_v8": (FUSED_SRC, "cymf_tpu/ops/fused_step.py:679"),
+}
 SEQ_SRC = "cymf_tpu_torch/csrc/seq_epoch.cu"
 PALLAS_KERNELS = {
     "bpr_pallas_epoch": (SEQ_SRC, "cymf_tpu/ops/pallas_engine.py:212"),
     "relmf_pallas_epoch": (SEQ_SRC, "cymf_tpu/ops/pallas_engine.py:333"),
     "glove_pallas_epoch": (SEQ_SRC, "cymf_tpu/ops/pallas_engine.py:435"),
 }
-KERNELS = {**BPR_KERNELS,
+KERNELS = {**BPR_KERNELS, **FUSED_KERNELS,
            "chol_inv_batched": ("cymf_tpu_torch/csrc/chol_inv.cu",
                                 "cymf_tpu/ops/chol_kernel.py:109"),
            "glove_sample_phase": ("cymf_tpu_torch/csrc/glove_sample.cu",
@@ -112,6 +140,11 @@ GLOVE_K, GLOVE_V, GLOVE_NNZ, GLOVE_EPOCHS = 50, 50_000, 3_000_000, 3
 # its small GloVe stream (5,000 words, 200,000 draws)
 ML100K_U, ML100K_I, ML100K_N, PALLAS_K = 943, 1682, 55_296, 20
 GLOVE_SMALL_V, GLOVE_SMALL_NNZ, SEQ_CHUNKS, PALLAS_EPOCHS = 5000, 200_000, 2, 3
+# the BPR pipelines' other data: the JAX relmf bench's ml-1m shapes
+# (6040 x 3706, density 0.04: 725,248 train interactions, 6 steps), the
+# pool size of the JAX bpr_pool bench mode, and the v6 comparison's sgd
+# step
+ML1M_U, ML1M_I, POOL_P, V6_LR = 6040, 3706, 1024, 0.05
 # the H100 SXM's published peaks: HBM3 bytes/s
 # and float32 operations/s outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
@@ -176,8 +209,9 @@ def bench_matrix():
     return X
 
 
-def first_step(X, K: int, dev):
-    """Inputs of the three kernels at step 0 of the port's prep over X."""
+def first_step(X, K: int, dev, step: int = 0):
+    """Inputs of the three kernels at step ``step`` (0 by default; -1 is
+    the last step, with the padding tail) of the port's prep over X."""
     from cymf_tpu_torch.models.bpr import (shuffled_interactions,
                                            sorted_batches)
     from cymf_tpu_torch.ops import packed as pk
@@ -185,10 +219,12 @@ def first_step(X, K: int, dev):
     from cymf_tpu_torch.ops.packed_epoch import prep_epoch, prep_static
 
     u2, i2 = sorted_batches(*shuffled_interactions(X), BATCH)
-    u2, i2 = u2[:1], i2[:1]
+    one = slice(step, step + 1 or None)
+    u2, i2 = u2[one], i2[one]
     rw = pk.packed_rows(U, K, multiple=WROWS)
     rh = pk.logical_rows(I, multiple=WROWS)
-    winw, si, rowsi, wini = prep_static(u2, i2, K, rw, rh, WROWS, WROWS)
+    winw, _, si, rowsi, wini, *_ = prep_static(u2, i2, K, rw, rh, WROWS,
+                                               WROWS)
     coo = X.tocoo()
     pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
     j2, mask, sj, rowsj, winj = prep_epoch(
@@ -207,6 +243,7 @@ def first_step(X, K: int, dev):
                        t["u"] % s, t["mask"].float(), K)
     t["Di"] = t["Hp"].index_select(0, t["i"])
     t["Dj"] = t["Hp"].index_select(0, t["j"])
+    t["u2"], t["i2"], t["pos_keys"] = u2, i2, pos_keys
     return t, rw, rh
 
 
@@ -293,6 +330,243 @@ def check_kernels(X, dev):
     return results
 
 
+class forced_kernel:
+    """``CYMF_TPU_PACKED_KERNEL`` set to ``value`` inside the block (the
+    JAX package's switch, which the port honours), restored after."""
+
+    def __init__(self, value: str):
+        self.value = value
+
+    def __enter__(self):
+        self.saved = os.environ.get("CYMF_TPU_PACKED_KERNEL")
+        os.environ["CYMF_TPU_PACKED_KERNEL"] = self.value
+
+    def __exit__(self, *exc):
+        os.environ.pop("CYMF_TPU_PACKED_KERNEL")
+        if self.saved is not None:
+            os.environ["CYMF_TPU_PACKED_KERNEL"] = self.saved
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ml1m_matrix():
+    """The JAX relmf bench's ml-1m-shaped data (6040 x 3706, density 0.04,
+    seed 0): its train split."""
+    from cymf_tpu_torch.dataset import SyntheticImplicitDataset
+    return SyntheticImplicitDataset(num_user=ML1M_U, num_item=ML1M_I, rank=8,
+                                    density=0.04, seed=0).train
+
+
+def ml1m_streams(X1, K: int, wrows: int):
+    """``BPR.fit``'s sorted batches of X1 (shuffled under
+    ``np.random.seed(0)``) and their ``prep_static`` at ``wrows``."""
+    from cymf_tpu_torch.models.bpr import (shuffled_interactions,
+                                           sorted_batches)
+    from cymf_tpu_torch.ops import packed as pk
+    from cymf_tpu_torch.ops.packed_epoch import prep_static
+
+    np.random.seed(0)
+    u2, i2 = sorted_batches(*shuffled_interactions(X1), BATCH)
+    rw = pk.packed_rows(ML1M_U, K, multiple=wrows)
+    rh = pk.logical_rows(ML1M_I, multiple=wrows)
+    return u2, i2, rw, rh, prep_static(u2, i2, K, rw, rh, wrows, wrows)
+
+
+def aw_lanes(K: int) -> list:
+    """Lane groups of a fused step's ``Aw`` for :func:`check_fused`, each
+    ``(name, lanes, rtol, rel)``: |kernel - plain| <= rel max|plain over
+    the group| + rtol |plain|.  The payload [0, cb) within 1e-5 of its own
+    max: a slot-placement or lane-rotation fault of the fused W path shows
+    only there, and the loss lane's sums (~190 at ML-20M) would hide it
+    under a limit taken over all lanes.  The count channel [cb, cb + s) and
+    the unused lanes exact: sums of 0/1 masks and of zeros.  The loss lane
+    127 within 1e-5 relative (sums in another order)."""
+    from cymf_tpu_torch.ops import packed as pk
+    s, cb = pk.num_slots(K), pk.count_base(K)
+    return [("payload", slice(0, cb), 0.0, 1e-5),
+            ("counts", slice(cb, cb + s), 0.0, 0.0),
+            ("unused", slice(cb + s, 127), 0.0, 0.0),
+            ("loss", slice(127, 128), 1e-5, 0.0)]
+
+
+def apool_lanes(K: int) -> list:
+    """Lane groups of v8's ``Apool``, as :func:`aw_lanes`: the payload [0,
+    K) within 1e-5 of its own max (float atomics, order changing from run
+    to run), the count lane K and the rest exact."""
+    return [("payload", slice(0, K), 0.0, 1e-5),
+            ("counts", slice(K, K + 1), 0.0, 0.0),
+            ("unused", slice(K + 1, 128), 0.0, 0.0)]
+
+
+def check_fused(name, fn, plain, args, kw, outs, limits, nbytes_in, ops):
+    """Phase 3 for one of #4-#7: kernel against plain on ``args``; each
+    output checked as ``limits`` says (``("rows", rtol, atol)``, or
+    ``("lanes", groups)`` group by group as :func:`aw_lanes` gives
+    them)."""
+    got = fn(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    errs, parts = [], []
+    for g, w, what, lim in zip(got, want, outs, limits):
+        if lim[0] == "rows":
+            e = close(g, w, lim[1], lim[2], f"{name} {what}")
+            parts.append(f"{what} max abs {e[0]:.3e} rel {e[1]:.3e}")
+            errs.append(e[0] if w.dim() else 0.0)
+            continue
+        for group, lanes, rtol, rel in lim[1]:
+            wg = w[:, lanes]
+            if not wg.numel():
+                continue
+            atol = rel * float(wg.abs().max())
+            e = close(g[:, lanes], wg, rtol, atol, f"{name} {what} {group}")
+            limit = (f"{rel:g} max|{group}| = {atol:.3e}" if rel else
+                     f"rtol {rtol:g}" if rtol else "exact")
+            parts.append(f"{what} {group} max abs {e[0]:.3e} rel "
+                         f"{e[1]:.3e} (limit {limit})")
+            errs.append(e[0])
+    ms = time_ms(lambda: fn(*args, **kw))
+    pms = time_ms(lambda: plain(*args, **kw))
+    out_bytes = sum(nbytes(g) for g in got)
+    phase("kernels", f"{name}: {'; '.join(parts)}; {ms:.4f} ms vs plain "
+          f"{pms:.4f} ms")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=pms,
+                **bound(nbytes_in + out_bytes, ops), library_ms=None)
+
+
+def check_fused_kernels(X, dev):
+    """Phase 3 for #4-#7 on step 0 of their main paths: v5 and v6 on the
+    ml-1m stream at d=20 (``wrows_w`` 256 gives v5, 512 gives v6), v7 and
+    v8 (P = 1024) on the ML-20M stream of :func:`first_step`; and the
+    windowed accumulations at the JAX default ``wrows = 512`` on that
+    step's H side; v7 and v8 also on the ML-20M stream's last step, whose
+    padding tail every CTA shares.  Limits: SW and Q rtol 1e-5, atol 1e-6,
+    the loss relative 1e-5, Aw and Apool by lane group (:func:`aw_lanes`,
+    :func:`apool_lanes`), the accumulations 1e-5 max|plain|."""
+    from cymf_tpu_torch.ops import fused_sample as fs
+    from cymf_tpu_torch.ops import fused_step as fst
+    from cymf_tpu_torch.ops import packed as pk
+    from cymf_tpu_torch.ops import sorted_accum as sa
+    from cymf_tpu_torch.ops.packed_epoch import (prep_epoch,
+                                                 prep_pool_epoch,
+                                                 prep_static,
+                                                 prep_static_pool)
+    K, s = 20, pk.num_slots(20)
+    rows_lim = ("rows", 1e-5, 1e-6)
+    results = {}
+    X1 = ml1m_matrix()
+    coo = X1.tocoo()
+    keys1 = np.sort(coo.row.astype(np.int64) * ML1M_I + coo.col)
+    rng = np.random.default_rng(0)
+    W1 = rng.uniform(-0.1, 0.1, (ML1M_U, K)) / K
+    H1 = rng.uniform(-0.1, 0.1, (ML1M_I, K)) / K
+    for name, wrows, want_v in (("bpr_sample_phase_v5", 256, 5),
+                                ("bpr_block_step_v6", 512, 6)):
+        u2, i2, rw, rh, prep = ml1m_streams(X1, K, wrows)
+        winw, wstart, si, rowsi, wini, cs, cn, v = prep
+        if v != want_v:
+            raise AssertionError(f"the ml-1m stream at wrows {wrows} takes "
+                                 f"v{v}, expected v{want_v}")
+        j2, mask, *_ = prep_epoch(np.random.default_rng((1234, 0)), u2[:1],
+                                  i2[:1], keys1, ML1M_U, ML1M_I, K, rh,
+                                  wrows)
+        Wp, Hp, u, i, j, mf, ws = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+                pk.pack_array(W1, K, wrows), pk.pack_logical(H1, K, wrows),
+                u2[0], i2[0], j2[0], mask[0], wstart[0]))
+        phys = u // s
+        Di = Hp.index_select(0, i)
+        Dj = fs.decorate(Hp.index_select(0, j), u % s, mf.float(), K)
+        B = Di.shape[0]
+        # per sample the slot extraction and placement (2 x 128 x slots)
+        # and ~20 elementwise operations a lane; v6 adds the row sums
+        ops = B * 128 * (2 * s + 20)
+        if v == 5:
+            args = (Wp, ws, phys, Di, Dj)
+            results[name] = check_fused(
+                name + f" (ml-1m step 0, B={B})", fs.bpr_sample_phase_v5,
+                fs.bpr_sample_phase_v5_plain, args, dict(K=K, wd=0.01),
+                ("SW", "Q", "loss"), (rows_lim, rows_lim, ("rows", 1e-5, 0)),
+                nbytes(*args), ops)
+        else:
+            cs_d, cn_d = (torch.from_numpy(a[0]).to(dev) for a in (cs, cn))
+            args = (Wp, phys, Di, Dj, ws, cs_d, cn_d)
+            results[name] = check_fused(
+                name + f" (ml-1m step 0, B={B}, wrows 512)",
+                fst.bpr_block_step_v6, fst.bpr_block_step_v6_plain, args,
+                dict(K=K, wd=0.01, rw=rw, wrows=wrows), ("Aw", "Q"),
+                (("lanes", aw_lanes(K)), rows_lim), nbytes(*args),
+                ops + B * 128)
+
+    for step in (-1, 0):
+        t, rw, rh = first_step(X, K, dev, step)
+        B = t["Du"].shape[0]
+        when = (f"ML-20M step 0, B={B}" if step == 0 else
+                f"ML-20M last step, B={B}, "
+                f"{int((t['phys'] >= rw).sum())} padding samples")
+        with forced_kernel("7"):
+            winw7, *_, v = prep_static(t["u2"], t["i2"], K, rw, rh, WROWS,
+                                       WROWS)
+        if v != 7:
+            raise AssertionError(f"forcing v7 gave v{v}")
+        st, ct = (torch.from_numpy(a).to(dev) for a in winw7[0])
+        args = (t["phys"], t["Du"], t["Di"], t["Dj"], st, ct)
+        results["bpr_range_step_v7"] = check_fused(
+            f"bpr_range_step_v7 ({when})", fst.bpr_range_step_v7,
+            fst.bpr_range_step_v7_plain, args,
+            dict(K=K, wd=0.01, rw=rw, wrows=WROWS), ("Aw", "Q"),
+            (("lanes", aw_lanes(K)), rows_lim), nbytes(*args),
+            B * 128 * (2 * s + 21))
+
+        winp, *_ = prep_static_pool(t["u2"], t["i2"], K, rw, rh, WROWS,
+                                    WROWS)
+        r2 = np.random.default_rng((1234, 1 << 20)).integers(
+            0, POOL_P, t["u2"].shape, dtype=np.int32)
+        pool2, rjs, maskp, _ = prep_pool_epoch(
+            np.random.default_rng((1234, 0)), t["u2"], t["pos_keys"], U, I,
+            POOL_P, r2=r2)
+        pool, rj, mp = (torch.from_numpy(np.ascontiguousarray(a[0])).to(dev)
+                        for a in (pool2, rjs, maskp))
+        Dup = fs.decorate(
+            t["Wp"].index_select(0, t["phys"].clamp(max=rw - 1)),
+            t["u"] % s, mp.float(), K)
+        stp, ctp = (torch.from_numpy(a).to(dev) for a in winp[0])
+        args = (t["phys"], rj, Dup, t["Di"], t["Hp"].index_select(0, pool),
+                stp, ctp)
+        results["bpr_pool_step_v8"] = check_fused(
+            f"bpr_pool_step_v8 ({when}, P={POOL_P})",
+            fst.bpr_pool_step_v8, fst.bpr_pool_step_v8_plain, args,
+            dict(K=K, wd=0.01, rw=rw, wrows=WROWS), ("Aw", "Apool", "Q"),
+            (("lanes", aw_lanes(K)), ("lanes", apool_lanes(K)), rows_lim),
+            nbytes(*args), B * 128 * (2 * s + 22))
+        del Dup, args
+
+    # the windowed accumulations at wrows = 512 on the step's H side
+    _, Q, _ = fs.bpr_sample_phase(t["Du"], t["Di"], t["Dj"], K=K, wd=0.01)
+    rh5 = pk.logical_rows(I, multiple=512)
+    sides = []
+    for rows, perm in ((t["rowsi"], t["si"]), (t["rowsj"], t["sj"])):
+        win = sa.window_ranges(rows.reshape(-1).cpu().numpy(), rh5, 512,
+                               1024, align=128)
+        sides += [rows, Q.index_select(0, perm)] + [
+            torch.from_numpy(a).to(dev) for a in win]
+    check_sorted_accum(tuple(sides[:4]), dict(r_pad=rh5, wrows=512),
+                       "ML-20M step 0, i side, wrows 512")
+    got = sa.sorted_accum_dual(*sides, r_pad=rh5, neg_lanes=K, wrows=512)
+    want = sa.sorted_accum_dual_plain(*sides, r_pad=rh5, neg_lanes=K,
+                                      wrows=512)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    e = close(got, want, 0.0, 1e-5 * scale, "sorted_accum_dual wrows 512")
+    ms = time_ms(lambda: sa.sorted_accum_dual(*sides, r_pad=rh5,
+                                              neg_lanes=K, wrows=512))
+    phase("kernels", f"sorted_accum_dual ML-20M step 0, wrows 512 (r_pad "
+          f"{rh5}): max abs {e[0]:.3e} (limit {1e-5 * scale:.3e} = 1e-5 "
+          f"max|plain|); {ms:.4f} ms")
+    return results
+
+
 def accum_bound(args, r_pad: int) -> dict:
     """:func:`bound` of a windowed accumulation: its rows, gradients and
     windows read, the (r_pad, 128) output written; an add per gradient
@@ -305,27 +579,45 @@ def accum_bound(args, r_pad: int) -> dict:
     return bound(nbytes, ops)
 
 
-def quickstart(dev):
-    """Phase 4: the README quickstart on the card."""
+def quickstart(dev, neg_pool: int = 0):
+    """Phase 4: the README quickstart on the card, through pipeline v5 (a
+    small dense catalog) or, with ``neg_pool``, v8; each of the pipeline's
+    kernels must run once a step of every epoch the fit ran."""
     import cymf_tpu_torch as ct
     from cymf_tpu_torch.dataset import SyntheticImplicitDataset
+    from cymf_tpu_torch.ops import _kernels
 
+    name = "pool-quickstart" if neg_pool else "quickstart"
     d = SyntheticImplicitDataset(num_user=600, num_item=300, rank=6,
                                  density=0.08, seed=7)
     valid = ct.AoaEvaluator(d.valid, d.train, metrics=["DCG"], k=5,
                             device=dev)
     test = ct.AoaEvaluator(d.test, d.train, k=5, device=dev)
-    m0 = ct.BPR(20, learning_rate=0.01, weight_decay=0.01, device=dev)
+    kw = dict(num_components=20, learning_rate=0.01, weight_decay=0.01,
+              neg_pool=neg_pool, device=dev)
+    m0 = ct.BPR(**kw)
     m0.fit(d.train, num_epochs=0, verbose=False)
     base = test.evaluate(m0.W, m0.H)["DCG@5"]
-    m = ct.BPR(20, learning_rate=0.01, weight_decay=0.01, device=dev)
+    m = ct.BPR(**kw)
+    _kernels.reset_launches()
     m.fit(d.train, num_epochs=30, valid_evaluator=valid, early_stopping=True,
           verbose=False)
+    launches = dict(_kernels.launches)
     res = test.evaluate(m.W, m.H)
-    phase("quickstart", f"test {res}; untrained DCG@5 {base:.4f}; best "
-          f"valid DCG@5 {m.valid_dcg:.4f}; last loss {m.last_loss:.4f}")
+    n = len(m.epoch_times_) * -(-m._samples_per_epoch // 1024)
+    want_v, want = (8, {"bpr_pool_step_v8": n, "sorted_accum": n}) \
+        if neg_pool else (5, {"bpr_sample_phase_v5": n, "sorted_accum": n,
+                              "sorted_accum_dual": n})
+    phase(name, f"test {res}; untrained DCG@5 {base:.4f}; best valid "
+          f"DCG@5 {m.valid_dcg:.4f}; last loss {m.last_loss:.4f}; pipeline "
+          f"v{m.packed_kernel_}; {len(m.epoch_times_)} epochs; launches "
+          f"{launches}")
+    if m.packed_kernel_ != want_v or launches != want:
+        raise AssertionError(f"{name}: pipeline v{m.packed_kernel_}, "
+                             f"launches {launches}, expected v{want_v}, "
+                             f"{want}")
     if not res["DCG@5"] >= base + 0.1:
-        raise AssertionError("the quickstart did not learn")
+        raise AssertionError(f"the {name} did not learn")
 
 
 class _DeviceProbe:
@@ -344,42 +636,142 @@ class _DeviceProbe:
 
 
 def full_width(X, dev):
-    """Phase 5: 3 epochs of the public fit at ML-20M shapes."""
+    """Phase 6: 3 epochs of the public fit at ML-20M shapes, pipeline v4
+    (the sparse streams fail the v5/v6 span gate)."""
+    return bpr_fit(X, dev, EPOCHS, "full", 4, dict.fromkeys(BPR_KERNELS, 1))
+
+
+def bpr_fit(X, dev, epochs: int, what: str, want_v: int, want: dict,
+            **kw):
+    """A full-width BPR fit (d=20, Adam lr 0.001, wd 0.01, batch 131,072)
+    through the public ``fit``; its pipeline and launches must be
+    ``want_v`` and ``want`` (launches per step, times the steps run)."""
     import cymf_tpu_torch as ct
     from cymf_tpu_torch.ops import _kernels
 
     m = ct.BPR(num_components=20, learning_rate=0.001, optimizer="adam",
-               weight_decay=0.01, batch_size=BATCH, device=dev)
+               weight_decay=0.01, batch_size=BATCH, device=dev, **kw)
     probe = _DeviceProbe(m)
     N = X.count_nonzero()
     S = -(-N // BATCH)
     torch.cuda.reset_peak_memory_stats(dev)
     _kernels.reset_launches()
     t0 = time.perf_counter()
-    m.fit(X, num_epochs=EPOCHS, valid_evaluator=probe, verbose=False)
+    m.fit(X, num_epochs=epochs, valid_evaluator=probe, verbose=False)
     wall = time.perf_counter() - t0
     launches = dict(_kernels.launches)
     for e, st in enumerate(m.epoch_times_):
-        phase("full", f"epoch {e}: host prep {st['prep_s']:.3f} s, device "
+        phase(what, f"epoch {e}: host prep {st['prep_s']:.3f} s, device "
               f"{st['device_s']:.3f} s, {N / st['device_s']:.4e} int/s "
               f"device, {N / (st['prep_s'] + st['device_s']):.4e} int/s "
               "prep+device")
-    phase("full", f"fit wall {wall:.2f} s (incl. once-per-fit prep), peak "
-          f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f}"
-          f" GiB, last loss {m.last_loss:.6f}, launches {launches}, "
-          f"S={S}")
-    if probe.calls != EPOCHS:
+    want = {k: v * epochs * S for k, v in want.items()}
+    phase(what, f"{X.shape}, {N} interactions, S={S}: fit wall {wall:.2f} s"
+          f" (incl. once-per-fit prep), peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, pipeline "
+          f"v{m.packed_kernel_}, last loss {m.last_loss:.6f}, launches "
+          f"{launches}")
+    if m.packed_kernel_ != want_v or launches != want:
+        raise AssertionError(f"{what}: pipeline v{m.packed_kernel_}, "
+                             f"launches {launches}, expected v{want_v}, "
+                             f"{want}")
+    if probe.calls != epochs:
         raise AssertionError("the device probe did not run every epoch")
-    for name in BPR_KERNELS:
-        if launches.get(name, 0) != EPOCHS * S:
-            raise AssertionError(f"{name} launched {launches.get(name, 0)} "
-                                 f"times, expected {EPOCHS * S}")
     if not (np.isfinite(m.last_loss) and np.isfinite(m.W).all()
             and np.isfinite(m.H).all()):
         raise AssertionError("non-finite loss or tables")
-    if m.W.shape != (U, 20) or m.H.shape != (I, 20):
+    if m.W.shape != (X.shape[0], 20) or m.H.shape != (X.shape[1], 20):
         raise AssertionError("tables of the wrong shape")
     return launches
+
+
+def v6_against_v4(dev):
+    """bpr-v6: ``packed_bpr_epoch(kernel_v=6)`` for EPOCHS epochs on the
+    ml-1m streams at ``wrows`` 512 (the JAX package's default, which v6
+    needs), held against ``kernel_v=4`` on the same streams from the same
+    init under sgd (lr 0.05): tables within rtol 1e-4, atol 1e-5 (float32
+    sums in another order through 18 steps), the mean loss within 1e-5
+    relative.  Returns v6's launches."""
+    from cymf_tpu_torch.ops import _kernels
+    from cymf_tpu_torch.ops import packed as pk
+    from cymf_tpu_torch.ops.packed_epoch import (make_packed_optimizer,
+                                                 packed_bpr_epoch,
+                                                 prep_epoch)
+    K, wrows = 20, 512
+    X1 = ml1m_matrix()
+    N1 = X1.count_nonzero()
+    coo = X1.tocoo()
+    keys = np.sort(coo.row.astype(np.int64) * ML1M_I + coo.col)
+    u2, i2, rw, rh, prep = ml1m_streams(X1, K, wrows)
+    winw, wstart, si, rowsi, wini, cs, cn, v = prep
+    if v != 6:
+        raise AssertionError(f"the ml-1m stream at wrows 512 takes v{v}")
+    S = u2.shape[0]
+
+    def put(*arrays):       # copies: the epochs update the tables in place
+        return [torch.from_numpy(np.array(a)).to(dev) for a in arrays]
+
+    static = put(u2, i2, si, rowsi, wini)
+    blocks = put(winw, wstart, cs, cn)
+    epochs = [put(*prep_epoch(np.random.default_rng((1234, e)), u2, i2,
+                              keys, ML1M_U, ML1M_I, K, rh, wrows))
+              for e in range(EPOCHS)]
+    rng = np.random.default_rng(0)
+    W0 = pk.pack_array(rng.uniform(-0.1, 0.1, (ML1M_U, K)) / K, K, wrows)
+    H0 = pk.pack_logical(rng.uniform(-0.1, 0.1, (ML1M_I, K)) / K, K, wrows)
+    out = {}
+    for kv in (6, 4):
+        Wp, Hp = put(W0, H0)
+        opt = make_packed_optimizer("sgd", V6_LR)
+        ow, oh = opt.init(Wp), opt.init(Hp)
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        for e in range(EPOCHS):
+            loss = packed_bpr_epoch(
+                Wp, Hp, ow, oh, *static, *epochs[e], *blocks, N1,
+                opt_name="sgd", lr=V6_LR, weight_decay=0.01, K=K, rw=rw,
+                rh=rh, wrows_w=wrows, wrows_h=wrows, kernel_v=kv)
+        torch.cuda.synchronize(dev)
+        out[kv] = (Wp, Hp, float(loss), dict(_kernels.launches),
+                   time.perf_counter() - t0)
+    n = EPOCHS * S
+    for kv, want in ((6, {"bpr_block_step_v6": n, "sorted_accum_dual": n}),
+                     (4, {"bpr_sample_phase": n, "sorted_accum": n,
+                          "sorted_accum_dual": n})):
+        if out[kv][3] != want:
+            raise AssertionError(f"kernel_v={kv}: launches {out[kv][3]}, "
+                                 f"expected {want}")
+    e_w = close(out[6][0], out[4][0], 1e-4, 1e-5, "v6 vs v4 W")
+    e_h = close(out[6][1], out[4][1], 1e-4, 1e-5, "v6 vs v4 H")
+    e_l = close(torch.tensor(out[6][2]), torch.tensor(out[4][2]), 1e-5, 0.0,
+                "v6 vs v4 loss")
+    phase("bpr-v6", f"{EPOCHS} sgd epochs of {S} steps on the ml-1m streams "
+          f"at wrows 512: v6 {out[6][4]:.3f} s, v4 {out[4][4]:.3f} s "
+          f"(uploaded streams, synchronised); W max abs {e_w[0]:.3e} rel "
+          f"{e_w[1]:.3e}, H max abs {e_h[0]:.3e} rel {e_h[1]:.3e} (limit "
+          f"rtol 1e-4, atol 1e-5); loss {out[6][2]:.6f} vs {out[4][2]:.6f} "
+          f"(rel {e_l[1]:.3e}); launches v6 {out[6][3]}")
+    return out[6][3]
+
+
+def pipeline_fits(X, dev):
+    """The v5, v6, v7 and v8 pipelines through their main paths; returns
+    each kernel's launches there."""
+    launches = bpr_fit(ml1m_matrix(), dev, EPOCHS, "bpr-ml1m", 5,
+                       {"bpr_sample_phase_v5": 1, "sorted_accum": 1,
+                        "sorted_accum_dual": 1})
+    out = {"bpr_sample_phase_v5": launches["bpr_sample_phase_v5"]}
+    out["bpr_block_step_v6"] = v6_against_v4(dev)["bpr_block_step_v6"]
+    with forced_kernel("7"):
+        launches = bpr_fit(X, dev, 1, "bpr-v7", 7,
+                           {"bpr_range_step_v7": 1, "sorted_accum_dual": 1})
+    out["bpr_range_step_v7"] = launches["bpr_range_step_v7"]
+    launches = bpr_fit(X, dev, 2, "bpr-pool", 8,
+                       {"bpr_pool_step_v8": 1, "sorted_accum": 1},
+                       neg_pool=POOL_P)
+    out["bpr_pool_step_v8"] = launches["bpr_pool_step_v8"]
+    quickstart(dev, neg_pool=128)
+    return out
 
 
 def first_wmf_block(X, dev):
@@ -1251,6 +1643,7 @@ def main() -> int:
     phase("data", f"ML-20M-shaped matrix {X.shape}, {X.count_nonzero()} "
           f"interactions in {time.perf_counter() - t0:.1f} s")
     results = check_kernels(X, dev)
+    results.update(check_fused_kernels(X, dev))
     results["chol_inv_batched"] = check_chol(X, dev)
     relmf = relmf_ml20m_state(X, dev)
     G = glove_matrix()
@@ -1261,6 +1654,7 @@ def main() -> int:
     del relmf
     quickstart(dev)
     launches = full_width(X, dev)
+    launches.update(pipeline_fits(X, dev))
     als_quickstart(dev)
     launches.update(wmf_full_width(X, dev))
     relmf_quickstart(dev)

@@ -21,17 +21,19 @@
 // with lane rotations, read the row from a per-warp shared-memory copy; the
 // three row sums are warp shuffles.  Each block writes one loss partial, and
 // a second one-block kernel (reduce.cuh) sums the partials in a fixed
-// order.
+// order.  The per-sample math is bpr_math.cuh's, shared with the v5-v8
+// kernels of bpr_fused.cu.
 
 #include <cuda_runtime.h>
 
+#include "bpr_math.cuh"
 #include "reduce.cuh"
 
 namespace {
 
+using cymf::bpr_sample_math;
 using cymf::sum_partials_kernel;
 using cymf::SUM_THREADS;
-using cymf::warp_sum;
 
 constexpr int LANES = 128;
 constexpr int WARPS = 8;
@@ -66,51 +68,12 @@ bpr_sample_kernel(const float* __restrict__ du, const float* __restrict__ di,
     const float hj[4] = {j4.x, j4.y, j4.z, j4.w};
     *reinterpret_cast<float4*>(r + c0) = u4;
     __syncwarp();
-
-    float wu[4], diff[4];
-    float x = 0.f, l2 = 0.f, m = 0.f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int l = c0 + k;
-      float w = 0.f;
-      if (l < K) {  // wu[l] = sum_c Du[cb + c] * Du[l + c K]
-        w = r[cb] * r[l];
-        for (int c = 1; c < s; ++c) w += r[cb + c] * r[l + c * K];
-      }
-      wu[k] = w;
-      diff[k] = hi[k] - hj[k];
-      x += w * diff[k];
-      l2 += w * w + hi[k] * hi[k] + hj[k] * hj[k];
-      if (l >= cb) m += u[k];  // the decoration lanes sum to the mask
-    }
-    x = warp_sum(x);
-    l2 = warp_sum(l2);
-    m = warp_sum(m);
-    const float sig = 1.f / (1.f + expf(x));
-    // -log sigmoid(x) = softplus(-x), in its overflow-free form
-    const float nls = fmaxf(-x, 0.f) + log1pf(expf(-fabsf(x)));
-    loss_acc += (nls + wd * l2) * m;
-
-#pragma unroll
-    for (int k = 0; k < 4; ++k) v[c0 + k] = sig * diff[k];
-    __syncwarp();
-
     float o[4], qo[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int l = c0 + k;
-      float acc = l >= cb ? u[k] : 0.f;
-      // slot c's lanes receive vals rotated right by c K (lane-wise as the
-      // TPU kernel's roll, wrapping at 128)
-      for (int c = 0; c < s; ++c)
-        acc += r[cb + c] * v[(l - c * K) & (LANES - 1)];
-      o[k] = acc;
-      qo[k] = sig * wu[k] + (l == K ? m : 0.f);
-    }
+    loss_acc += bpr_sample_math(r, v, u, hi, hj, c0, K, s, cb, LANES, wd, -1,
+                                o, qo);
     *reinterpret_cast<float4*>(sw + off) = make_float4(o[0], o[1], o[2], o[3]);
     *reinterpret_cast<float4*>(q + off) =
         make_float4(qo[0], qo[1], qo[2], qo[3]);
-    __syncwarp();  // row/vals are rewritten by the next sample
   }
   if (lane == 0) warp_loss[warp] = loss_acc;
   __syncthreads();

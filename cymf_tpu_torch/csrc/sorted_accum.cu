@@ -17,9 +17,13 @@
 // and writes 11 MiB; the H-side call reads twice that and writes 13 MiB.
 //
 // Design: the TPU kernel turns the scatter into one-hot MXU matmuls per
-// window.  Here one CTA owns one window and keeps its wrows x 128 f32
-// accumulator in dynamic shared memory (128 KiB at wrows = 256).  Each warp
-// walks a contiguous slice of the window's range: lanes hold 4 columns each
+// window.  Here a window's rows are split into slices of at most MAX_SLICE
+// = 256 rows (one slice for wrows <= 256, two at the JAX default wrows =
+// 512), one CTA a slice, which keeps its rows x 128 f32 accumulator in
+// dynamic shared memory (128 KiB at 256 rows).  Every CTA of a window walks
+// the window's whole range and keeps only the rows of its own slice, so no
+// output row is written twice.  Each warp walks a contiguous part of the
+// range: lanes hold 4 columns each
 // (one float4 per sample row, coalesced), a register run-sum grows while
 // the row id stays the same, and a row change flushes it into shared memory
 // with atomicAdd.  Sorted rows make runs long, so few atomics are issued,
@@ -30,11 +34,16 @@
 
 #include <cuda_runtime.h>
 
+#include "accum.cuh"
+
 namespace {
+
+using cymf::flush_run;
 
 constexpr int LANES = 128;
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
+constexpr int MAX_SLICE = 256;  // rows a CTA accumulates: 128 KiB of f32
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Stream {
@@ -46,17 +55,9 @@ struct Stream {
   int neg_lanes;  // lanes [0, neg_lanes) are negated
 };
 
-__device__ __forceinline__ void flush(float* acc, int rel, int c0,
-                                      const float4& run) {
-  float* dst = acc + rel * LANES + c0;
-  atomicAdd(dst + 0, run.x);
-  atomicAdd(dst + 1, run.y);
-  atomicAdd(dst + 2, run.z);
-  atomicAdd(dst + 3, run.w);
-}
-
-__device__ void walk(const Stream& st, float* acc, int w, int base,
-                     int wrows) {
+// Adds the rows of window w's range that lie in [r0, r0 + nrows) into acc.
+__device__ void walk(const Stream& st, float* acc, int w, int r0,
+                     int nrows) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int c0 = lane * 4;
@@ -79,11 +80,11 @@ __device__ void walk(const Stream& st, float* acc, int w, int base,
     const int cnt = min(32, e - b0);
     const int mine = lane < cnt ? st.rows[b0 + lane] : -1;
     for (int t = 0; t < cnt; ++t) {
-      const int rel = __shfl_sync(FULL, mine, t) - base;
-      if (static_cast<unsigned>(rel) >= static_cast<unsigned>(wrows))
-        continue;  // another window's row or a padding sentinel
+      const int rel = __shfl_sync(FULL, mine, t) - r0;
+      if (static_cast<unsigned>(rel) >= static_cast<unsigned>(nrows))
+        continue;  // another slice's row or a padding sentinel
       if (rel != cur) {
-        if (cur >= 0) flush(acc, cur, c0, run);
+        if (cur >= 0) flush_run(acc, cur, c0, run);
         run = make_float4(0.f, 0.f, 0.f, 0.f);
         cur = rel;
       }
@@ -95,36 +96,42 @@ __device__ void walk(const Stream& st, float* acc, int w, int base,
       run.w += sign.w * v.w;
     }
   }
-  if (cur >= 0) flush(acc, cur, c0, run);
+  if (cur >= 0) flush_run(acc, cur, c0, run);
 }
 
 __global__ void __launch_bounds__(THREADS)
 accum_kernel(Stream s1, Stream s2, int two, float* __restrict__ out,
-             int wrows) {
+             int wrows, int nslices, int slice) {
   extern __shared__ float4 acc4[];
   float* acc = reinterpret_cast<float*>(acc4);
-  const int w = blockIdx.x;
-  const int base = w * wrows;
-  const int n4 = wrows * LANES / 4;
+  const int w = blockIdx.x / nslices;
+  const int k = blockIdx.x % nslices;
+  const int r0 = w * wrows + k * slice;
+  const int nrows = min(slice, wrows - k * slice);
+  const int n4 = nrows * LANES / 4;
   for (int t = threadIdx.x; t < n4; t += THREADS)
     acc4[t] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
-  walk(s1, acc, w, base, wrows);
-  if (two) walk(s2, acc, w, base, wrows);
+  walk(s1, acc, w, r0, nrows);
+  if (two) walk(s2, acc, w, r0, nrows);
   __syncthreads();
-  float4* o = reinterpret_cast<float4*>(out + static_cast<size_t>(base) * LANES);
+  float4* o = reinterpret_cast<float4*>(out + static_cast<size_t>(r0) * LANES);
   for (int t = threadIdx.x; t < n4; t += THREADS) o[t] = acc4[t];
 }
 
 int launch(const Stream& s1, const Stream& s2, int two, float* out,
            int r_pad, int wrows, cudaStream_t stream) {
-  const int smem = wrows * LANES * static_cast<int>(sizeof(float));
+  // the window's rows in nslices near-equal slices of at most MAX_SLICE
+  const int nslices = (wrows + MAX_SLICE - 1) / MAX_SLICE;
+  const int slice = (wrows + nslices - 1) / nslices;
+  const int smem = slice * LANES * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       accum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int windows = r_pad / wrows;
   if (windows > 0)
-    accum_kernel<<<windows, THREADS, smem, stream>>>(s1, s2, two, out, wrows);
+    accum_kernel<<<windows * nslices, THREADS, smem, stream>>>(
+        s1, s2, two, out, wrows, nslices, slice);
   return static_cast<int>(cudaGetLastError());
 }
 

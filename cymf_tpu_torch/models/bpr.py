@@ -11,10 +11,16 @@ gradient, no factor 2).
 
 Port of `cymf_tpu/models/bpr.py` on two engines:
 
-- ``engine="xla"``: its single-chip packed path (``_fit_packed``, kernel
-  pipeline v4, numpy host prep): synchronous minibatches over packed
-  tables, the fused sample kernel and the sorted accumulations
-  (`ops/packed_epoch.py`);
+- ``engine="xla"``: its single-chip packed path (``_fit_packed``, numpy
+  host prep): synchronous minibatches over packed tables, the fused sample
+  kernels and the sorted accumulations (`ops/packed_epoch.py`).  The
+  kernel pipeline is the JAX package's data-dependent choice
+  (``packed_epoch.engine_version``, recorded in ``packed_kernel_``): v5 or
+  v6 where every chunk of a step's user-sorted stream spans few enough
+  packed rows (small or dense catalogs; v6 needs 512-row blocks, so
+  ``fit`` at its 256-row windows takes v5), v4 on sparse streams such as
+  ML-20M's, v7 only when ``CYMF_TPU_PACKED_KERNEL=7`` forces it.
+  ``neg_pool=P`` takes the shared-negative-pool pipeline v8;
 - ``engine="pallas"``: the sequential small-catalog engine
   (``_fit_pallas``, `ops/pallas_engine.py`): per-sample updates in groups
   of 8, one kernel launch an epoch, or one for the whole fit when no
@@ -25,11 +31,10 @@ replay the JAX package's numpy streams, so both packages train on
 identical inputs.
 
 Not ported yet (see ROADMAP.md, queue 1): the XLA batch engine
-(``packed="off"``), shared negative pools (``neg_pool``), the wide engine
-(``K >= 128``), checkpoints, the native C++ prep, device-side prep and the
-multi-device engines.  Each raises ``NotImplementedError`` under
-``engine="xla"``; ``engine="pallas"`` takes none of them, as in the JAX
-package.
+(``packed="off"``), the wide engine (``K >= 128``), checkpoints, the
+native C++ prep, device-side prep and the multi-device engines.  Each
+raises ``NotImplementedError`` under ``engine="xla"``;
+``engine="pallas"`` takes none of them, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,8 +46,11 @@ import torch
 
 from ..ops import packed as pk
 from ..ops import pallas_engine as pe
+from ..ops.fused_step import supports_v8
 from ..ops.packed_epoch import (make_packed_optimizer, packed_bpr_epoch,
-                                prep_epoch, prep_static, unpack_device)
+                                packed_bpr_pool_epoch, prep_epoch,
+                                prep_pool_epoch, prep_static,
+                                prep_static_pool, unpack_device)
 from .base import MFTrainerBase, PersistenceMixin, as_csr
 
 PAD_USER = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
@@ -94,7 +102,9 @@ class BPR(MFTrainerBase, PersistenceMixin):
         """Arguments as ``cymf_tpu.BPR``.  Under ``engine="xla"``,
         ``packed="auto"`` and ``"on"`` both run the packed engine, the only
         XLA engine ported so far; ``update_mode`` is validated and, as in
-        the JAX package's packed and sequential engines, has no effect."""
+        the JAX package's packed and sequential engines, has no effect.
+        ``neg_pool=P`` (a multiple of 128 in [128, 2048]) draws each
+        step's negatives from a pool of P items (pipeline v8)."""
         super().__init__(num_components, device=device)
         self.learning_rate = float(learning_rate)
         self.optimizer = optimizer
@@ -123,8 +133,6 @@ class BPR(MFTrainerBase, PersistenceMixin):
         # the sequential engine takes none of these, as in the JAX package
         if engine == "xla" and packed == "off":
             raise NotImplementedError(f"packed='off' {_LATER}")
-        if engine == "xla" and self.neg_pool:
-            raise NotImplementedError(f"neg_pool {_LATER}")
         if engine == "xla" and not pk.packable(self.num_components):
             raise NotImplementedError(
                 f"num_components >= 128 (the wide engine) {_LATER}")
@@ -167,10 +175,10 @@ class BPR(MFTrainerBase, PersistenceMixin):
         self._fit_packed(X, u2, i2, num_epochs, verbose, seed)
 
     def _fit_packed(self, X, u2, i2, num_epochs, verbose, seed):
-        """Packed tables + fused sample kernel + sorted accumulations
-        (pipeline v4) with host-side negative streams."""
+        """Packed tables + fused kernels + sorted accumulations with
+        host-side negative streams; the pipeline as ``prep_static`` (or,
+        with ``neg_pool``, v8) picks it."""
         self.prep_backend_ = "numpy"
-        self.packed_kernel_ = 4
         dev = self.device
         U, I = X.shape
         K = self.num_components
@@ -180,8 +188,21 @@ class BPR(MFTrainerBase, PersistenceMixin):
         rw = pk.packed_rows(U, K, multiple=wrows_w)
         rh = pk.logical_rows(I, multiple=wrows_h)
 
-        winw, si, rowsi, wini = prep_static(u2, i2, K, rw, rh, wrows_w,
-                                            wrows_h)
+        if self.neg_pool:
+            if not supports_v8(K, rw, wrows_w, self.neg_pool):
+                raise ValueError(
+                    f"neg_pool={self.neg_pool} unsupported at "
+                    f"num_components={K}: needs s*(K+1) <= 127 and a "
+                    "lane-aligned pool")
+            winw, si, rowsi, wini = prep_static_pool(
+                u2, i2, K, rw, rh, wrows_w, wrows_h)
+            wstart = bcs = bcn = np.zeros((u2.shape[0], 1), np.int32)
+            kernel_v = 8
+        else:
+            winw, wstart, si, rowsi, wini, bcs, bcn, kernel_v = \
+                prep_static(u2, i2, K, rw, rh, wrows_w, wrows_h)
+        # which pipeline runs (8/6/5/4, data-dependent; 7 when forced)
+        self.packed_kernel_ = kernel_v
         coo = X.tocoo()
         pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
 
@@ -194,6 +215,18 @@ class BPR(MFTrainerBase, PersistenceMixin):
         ow, oh = opt.init(Wp), opt.init(Hp)
         static = [put(a) for a in (u2, i2, si, rowsi, wini)]
         winw_d = put(winw)
+        blocks = [put(a) for a in (wstart, bcs, bcn)]
+        kw = dict(opt_name=self.optimizer, lr=self.learning_rate,
+                  weight_decay=self.weight_decay, K=K, rw=rw, rh=rh,
+                  wrows_w=wrows_w, wrows_h=wrows_h)
+        rjs_d = None
+        if kernel_v == 8:
+            # the per-sample pool slots are drawn once per fit (a fresh
+            # uniform pool each epoch makes j = pool[r] as uniform as
+            # redrawing r); each epoch draws its pool from (seed, epoch)
+            r2_fit = np.random.default_rng((seed, 1 << 20)).integers(
+                0, self.neg_pool, u2.shape, dtype=np.int32)
+            rjs_d = put(r2_fit.reshape(u2.shape[0], u2.shape[1] // 128, 128))
 
         def publish():
             self._state = {"W": unpack_device(Wp, K), "H": Hp[:, :K],
@@ -207,15 +240,21 @@ class BPR(MFTrainerBase, PersistenceMixin):
             nonlocal loss
             t0 = time.perf_counter()
             rng = np.random.default_rng((seed, epoch))
-            j2, mask, sj, rowsj, winj = prep_epoch(
-                rng, u2, i2, pos_keys, U, I, K, rh, wrows_h)
-            t1 = time.perf_counter()
-            loss = packed_bpr_epoch(
-                Wp, Hp, ow, oh, *static,
-                *(put(a) for a in (j2, mask, sj, rowsj, winj)), winw_d, N,
-                opt_name=self.optimizer, lr=self.learning_rate,
-                weight_decay=self.weight_decay, K=K, rw=rw, rh=rh,
-                wrows_w=wrows_w, wrows_h=wrows_h)
+            if kernel_v == 8:
+                pool2, _, mask, _ = prep_pool_epoch(
+                    rng, u2, pos_keys, U, I, self.neg_pool, r2=r2_fit)
+                t1 = time.perf_counter()
+                loss = packed_bpr_pool_epoch(
+                    Wp, Hp, ow, oh, *static, put(pool2), rjs_d, put(mask),
+                    winw_d, N, **kw)
+            else:
+                j2, mask, sj, rowsj, winj = prep_epoch(
+                    rng, u2, i2, pos_keys, U, I, K, rh, wrows_h)
+                t1 = time.perf_counter()
+                loss = packed_bpr_epoch(
+                    Wp, Hp, ow, oh, *static,
+                    *(put(a) for a in (j2, mask, sj, rowsj, winj)), winw_d,
+                    *blocks, N, kernel_v=kernel_v, **kw)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             self.epoch_times_.append(

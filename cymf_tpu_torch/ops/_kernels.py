@@ -9,12 +9,17 @@ includes PyTorch's headers, so the build takes seconds.  Importing this
 module builds nothing: the CPU tests import every module of the port.
 
 Each C entry point takes device pointers, ints and the CUDA stream, and
-returns ``cudaGetLastError()`` after its launch; :func:`check` raises on
-anything but 0.  A failed build raises too: there is no fallback.
+returns ``cudaGetLastError()`` after its launch; every wrapper calls it
+through :func:`launch`, which raises on anything but 0.  A failed build
+raises too: there is no fallback.
 
 The kernels, by source and the wrapper that launches them:
 
 - ``bpr_sample.cu``: ``fused_sample.bpr_sample_phase``;
+- ``bpr_fused.cu``: ``fused_sample.bpr_sample_phase_v5``,
+  ``fused_step.bpr_block_step_v6``, ``fused_step.bpr_range_step_v7`` and
+  ``fused_step.bpr_pool_step_v8`` (the per-sample math of these and of
+  ``bpr_sample.cu`` is the one device function of ``bpr_math.cuh``);
 - ``glove_sample.cu``: ``glove_epoch.glove_sample_phase`` (GloVe and
   RelMF);
 - ``sorted_accum.cu``: ``sorted_accum.sorted_accum`` and
@@ -24,9 +29,9 @@ The kernels, by source and the wrapper that launches them:
   ``pallas_engine.relmf_pallas_epoch`` and
   ``pallas_engine.glove_pallas_epoch``.
 
-:data:`launches` counts kernel launches per wrapper.  A wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that the
-main path went through each kernel.
+:data:`launches` counts kernel launches per wrapper.  :func:`launch` adds
+one where it launches a kernel, and nothing else adds to it, so a run can
+show that the main path went through each kernel.
 """
 
 from __future__ import annotations
@@ -53,6 +58,11 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "cymf_bpr_sample_blocks": [_I],
     "cymf_bpr_sample_phase": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "cymf_bpr_v5_blocks": [_I],
+    "cymf_bpr_sample_phase_v5": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "cymf_bpr_block_step_v6": [_P] * 9 + [_I] * 7 + [_F, _P],
+    "cymf_bpr_range_step_v7": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "cymf_bpr_pool_step_v8": [_P] * 10 + [_I] * 8 + [_F, _P],
     "cymf_glove_sample_blocks": [_I],
     "cymf_glove_sample_phase": [_P] * 6 + [_I] * 4 + [_P],
     "cymf_sorted_accum": [_P] * 5 + [_I] * 3 + [_P],
@@ -160,6 +170,20 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = lib().cymf_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")
+
+
+def launch(name: str, device: torch.device, *args,
+           entry: str | None = None) -> None:
+    """Calls the C entry point ``entry`` (``cymf_<name>`` by default) on
+    ``device`` with ``args`` (tensors as their device pointers) and
+    PyTorch's current stream last; raises on a launch error, else counts
+    one launch of ``name``."""
+    with torch.cuda.device(device):
+        err = getattr(lib(), entry or f"cymf_{name}")(
+            *(a.data_ptr() if torch.is_tensor(a) else a for a in args),
+            stream(device))
+    check(err, name)
+    launches[name] += 1
 
 
 def stream(device: torch.device) -> int:

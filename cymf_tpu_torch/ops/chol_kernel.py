@@ -75,10 +75,6 @@ def chol_inv_batched(A: torch.Tensor, block: int = 64):
     Linv = torch.empty_like(L)
     if C == 0:
         return L, Linv
-    with torch.cuda.device(dev):
-        err = _kernels.lib().cymf_chol_inv_batched(
-            A.data_ptr(), A.stride(0), A.stride(1), L.data_ptr(),
-            Linv.data_ptr(), C, block, _kernels.stream(dev))
-    _kernels.check(err, "chol_inv_batched")
-    _kernels.launches["chol_inv_batched"] += 1
+    _kernels.launch("chol_inv_batched", dev, A, A.stride(0), A.stride(1), L,
+                    Linv, C, block)
     return L, Linv

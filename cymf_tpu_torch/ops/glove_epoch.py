@@ -138,13 +138,8 @@ def glove_sample_phase(Du: torch.Tensor, Dx: torch.Tensor, *, Kp: int):
     partials = torch.empty(max(lib.cymf_glove_sample_blocks(B), 1),
                            dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.cymf_glove_sample_phase(
-            Du.data_ptr(), Dx.data_ptr(), SW.data_ptr(), Q.data_ptr(),
-            partials.data_ptr(), loss.data_ptr(), B, int(Kp),
-            pk.num_slots(Kp), pk.count_base(Kp), _kernels.stream(dev))
-    _kernels.check(err, "glove_sample_phase")
-    _kernels.launches["glove_sample_phase"] += 1
+    _kernels.launch("glove_sample_phase", dev, Du, Dx, SW, Q, partials, loss,
+                    B, int(Kp), pk.num_slots(Kp), pk.count_base(Kp))
     return SW, Q, loss
 
 

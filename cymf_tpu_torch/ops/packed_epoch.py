@@ -1,27 +1,45 @@
-"""Packed-table fused BPR epoch, pipeline v4 — the single-chip fast path.
+"""Packed-table fused BPR epochs — the single-chip fast path.
 
 Port of `cymf_tpu/ops/packed_epoch.py` for one device.  Each step of an
-epoch (a Python loop in place of ``lax.scan``):
+epoch (a Python loop in place of ``lax.scan``) runs one of the JAX
+package's kernel pipelines, picked per fit from the data by
+:func:`engine_version` (:func:`prep_static` returns it):
 
-1. gathers the packed user rows ``Wp[u // s]`` and the logical item rows
-   ``Hp[i]``, ``Hp[j]`` (plain ``index_select``) and decorates the user rows
-   with the mask-scaled slot one-hot;
-2. runs the fused sample kernel (:func:`~.fused_sample.bpr_sample_phase`);
-3. accumulates the W side over the user-sorted stream
-   (:func:`~.sorted_accum.sorted_accum`);
-4. accumulates both H sides into one buffer by the host-computed item
-   sort permutations (:func:`~.sorted_accum.sorted_accum_dual`);
-5. runs one packed optimizer pass per table.
+- v4 (any data): gather the packed user rows ``Wp[u // s]`` and the
+  logical item rows ``Hp[i]``, ``Hp[j]``, decorate the user rows with the
+  mask-scaled slot one-hot, run the fused sample kernel
+  (:func:`~.fused_sample.bpr_sample_phase`) and accumulate the W side over
+  the user-sorted stream (:func:`~.sorted_accum.sorted_accum`);
+- v5 (every 512-sample tile's packed rows fit a ``WROWS_A``-row window):
+  the sample kernel reads the W rows itself
+  (:func:`~.fused_sample.bpr_sample_phase_v5`), the decoration rides on the
+  j rows, then the same W accumulation;
+- v6 (every 1024-sample chunk fits ``CROWS`` rows, ``wrows_w >= CROWS``):
+  one kernel does the v5 sample phase and the W accumulation
+  (:func:`~.fused_step.bpr_block_step_v6`), the loss on lane 127;
+- v7 (only when forced, ``CYMF_TPU_PACKED_KERNEL=7``): the v4 gathers and
+  one kernel for the sample phase and the W accumulation by window
+  (:func:`~.fused_step.bpr_range_step_v7`).
+
+Every pipeline then accumulates both H sides into one buffer by the
+host-computed item sort permutations
+(:func:`~.sorted_accum.sorted_accum_dual`) and runs one packed optimizer
+pass per table.  :func:`packed_bpr_pool_epoch` is the v8 engine of
+``BPR(neg_pool=P)``: negatives from a per-step pool of ``P`` items, the
+pool side summed in the kernel (:func:`~.fused_step.bpr_pool_step_v8`) and
+scattered with one ``P``-row ``index_add_``.
 
 Weight decay is rebuilt per row as ``wd * n_r * T_r`` from the live-sample
 counts of the count channel, and a row is touched iff a live sample hit
 it: the count-based mask of the JAX package, never a value-based one.
 
 Host prep is the numpy branch of the JAX package, verbatim
-(:func:`prep_static` for the v4 streams, :func:`prep_epoch` with the same
-``default_rng((seed, epoch))`` draws), so both packages train on the same
-streams.  The data-gated v5/v6 pipelines, the v7/v8 variants and the
-device-side prep are not ported yet; the native C++ prep is not either.
+(:func:`prep_static`, :func:`prep_epoch` with the same
+``default_rng((seed, epoch))`` draws, :func:`prep_static_pool`,
+:func:`prep_pool_epoch`), so both packages train on the same streams and
+pick the same pipeline.  The device-side prep
+(``packed_bpr_epoch_device_j``) and the native C++ prep with its reject
+filter are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,8 +47,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import os
+
 from . import packed as pk
-from .fused_sample import bpr_sample_phase, decorate
+from .fused_sample import (TILE as SAMPLE_TILE, WROWS_A, bpr_sample_phase,
+                           bpr_sample_phase_v5, decorate)
+from .fused_step import (CROWS, LOSS_LANE, bpr_block_step_v6,
+                         bpr_pool_step_v8, bpr_range_step_v7, prep_blocks,
+                         supports_v6, supports_v7)
 from .sorted_accum import sorted_accum, sorted_accum_dual, window_ranges
 
 # window-range alignment tile of the JAX package's default
@@ -115,13 +139,32 @@ def _pad_lanes(a: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(a, (0, pk.LANES - a.shape[1]))
 
 
+def _update_w(opt, Wp, ow, Aw, K: int, wd: float) -> None:
+    """The W table's optimizer pass from its accumulated step sums."""
+    cb = pk.count_base(K)
+    gw, nw = pk.split_counts(Aw, K)
+    nwE = pk.expand_counts(nw, K)
+    opt.update(Wp, ow, _pad_lanes(-gw + wd * nwE * Wp[:, :cb]),
+               _pad_lanes(nwE > 0))
+
+
+def _update_h(opt, Hp, oh, D, K: int, wd: float) -> None:
+    """The logical H table's optimizer pass from ``D = Aj - Ai`` on the
+    payload lanes with the live counts summed at lane ``K``."""
+    payb = torch.arange(pk.LANES, device=Hp.device) < K
+    nh = D[:, K:K + 1]
+    opt.update(Hp, oh, (D + wd * nh * Hp) * payb.to(Hp.dtype),
+               (nh > 0) & payb)
+
+
 @torch.no_grad()
 def packed_bpr_epoch(Wp, Hp, ow, oh, u_steps, i_steps, si_steps,
                      rowsi_steps, wini, j_steps, mask_steps, sj_steps,
-                     rowsj_steps, winj, winw, n_valid: int, *,
-                     opt_name: str, lr: float, weight_decay: float, K: int,
-                     rw: int, rh: int, wrows_w: int = 256,
-                     wrows_h: int = 256) -> torch.Tensor:
+                     rowsj_steps, winj, winw, wstart_steps, cs_steps,
+                     cn_steps, n_valid: int, *, opt_name: str, lr: float,
+                     weight_decay: float, K: int, rw: int, rh: int,
+                     wrows_w: int = 512, wrows_h: int = 512,
+                     kernel_v: int = 4) -> torch.Tensor:
     """One epoch over S pre-sorted minibatches; returns the mean loss
     (0-d tensor, ``sum / max(n_valid, 1)`` with ``n_valid`` the sample
     count, not the live count).
@@ -141,34 +184,57 @@ def packed_bpr_epoch(Wp, Hp, ow, oh, u_steps, i_steps, si_steps,
       mask_steps uint8[S, B]     1 = live sample (in data, no collision)
       sj/rowsj/winj              j-side analogues of si/rowsi/wini
       winw int32[S, 2, rw/wrows_w]      W-side windows over u // s
+      wstart_steps int32[S, B/512 or B/1024]  per-chunk W expansion
+                                 window starts (v5, v6)
+      cs_steps/cn_steps int32[S, rw/wrows_w]  per-block home chunk
+                                 ranges (v6, `prep_blocks`)
+
+    ``kernel_v`` is the pipeline :func:`prep_static` returned for these
+    streams (the module docstring).
     """
     opt = make_packed_optimizer(opt_name, lr)
     wd = float(weight_decay)
     s = pk.num_slots(K)
-    cb = pk.count_base(K)
-    lane = torch.arange(pk.LANES, device=Wp.device)
-    payb = lane < K
-    payf = payb.to(Wp.dtype)
+    if kernel_v == 5 and s < 2:
+        raise ValueError("kernel_v=5 requires >= 2 slots per row")
+    kw = dict(K=K, wd=wd)
     loss = torch.zeros((), dtype=torch.float32, device=Wp.device)
     for t in range(u_steps.shape[0]):
         u, mf = u_steps[t], mask_steps[t].to(torch.float32)
         phys_u, slot_u = u // s, u % s
-        # clamp only the gather index: padding sentinels stay >= rw so the
-        # accumulation drops them, and the kernel mask-zeroes their values
-        Du = decorate(Wp.index_select(0, phys_u.clamp(max=rw - 1)), slot_u,
-                      mf, K)
-        SW, Q, loss_t = bpr_sample_phase(
-            Du, Hp.index_select(0, i_steps[t]),
-            Hp.index_select(0, j_steps[t]), K=K, wd=wd)
-        loss += loss_t
-
-        Aw = sorted_accum(phys_u, SW, winw[t, 0], winw[t, 1], r_pad=rw,
-                          wrows=wrows_w)
-        gw, nw = pk.split_counts(Aw, K)
-        nwE = pk.expand_counts(nw, K)
-        gbw = _pad_lanes(-gw + wd * nwE * Wp[:, :cb])
-        mw = _pad_lanes(nwE > 0)
-        opt.update(Wp, ow, gbw, mw)
+        Di = Hp.index_select(0, i_steps[t])
+        if kernel_v in (5, 6):
+            # the W rows are read in the kernel; the mask and slot ride on
+            # the j rows' count lanes
+            Dj = decorate(Hp.index_select(0, j_steps[t]), slot_u, mf, K)
+            if kernel_v == 6:
+                Aw, Q = bpr_block_step_v6(
+                    Wp, phys_u, Di, Dj, wstart_steps[t], cs_steps[t],
+                    cn_steps[t], rw=rw, wrows=wrows_w, **kw)
+                loss += Aw[:, LOSS_LANE].sum()
+            else:
+                SW, Q, loss_t = bpr_sample_phase_v5(
+                    Wp, wstart_steps[t], phys_u, Di, Dj, **kw)
+                loss += loss_t
+        else:
+            # clamp only the gather index: padding sentinels stay >= rw so
+            # the accumulation drops them, and the kernel mask-zeroes their
+            # values
+            Du = decorate(Wp.index_select(0, phys_u.clamp(max=rw - 1)),
+                          slot_u, mf, K)
+            Dj = Hp.index_select(0, j_steps[t])
+            if kernel_v == 7:
+                Aw, Q = bpr_range_step_v7(phys_u, Du, Di, Dj, winw[t, 0],
+                                          winw[t, 1], rw=rw, wrows=wrows_w,
+                                          **kw)
+                loss += Aw[:, LOSS_LANE].sum()
+            else:
+                SW, Q, loss_t = bpr_sample_phase(Du, Di, Dj, **kw)
+                loss += loss_t
+        if kernel_v not in (6, 7):
+            Aw = sorted_accum(phys_u, SW, winw[t, 0], winw[t, 1], r_pad=rw,
+                              wrows=wrows_w)
+        _update_w(opt, Wp, ow, Aw, K, wd)
 
         # logical H: one dual-stream accumulation yields Aj - Ai on the
         # payload lanes with the live counts summed at lane K
@@ -176,10 +242,62 @@ def packed_bpr_epoch(Wp, Hp, ow, oh, u_steps, i_steps, si_steps,
             rowsi_steps[t], Q.index_select(0, si_steps[t]), wini[t, 0],
             wini[t, 1], rowsj_steps[t], Q.index_select(0, sj_steps[t]),
             winj[t, 0], winj[t, 1], r_pad=rh, neg_lanes=K, wrows=wrows_h)
-        nh = D[:, K:K + 1]
-        gbh = (D + wd * nh * Hp) * payf
-        mh = (nh > 0) & payb
-        opt.update(Hp, oh, gbh, mh)
+        _update_h(opt, Hp, oh, D, K, wd)
+    return loss / max(int(n_valid), 1)
+
+
+@torch.no_grad()
+def packed_bpr_pool_epoch(Wp, Hp, ow, oh, u_steps, i_steps, si_steps,
+                          rowsi_steps, wini, pool_steps, rj_steps,
+                          mask_steps, winw, n_valid: int, *, opt_name: str,
+                          lr: float, weight_decay: float, K: int, rw: int,
+                          rh: int, wrows_w: int = 512,
+                          wrows_h: int = 512) -> torch.Tensor:
+    """Shared-negative-pool epoch (``BPR(neg_pool=P)``, pipeline v8).
+
+    Draws each step's negatives from a P-item pool: ``j[b] =
+    pool[rj[b]]``, marginally uniform over the catalog, but a step's
+    samples share P candidate items.  The negative-side gather, its
+    reorder and the j half of the dual accumulation become the v8 kernel's
+    pool reads and pool sum (:func:`~.fused_step.bpr_pool_step_v8`), plus
+    one P-row gather and one P-row ``index_add_`` a step.
+
+      pool_steps int32[S, P]   per-step pool item ids
+      rj_steps int32[S, B/128, 128]  folded per-sample pool slots
+      mask_steps uint8[S, B]   1 = live (in data, pool draw no collision)
+
+    The other streams and the optimizer pass are :func:`packed_bpr_epoch`'s
+    (``winw`` from :func:`prep_static_pool`).  Updates IN PLACE; returns
+    the mean loss.
+    """
+    opt = make_packed_optimizer(opt_name, lr)
+    wd = float(weight_decay)
+    s = pk.num_slots(K)
+    lane = torch.arange(pk.LANES, device=Wp.device)
+    sv_neg = torch.where(lane < K, -1.0, 1.0)[None, :]
+    loss = torch.zeros((), dtype=torch.float32, device=Wp.device)
+    for t in range(u_steps.shape[0]):
+        u, mf = u_steps[t], mask_steps[t].to(torch.float32)
+        phys_u, slot_u = u // s, u % s
+        Du = decorate(Wp.index_select(0, phys_u.clamp(max=rw - 1)), slot_u,
+                      mf, K)
+        pool = pool_steps[t]
+        Aw, Apool, Q = bpr_pool_step_v8(
+            phys_u, rj_steps[t], Du, Hp.index_select(0, i_steps[t]),
+            Hp.index_select(0, pool), winw[t, 0], winw[t, 1], K=K, wd=wd,
+            rw=rw, wrows=wrows_w)
+        loss += Aw[:, LOSS_LANE].sum()
+        _update_w(opt, Wp, ow, Aw, K, wd)
+
+        # H side: the i stream by sorted accumulation, the pool stream by
+        # one P-row scatter-add (ids outside the table drop, as the JAX
+        # scatter's mode="drop"); D is sorted_accum_dual's Aj - Ai
+        Ai = sorted_accum(rowsi_steps[t], Q.index_select(0, si_steps[t]),
+                          wini[t, 0], wini[t, 1], r_pad=rh, wrows=wrows_h)
+        inside = (pool >= 0) & (pool < rh)
+        Aj = torch.zeros_like(Ai).index_add_(
+            0, pool.clamp(0, rh - 1).long(), Apool * inside[:, None])
+        _update_h(opt, Hp, oh, Aj + Ai * sv_neg, K, wd)
     return loss / max(int(n_valid), 1)
 
 
@@ -230,16 +348,153 @@ def _reject_mask(u2, j2, pos_keys, num_users: int, num_items: int):
     return (in_data & ~collide).astype(np.uint8)
 
 
+def _spans_fit(pu2, stride: int, margin: int, rw: int) -> bool:
+    """True iff EVERY `stride`-sample chunk of every step's (sorted)
+    packed-row stream fits a `margin`-row expansion window anchored at
+    its first row (clipped to ``rw - margin``).  The naive bound
+    "a chunk of `stride` sorted samples spans <= ceil(stride/s)+1 rows"
+    only holds when the chunk's users are CONSECUTIVE — a sparse batch
+    (users absent from this step) has gaps, and a chunk's row span is
+    unbounded.  Samples outside the window would silently expand to a
+    zero W row (wrong gradients), so the engine version gate is DATA
+    dependent; chunked streams that do not fit fall back to the
+    W-gather pipeline (v4), which is span-independent.
+
+    Padding samples (PAD_USER sentinel — rows >= rw, sorted last) are
+    excluded: their one-hot never matches and their mask is 0, so their
+    expanded values are irrelevant."""
+    S, B = pu2.shape
+    ch = pu2.reshape(S, B // stride, stride)
+    first = ch[:, :, 0]
+    # per-chunk max over in-table rows only (-1 when the chunk is all
+    # padding — trivially fits)
+    lastv = np.where(ch < rw, ch, -1).max(axis=2)
+    return bool(np.all((lastv - first < margin) | (first > rw - margin)
+                       | (lastv < 0)))
+
+
+def engine_version(K: int, rw: int, wrows_w: int, u2=None,
+                   tile: int = TILE) -> int:
+    """Which fused kernel pipeline the packed engine runs for THESE
+    batches: 6 (fused sample + W-accumulation block kernel — needs chunk
+    row spans to fit), 5 (in-kernel W expansion sample kernel + separate
+    accumulation — needs spans to fit), 7 (fused sample + W-accumulation
+    over a GATHERED Du stream — span-independent), or 4 (W gather +
+    sample kernel + separate accumulation — always available).  ``u2`` is
+    the [S, B] sorted user stream; without it only the static gates apply
+    (shape-only callers).  The JAX package's switches, read the same way:
+    ``CYMF_TPU_PACKED_KERNEL=4|5|6|7`` forces (5/6/7 still subject to
+    their correctness gates), ``CYMF_TPU_PACKED_V6=0`` disables v6.  v7 is
+    taken only when forced, as in the JAX package (its TPU measurement
+    found it slower than v4)."""
+    s = pk.num_slots(K)
+    forced = os.environ.get("CYMF_TPU_PACKED_KERNEL", "")
+    no_v6 = os.environ.get("CYMF_TPU_PACKED_V6", "").lower() in (
+        "0", "off", "false") or forced in ("4", "5", "7")
+    if forced == "4":
+        return 4
+    pu2 = None
+    if u2 is not None:
+        pu2 = np.minimum(np.asarray(u2).astype(np.int64) // s,
+                         np.iinfo(np.int32).max)
+    if not no_v6 and supports_v6(K, rw, wrows_w) and (
+            pu2 is None or _spans_fit(pu2, tile, CROWS, rw)):
+        return 6
+    wrows_a = min(WROWS_A, rw)
+    if forced != "7" and s >= 2 \
+            and wrows_a >= min(-(-SAMPLE_TILE // s) + 1, rw) and (
+            pu2 is None or _spans_fit(pu2, SAMPLE_TILE, wrows_a, rw)):
+        return 5
+    if forced == "7" and supports_v7(K, rw, wrows_w):
+        return 7
+    return 4
+
+
+def _reanchor_last(winw_t, B: int, tile: int) -> None:
+    """v7/v8: the last window's range extends over the padding tail so
+    every sample's Q row gets written (mask-zeroed for padding);
+    re-anchor so its chunk grid ends exactly at B."""
+    nb = winw_t.shape[1]
+    st = int(winw_t[0, nb - 1])
+    st2 = B - -(-(B - st) // tile) * tile
+    winw_t[0, nb - 1] = st2
+    winw_t[1, nb - 1] = B - st2
+
+
 def prep_static(u2, i2, K: int, rw: int, rh: int, wrows_w: int,
                 wrows_h: int, tile: int = TILE):
-    """Once per fit, the v4 part of the JAX package's ``prep_static``:
-    the W-side windows over the sorted packed rows, and the full i-side
-    prep (batch composition is fixed across epochs, `bpr.pyx:104`).
+    """Once per fit: W-side windows (u is pre-sorted), the per-chunk W
+    expansion window starts (v5/v6 kernels), the v6 per-block home-chunk
+    ranges, and the full i-side prep (batch composition is fixed across
+    epochs, `bpr.pyx:104`).
+
+    Returns ``(winw, wstart, si, rowsi, wini, cs, cn, version)`` —
+    ``version`` is the data-dependent kernel version
+    (:func:`engine_version`) and MUST be passed to
+    :func:`packed_bpr_epoch` as ``kernel_v``."""
+    S, B = u2.shape
+    s = pk.num_slots(K)
+    version = engine_version(K, rw, wrows_w, u2=u2, tile=tile)
+    stride = tile if version == 6 else SAMPLE_TILE
+    margin = CROWS if version == 6 else min(WROWS_A, rw)
+    nT = B // stride if version in (5, 6) else 1
+    nb = rw // wrows_w
+    winw = _packed_windows(u2, s, rw, wrows_w, tile)
+    wstart = np.zeros((S, nT), np.int32)
+    cs = np.zeros((S, nb), np.int32)
+    cn = np.zeros((S, nb), np.int32)
+    for t in range(S):
+        if version == 7:
+            _reanchor_last(winw[t], B, tile)
+        if version in (5, 6):
+            # each chunk's expansion window starts at its first row
+            # (spans proven to fit by the engine_version gate)
+            pu = np.minimum(u2[t, ::stride].astype(np.int64) // s,
+                            np.iinfo(np.int32).max)
+            wstart[t] = np.clip(pu, 0, max(rw - margin, 0)).astype(np.int32)
+        if version == 6:
+            cs[t], cn[t] = prep_blocks(wstart[t], rw, wrows_w)
+    si, rowsi, wini = _sorted_side(i2, rh, wrows_h, tile)
+    return winw, wstart, si, rowsi, wini, cs, cn, version
+
+
+def prep_static_pool(u2, i2, K: int, rw: int, rh: int, wrows_w: int,
+                     wrows_h: int, tile: int = TILE):
+    """:func:`prep_static` for the pool engine (v8): W-side windows with
+    the v7-style last-window re-anchor (every sample's Q row written,
+    padding mask-zeroed) plus the i-side prep.  No expansion-window /
+    home-block prep — v8 is span-independent.
 
     Returns ``(winw, si, rowsi, wini)``."""
+    S, B = u2.shape
     winw = _packed_windows(u2, pk.num_slots(K), rw, wrows_w, tile)
+    for t in range(S):
+        _reanchor_last(winw[t], B, tile)
     si, rowsi, wini = _sorted_side(i2, rh, wrows_h, tile)
     return winw, si, rowsi, wini
+
+
+def prep_pool_epoch(rng: np.random.Generator, u2: np.ndarray,
+                    pos_keys: np.ndarray, num_users: int, num_items: int,
+                    P: int, r2=None):
+    """Per-epoch pool prep: P pool items per step (uniform, with
+    replacement), per-sample pool slots, and the rejection mask — the
+    pool analogue of :func:`prep_epoch`'s draws (`bpr.pyx:165-167`).
+    The numpy (PCG64) stream of the JAX package's ``prep_pool_epoch``.
+
+    ``r2`` (per-sample pool slots) may be drawn ONCE per fit and passed
+    in: with a fresh uniform pool every epoch, ``j = pool_e[r]`` is
+    distributionally identical whether ``r`` is redrawn or fixed.
+
+    Returns ``(pool2 int32[S, P], rjs int32[S, B/128, 128], mask uint8,
+    j2 int32[S, B])``."""
+    S, B = u2.shape
+    pool2 = rng.integers(0, num_items, (S, P), dtype=np.int32)
+    if r2 is None:
+        r2 = rng.integers(0, P, (S, B), dtype=np.int32)
+    j2 = pool2[np.arange(S)[:, None], r2]
+    mask = _reject_mask(u2, j2, pos_keys, num_users, num_items)
+    return pool2, r2.reshape(S, B // 128, 128), mask, j2
 
 
 def prep_epoch(rng: np.random.Generator, u2: np.ndarray, i2: np.ndarray,

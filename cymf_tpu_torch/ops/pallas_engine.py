@@ -283,13 +283,9 @@ def _launch(name, entry, tables, ints, floats, mask, chunk, group, tail):
         raise ValueError(f"{name} takes group <= "
                          f"{lib.cymf_seq_epoch_max_group()}, got {group}")
     loss = torch.empty((), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(lib, entry)(
-            *(t.data_ptr() for t in tables), *(t.shape[0] for t in tables),
-            *(s.data_ptr() for s in ints + floats + [mask]), mask.numel(),
-            chunk, group, *tail, loss.data_ptr(), _kernels.stream(dev))
-    _kernels.check(err, name)
-    _kernels.launches[name] += 1
+    _kernels.launch(name, dev, *tables, *(t.shape[0] for t in tables),
+                    *ints, *floats, mask, mask.numel(), chunk, group, *tail,
+                    loss, entry=entry)
     return loss
 
 

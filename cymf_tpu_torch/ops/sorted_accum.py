@@ -5,7 +5,9 @@ target rows sorted and the host computes, per window of ``wrows`` output
 rows, the sample range that can hit it (:func:`window_ranges`, verbatim).
 On a CUDA tensor :func:`sorted_accum` and :func:`sorted_accum_dual`
 launch the hand-written kernels of ``csrc/sorted_accum.cu`` (one CTA per
-window, the window's accumulator in shared memory); on a CPU tensor they
+window, or per slice of at most 256 rows of a larger window, its
+accumulator in shared memory: any ``wrows`` the JAX package takes, its
+default 512 included); on a CPU tensor they
 run their plain PyTorch versions, an ``index_add_`` that needs no window
 ranges.  Sums come in another order than a sequential scatter, so results
 agree to float32 round-off, not bit for bit.
@@ -23,8 +25,6 @@ import torch
 from . import _kernels
 
 LANES = 128
-# shared memory one CTA can use on Hopper (bytes)
-MAX_SMEM = 232448
 
 
 def window_ranges(rows_sorted: np.ndarray, r_pad: int, wrows: int,
@@ -125,14 +125,12 @@ def _check_shapes(g, r_pad: int, wrows: int) -> None:
 
 def _check_cuda(rows, g, starts, counts, r_pad: int, wrows: int, what: str):
     """The kernel's contract: width 128 f32 rows, int32 row ids and
-    window ranges, one window's accumulator in shared memory."""
+    window ranges."""
     dev = g.device
     _kernels.require(g, f"{what} gradients", torch.float32, dev, ndim=2)
     if g.shape[1] != LANES:
         raise ValueError(f"the CUDA kernel takes width {LANES}, "
                          f"got {g.shape[1]}")
-    if wrows * LANES * 4 > MAX_SMEM:
-        raise ValueError(f"wrows={wrows} window does not fit shared memory")
     _kernels.require(rows, f"{what} rows", torch.int32, dev)
     for t, name in ((starts, "starts"), (counts, "counts")):
         _kernels.require(t, f"{what} {name}", torch.int32, dev, ndim=1)
@@ -141,7 +139,7 @@ def _check_cuda(rows, g, starts, counts, r_pad: int, wrows: int, what: str):
 
 
 def sorted_accum(rows, g, starts, counts, *, r_pad: int,
-                 wrows: int = 256) -> torch.Tensor:
+                 wrows: int = 512) -> torch.Tensor:
     """Accumulate ``g[b]`` into output row ``rows[b]``.
 
     Args:
@@ -165,20 +163,14 @@ def sorted_accum(rows, g, starts, counts, *, r_pad: int,
     _check_cuda(rows, g, starts, counts, r_pad, wrows, "sorted_accum")
     rows = _rows_flat(rows, g.shape[0])
     out = torch.empty((r_pad, LANES), dtype=torch.float32, device=g.device)
-    lib = _kernels.lib()
-    with torch.cuda.device(g.device):
-        err = lib.cymf_sorted_accum(
-            rows.data_ptr(), g.data_ptr(), starts.data_ptr(),
-            counts.data_ptr(), out.data_ptr(), g.shape[0], r_pad, wrows,
-            _kernels.stream(g.device))
-    _kernels.check(err, "sorted_accum")
-    _kernels.launches["sorted_accum"] += 1
+    _kernels.launch("sorted_accum", g.device, rows, g, starts, counts, out,
+                    g.shape[0], r_pad, wrows)
     return out
 
 
 def sorted_accum_dual(rows_i, gi, starts_i, counts_i, rows_j, gj, starts_j,
                       counts_j, *, r_pad: int, neg_lanes: int,
-                      wrows: int = 256) -> torch.Tensor:
+                      wrows: int = 512) -> torch.Tensor:
     """Two sorted streams into one buffer:
     ``scatter(rows_j, gj) + scatter(rows_i, gi * sign)`` with ``sign = -1``
     on lanes ``< neg_lanes`` and ``+1`` elsewhere, i.e. ``Aj - Ai`` on the
@@ -201,14 +193,7 @@ def sorted_accum_dual(rows_i, gi, starts_i, counts_i, rows_j, gj, starts_j,
     rows_i = _rows_flat(rows_i, gi.shape[0])
     rows_j = _rows_flat(rows_j, gj.shape[0])
     out = torch.empty((r_pad, LANES), dtype=torch.float32, device=gi.device)
-    lib = _kernels.lib()
-    with torch.cuda.device(gi.device):
-        err = lib.cymf_sorted_accum_dual(
-            rows_i.data_ptr(), gi.data_ptr(), starts_i.data_ptr(),
-            counts_i.data_ptr(), rows_j.data_ptr(), gj.data_ptr(),
-            starts_j.data_ptr(), counts_j.data_ptr(), out.data_ptr(),
-            gi.shape[0], gj.shape[0], r_pad, wrows, int(neg_lanes),
-            _kernels.stream(gi.device))
-    _kernels.check(err, "sorted_accum_dual")
-    _kernels.launches["sorted_accum_dual"] += 1
+    _kernels.launch("sorted_accum_dual", gi.device, rows_i, gi, starts_i,
+                    counts_i, rows_j, gj, starts_j, counts_j, out,
+                    gi.shape[0], gj.shape[0], r_pad, wrows, int(neg_lanes))
     return out

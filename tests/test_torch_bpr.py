@@ -1,11 +1,13 @@
 """The port's BPR trainer as a whole, against ``cymf_tpu.BPR``.
 
-The JAX side runs ``_fit_packed`` on one device with the v4 pipeline and
-the numpy prep stream, its Pallas kernels in interpret mode.  Both
-packages replay the same init, shuffle and negative streams, so after two
-epochs the tables agree up to the JAX fit's bf16 hi+lo ("split")
-accumulation, about 2^-18 relative per sum: ``rtol 1e-3, atol 1e-4`` for
-sgd.  Under Adam an element whose first update lands near zero can take
+The JAX side runs ``_fit_packed`` on one device with the numpy prep
+stream, its Pallas kernels in interpret mode: pinned to the v4 pipeline,
+unpinned (both packages pick v5 on this small catalog), forced to v7 by
+``CYMF_TPU_PACKED_KERNEL=7``, and with ``neg_pool`` (v8).  Both packages
+replay the same init, shuffle and negative streams, so after two epochs
+the tables agree up to the JAX fit's bf16 hi+lo ("split") expansion and
+accumulation, about 2^-16 relative per value: ``rtol 1e-3, atol 1e-4``
+for sgd.  Under Adam an element whose first update lands near zero can take
 the other sign and move by up to ~2 lr (the first-touch drift class of
 the JAX package's own parity tests): at least 99% of elements agree to
 that tolerance and every element within ``3 lr``.
@@ -31,6 +33,18 @@ from cymf_tpu_torch.ops.packed_epoch import make_packed_optimizer
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's CPU fits issue many small ops; when the suite runs in
+    parallel workers, torch's intra-op threads oversubscribe the cores and
+    slow such a test many times over.  One thread a test, restored after
+    (it changes no result this file checks)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def data():
     return SyntheticImplicitDataset(num_user=300, num_item=200, rank=5,
@@ -38,11 +52,15 @@ def data():
 
 
 @pytest.fixture
-def jax_v4_numpy(monkeypatch):
-    monkeypatch.setenv("CYMF_TPU_PACKED_KERNEL", "4")
+def jax_numpy(monkeypatch):
     monkeypatch.setenv("CYMF_TPU_PREP", "numpy")
     with use_mesh(MeshContext.create(jax.devices()[:1])):
         yield
+
+
+@pytest.fixture
+def jax_v4_numpy(jax_numpy, monkeypatch):
+    monkeypatch.setenv("CYMF_TPU_PACKED_KERNEL", "4")
 
 
 @pytest.mark.parametrize("opt,lr", [("sgd", 0.05), ("adam", 0.01)])
@@ -64,6 +82,65 @@ def test_fit_matches_jax(data, jax_v4_numpy, opt, lr):
             assert off.mean() <= 0.01, off.mean()
             assert np.abs(got - want).max() <= 3 * lr
     np.testing.assert_allclose(mt.last_loss, mj.last_loss, rtol=1e-3)
+
+
+@pytest.mark.parametrize("opt,lr,force,pool,want", [
+    ("sgd", 0.05, "", 0, 5),        # the data gate's choice on this catalog
+    ("adam", 0.01, "", 0, 5),
+    ("sgd", 0.05, "7", 0, 7),       # forced, as in the JAX package
+    ("sgd", 0.05, "", 128, 8),      # the shared negative pool
+])
+def test_fit_pipelines_match_jax(data, jax_numpy, monkeypatch, opt, lr,
+                                 force, pool, want):
+    monkeypatch.setenv("CYMF_TPU_PACKED_KERNEL", force)
+    kw = dict(num_components=12, learning_rate=lr, optimizer=opt,
+              weight_decay=0.01, neg_pool=pool)
+    mj = cymf_tpu.BPR(packed="on", **kw)
+    mj.fit(data.train, num_epochs=2, verbose=False, seed=5)
+    mt = ct.BPR(device="cpu", **kw)
+    mt.fit(data.train, num_epochs=2, verbose=False, seed=5)
+    assert mj.packed_kernel_ == mt.packed_kernel_ == want
+    assert mj.prep_backend_ == mt.prep_backend_ == "numpy"
+    for got, want_t in ((mt.W, mj.W), (mt.H, mj.H)):
+        assert got.shape == want_t.shape
+        if opt == "sgd":
+            np.testing.assert_allclose(got, want_t, rtol=1e-3, atol=1e-4)
+        else:
+            off = np.abs(got - want_t) > 1e-4 + 1e-3 * np.abs(want_t)
+            assert off.mean() <= 0.01, off.mean()
+            assert np.abs(got - want_t).max() <= 3 * lr
+    np.testing.assert_allclose(mt.last_loss, mj.last_loss, rtol=1e-3)
+
+
+def test_fit_takes_v4_on_sparse_streams():
+    """A batch spread over a large user table spans more packed rows per
+    chunk than any expansion window: the gate keeps v4, as in JAX."""
+    from cymf_tpu.ops.packed_epoch import engine_version as jax_version
+    from cymf_tpu_torch.models.bpr import (shuffled_interactions,
+                                           sorted_batches)
+    from cymf_tpu_torch.ops import packed as pk
+    X = _ml20m_sized()
+    m = ct.BPR(20, device="cpu")
+    m.fit(X, num_epochs=1, verbose=False)
+    assert m.packed_kernel_ == 4
+    np.random.seed(0)
+    u2, _ = sorted_batches(*shuffled_interactions(X), 1024)
+    rw = pk.packed_rows(X.shape[0], 20, multiple=256)
+    assert jax_version(20, rw, 256, u2=u2) == 4
+
+
+def test_pool_quickstart_learns():
+    """``BPR(neg_pool=128)`` trains to a sane DCG (the JAX package's
+    ``tests/test_packed_pool.py::test_pool_fit_learns``)."""
+    d = SyntheticImplicitDataset(num_user=400, num_item=200, rank=5,
+                                 density=0.1, seed=11)
+    ev = ct.AoaEvaluator(d.test, d.train, metrics=["DCG"], k=5, device="cpu")
+    m = ct.BPR(num_components=20, learning_rate=0.02, weight_decay=0.01,
+               neg_pool=128, device="cpu")
+    m.fit(d.train, num_epochs=12, verbose=False, seed=3)
+    assert m.packed_kernel_ == 8 and m.prep_backend_ == "numpy"
+    dcg = ev.evaluate(m.W, m.H)["DCG@5"]
+    assert dcg > 0.2, dcg
 
 
 class _Recording(ct.AoaEvaluator):
@@ -126,7 +203,7 @@ def test_warm_start_continues(data):
     (dict(optimizer="rmsprop"), Exception),
     (dict(engine="pallas"), ValueError),          # past the engine's gate
     (dict(packed="off"), NotImplementedError),
-    (dict(neg_pool=256), NotImplementedError),
+    (dict(neg_pool=256, num_components=31), ValueError),   # s (K + 1) = 128
     (dict(num_components=128), NotImplementedError),
 ])
 def test_invalid_arguments(kwargs, exc):

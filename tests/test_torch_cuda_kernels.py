@@ -8,8 +8,15 @@ also runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: sample-phase outputs ``rtol 1e-5, atol 1e-6`` and the loss
-relative ``1e-5`` (row sums reduce in another order); accumulations
-``1e-5 * max|plain|`` absolute (summation order, atomics); the batched
+relative ``1e-5`` (row sums reduce in another order), the v5-v8 kernels'
+``SW`` and ``Q`` alike; accumulations ``1e-5 * max|plain|`` absolute
+(summation order, atomics); the fused kernels' ``Aw`` and v8's ``Apool``
+lane group by lane group: the payload within ``1e-5`` of its own max
+(where a slot-placement or lane-rotation fault shows; the count and loss
+lanes dwarf it), the count channel and unused lanes exact (sums of 0/1
+masks), ``Aw``'s loss lane ``rtol 1e-5``; the packed epochs of every pipeline on the card against the
+CPU, ``rtol 1e-4, atol 1e-5`` under sgd and adagrad and under adam the
+sequential epochs' drift class below; the batched
 Cholesky ``|dL| <= 1e-4 max|L|`` and ``|Linv L - I| <= 1e-3``, the JAX
 package's own bounds for its kernel; ALS fits ``rtol 2e-3, atol 2e-4``,
 its bound between solver forms.  The sequential epochs: tables ``rtol
@@ -27,6 +34,7 @@ import torch
 from cymf_tpu_torch.ops import _kernels
 from cymf_tpu_torch.ops import chol_kernel as ck
 from cymf_tpu_torch.ops import fused_sample as fs
+from cymf_tpu_torch.ops import fused_step as fst
 from cymf_tpu_torch.ops import glove_epoch as ge
 from cymf_tpu_torch.ops import packed as pk
 from cymf_tpu_torch.ops import pallas_engine as pe
@@ -59,12 +67,42 @@ def _close_accum(got, want):
     assert float((got - want).abs().max()) <= 1e-5 * scale
 
 
+def _close_lanes(got, want, groups):
+    """``groups``: ``(name, lanes, rtol, rel)``, each group within ``rel *
+    max|want over the group| + rtol |want|``."""
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for name, lanes, rtol, rel in groups:
+        w = want[:, lanes]
+        if w.numel():
+            torch.testing.assert_close(
+                got[:, lanes], w, rtol=rtol, atol=rel * float(w.abs().max()),
+                msg=lambda m, name=name: f"lanes {name}: {m}")
+
+
+def _close_aw(Aw, Awp, K):
+    s, cb = pk.num_slots(K), pk.count_base(K)
+    _close_lanes(Aw, Awp, [("payload", slice(0, cb), 0.0, 1e-5),
+                           ("counts", slice(cb, cb + s), 0.0, 0.0),
+                           ("unused", slice(cb + s, fst.LOSS_LANE), 0.0, 0.0),
+                           ("loss", slice(fst.LOSS_LANE, None), 1e-5, 0.0)])
+
+
+def _close_apool(Ap, App, K):
+    _close_lanes(Ap, App, [("payload", slice(0, K), 0.0, 1e-5),
+                           ("counts", slice(K, K + 1), 0.0, 0.0),
+                           ("unused", slice(K + 1, None), 0.0, 0.0)])
+
+
 @pytest.mark.parametrize("B,R,wrows,lo,hi", [
     (3000, 1024, 256, 0, None),
     (4096, 512, 128, 100, 103),     # three rows: runs span every warp
     (2048, 2048, 256, 0, 300),      # most windows empty
     (0, 256, 128, 0, None),         # empty stream
     (10000, 512, 128, 0, None),
+    (20000, 2048, 512, 0, None),    # the JAX default window: two slices
+    (8192, 2048, 1024, 900, 1300),  # four slices, runs across slices
+    (3000, 1056, 264, 0, None),     # slices of a window not a power of 2
 ])
 def test_sorted_accum_kernel(dev, B, R, wrows, lo, hi):
     rng = np.random.default_rng(B + R)
@@ -81,6 +119,7 @@ def test_sorted_accum_kernel(dev, B, R, wrows, lo, hi):
     (3000, 1024, 1024, 128, 33),
     (0, 1024, 256, 128, 64),
     (1024, 0, 256, 128, 100),
+    (20000, 30000, 2048, 512, 20),
 ])
 def test_sorted_accum_dual_kernel(dev, Bi, Bj, R, wrows, neg):
     rng = np.random.default_rng(Bi * 3 + Bj)
@@ -156,8 +195,8 @@ def test_wrappers_raise_on_what_kernels_do_not_take(dev):
         sa.sorted_accum(rows.long(), g, win, win, r_pad=512, wrows=256)
     with pytest.raises(ValueError, match="on cpu"):
         sa.sorted_accum(rows.cpu(), g, win, win, r_pad=512, wrows=256)
-    with pytest.raises(ValueError, match="shared memory"):
-        sa.sorted_accum(rows, g, win[:1], win[:1], r_pad=512, wrows=512)
+    with pytest.raises(ValueError, match="one entry per window"):
+        sa.sorted_accum(rows, g, win[:1], win[:1], r_pad=512, wrows=256)
     with pytest.raises(ValueError, match="width"):
         sa.sorted_accum(rows, torch.zeros(1024, 256, device=dev), win, win,
                         r_pad=512, wrows=256)
@@ -170,9 +209,205 @@ def test_wrappers_raise_on_what_kernels_do_not_take(dev):
         ge.glove_sample_phase(g.double(), g.double(), Kp=20)
 
 
+PAD_USER = np.int32(2**31 - 1)
+
+
+def _bpr_step(rng, U, K, B, wrows, pad=300, I=500):
+    """Tables and one user-sorted BPR step with a padding tail, as the
+    trainer builds them (numpy)."""
+    s = pk.num_slots(K)
+    Wp = pk.pack_array(rng.normal(size=(U, K)) * 0.3, K, multiple=wrows)
+    Hp = pk.pack_logical(rng.normal(size=(I, K)) * 0.3, K, multiple=wrows)
+    u = np.sort(rng.integers(0, U, B)).astype(np.int32)
+    u[B - pad:] = PAD_USER
+    mf = ((rng.random(B) > 0.1) & (u < U)).astype(np.float32)
+    return dict(Wp=Wp, Hp=Hp, u=u, phys=(u // s).astype(np.int32),
+                i=rng.integers(0, I, B), j=rng.integers(0, I, B), mf=mf,
+                rw=Wp.shape[0])
+
+
+def _on(dev, *arrays):
+    """Copies on ``dev`` (on the CPU a tensor made from a numpy array would
+    share its memory, and the epochs update their tables in place)."""
+    return [torch.from_numpy(np.array(a)).to(dev) for a in arrays]
+
+
+def _decorated_rows(table, rows, u, mf, K, dev):
+    s = pk.num_slots(K)
+    T, r, uu, m = _on(dev, table, rows.astype(np.int64), u, mf)
+    return fs.decorate(T.index_select(0, r), uu % s, m, K)
+
+
+def _close_rows(got, want, rtol=1e-5, atol=1e-6):
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("U,K,B", [(290, 20, 1024), (6040, 20, 131072),
+                                   (300, 41, 4096), (400, 62, 2048),
+                                   (12000, 20, 2048)])   # last: refused
+def test_bpr_sample_v5_kernel(dev, U, K, B):
+    rng = np.random.default_rng(U + K)
+    st = _bpr_step(rng, U, K, B, 8)
+    win = min(fs.WROWS_A, st["rw"])
+    wstart = np.clip(st["phys"][::fs.TILE], 0, max(st["rw"] - win, 0))
+    Wp, ws, rows, Hp, i = _on(dev, st["Wp"], wstart.astype(np.int32),
+                              st["phys"], st["Hp"], st["i"])
+    Di = Hp.index_select(0, i)
+    Dj = _decorated_rows(st["Hp"], st["j"], st["u"], st["mf"], K, dev)
+    _kernels.reset_launches()
+    SW, Q, loss = fs.bpr_sample_phase_v5(Wp, ws, rows, Di, Dj, K=K, wd=0.01)
+    assert _kernels.launches["bpr_sample_phase_v5"] == 1
+    SWp, Qp, lossp = fs.bpr_sample_phase_v5_plain(Wp, ws, rows, Di, Dj, K=K,
+                                                  wd=0.01)
+    _close_rows(SW, SWp)
+    _close_rows(Q, Qp)
+    torch.testing.assert_close(loss, lossp, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("U,B", [(4000, 4096), (6040, 131072),
+                                 (12000, 2048), (60000, 32768)])
+def test_bpr_block_step_v6_kernel(dev, U, B):
+    K, wrows = 20, 512
+    rng = np.random.default_rng(U + B)
+    st = _bpr_step(rng, U, K, B, wrows)
+    rw = st["rw"]
+    wstart = np.clip(st["phys"][::fst.TILE], 0, rw - fst.CROWS).astype(
+        np.int32)
+    cs, cn = fst.prep_blocks(wstart, rw, wrows)
+    Wp, rows, Hp, i, ws, cs_d, cn_d = _on(dev, st["Wp"], st["phys"],
+                                          st["Hp"], st["i"], wstart, cs, cn)
+    Di = Hp.index_select(0, i)
+    Dj = _decorated_rows(st["Hp"], st["j"], st["u"], st["mf"], K, dev)
+    args = (Wp, rows, Di, Dj, ws, cs_d, cn_d)
+    _kernels.reset_launches()
+    Aw, Q = fst.bpr_block_step_v6(*args, K=K, wd=0.01, rw=rw, wrows=wrows)
+    assert _kernels.launches["bpr_block_step_v6"] == 1
+    Awp, Qp = fst.bpr_block_step_v6_plain(*args, K=K, wd=0.01, rw=rw,
+                                          wrows=wrows)
+    _close_rows(Q, Qp)
+    _close_aw(Aw, Awp, K)
+
+
+def _range_inputs(dev, U, K, B, wrows, monkeypatch):
+    from cymf_tpu_torch.ops import packed_epoch as tpe
+    monkeypatch.setenv("CYMF_TPU_PACKED_KERNEL", "7")
+    rng = np.random.default_rng(U + K + B)
+    st = _bpr_step(rng, U, K, B, wrows)
+    rw = st["rw"]
+    winw, *_, v = tpe.prep_static(st["u"][None], st["i"][None], K, rw,
+                                  pk.logical_rows(500, wrows), wrows, wrows)
+    assert v == 7
+    rows, Hp, i, j, starts, counts = _on(dev, st["phys"], st["Hp"], st["i"],
+                                         st["j"], winw[0, 0], winw[0, 1])
+    Du = _decorated_rows(st["Wp"], np.minimum(st["phys"], rw - 1), st["u"],
+                         st["mf"], K, dev)
+    return st, rw, rows, Du, Hp, Hp.index_select(0, i), j, starts, counts
+
+
+@pytest.mark.parametrize("U,K,B,wrows", [(12000, 20, 2048, 512),
+                                         (3000, 41, 2048, 256),
+                                         (138493, 20, 131072, 256),
+                                         (50000, 20, 32768, 1024)])
+def test_bpr_range_step_v7_kernel(dev, U, K, B, wrows, monkeypatch):
+    st, rw, rows, Du, Hp, Di, j, starts, counts = _range_inputs(
+        dev, U, K, B, wrows, monkeypatch)
+    args = (rows, Du, Di, Hp.index_select(0, j), starts, counts)
+    _kernels.reset_launches()
+    Aw, Q = fst.bpr_range_step_v7(*args, K=K, wd=0.01, rw=rw, wrows=wrows)
+    assert _kernels.launches["bpr_range_step_v7"] == 1
+    Awp, Qp = fst.bpr_range_step_v7_plain(*args, K=K, wd=0.01, rw=rw,
+                                          wrows=wrows)
+    _close_rows(Q, Qp)
+    _close_aw(Aw, Awp, K)
+
+
+@pytest.mark.parametrize("P,U,B", [(128, 12000, 2048), (1024, 138493, 131072),
+                                   (2048, 50000, 32768)])
+def test_bpr_pool_step_v8_kernel(dev, P, U, B, monkeypatch):
+    K, wrows = 20, 256
+    st, rw, rows, Du, Hp, Di, _, starts, counts = _range_inputs(
+        dev, U, K, B, wrows, monkeypatch)
+    rng = np.random.default_rng(P)
+    pool, rj = _on(dev, rng.integers(0, 500, P), rng.integers(
+        0, P, B).astype(np.int32))
+    args = (rows, rj, Du, Di, Hp.index_select(0, pool), starts, counts)
+    _kernels.reset_launches()
+    Aw, Ap, Q = fst.bpr_pool_step_v8(*args, K=K, wd=0.01, rw=rw,
+                                     wrows=wrows)
+    assert _kernels.launches["bpr_pool_step_v8"] == 1
+    Awp, App, Qp = fst.bpr_pool_step_v8_plain(*args, K=K, wd=0.01, rw=rw,
+                                              wrows=wrows)
+    _close_rows(Q, Qp)
+    _close_aw(Aw, Awp, K)
+    _close_apool(Ap, App, K)
+    assert float(Ap[:, K].sum()) == float(st["mf"].sum())
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "adam"])
+@pytest.mark.parametrize("U,wrows,force,want_v", [
+    (1500, 256, "", 5), (3000, 512, "", 6), (30000, 256, "7", 7),
+    (30000, 256, "", 4), (3000, 512, "pool", 8)])
+def test_packed_epochs_on_card_match_cpu(dev, monkeypatch, optimizer, U,
+                                         wrows, force, want_v):
+    """One epoch of three steps of each pipeline on the card and on the
+    CPU (plain versions) from the same state and streams."""
+    from cymf_tpu_torch.ops import packed_epoch as tpe
+    monkeypatch.setenv("CYMF_TPU_PACKED_KERNEL",
+                       "" if force == "pool" else force)
+    rng = np.random.default_rng(U + wrows)
+    K, I, S, B, lr = 20, 700, 3, 8192, 0.05
+    u2 = np.sort(rng.integers(0, U, (S, B)).astype(np.int32), axis=1)
+    u2[-1, -500:] = PAD_USER
+    i2 = rng.integers(0, I, (S, B)).astype(np.int32)
+    rw = pk.packed_rows(U, K, multiple=wrows)
+    rh = pk.logical_rows(I, multiple=wrows)
+    live = u2 < U
+    keys = np.sort(u2[live].astype(np.int64) * I + i2[live])
+    kw = dict(opt_name=optimizer, lr=lr, weight_decay=0.01, K=K, rw=rw,
+              rh=rh, wrows_w=wrows, wrows_h=wrows)
+    if force == "pool":
+        winw, si, rowsi, wini = tpe.prep_static_pool(u2, i2, K, rw, rh,
+                                                     wrows, wrows)
+        pool2, rjs, mask, _ = tpe.prep_pool_epoch(
+            np.random.default_rng(1), u2, keys, U, I, 1024)
+        streams = (u2, i2, si, rowsi, wini, pool2, rjs, mask, winw)
+        fn, name, v = tpe.packed_bpr_pool_epoch, "bpr_pool_step_v8", 8
+    else:
+        winw, wstart, si, rowsi, wini, bcs, bcn, v = tpe.prep_static(
+            u2, i2, K, rw, rh, wrows, wrows)
+        j2, mask, sj, rowsj, winj = tpe.prep_epoch(
+            np.random.default_rng(1), u2, i2, keys, U, I, K, rh, wrows)
+        streams = (u2, i2, si, rowsi, wini, j2, mask, sj, rowsj, winj, winw,
+                   wstart, bcs, bcn)
+        fn = tpe.packed_bpr_epoch
+        kw["kernel_v"] = v
+        name = {4: "bpr_sample_phase", 5: "bpr_sample_phase_v5",
+                6: "bpr_block_step_v6", 7: "bpr_range_step_v7"}[v]
+    assert v == want_v
+    W0 = pk.pack_array(rng.normal(size=(U, K)) * 0.1, K, multiple=wrows)
+    H0 = pk.pack_logical(rng.normal(size=(I, K)) * 0.1, K, multiple=wrows)
+    out = {}
+    for d in ("cpu", dev):
+        opt = tpe.make_packed_optimizer(optimizer, lr)
+        Wp, Hp = _on(d, W0, H0)
+        ow, oh = opt.init(Wp), opt.init(Hp)
+        _kernels.reset_launches()
+        loss = fn(Wp, Hp, ow, oh, *_on(d, *streams), int(live.sum()), **kw)
+        out[str(d)] = (Wp.cpu(), Hp.cpu(), float(loss),
+                       dict(_kernels.launches))
+    (Wc, Hc, lc, nc), (Wg, Hg, lg, ng) = out["cpu"], out[str(dev)]
+    assert nc == {} and ng[name] == S
+    _close_seq(Wg, Wc, optimizer, lr)
+    _close_seq(Hg, Hc, optimizer, lr)
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+
+
 def test_bpr_fit_on_card_matches_cpu(dev):
     """Two sgd epochs of the whole trainer on the card and on the CPU
-    (plain versions) from the same init: equal to summation order."""
+    (plain versions) from the same init: equal to summation order.  This
+    dense catalog takes pipeline v5 on both."""
     from scipy import sparse
 
     from cymf_tpu_torch import BPR
@@ -190,9 +425,10 @@ def test_bpr_fit_on_card_matches_cpu(dev):
         np.random.seed(3)
         _kernels.reset_launches()
         m.fit(X, num_epochs=2, verbose=False)
+        assert m.packed_kernel_ == 5
         out[str(d)] = (m.W, m.H, m.last_loss, dict(_kernels.launches))
     (Wc, Hc, lc, nc), (Wg, Hg, lg, ng) = out["cpu"], out[str(dev)]
-    assert nc == {} and set(ng) == {"bpr_sample_phase", "sorted_accum",
+    assert nc == {} and set(ng) == {"bpr_sample_phase_v5", "sorted_accum",
                                     "sorted_accum_dual"}
     np.testing.assert_allclose(Wg, Wc, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(Hg, Hc, rtol=1e-4, atol=1e-5)
