@@ -24,7 +24,16 @@ Phases, one line each; any failure raises and exits non-zero:
    and both of the step's windowed accumulations (W side, H side) on step
    0 of the device-prep RelMF epoch at ML-20M (d=20, batch 131,072, the
    port's own draws and hash-set labels) and on step 0 of the GloVe fit on
-   the ``glove_packed`` bench stream (50,000 words, ~3M triples, d=50);
+   the ``glove_packed`` bench stream (50,000 words, ~3M triples, d=50).
+   The count-lane form of both accumulations (#2w/#3w, the wide engine)
+   on step 0 of the ML-20M d=256 fit (batch 131,072, ``wrows`` 512) and
+   of a K = 300 fit (width 384): payload within 1e-5 of its max, the
+   count lane and the unused lanes exact;
+   probes: P1 (``phase_v4r``) and P2 (``copy_phase``) at their scripts'
+   shapes (B = 131,072, K = 20) beside #1; P3 (``gather_rows``) at R =
+   27,136 and 131,072, width 128, random and sorted ids, and at the wide
+   step's gathers (W (138,752 x 256) by its sorted users, H (27,136 x
+   256) by its items), each beside ``index_select``;
 4. relmf-ml20m: 1,000 steps of the device-prep RelMF epoch at ML-20M
    shapes (a depth cut of the 28,259-step epoch); ms a step, cells/s,
    peak device memory against its reckoned bound;
@@ -43,7 +52,11 @@ Phases, one line each; any failure raises and exits non-zero:
    accumulation once a step, #1 and #2 never); bpr-pool, 2 epochs of
    ``BPR(neg_pool=1024).fit`` at ML-20M (#7 and the i-side accumulation
    once a step); pool-quickstart, ``neg_pool=128`` on the quickstart data
-   must beat an untrained model by 0.1;
+   must beat an untrained model by 0.1; bpr-wide, 2 epochs of
+   ``BPR(num_components=256).fit`` at ML-20M (the wide engine: each
+   count-lane accumulation once a step, no other kernel; peak device
+   memory under its reckoned bound); wide-quickstart, ``BPR(128)`` on
+   the quickstart data must beat an untrained model by 0.1;
 8. ALS quickstart: WMF d=128 must beat an untrained model's test DCG@5 by
    0.1 through the Cholesky kernel; WMF and ExpoMF d=128 must match the
    same fits with the plain diagonal factor (``CYMF_TPU_ALS_CHOL=blocked``);
@@ -72,12 +85,14 @@ Phases, one line each; any failure raises and exits non-zero:
     GloVe 3 epochs once an epoch; GloVe's constant-one columns must stay
     exactly one.
 
-Then it prints the kernels' JSON line (all twelve), with each kernel's
-launches on its main path, its bound (the larger of bytes over 3.35 TB/s
-and float32 operations over 67 TFLOP/s, counted on this run's inputs)
-and, for ``sorted_accum``, the time of the ``index_add_`` that computes
-the same function (no single PyTorch call computes any other kernel's
-function), and, last, the device JSON line.
+Then it prints the kernels' JSON line (all seventeen), with each kernel's
+launches on its main path (a probe's: those of the probes phase), its
+bound (the larger of bytes over 3.35 TB/s and float32 operations over 67
+TFLOP/s, counted on this run's inputs) and the time of the library call
+that computes the same function: ``index_add_`` for ``sorted_accum``,
+``index_add_`` and ``bincount`` for ``sorted_accum_wide``,
+``index_select`` for ``gather_rows`` (no PyTorch call computes any other
+kernel's function); and, last, the device JSON line.
 ``--profile`` adds a ``torch.profiler`` split of one WMF d=256 epoch,
 written to ``chiprun_out/wmf_profile.txt``, and of 50 device-prep RelMF
 steps at ML-20M shapes with the card's idle share, written to
@@ -127,12 +142,26 @@ PALLAS_KERNELS = {
     "relmf_pallas_epoch": (SEQ_SRC, "cymf_tpu/ops/pallas_engine.py:333"),
     "glove_pallas_epoch": (SEQ_SRC, "cymf_tpu/ops/pallas_engine.py:435"),
 }
+# the wide BPR engine's count-lane form of #2/#3
+WIDE_KERNELS = {
+    "sorted_accum_wide": ("cymf_tpu_torch/csrc/sorted_accum.cu",
+                          "cymf_tpu/ops/sorted_accum.py:417"),
+    "sorted_accum_dual_wide": ("cymf_tpu_torch/csrc/sorted_accum.cu",
+                               "cymf_tpu/ops/sorted_accum.py:345"),
+}
+PROBE_SRC = "cymf_tpu_torch/csrc/probes.cu"
+# the probes P1-P3 of the JAX package's scripts/
+PROBE_KERNELS = {
+    "phase_v4r": (PROBE_SRC, "scripts/r5_kernel_variant.py:96"),
+    "copy_phase": (PROBE_SRC, "scripts/r5_probes.py:77"),
+    "gather_rows": (PROBE_SRC, "scripts/roofline_gather.py:74"),
+}
 KERNELS = {**BPR_KERNELS, **FUSED_KERNELS,
            "chol_inv_batched": ("cymf_tpu_torch/csrc/chol_inv.cu",
                                 "cymf_tpu/ops/chol_kernel.py:109"),
            "glove_sample_phase": ("cymf_tpu_torch/csrc/glove_sample.cu",
                                   "cymf_tpu/ops/glove_epoch.py:161"),
-           **PALLAS_KERNELS}
+           **PALLAS_KERNELS, **WIDE_KERNELS, **PROBE_KERNELS}
 ALS_TOL = dict(rtol=2e-3, atol=2e-4)
 RELMF_K, RELMF_EPOCHS, ML20M_STEPS = 20, 3, 1000
 GLOVE_K, GLOVE_V, GLOVE_NNZ, GLOVE_EPOCHS = 50, 50_000, 3_000_000, 3
@@ -145,6 +174,9 @@ GLOVE_SMALL_V, GLOVE_SMALL_NNZ, SEQ_CHUNKS, PALLAS_EPOCHS = 5000, 200_000, 2, 3
 # pool size of the JAX bpr_pool bench mode, and the v6 comparison's sgd
 # step
 ML1M_U, ML1M_I, POOL_P, V6_LR = 6040, 3706, 1024, 0.05
+# the wide engine (K >= 128): BASELINE config 5's BPR at d=256 on ML-20M,
+# 512-row windows on both sides as BPR._fit_wide sets them
+WIDE_K, WIDE_WROWS, WIDE_EPOCHS = 256, 512, 2
 # the H100 SXM's published peaks: HBM3 bytes/s
 # and float32 operations/s outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
@@ -567,16 +599,266 @@ def check_fused_kernels(X, dev):
     return results
 
 
-def accum_bound(args, r_pad: int) -> dict:
+def accum_bound(args, r_pad: int, out_lanes: int = 128) -> dict:
     """:func:`bound` of a windowed accumulation: its rows, gradients and
-    windows read, the (r_pad, 128) output written; an add per gradient
-    element that lands in range."""
-    nbytes = sum(t.numel() * t.element_size() for t in args) + r_pad * 512
+    windows read, the (r_pad, out_lanes) output written; an add per
+    gradient element that lands in range."""
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + r_pad * out_lanes * 4)
     streams = [(args[0], args[1])] + ([(args[4], args[5])] if len(args) > 4
                                       else [])
-    ops = sum(int((rows.reshape(-1)[:g.shape[0]] < r_pad).sum()) * 128
+    ops = sum(int((rows.reshape(-1)[:g.shape[0]] < r_pad).sum()) * g.shape[1]
               for rows, g in streams)
     return bound(nbytes, ops)
+
+
+def wide_step0(X, dev, Ks=(WIDE_K, 300)):
+    """Step 0 of the wide engine's ML-20M fit (batch 131,072, ``wrows``
+    512, the port's prep as ``BPR._fit_wide`` runs it), for each K in
+    ``Ks``: the sorted streams with dead samples at the sentinels, ``SW``
+    and ``Q`` of :func:`wide_sample_phase` on random tables, and both
+    accumulations' arguments, ``{K: (w_args, h_args, rw, rh)}``; also the
+    step's user and item ids and the tables of the first K."""
+    from cymf_tpu_torch.models.bpr import (shuffled_interactions,
+                                           sorted_batches)
+    from cymf_tpu_torch.ops import wide_epoch as we
+    from cymf_tpu_torch.ops.packed_epoch import prep_epoch
+
+    np.random.seed(0)
+    u2, i2 = sorted_batches(*shuffled_interactions(X), BATCH)
+    u2, i2 = u2[:1], i2[:1]
+    rw, rh = we.wide_rows(U, WIDE_WROWS), we.wide_rows(I, WIDE_WROWS)
+    rowsu, winw, si, rowsi, wini = we.prep_static_wide(u2, i2, rw, rh,
+                                                       WIDE_WROWS)
+    coo = X.tocoo()
+    pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+    j2, mask, sj, rowsj, winj = prep_epoch(
+        np.random.default_rng((1234, 0)), u2, i2, pos_keys, U, I, Ks[0], rh,
+        WIDE_WROWS)
+    mi2, mj2 = we.wide_sorted_masks(mask, si, sj)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v[0])).to(dev) for k, v in
+         dict(u=u2, i=i2, j=j2, mask=mask, rowsu=rowsu, winw=winw, si=si,
+              rowsi=rowsi, wini=wini, sj=sj, rowsj=rowsj, winj=winj,
+              mi=mi2, mj=mj2).items()}
+    # dead and padding samples at the sentinels, as wide_bpr_epoch does
+    rowsu_m = torch.where(t["mask"].reshape(t["rowsu"].shape) > 0,
+                          t["rowsu"], rw)
+    rowsi_m = torch.where(t["mi"] > 0, t["rowsi"], rh)
+    rowsj_m = torch.where(t["mj"] > 0, t["rowsj"], rh)
+    out = {}
+    rng = np.random.default_rng(0)
+    for K in Ks:
+        W = torch.from_numpy(we.pack_wide(
+            rng.uniform(-0.1, 0.1, (U, K)) / K, K, WIDE_WROWS)).to(dev)
+        H = torch.from_numpy(we.pack_wide(
+            rng.uniform(-0.1, 0.1, (I, K)) / K, K, WIDE_WROWS)).to(dev)
+        SW, Q, _ = we.wide_sample_phase(W, H, t["u"], t["i"], t["j"],
+                                        t["mask"].float(), rw=rw, wd=0.01)
+        w_args = (rowsu_m, SW, t["winw"][0], t["winw"][1])
+        h_args = (rowsi_m, Q.index_select(0, t["si"]), t["wini"][0],
+                  t["wini"][1], rowsj_m, Q.index_select(0, t["sj"]),
+                  t["winj"][0], t["winj"][1])
+        out[K] = (w_args, h_args, rw, rh)
+        if K == Ks[0]:
+            out["ids"] = (t["u"], t["i"], W, H)
+        del SW, Q
+    return out
+
+
+def counted_lanes(width: int) -> list:
+    """Lane groups of a count-lane accumulation for :func:`check_fused`:
+    the payload [0, width) within 1e-5 of its own max, the count lane and
+    the 127 unused lanes exact (sums of ones, and zeros)."""
+    return [("payload", slice(0, width), 0.0, 1e-5),
+            ("counts", slice(width, width + 1), 0.0, 0.0),
+            ("unused", slice(width + 1, width + 128), 0.0, 0.0)]
+
+
+def check_wide_kernels(X, dev):
+    """Phase 3 for #2/#3's count-lane form (``sorted_accum_wide``,
+    ``sorted_accum_dual_wide``): both accumulations of step 0 of the
+    ML-20M d=256 fit (width 256) and of a K = 300 fit (width 384, three
+    granules a row), kernel against plain, by lane group
+    (:func:`counted_lanes`).  ``sorted_accum_wide`` is also timed against
+    the library calls that compute its function, ``index_add_`` and
+    ``bincount`` into a zeroed buffer."""
+    from cymf_tpu_torch.ops import sorted_accum as sa
+
+    steps = wide_step0(X, dev)
+    results = {}
+    for K in (WIDE_K, 300):
+        w_args, h_args, rw, rh = steps[K]
+        width = w_args[1].shape[1]
+        for name, fn, plain, a, kw in (
+                ("sorted_accum_wide", sa.sorted_accum, sa.sorted_accum_plain,
+                 w_args, dict(r_pad=rw, wrows=WIDE_WROWS, count_lanes=True)),
+                ("sorted_accum_dual_wide", sa.sorted_accum_dual,
+                 sa.sorted_accum_dual_plain, h_args,
+                 dict(r_pad=rh, neg_lanes=width, wrows=WIDE_WROWS,
+                      count_lanes=True))):
+            live = sum(int((rows.reshape(-1) < kw["r_pad"]).sum())
+                       for rows in a[::4])
+            res = check_fused(
+                f"{name} (ML-20M step 0, K={K}, width {width} + count "
+                f"granule, wrows {WIDE_WROWS}, r_pad {kw['r_pad']}, {live} "
+                "live samples)", lambda *x, fn=fn, **k: (fn(*x, **k),),
+                lambda *x, plain=plain, **k: (plain(*x, **k),), a, kw,
+                ("out",), (("lanes", counted_lanes(width)),), 0, 0)
+            res.update(accum_bound(a, kw["r_pad"], width + 128))
+            if K != WIDE_K:
+                continue
+            if name == "sorted_accum_wide":
+                rows = a[0].reshape(-1).long()
+                keep = rows < rw
+                rows, g = rows[keep], a[1][keep]
+
+                def lib():
+                    out = torch.zeros((rw, width + 128), device=dev)
+                    out[:, :width].index_add_(0, rows, g)
+                    out[:, width] = torch.bincount(rows, minlength=rw)
+                    return out
+
+                want = sa.sorted_accum_plain(*a, **kw)
+                close(lib(), want, 0.0, 1e-5 * float(want.abs().max()),
+                      "index_add_ + bincount")
+                res["library_ms"] = time_ms(lib)
+                phase("kernels", f"{name}: index_add_ + bincount "
+                      f"{res['library_ms']:.4f} ms; bound "
+                      f"{res['bound_ms']:.4f} ms")
+            results[name] = res
+    return results, steps["ids"]
+
+
+def probe_tiles(dev, K: int = 20):
+    """The probe scripts' inputs (``scripts/r5_kernel_variant.py``'s main):
+    a decorated packed W tile (``mask * onehot(slot)`` from lane ``cb``)
+    and logical item tiles, zero on lanes >= K, B = 131,072."""
+    from cymf_tpu_torch.ops import packed as pk
+    rng = np.random.default_rng(0)
+    s, cb = pk.num_slots(K), pk.count_base(K)
+    Du = rng.normal(size=(BATCH, 128)).astype(np.float32)
+    slot = rng.integers(0, s, BATCH)
+    mf = (rng.random(BATCH) > 0.1).astype(np.float32)
+    Du[:, cb:] = 0.0
+    Du[np.arange(BATCH), cb + slot] = mf
+    Di = rng.normal(size=(BATCH, 128)).astype(np.float32)
+    Dj = rng.normal(size=(BATCH, 128)).astype(np.float32)
+    Di[:, K:] = 0.0
+    Dj[:, K:] = 0.0
+    return [torch.from_numpy(a).to(dev) for a in (Du, Di, Dj)]
+
+
+def one_ulp(want):
+    """One float32 ulp at each |want|."""
+    a = want.abs()
+    return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+
+
+def probes(ids, dev):
+    """The probes P1-P3 (``csrc/probes.cu``) at their scripts' shapes, each
+    against its plain form and timed beside what it measures: P1
+    (``phase_v4r``) and P2 (``copy_phase``) beside #1 on the same tiles
+    (P1's SW and Q within an ulp of #1's kernel, its loss 1e-5 relative; P2
+    exact); P3 (``gather_rows``) at R = 27,136 and 131,072, width 128, by
+    random and sorted ids, and at the wide step's gathers, W (rw, 256) by
+    the step's sorted user ids and H (rh, 256) by its item ids, exact and
+    beside ``index_select``.  The launches counted are the checked calls'
+    (the phase's own run), not the timing repetitions'.  Returns
+    ``(results, launches)``."""
+    from cymf_tpu_torch.ops import _kernels
+    from cymf_tpu_torch.ops import fused_sample as fs
+    from cymf_tpu_torch.ops import packed as pk
+    from cymf_tpu_torch.ops import probes as pr
+
+    K, wd = 20, 0.01
+    tiles = probe_tiles(dev, K)
+    B = BATCH
+    _kernels.reset_launches()
+    SW, Q, loss = pr.phase_v4r(*tiles, K=K, wd=wd)
+    cp = pr.copy_phase(*tiles)
+    gathers = []
+    rng = np.random.default_rng(1)
+    for R in (27136, 131072):
+        T = torch.from_numpy(rng.normal(size=(R, 128)).astype(
+            np.float32)).to(dev)
+        idx = rng.integers(0, R, B).astype(np.int32)
+        for order, ix in (("random", idx), ("sorted", np.sort(idx))):
+            ix = torch.from_numpy(ix).to(dev)
+            gathers.append((f"R={R} w=128 {order} ids", T, ix,
+                            pr.gather_rows(T, ix)))
+    u, i, W, H = ids
+    for what, T, ix in (("W (rw, 256) by the wide step's sorted user ids", W,
+                         u),
+                        ("H (rh, 256) by its item ids", H, i)):
+        gathers.append((what, T, ix, pr.gather_rows(T, ix)))
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launches)
+
+    # P1 against #1's kernel (an ulp) and #1's plain form (#1's limits)
+    SW1, Q1, loss1 = fs.bpr_sample_phase(*tiles, K=K, wd=wd)
+    SWp, Qp, lossp = pr.phase_v4r_plain(*tiles, K=K, wd=wd)
+    torch.cuda.synchronize()
+    for what, got, want in (("SW", SW, SW1), ("Q", Q, Q1)):
+        ulps = int(((got - want).abs() > one_ulp(want)).sum())
+        if ulps:
+            raise AssertionError(f"phase_v4r {what}: {ulps} elements more "
+                                 "than an ulp off #1's kernel")
+    e_sw = close(SW, SWp, 1e-5, 1e-6, "phase_v4r SW")
+    e_q = close(Q, Qp, 1e-5, 1e-6, "phase_v4r Q")
+    e_l1 = close(loss, loss1, 1e-5, 0.0, "phase_v4r loss vs #1")
+    close(loss, lossp, 1e-5, 0.0, "phase_v4r loss vs plain")
+    ms1 = time_ms(lambda: fs.bpr_sample_phase(*tiles, K=K, wd=wd))
+    ms = time_ms(lambda: pr.phase_v4r(*tiles, K=K, wd=wd))
+    pms = time_ms(lambda: pr.phase_v4r_plain(*tiles, K=K, wd=wd))
+    results = {"phase_v4r": dict(
+        max_abs_err=max(e_sw[0], e_q[0]), ms=ms, plain_ms=pms,
+        **bound(5 * B * 128 * 4, B * 128 * (2 * pk.num_slots(K) + 20)),
+        library_ms=None)}
+    phase("probes", f"P1 phase_v4r (B={B}, K={K}): SW, Q within an ulp of "
+          f"#1's kernel; vs plain SW max abs {e_sw[0]:.3e}, Q {e_q[0]:.3e}; "
+          f"loss {float(loss):.6f} vs #1 {float(loss1):.6f} (rel "
+          f"{e_l1[1]:.3e}); {ms:.4f} ms vs #1 {ms1:.4f} ms, plain "
+          f"{pms:.4f} ms, bound {results['phase_v4r']['bound_ms']:.4f} ms")
+
+    errs = [close(g, w, 0.0, 0.0, f"copy_phase {n}")[0] for g, w, n in
+            zip(cp, pr.copy_phase_plain(*tiles), ("SW", "Q", "loss"))]
+    ms = time_ms(lambda: pr.copy_phase(*tiles))
+    pms = time_ms(lambda: pr.copy_phase_plain(*tiles))
+    results["copy_phase"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=pms,
+        **bound(5 * B * 128 * 4 + 8 * 128 * 4, 2 * B * 128),
+        library_ms=None)
+    phase("probes", f"P2 copy_phase (B={B}): exact; {ms:.4f} ms vs #1 "
+          f"{ms1:.4f} ms, plain {pms:.4f} ms, bound "
+          f"{results['copy_phase']['bound_ms']:.4f} ms")
+
+    for what, T, ix, got in gathers:
+        close(got, pr.gather_rows_plain(T, ix), 0.0, 0.0,
+              f"gather_rows {what}")
+        ms = time_ms(lambda: pr.gather_rows(T, ix))
+        pms = time_ms(lambda: pr.gather_rows_plain(T, ix))
+        lms = time_ms(lambda: torch.index_select(T, 0, ix))
+        n = ix.shape[0]
+        b = bound(n * 4 + 2 * n * T.shape[1] * 4, 0)
+        phase("probes", f"P3 gather_rows {what} (B={n}, table "
+              f"{tuple(T.shape)}, rows in flight 8): exact; {ms:.4f} ms "
+              f"({n / ms / 1e3:.1f}M rows/s) vs index_select {lms:.4f} ms, "
+              f"plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms")
+        if what.startswith("R=131072 w=128 random"):
+            # the script's own pallas_gather shape is the JSON entry's, and
+            # its sweep of rows in flight (the script's q)
+            results["gather_rows"] = dict(max_abs_err=0.0, ms=ms,
+                                          plain_ms=pms, **b, library_ms=lms)
+            sweep = []
+            for q in pr.ROWS_IN_FLIGHT:
+                close(pr.gather_rows(T, ix, rows_in_flight=q),
+                      pr.gather_rows_plain(T, ix), 0.0, 0.0,
+                      f"gather_rows {what}, {q} rows in flight")
+                qms = time_ms(lambda: pr.gather_rows(T, ix, rows_in_flight=q))
+                sweep.append(f"{q}: {qms:.4f} ms")
+            phase("probes", f"P3 gather_rows {what}, exact at every count "
+                  f"of rows in flight a warp: {', '.join(sweep)}")
+    return results, launches
 
 
 def quickstart(dev, neg_pool: int = 0):
@@ -641,15 +923,18 @@ def full_width(X, dev):
     return bpr_fit(X, dev, EPOCHS, "full", 4, dict.fromkeys(BPR_KERNELS, 1))
 
 
-def bpr_fit(X, dev, epochs: int, what: str, want_v: int, want: dict,
-            **kw):
-    """A full-width BPR fit (d=20, Adam lr 0.001, wd 0.01, batch 131,072)
-    through the public ``fit``; its pipeline and launches must be
-    ``want_v`` and ``want`` (launches per step, times the steps run)."""
+def bpr_fit(X, dev, epochs: int, what: str, want_v, want: dict,
+            K: int = 20, reckon=None, **kw):
+    """A full-width BPR fit (d=K, 20 by default; Adam lr 0.001, wd 0.01,
+    batch 131,072) through the public ``fit``; its pipeline and launches
+    must be ``want_v`` and ``want`` (launches per step, times the steps
+    run); ``want_v`` None is the wide engine (K >= 128), which has no
+    pipeline number.  With ``reckon`` (bytes), peak device memory must stay
+    under it."""
     import cymf_tpu_torch as ct
     from cymf_tpu_torch.ops import _kernels
 
-    m = ct.BPR(num_components=20, learning_rate=0.001, optimizer="adam",
+    m = ct.BPR(num_components=K, learning_rate=0.001, optimizer="adam",
                weight_decay=0.01, batch_size=BATCH, device=dev, **kw)
     probe = _DeviceProbe(m)
     N = X.count_nonzero()
@@ -666,23 +951,83 @@ def bpr_fit(X, dev, epochs: int, what: str, want_v: int, want: dict,
               f"device, {N / (st['prep_s'] + st['device_s']):.4e} int/s "
               "prep+device")
     want = {k: v * epochs * S for k, v in want.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    v = getattr(m, "packed_kernel_", None) if want_v else None
     phase(what, f"{X.shape}, {N} interactions, S={S}: fit wall {wall:.2f} s"
           f" (incl. once-per-fit prep), peak device memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, pipeline "
-          f"v{m.packed_kernel_}, last loss {m.last_loss:.6f}, launches "
-          f"{launches}")
-    if m.packed_kernel_ != want_v or launches != want:
-        raise AssertionError(f"{what}: pipeline v{m.packed_kernel_}, "
-                             f"launches {launches}, expected v{want_v}, "
-                             f"{want}")
+          f"{peak / 2**30:.3f} GiB"
+          + (f" (reckoned bound {reckon / 2**30:.3f} GiB)" if reckon else "")
+          + f", {f'pipeline v{v}' if want_v else 'wide engine'}, last loss "
+          f"{m.last_loss:.6f}, launches {launches}")
+    if v != want_v or launches != want:
+        raise AssertionError(f"{what}: pipeline {v}, launches {launches}, "
+                             f"expected {want_v}, {want}")
+    if reckon is not None and peak > reckon:
+        raise AssertionError(f"{what}: peak device memory above the "
+                             "reckoned bound")
     if probe.calls != epochs:
         raise AssertionError("the device probe did not run every epoch")
     if not (np.isfinite(m.last_loss) and np.isfinite(m.W).all()
             and np.isfinite(m.H).all()):
         raise AssertionError("non-finite loss or tables")
-    if m.W.shape != (X.shape[0], 20) or m.H.shape != (X.shape[1], 20):
+    if m.W.shape != (X.shape[0], K) or m.H.shape != (X.shape[1], K):
         raise AssertionError("tables of the wrong shape")
     return launches
+
+
+def bpr_wide(X, dev):
+    """bpr-wide: WIDE_EPOCHS epochs of ``BPR(num_components=256)`` at
+    ML-20M shapes through the public ``fit`` (the wide engine): each
+    count-lane accumulation once a step, no other kernel; peak device
+    memory under the reckoned bound: the tables and their Adam states,
+    the uploaded static and epoch streams, and the eager step's
+    temporaries, ten (B, Kp) f32 buffers (the gathers, SW, Q, their
+    reorders and the sample math's transients) and four (rw, Kp + 128)
+    ones (the accumulation and the optimizer update's)."""
+    from cymf_tpu_torch.ops import wide_epoch as we
+    K = WIDE_K
+    Kp = we.kp_width(K)
+    rw, rh = we.wide_rows(U, WIDE_WROWS), we.wide_rows(I, WIDE_WROWS)
+    S = -(-X.count_nonzero() // BATCH)
+    windows = 2 * S * (rw + 2 * rh) // WIDE_WROWS * 4
+    streams = S * BATCH * (4 * 8 + 3) + windows   # 8 int32 + 3 uint8 a sample
+    reckon = (3 * (rw + rh) * Kp * 4 + streams + 10 * BATCH * Kp * 4
+              + 4 * rw * (Kp + 128) * 4)
+    return bpr_fit(X, dev, WIDE_EPOCHS, "bpr-wide", None,
+                   dict.fromkeys(WIDE_KERNELS, 1), K=K, reckon=reckon)
+
+
+def wide_quickstart(dev):
+    """wide-quickstart: ``BPR(num_components=128)`` (the wide engine) on
+    the quickstart data, as the JAX package's wide learning test sets it
+    (lr 0.05, no weight decay, batch 1024), 5 epochs: test DCG@5 must beat
+    an untrained model's by 0.1, each count-lane accumulation once a
+    step."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.dataset import SyntheticImplicitDataset
+    from cymf_tpu_torch.ops import _kernels
+
+    d = SyntheticImplicitDataset(num_user=600, num_item=300, rank=6,
+                                 density=0.08, seed=7)
+    test = ct.AoaEvaluator(d.test, d.train, k=5, device=dev)
+    kw = dict(num_components=128, learning_rate=0.05, weight_decay=0.0,
+              batch_size=1024, device=dev)
+    m0 = ct.BPR(**kw)
+    m0.fit(d.train, num_epochs=0, verbose=False)
+    base = test.evaluate(m0.W, m0.H)["DCG@5"]
+    m = ct.BPR(**kw)
+    _kernels.reset_launches()
+    m.fit(d.train, num_epochs=5, verbose=False)
+    launches = dict(_kernels.launches)
+    res = test.evaluate(m.W, m.H)
+    n = 5 * -(-m._samples_per_epoch // 1024)
+    phase("wide-quickstart", f"K=128: test {res}; untrained DCG@5 "
+          f"{base:.4f}; last loss {m.last_loss:.4f}; launches {launches}")
+    if launches != dict.fromkeys(WIDE_KERNELS, n):
+        raise AssertionError(f"wide-quickstart: launches {launches}, "
+                             f"expected {n} of each wide accumulation")
+    if not res["DCG@5"] >= base + 0.1:
+        raise AssertionError("the wide quickstart did not learn")
 
 
 def v6_against_v4(dev):
@@ -1644,6 +1989,11 @@ def main() -> int:
           f"interactions in {time.perf_counter() - t0:.1f} s")
     results = check_kernels(X, dev)
     results.update(check_fused_kernels(X, dev))
+    wide, ids = check_wide_kernels(X, dev)
+    results.update(wide)
+    probed, probe_launches = probes(ids, dev)
+    results.update(probed)
+    del ids
     results["chol_inv_batched"] = check_chol(X, dev)
     relmf = relmf_ml20m_state(X, dev)
     G = glove_matrix()
@@ -1655,6 +2005,8 @@ def main() -> int:
     quickstart(dev)
     launches = full_width(X, dev)
     launches.update(pipeline_fits(X, dev))
+    launches.update(bpr_wide(X, dev))
+    wide_quickstart(dev)
     als_quickstart(dev)
     launches.update(wmf_full_width(X, dev))
     relmf_quickstart(dev)
@@ -1670,6 +2022,7 @@ def main() -> int:
                                      dev))
     pallas_quickstart(dev)
     launches.update(pallas_full(X100k, G5k, dev))
+    launches.update(probe_launches)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

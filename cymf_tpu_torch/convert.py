@@ -2,7 +2,8 @@
 
 :func:`packed_state_from_jax` turns the packed engine's arrays (fetched to
 numpy, e.g. with ``jax.device_get``) into the port's tensors, so a step
-can continue from the JAX engine's exact state, and
+can continue from the JAX engine's exact state, :func:`wide_state_from_jax`
+does the same for the wide BPR engine's, and
 :func:`pallas_state_from_jax` does the same for a fused table of the
 sequential engine (``engine="pallas"``).  :func:`from_arrays`
 (and :func:`bpr_from_arrays` for BPR) builds a model that warm-starts from
@@ -42,6 +43,15 @@ def packed_state_from_jax(Wp, Hp, ow, oh, device):
     return (_tensor(Wp, device), _tensor(Hp, device),
             {k: _tensor(v, device) for k, v in ow.items()},
             {k: _tensor(v, device) for k, v in oh.items()})
+
+
+def wide_state_from_jax(Wd, Hd, ow, oh, device):
+    """``(Wd, Hd, ow, oh)`` as tensors on ``device``: the wide engine's
+    ``(rw, Kp)`` user and item tables and their optimizer-state dicts
+    (``{}`` for sgd, ``{"accum"}`` for adagrad, ``{"m", "v"}`` for adam),
+    as :func:`~cymf_tpu_torch.ops.wide_epoch.wide_bpr_epoch` takes them.
+    The wide counterpart of :func:`packed_state_from_jax`."""
+    return packed_state_from_jax(Wd, Hd, ow, oh, device)
 
 
 def pallas_state_from_jax(Wp, K: int, optimizer: str, device

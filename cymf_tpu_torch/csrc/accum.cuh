@@ -13,12 +13,13 @@ namespace {
 constexpr int ACC_LANES = 128;
 
 // Adds this lane's four columns [c0, c0 + 4) of `run` into row `rel` of the
-// (rows, 128) float32 accumulator `acc` in shared memory.  Warps whose parts
-// of a stream meet inside one row's run add to the same address, hence the
-// atomics.
+// (rows, stride) float32 accumulator `acc` in shared memory (128 lanes a
+// row unless said).  Warps whose parts of a stream meet inside one row's
+// run add to the same address, hence the atomics.
 __device__ __forceinline__ void flush_run(float* acc, int rel, int c0,
-                                          const float4& run) {
-  float* dst = acc + rel * ACC_LANES + c0;
+                                          const float4& run,
+                                          int stride = ACC_LANES) {
+  float* dst = acc + rel * stride + c0;
   atomicAdd(dst + 0, run.x);
   atomicAdd(dst + 1, run.y);
   atomicAdd(dst + 2, run.z);

@@ -11,16 +11,19 @@ gradient, no factor 2).
 
 Port of `cymf_tpu/models/bpr.py` on two engines:
 
-- ``engine="xla"``: its single-chip packed path (``_fit_packed``, numpy
-  host prep): synchronous minibatches over packed tables, the fused sample
-  kernels and the sorted accumulations (`ops/packed_epoch.py`).  The
-  kernel pipeline is the JAX package's data-dependent choice
-  (``packed_epoch.engine_version``, recorded in ``packed_kernel_``): v5 or
-  v6 where every chunk of a step's user-sorted stream spans few enough
-  packed rows (small or dense catalogs; v6 needs 512-row blocks, so
-  ``fit`` at its 256-row windows takes v5), v4 on sparse streams such as
-  ML-20M's, v7 only when ``CYMF_TPU_PACKED_KERNEL=7`` forces it.
-  ``neg_pool=P`` takes the shared-negative-pool pipeline v8;
+- ``engine="xla"``: its single-chip fused paths (numpy host prep):
+  synchronous minibatches and the sorted accumulations.  For K <= 127 the
+  packed path (``_fit_packed``, `ops/packed_epoch.py`): packed tables and
+  the fused sample kernels.  The kernel pipeline is the JAX package's
+  data-dependent choice (``packed_epoch.engine_version``, recorded in
+  ``packed_kernel_``): v5 or v6 where every chunk of a step's user-sorted
+  stream spans few enough packed rows (small or dense catalogs; v6 needs
+  512-row blocks, so ``fit`` at its 256-row windows takes v5), v4 on
+  sparse streams such as ML-20M's, v7 only when
+  ``CYMF_TPU_PACKED_KERNEL=7`` forces it.  ``neg_pool=P`` takes the
+  shared-negative-pool pipeline v8.  For K >= 128 the wide path
+  (``_fit_wide``, `ops/wide_epoch.py`): ``(rows, Kp)`` tables, the
+  sample math in torch and the count-lane accumulations;
 - ``engine="pallas"``: the sequential small-catalog engine
   (``_fit_pallas``, `ops/pallas_engine.py`): per-sample updates in groups
   of 8, one kernel launch an epoch, or one for the whole fit when no
@@ -31,10 +34,10 @@ replay the JAX package's numpy streams, so both packages train on
 identical inputs.
 
 Not ported yet (see ROADMAP.md, queue 1): the XLA batch engine
-(``packed="off"``), the wide engine (``K >= 128``), checkpoints, the
-native C++ prep, device-side prep and the multi-device engines.  Each
-raises ``NotImplementedError`` under ``engine="xla"``;
-``engine="pallas"`` takes none of them, as in the JAX package.
+(``packed="off"``), checkpoints, the native C++ prep, device-side prep and
+the multi-device engines.  Each raises ``NotImplementedError`` under
+``engine="xla"``; ``engine="pallas"`` takes none of them, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ from ..ops.packed_epoch import (make_packed_optimizer, packed_bpr_epoch,
                                 packed_bpr_pool_epoch, prep_epoch,
                                 prep_pool_epoch, prep_static,
                                 prep_static_pool, unpack_device)
+from ..ops.wide_epoch import (pack_wide, prep_static_wide, wide_bpr_epoch,
+                              wide_rows, wide_sorted_masks)
 from .base import MFTrainerBase, PersistenceMixin, as_csr
 
 PAD_USER = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
@@ -100,9 +105,10 @@ class BPR(MFTrainerBase, PersistenceMixin):
                  engine: str = "xla", packed: str = "auto",
                  neg_pool: int = 0, device=None):
         """Arguments as ``cymf_tpu.BPR``.  Under ``engine="xla"``,
-        ``packed="auto"`` and ``"on"`` both run the packed engine, the only
-        XLA engine ported so far; ``update_mode`` is validated and, as in
-        the JAX package's packed and sequential engines, has no effect.
+        ``packed="auto"`` and ``"on"`` both run the fused engines, packed
+        for K <= 127 and wide for K >= 128, the only XLA engines ported so
+        far; ``update_mode`` is validated and, as in the JAX package's
+        fused and sequential engines, has no effect.
         ``neg_pool=P`` (a multiple of 128 in [128, 2048]) draws each
         step's negatives from a pool of P items (pipeline v8)."""
         super().__init__(num_components, device=device)
@@ -133,9 +139,6 @@ class BPR(MFTrainerBase, PersistenceMixin):
         # the sequential engine takes none of these, as in the JAX package
         if engine == "xla" and packed == "off":
             raise NotImplementedError(f"packed='off' {_LATER}")
-        if engine == "xla" and not pk.packable(self.num_components):
-            raise NotImplementedError(
-                f"num_components >= 128 (the wide engine) {_LATER}")
 
     @torch.no_grad()
     def fit(self, X, num_epochs: int = 10, num_threads: int = 1,
@@ -149,9 +152,9 @@ class BPR(MFTrainerBase, PersistenceMixin):
         negative sampler (`bpr.pyx:148`).  After the fit,
         ``epoch_times_`` holds per epoch the device seconds (``device_s``:
         the epoch's uploads and steps, synchronised) and, on the packed
-        engine, the host-prep seconds (``prep_s``).  The sequential engine
-        logs one entry per launch, with the epochs it ran (``epochs``):
-        one entry for a fit that runs as one launch.
+        and wide engines, the host-prep seconds (``prep_s``).  The
+        sequential engine logs one entry per launch, with the epochs it ran
+        (``epochs``): one entry for a fit that runs as one launch.
         """
         if checkpoint_path is not None or resume:
             raise NotImplementedError(f"checkpoints {_LATER}")
@@ -172,7 +175,15 @@ class BPR(MFTrainerBase, PersistenceMixin):
             self._fit_pallas(X, users, positives, num_epochs, verbose, seed)
             return
         u2, i2 = sorted_batches(users, positives, self.batch_size)
-        self._fit_packed(X, u2, i2, num_epochs, verbose, seed)
+        if pk.packable(self.num_components):
+            self._fit_packed(X, u2, i2, num_epochs, verbose, seed)
+            return
+        if self.neg_pool:
+            raise ValueError(
+                "neg_pool requires the packed engine (K <= 127 and a "
+                "single-device TPU run, or packed='on'); this fit "
+                "selected 'wide'")
+        self._fit_wide(X, u2, i2, num_epochs, verbose, seed)
 
     def _fit_packed(self, X, u2, i2, num_epochs, verbose, seed):
         """Packed tables + fused kernels + sorted accumulations with
@@ -232,6 +243,33 @@ class BPR(MFTrainerBase, PersistenceMixin):
             self._state = {"W": unpack_device(Wp, K), "H": Hp[:, :K],
                            "owp": ow, "ohp": oh}
 
+        def prep(epoch):
+            rng = np.random.default_rng((seed, epoch))
+            if kernel_v == 8:
+                pool2, _, mask, _ = prep_pool_epoch(
+                    rng, u2, pos_keys, U, I, self.neg_pool, r2=r2_fit)
+                return pool2, mask
+            return prep_epoch(rng, u2, i2, pos_keys, U, I, K, rh, wrows_h)
+
+        def run(*streams):
+            if kernel_v == 8:
+                pool2, mask = streams
+                return packed_bpr_pool_epoch(
+                    Wp, Hp, ow, oh, *static, put(pool2), rjs_d, put(mask),
+                    winw_d, N, **kw)
+            return packed_bpr_epoch(
+                Wp, Hp, ow, oh, *static, *(put(a) for a in streams), winw_d,
+                *blocks, N, kernel_v=kernel_v, **kw)
+
+        self._run_device_epochs(num_epochs, verbose, prep, run, publish)
+
+    def _run_device_epochs(self, num_epochs, verbose, prep, run, publish):
+        """The fused engines' epoch loop: per epoch ``prep(epoch)`` on the
+        host (``prep_s``), then ``run(*prepared)``, the uploads and steps,
+        synchronised (``device_s``), then ``publish()`` of the live
+        tables; validation, early stopping and ``last_loss`` as the
+        trainer base runs them."""
+        dev = self.device
         publish()
         self.epoch_times_ = []
         loss = None
@@ -239,22 +277,9 @@ class BPR(MFTrainerBase, PersistenceMixin):
         def epoch_fn(epoch):
             nonlocal loss
             t0 = time.perf_counter()
-            rng = np.random.default_rng((seed, epoch))
-            if kernel_v == 8:
-                pool2, _, mask, _ = prep_pool_epoch(
-                    rng, u2, pos_keys, U, I, self.neg_pool, r2=r2_fit)
-                t1 = time.perf_counter()
-                loss = packed_bpr_pool_epoch(
-                    Wp, Hp, ow, oh, *static, put(pool2), rjs_d, put(mask),
-                    winw_d, N, **kw)
-            else:
-                j2, mask, sj, rowsj, winj = prep_epoch(
-                    rng, u2, i2, pos_keys, U, I, K, rh, wrows_h)
-                t1 = time.perf_counter()
-                loss = packed_bpr_epoch(
-                    Wp, Hp, ow, oh, *static,
-                    *(put(a) for a in (j2, mask, sj, rowsj, winj)), winw_d,
-                    *blocks, N, kernel_v=kernel_v, **kw)
+            streams = prep(epoch)
+            t1 = time.perf_counter()
+            loss = run(*streams)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             self.epoch_times_.append(
@@ -272,6 +297,52 @@ class BPR(MFTrainerBase, PersistenceMixin):
         if loss is not None:
             self.last_loss = float(loss)
         self._drop_device_state()
+
+    def _fit_wide(self, X, u2, i2, num_epochs, verbose, seed):
+        """Wide tables (K >= 128) + the count-lane sorted accumulations,
+        as ``cymf_tpu.BPR._fit_wide``: 512-row windows on both sides, the
+        numpy prep stream seeded ``(seed, epoch)``."""
+        self.prep_backend_ = "numpy"
+        dev = self.device
+        U, I = X.shape
+        K = self.num_components
+        N = self._samples_per_epoch
+        self.last_loss = None
+        wrows = 512  # both sides, as the JAX package's wide engine
+        rw, rh = wide_rows(U, wrows), wide_rows(I, wrows)
+        rowsu, winw, si, rowsi, wini = prep_static_wide(u2, i2, rw, rh,
+                                                        wrows)
+        coo = X.tocoo()
+        pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        Wd = put(pack_wide(self.W, K, multiple=wrows))
+        Hd = put(pack_wide(self.H, K, multiple=wrows))
+        opt = make_packed_optimizer(self.optimizer, self.learning_rate)
+        ow, oh = opt.init(Wd), opt.init(Hd)
+        static = [put(a) for a in (u2, i2, rowsu, winw, si, rowsi, wini)]
+        kw = dict(opt_name=self.optimizer, lr=self.learning_rate,
+                  weight_decay=self.weight_decay, K=K, rw=rw, rh=rh,
+                  wrows=wrows)
+
+        def publish():
+            self._state = {"W": Wd[:, :K], "H": Hd[:, :K], "oww": ow,
+                           "ohw": oh}
+
+        def prep(epoch):
+            j2, mask, sj, rowsj, winj = prep_epoch(
+                np.random.default_rng((seed, epoch)), u2, i2, pos_keys, U,
+                I, K, rh, wrows)
+            return (j2, mask, sj, rowsj, winj,
+                    *wide_sorted_masks(mask, si, sj))
+
+        def run(*streams):
+            return wide_bpr_epoch(Wd, Hd, ow, oh, *static,
+                                  *(put(a) for a in streams), N, **kw)
+
+        self._run_device_epochs(num_epochs, verbose, prep, run, publish)
 
     def _fit_pallas(self, X, users, positives, num_epochs, verbose, seed,
                     chunk: int = 4096, group: int = 8):

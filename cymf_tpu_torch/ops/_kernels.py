@@ -23,8 +23,11 @@ The kernels, by source and the wrapper that launches them:
 - ``glove_sample.cu``: ``glove_epoch.glove_sample_phase`` (GloVe and
   RelMF);
 - ``sorted_accum.cu``: ``sorted_accum.sorted_accum`` and
-  ``sorted_accum.sorted_accum_dual``;
+  ``sorted_accum.sorted_accum_dual`` (counted as ``sorted_accum_wide`` and
+  ``sorted_accum_dual_wide`` where they take the wide form);
 - ``chol_inv.cu``: ``chol_kernel.chol_inv_batched``;
+- ``probes.cu``: ``probes.phase_v4r``, ``probes.copy_phase`` and
+  ``probes.gather_rows`` (the probes P1-P3);
 - ``seq_epoch.cu``: ``pallas_engine.bpr_pallas_epoch``,
   ``pallas_engine.relmf_pallas_epoch`` and
   ``pallas_engine.glove_pallas_epoch``.
@@ -67,6 +70,13 @@ _SIGNATURES = {
     "cymf_glove_sample_phase": [_P] * 6 + [_I] * 4 + [_P],
     "cymf_sorted_accum": [_P] * 5 + [_I] * 3 + [_P],
     "cymf_sorted_accum_dual": [_P] * 9 + [_I] * 5 + [_P],
+    "cymf_sorted_accum_max_slice": [_I, _I],
+    "cymf_sorted_accum_wide": [_P] * 5 + [_I] * 5 + [_P],
+    "cymf_sorted_accum_dual_wide": [_P] * 9 + [_I] * 7 + [_P],
+    "cymf_phase_v4r_blocks": [_I],
+    "cymf_phase_v4r": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "cymf_copy_phase": [_P] * 6 + [_L, _I, _P],
+    "cymf_gather_rows": [_P] * 3 + [_I] * 4 + [_P],
     "cymf_chol_inv_batched": [_P, _L, _L, _P, _P, _I, _I, _P],
     "cymf_seq_epoch_max_group": [],
     "cymf_bpr_seq_epoch": [_P, _P, _I, _I] + [_P] * 4 + [_L] + [_I] * 4

@@ -5,16 +5,23 @@ target rows sorted and the host computes, per window of ``wrows`` output
 rows, the sample range that can hit it (:func:`window_ranges`, verbatim).
 On a CUDA tensor :func:`sorted_accum` and :func:`sorted_accum_dual`
 launch the hand-written kernels of ``csrc/sorted_accum.cu`` (one CTA per
-window, or per slice of at most 256 rows of a larger window, its
-accumulator in shared memory: any ``wrows`` the JAX package takes, its
-default 512 included); on a CPU tensor they
-run their plain PyTorch versions, an ``index_add_`` that needs no window
-ranges.  Sums come in another order than a sequential scatter, so results
-agree to float32 round-off, not bit for bit.
+slice of a window, its accumulator in shared memory: any ``wrows`` the JAX
+package takes, its default 512 included); on a CPU tensor they run their
+plain PyTorch versions, an ``index_add_`` that needs no window ranges.
+Sums come in another order than a sequential scatter, so results agree to
+float32 round-off, not bit for bit.
 
-The TPU kernel's ``precision="split"`` bf16 hi+lo matmul and its window
-starts pre-divided by 128 are Mosaic workarounds with no counterpart
-here: the port accumulates in float32.
+Two forms, as in the JAX package: 128-lane rows (the packed pipelines,
+launches counted as ``sorted_accum`` / ``sorted_accum_dual``) and rows of
+any multiple of 128 lanes with an optional count granule
+(``count_lanes=True``, the wide BPR engine; launches counted as
+``sorted_accum_wide`` / ``sorted_accum_dual_wide``).
+
+Left behind, with no counterpart here: the TPU kernel's
+``precision="split"`` bf16 hi+lo matmul (the port accumulates in float32);
+its window starts pre-divided by 128 (a Mosaic proof of DMA offset
+divisibility); and its one-hot MXU contraction with double-buffered DMA
+slots (a CUDA CTA adds rows into shared memory as it reads them).
 """
 
 from __future__ import annotations
@@ -84,35 +91,51 @@ def _rows_flat(rows: torch.Tensor, n: int) -> torch.Tensor:
     return flat
 
 
-def _scatter_into(out: torch.Tensor, rows: torch.Tensor,
-                  g: torch.Tensor) -> None:
+def _scatter_into(out: torch.Tensor, rows: torch.Tensor, g: torch.Tensor,
+                  count_lanes: bool) -> None:
+    """``out[rows[b], :width] += g[b]`` for rows in ``[0, r_pad)``; with
+    ``count_lanes`` also ``out[rows[b], width] += 1`` (the live count)."""
     keep = (rows >= 0) & (rows < out.shape[0])
-    out.index_add_(0, rows[keep].long(), g[keep])
+    rows = rows[keep].long()
+    width = g.shape[1]
+    out[:, :width].index_add_(0, rows, g[keep])
+    if count_lanes:
+        out[:, width] += torch.bincount(rows, minlength=out.shape[0]).to(
+            out.dtype)
+
+
+def _out_width(width: int, count_lanes: bool) -> int:
+    return width + LANES if count_lanes else width
 
 
 def sorted_accum_plain(rows, g, starts, counts, *, r_pad: int,
-                       wrows: int) -> torch.Tensor:
+                       wrows: int, count_lanes: bool = False
+                       ) -> torch.Tensor:
     """Plain version of :func:`sorted_accum`: ``out[rows[b]] += g[b]`` for
     rows in ``[0, r_pad)`` (the ``sorted_accum_reference`` of the JAX
-    package).  ``starts``/``counts``/``wrows`` only bound where the kernel
-    looks, so this form ignores them."""
+    package), plus a ``bincount`` of those rows with ``count_lanes``.
+    ``starts``/``counts``/``wrows`` only bound where the kernel looks, so
+    this form ignores them."""
     rows = _rows_flat(rows, g.shape[0])
-    out = torch.zeros((r_pad, g.shape[1]), dtype=g.dtype, device=g.device)
-    _scatter_into(out, rows, g)
+    out = torch.zeros((r_pad, _out_width(g.shape[1], count_lanes)),
+                      dtype=g.dtype, device=g.device)
+    _scatter_into(out, rows, g, count_lanes)
     return out
 
 
 def sorted_accum_dual_plain(rows_i, gi, starts_i, counts_i, rows_j, gj,
                             starts_j, counts_j, *, r_pad: int,
-                            neg_lanes: int, wrows: int) -> torch.Tensor:
+                            neg_lanes: int, wrows: int,
+                            count_lanes: bool = False) -> torch.Tensor:
     """Plain version of :func:`sorted_accum_dual`."""
     rows_i = _rows_flat(rows_i, gi.shape[0])
     rows_j = _rows_flat(rows_j, gj.shape[0])
     sign = torch.ones(gi.shape[1], dtype=gi.dtype, device=gi.device)
     sign[:neg_lanes] = -1.0
-    out = torch.zeros((r_pad, gi.shape[1]), dtype=gi.dtype, device=gi.device)
-    _scatter_into(out, rows_i, gi * sign)
-    _scatter_into(out, rows_j, gj)
+    out = torch.zeros((r_pad, _out_width(gi.shape[1], count_lanes)),
+                      dtype=gi.dtype, device=gi.device)
+    _scatter_into(out, rows_i, gi * sign, count_lanes)
+    _scatter_into(out, rows_j, gj, count_lanes)
     return out
 
 
@@ -121,16 +144,15 @@ def _check_shapes(g, r_pad: int, wrows: int) -> None:
         raise ValueError("r_pad must be a multiple of wrows")
     if g.dim() != 2:
         raise ValueError("gradients must be (B, width)")
+    if g.shape[1] % LANES:
+        raise ValueError(f"gradient width must be a multiple of {LANES}, "
+                         f"got {g.shape[1]}")
 
 
 def _check_cuda(rows, g, starts, counts, r_pad: int, wrows: int, what: str):
-    """The kernel's contract: width 128 f32 rows, int32 row ids and
-    window ranges."""
+    """The kernel's contract: f32 rows, int32 row ids and window ranges."""
     dev = g.device
     _kernels.require(g, f"{what} gradients", torch.float32, dev, ndim=2)
-    if g.shape[1] != LANES:
-        raise ValueError(f"the CUDA kernel takes width {LANES}, "
-                         f"got {g.shape[1]}")
     _kernels.require(rows, f"{what} rows", torch.int32, dev)
     for t, name in ((starts, "starts"), (counts, "counts")):
         _kernels.require(t, f"{what} {name}", torch.int32, dev, ndim=1)
@@ -138,51 +160,77 @@ def _check_cuda(rows, g, starts, counts, r_pad: int, wrows: int, what: str):
             raise ValueError(f"{what} {name} must hold one entry per window")
 
 
+def _wide(width: int, count_lanes: bool) -> bool:
+    """Whether a call takes the wide kernel (and its launch count)."""
+    if width == LANES and not count_lanes:
+        return False
+    if _kernels.lib().cymf_sorted_accum_max_slice(width,
+                                                  int(count_lanes)) < 1:
+        raise ValueError(f"width {width} does not fit a CTA's shared "
+                         "memory")
+    return True
+
+
 def sorted_accum(rows, g, starts, counts, *, r_pad: int,
-                 wrows: int = 512) -> torch.Tensor:
+                 wrows: int = 512, count_lanes: bool = False
+                 ) -> torch.Tensor:
     """Accumulate ``g[b]`` into output row ``rows[b]``.
 
     Args:
       rows: int32 ascending target rows, any shape with ``B`` elements (the
         JAX package's folded ``(B/128, 128)`` layout is a free view here).
-        Rows ``>= r_pad`` (padding sentinels) drop.
-      g: float32 ``(B, width)`` gradient rows (width 128 on CUDA).
+        Rows ``>= r_pad`` (padding sentinels, and with ``count_lanes`` the
+        dead samples the caller routed there) drop.
+      g: float32 ``(B, width)`` gradient rows, ``width`` a multiple of 128.
       starts/counts: int32 ``[r_pad // wrows]`` window ranges from
         :func:`window_ranges`.
       r_pad: output rows, a multiple of ``wrows``.
+      count_lanes: append a 128-lane granule whose lane 0 holds each row's
+        count of samples (the other 127 lanes zero).
 
-    Returns float32 ``(r_pad, width)``.  A CUDA input launches the kernel
-    (and counts the launch); a CPU input runs :func:`sorted_accum_plain`.
+    Returns float32 ``(r_pad, width)``, or ``(r_pad, width + 128)`` with
+    ``count_lanes``.  A CUDA input launches the kernel (and counts the
+    launch); a CPU input runs :func:`sorted_accum_plain`.
     """
     _check_shapes(g, r_pad, wrows)
     if g.device.type == "cpu":
         return sorted_accum_plain(rows, g, starts, counts, r_pad=r_pad,
-                                  wrows=wrows)
+                                  wrows=wrows, count_lanes=count_lanes)
     if g.device.type != "cuda":
         raise ValueError(f"sorted_accum runs on cpu or cuda, not {g.device}")
     _check_cuda(rows, g, starts, counts, r_pad, wrows, "sorted_accum")
     rows = _rows_flat(rows, g.shape[0])
-    out = torch.empty((r_pad, LANES), dtype=torch.float32, device=g.device)
-    _kernels.launch("sorted_accum", g.device, rows, g, starts, counts, out,
-                    g.shape[0], r_pad, wrows)
+    width = g.shape[1]
+    out = torch.empty((r_pad, _out_width(width, count_lanes)),
+                      dtype=torch.float32, device=g.device)
+    if _wide(width, count_lanes):
+        _kernels.launch("sorted_accum_wide", g.device, rows, g, starts,
+                        counts, out, g.shape[0], r_pad, wrows, width,
+                        int(count_lanes))
+    else:
+        _kernels.launch("sorted_accum", g.device, rows, g, starts, counts,
+                        out, g.shape[0], r_pad, wrows)
     return out
 
 
 def sorted_accum_dual(rows_i, gi, starts_i, counts_i, rows_j, gj, starts_j,
                       counts_j, *, r_pad: int, neg_lanes: int,
-                      wrows: int = 512) -> torch.Tensor:
+                      wrows: int = 512, count_lanes: bool = False
+                      ) -> torch.Tensor:
     """Two sorted streams into one buffer:
     ``scatter(rows_j, gj) + scatter(rows_i, gi * sign)`` with ``sign = -1``
     on lanes ``< neg_lanes`` and ``+1`` elsewhere, i.e. ``Aj - Ai`` on the
-    payload lanes with the count lane adding.  Argument contracts are as
-    :func:`sorted_accum`, once per stream."""
+    payload lanes; with ``count_lanes`` both streams' counts add on lane
+    ``width``.  Argument contracts are as :func:`sorted_accum`, once per
+    stream."""
     _check_shapes(gi, r_pad, wrows)
     if gj.shape[1:] != gi.shape[1:]:
         raise ValueError("gradient widths must match")
     if gi.device.type == "cpu" and gj.device.type == "cpu":
         return sorted_accum_dual_plain(
             rows_i, gi, starts_i, counts_i, rows_j, gj, starts_j, counts_j,
-            r_pad=r_pad, neg_lanes=neg_lanes, wrows=wrows)
+            r_pad=r_pad, neg_lanes=neg_lanes, wrows=wrows,
+            count_lanes=count_lanes)
     if gi.device.type != "cuda":
         raise ValueError(f"sorted_accum_dual runs on cpu or cuda, not "
                          f"{gi.device}")
@@ -192,8 +240,14 @@ def sorted_accum_dual(rows_i, gi, starts_i, counts_i, rows_j, gj, starts_j,
         raise ValueError("both streams must be on one device")
     rows_i = _rows_flat(rows_i, gi.shape[0])
     rows_j = _rows_flat(rows_j, gj.shape[0])
-    out = torch.empty((r_pad, LANES), dtype=torch.float32, device=gi.device)
-    _kernels.launch("sorted_accum_dual", gi.device, rows_i, gi, starts_i,
-                    counts_i, rows_j, gj, starts_j, counts_j, out,
-                    gi.shape[0], gj.shape[0], r_pad, wrows, int(neg_lanes))
+    width = gi.shape[1]
+    out = torch.empty((r_pad, _out_width(width, count_lanes)),
+                      dtype=torch.float32, device=gi.device)
+    args = (rows_i, gi, starts_i, counts_i, rows_j, gj, starts_j, counts_j,
+            out, gi.shape[0], gj.shape[0], r_pad, wrows, int(neg_lanes))
+    if _wide(width, count_lanes):
+        _kernels.launch("sorted_accum_dual_wide", gi.device, *args, width,
+                        int(count_lanes))
+    else:
+        _kernels.launch("sorted_accum_dual", gi.device, *args)
     return out

@@ -204,7 +204,7 @@ def test_warm_start_continues(data):
     (dict(engine="pallas"), ValueError),          # past the engine's gate
     (dict(packed="off"), NotImplementedError),
     (dict(neg_pool=256, num_components=31), ValueError),   # s (K + 1) = 128
-    (dict(num_components=128), NotImplementedError),
+    (dict(num_components=128, neg_pool=256), ValueError),  # wide K
 ])
 def test_invalid_arguments(kwargs, exc):
     """Each raises when built or, on an ML-20M-sized catalog, when fit."""
@@ -298,5 +298,6 @@ def test_import_leaves_jax_and_sklearn_stack_out():
     assert jax_stack == "[]"
     for m in ("models.wmf", "models.expomf", "ops.als", "ops.chol_kernel",
               "models.relmf", "models.glove", "ops.relmf_epoch",
-              "ops.glove_epoch", "ops.hashset"):
+              "ops.glove_epoch", "ops.hashset", "ops.wide_epoch",
+              "ops.probes"):
         assert f"'cymf_tpu_torch.{m}'" in modules

@@ -14,7 +14,10 @@ relative ``1e-5`` (row sums reduce in another order), the v5-v8 kernels'
 lane group by lane group: the payload within ``1e-5`` of its own max
 (where a slot-placement or lane-rotation fault shows; the count and loss
 lanes dwarf it), the count channel and unused lanes exact (sums of 0/1
-masks), ``Aw``'s loss lane ``rtol 1e-5``; the packed epochs of every pipeline on the card against the
+masks), ``Aw``'s loss lane ``rtol 1e-5``; the count-lane form of the
+accumulations alike (payload within ``1e-5`` of its max, the count lane
+and the 127 unused lanes exact); the probes P2 and P3 exact, P1's SW and
+Q equal to #1's kernel and within #1's bounds of plain; the packed epochs of every pipeline on the card against the
 CPU, ``rtol 1e-4, atol 1e-5`` under sgd and adagrad and under adam the
 sequential epochs' drift class below; the batched
 Cholesky ``|dL| <= 1e-4 max|L|`` and ``|Linv L - I| <= 1e-3``, the JAX
@@ -38,6 +41,7 @@ from cymf_tpu_torch.ops import fused_step as fst
 from cymf_tpu_torch.ops import glove_epoch as ge
 from cymf_tpu_torch.ops import packed as pk
 from cymf_tpu_torch.ops import pallas_engine as pe
+from cymf_tpu_torch.ops import probes
 from cymf_tpu_torch.ops import sorted_accum as sa
 
 pytestmark = pytest.mark.cuda
@@ -133,6 +137,150 @@ def test_sorted_accum_dual_kernel(dev, Bi, Bj, R, wrows, neg):
                                                  wrows=wrows))
 
 
+def _wide_inputs(rng, B, R, wrows, width, lo=0, hi=None, live=0.8):
+    """A sorted stream of ``width``-lane rows, its dead samples routed to
+    the sentinel R (as the wide engine routes them)."""
+    hi = R if hi is None else hi
+    rows = np.sort(rng.integers(lo, hi, B)).astype(np.int32)
+    starts, counts = sa.window_ranges(rows, R, wrows, 1024, align=128)
+    rows2d = sa.pad_samples(np.where(rng.random(B) < live, rows, R)
+                            .astype(np.int32), R)
+    g = rng.normal(size=(rows2d.size, width)).astype(np.float32)
+    return rows2d, g, starts, counts
+
+
+def _close_counted(got, want, width):
+    """The wide form by lane group: payload within 1e-5 of its own max,
+    the count lane and the 127 unused lanes exact."""
+    _close_lanes(got, want, [("payload", slice(0, width), 0.0, 1e-5),
+                             ("counts", slice(width, width + 1), 0.0, 0.0),
+                             ("unused", slice(width + 1, None), 0.0, 0.0)])
+
+
+@pytest.mark.parametrize("width", [256, 384])
+@pytest.mark.parametrize("B,R,wrows,lo,hi", [
+    (3000, 1024, 128, 0, None),
+    (20000, 2048, 512, 0, None),    # wrows 512: three slices at width 256
+    (8192, 2048, 512, 100, 400),    # runs across slices
+    (0, 1024, 512, 0, None),        # empty stream
+])
+def test_sorted_accum_count_lanes_kernel(dev, width, B, R, wrows, lo, hi):
+    rng = np.random.default_rng(B + R + width)
+    arrs = [torch.from_numpy(a).to(dev)
+            for a in _wide_inputs(rng, B, R, wrows, width, lo, hi)]
+    _kernels.reset_launches()
+    got = sa.sorted_accum(*arrs, r_pad=R, wrows=wrows, count_lanes=True)
+    assert dict(_kernels.launches) == {"sorted_accum_wide": 1}
+    assert got.shape == (R, width + 128)
+    _close_counted(got, sa.sorted_accum_plain(*arrs, r_pad=R, wrows=wrows,
+                                              count_lanes=True), width)
+
+
+@pytest.mark.parametrize("width", [256, 384])
+@pytest.mark.parametrize("Bi,Bj,R,wrows", [
+    (2048, 3000, 1024, 128),
+    (20000, 30000, 2048, 512),
+    (0, 4096, 1024, 512),           # empty i stream
+])
+def test_sorted_accum_dual_count_lanes_kernel(dev, width, Bi, Bj, R, wrows):
+    rng = np.random.default_rng(Bi + Bj + width)
+    a = [torch.from_numpy(x).to(dev)
+         for x in _wide_inputs(rng, Bi, R, wrows, width)
+         + _wide_inputs(rng, Bj, R, wrows, width)]
+    _kernels.reset_launches()
+    got = sa.sorted_accum_dual(*a, r_pad=R, neg_lanes=width, wrows=wrows,
+                               count_lanes=True)
+    assert dict(_kernels.launches) == {"sorted_accum_dual_wide": 1}
+    _close_counted(got, sa.sorted_accum_dual_plain(
+        *a, r_pad=R, neg_lanes=width, wrows=wrows, count_lanes=True), width)
+
+
+@pytest.mark.parametrize("width,count", [(256, False), (128, True),
+                                         (640, True)])
+def test_sorted_accum_wide_widths(dev, width, count):
+    """Widths without the count granule, the count granule at width 128,
+    and a width past one walk's four granules (two walks a range)."""
+    rng = np.random.default_rng(width)
+    arrs = [torch.from_numpy(a).to(dev)
+            for a in _wide_inputs(rng, 5000, 1024, 512, width)]
+    got = sa.sorted_accum(*arrs, r_pad=1024, wrows=512, count_lanes=count)
+    want = sa.sorted_accum_plain(*arrs, r_pad=1024, wrows=512,
+                                 count_lanes=count)
+    if count:
+        _close_counted(got, want, width)
+    else:
+        _close_accum(got, want)
+
+
+def _probe_tiles(dev, B, K=20, seed=0):
+    """Decorated packed W rows and logical item rows, zero on lanes >= K."""
+    rng = np.random.default_rng(seed)
+    s, cb = pk.num_slots(K), pk.count_base(K)
+    Du = rng.normal(size=(B, 128)).astype(np.float32)
+    Du[:, cb:] = 0.0
+    Du[np.arange(B), cb + rng.integers(0, s, B)] = rng.random(B) > 0.1
+    Di, Dj = (rng.normal(size=(B, 128)).astype(np.float32) for _ in "ij")
+    Di[:, K:] = 0.0
+    Dj[:, K:] = 0.0
+    return [torch.from_numpy(a).to(dev) for a in (Du, Di, Dj)]
+
+
+@pytest.mark.parametrize("K,B", [(20, 2048), (33, 1000), (20, 1)])
+def test_phase_v4r_kernel(dev, K, B):
+    """P1: SW and Q equal to #1's kernel bit for bit (one reduction order),
+    within #1's bounds of plain; the loss within 1e-5 relative."""
+    tiles = _probe_tiles(dev, B, K)
+    _kernels.reset_launches()
+    SW, Q, loss = probes.phase_v4r(*tiles, K=K, wd=0.01)
+    assert dict(_kernels.launches) == {"phase_v4r": 1}
+    SW1, Q1, loss1 = fs.bpr_sample_phase(*tiles, K=K, wd=0.01)
+    torch.testing.assert_close(SW, SW1, rtol=0.0, atol=0.0)
+    torch.testing.assert_close(Q, Q1, rtol=0.0, atol=0.0)
+    SWp, Qp, lossp = probes.phase_v4r_plain(*tiles, K=K, wd=0.01)
+    torch.testing.assert_close(SW, SWp, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(Q, Qp, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(loss, lossp, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("B", [1, 1024, 131072])
+def test_copy_phase_kernel(dev, B):
+    tiles = _probe_tiles(dev, B)
+    _kernels.reset_launches()
+    got = probes.copy_phase(*tiles)
+    assert dict(_kernels.launches) == {"copy_phase": 1}
+    for g, w in zip(got, probes.copy_phase_plain(*tiles)):
+        torch.testing.assert_close(g, w, rtol=0.0, atol=0.0)
+
+
+@pytest.mark.parametrize("q", [1, 8, 16])
+@pytest.mark.parametrize("R,W,B,sort", [(27136, 128, 4096, False),
+                                        (1000, 256, 777, True),
+                                        (50, 4, 1, False),
+                                        (300, 384, 0, False)])
+def test_gather_rows_kernel(dev, q, R, W, B, sort):
+    rng = np.random.default_rng(R + W + B)
+    T = torch.from_numpy(rng.normal(size=(R, W)).astype(np.float32)).to(dev)
+    idx = rng.integers(0, R, B).astype(np.int32)
+    idx = torch.from_numpy(np.sort(idx) if sort else idx).to(dev)
+    _kernels.reset_launches()
+    got = probes.gather_rows(T, idx, rows_in_flight=q)
+    assert dict(_kernels.launches) == {"gather_rows": 1}
+    torch.testing.assert_close(got, probes.gather_rows_plain(T, idx),
+                               rtol=0.0, atol=0.0)
+
+
+def test_probes_raise_on_what_kernels_do_not_take(dev):
+    T = torch.zeros(10, 6, device=dev)
+    idx = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        probes.gather_rows(T, idx)
+    with pytest.raises(ValueError, match="dtype"):
+        probes.gather_rows(torch.zeros(10, 8, device=dev), idx.long())
+    x = torch.zeros(64, 128, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        probes.copy_phase(x.double(), x.double(), x.double())
+
+
 @pytest.mark.parametrize("K,B", [(20, 1024), (33, 1000), (64, 64),
                                  (100, 777), (20, 1)])
 def test_bpr_sample_kernel(dev, K, B):
@@ -198,7 +346,7 @@ def test_wrappers_raise_on_what_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="one entry per window"):
         sa.sorted_accum(rows, g, win[:1], win[:1], r_pad=512, wrows=256)
     with pytest.raises(ValueError, match="width"):
-        sa.sorted_accum(rows, torch.zeros(1024, 256, device=dev), win, win,
+        sa.sorted_accum(rows, torch.zeros(1024, 200, device=dev), win, win,
                         r_pad=512, wrows=256)
     with pytest.raises(ValueError, match="aligned"):
         x = torch.zeros(65 * 128 + 1, device=dev)[1:].view(65, 128)
@@ -432,6 +580,40 @@ def test_bpr_fit_on_card_matches_cpu(dev):
                                     "sorted_accum_dual"}
     np.testing.assert_allclose(Wg, Wc, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(Hg, Hc, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+
+
+@pytest.mark.parametrize("K,optimizer", [(160, "sgd"), (160, "adagrad"),
+                                         (128, "adam")])
+def test_wide_bpr_fit_on_card_matches_cpu(dev, K, optimizer):
+    """Two epochs of the wide engine (K >= 128) on the card and on the CPU
+    from the same init: equal to summation order under sgd and adagrad;
+    under adam fewer than 1% of elements outside that and none off by more
+    than 2.5 lr (the first-touch drift class above)."""
+    from scipy import sparse
+
+    from cymf_tpu_torch import BPR
+    X = sparse.random(700, 300, density=0.05, random_state=1, format="csr")
+    X.data[:] = 1.0
+    lr = 0.05 if optimizer == "sgd" else 0.01
+    out = {}
+    for d in ("cpu", dev):
+        m = BPR(K, learning_rate=lr, optimizer=optimizer, batch_size=2048,
+                device=d)
+        np.random.seed(3)
+        _kernels.reset_launches()
+        m.fit(X, num_epochs=2, verbose=False)
+        out[str(d)] = (m.W, m.H, m.last_loss, dict(_kernels.launches))
+    (Wc, Hc, lc, nc), (Wg, Hg, lg, ng) = out["cpu"], out[str(dev)]
+    steps = 2 * -(-X.nnz // 2048)
+    assert nc == {} and ng == {"sorted_accum_wide": steps,
+                               "sorted_accum_dual_wide": steps}
+    for got, want in ((Wg, Wc), (Hg, Hc)):
+        if optimizer == "adam":
+            _close_seq(torch.from_numpy(got), torch.from_numpy(want),
+                       "adam", lr)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(lg, lc, rtol=1e-5)
 
 

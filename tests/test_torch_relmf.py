@@ -49,6 +49,18 @@ U, I, K, B, S, WROWS = 210, 140, 12, 1024, 3, 16
 LR, WD, M = 0.02, 0.01, 0.1
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's CPU fits issue many small ops; when the suite runs in
+    parallel workers, torch's intra-op threads oversubscribe the cores and
+    slow such a test many times over.  One thread a test, restored after
+    (it changes no result this file checks)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def jax_host_numpy(monkeypatch):
     monkeypatch.setenv("CYMF_TPU_PREP", "numpy")

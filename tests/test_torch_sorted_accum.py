@@ -142,3 +142,96 @@ def test_wrapper_rejects_bad_arguments():
     with pytest.raises(ValueError, match="widths"):
         tsa.sorted_accum_dual(rows, g, win, win, rows, g[:, :64], win, win,
                               r_pad=512, neg_lanes=8, wrows=128)
+
+
+def _masked_stream(rng, B, R, width, live=0.8):
+    """A sorted stream with its dead samples routed to the sentinel R (as
+    the wide engine routes them), padded to a tile multiple."""
+    rows = np.sort(rng.integers(0, R, B)).astype(np.int32)
+    rows2d = tsa.pad_samples(np.where(rng.random(B) < live, rows, R)
+                             .astype(np.int32), R)
+    g = rng.normal(size=(rows2d.size, width)).astype(np.float32)
+    return rows, rows2d, g
+
+
+def _check_count_lanes(got, want, width):
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got[:, :width], want[:, :width], rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_array_equal(got[:, width], want[:, width])  # counts
+    assert not got[:, width + 1:].any()                         # unused
+
+
+@pytest.mark.parametrize("width", [128, 256, 384])
+@pytest.mark.parametrize("B,R,wrows", [(3000, 1024, 256), (2048, 512, 128),
+                                       (0, 256, 128)])
+def test_sorted_accum_count_lanes_plain_matches_jax(width, B, R, wrows):
+    """``count_lanes=True``: the payload of the live samples on lanes
+    ``[0, width)``, their count per row on lane ``width`` (exact), zeros
+    on the other 127 lanes; dead samples sit at the sentinel row R."""
+    rng = np.random.default_rng(B + R + width)
+    rows, rows2d, g = _masked_stream(rng, B, R, width)
+    starts, counts = tsa.window_ranges(rows, R, wrows, 1024, align=128)
+    want = np.asarray(jsa.sorted_accum(
+        jnp.asarray(rows2d), jnp.asarray(g), jnp.asarray(starts),
+        jnp.asarray(counts), r_pad=R, wrows=wrows, interpret=True,
+        precision="highest", count_lanes=True))
+    _kernels.reset_launches()
+    got = tsa.sorted_accum(torch.from_numpy(rows2d), torch.from_numpy(g),
+                           torch.from_numpy(starts),
+                           torch.from_numpy(counts), r_pad=R, wrows=wrows,
+                           count_lanes=True)
+    assert got.shape == (R, width + 128)
+    _check_count_lanes(got.numpy(), want, width)
+    live = rows2d.reshape(-1)[:B] < R
+    assert got[:, width].sum() == live.sum()
+    assert not _kernels.launches
+
+
+@pytest.mark.parametrize("width", [128, 256, 384])
+@pytest.mark.parametrize("Bi,Bj,R,wrows", [(2048, 3000, 512, 128),
+                                           (1024, 0, 1024, 256)])
+def test_sorted_accum_dual_count_lanes_plain_matches_jax(width, Bi, Bj, R,
+                                                         wrows):
+    """The dual form's counts add both streams; the i stream's payload is
+    negated on every payload lane (``neg_lanes = width``, the wide
+    engine's H side)."""
+    rng = np.random.default_rng(Bi + Bj + width)
+    args = []
+    for n in (Bi, Bj):
+        rows, rows2d, g = _masked_stream(rng, n, R, width)
+        args += [rows2d, g, *tsa.window_ranges(rows, R, wrows, 1024,
+                                               align=128)]
+    want = np.asarray(jsa.sorted_accum_dual(
+        *(jnp.asarray(a) for a in args), r_pad=R, neg_lanes=width,
+        wrows=wrows, interpret=True, precision="highest",
+        count_lanes=True))
+    got = tsa.sorted_accum_dual(*(torch.from_numpy(a) for a in args),
+                                r_pad=R, neg_lanes=width, wrows=wrows,
+                                count_lanes=True)
+    _check_count_lanes(got.numpy(), want, width)
+
+
+def test_wide_widths_without_count_lanes_match_jax():
+    rng = np.random.default_rng(8)
+    B, R, wrows, width = 3000, 1024, 256, 256
+    _, rows2d, g = _stream(rng, B, R)
+    g = np.concatenate([g, g[:, ::-1]], axis=1)
+    starts, counts = tsa.window_ranges(rows2d.reshape(-1)[:B], R, wrows,
+                                       1024, align=128)
+    want = _jax_accum(rows2d, np.ascontiguousarray(g), starts, counts, R,
+                      wrows)
+    got = tsa.sorted_accum(torch.from_numpy(rows2d),
+                           torch.from_numpy(np.ascontiguousarray(g)),
+                           torch.from_numpy(starts),
+                           torch.from_numpy(counts), r_pad=R, wrows=wrows)
+    assert got.shape == (R, width)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_width_not_a_multiple_of_128_raises():
+    rows = torch.zeros(1024, dtype=torch.int32)
+    win = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tsa.sorted_accum(rows, torch.zeros(1024, 200), win, win, r_pad=512,
+                         wrows=128, count_lanes=True)
