@@ -1,0 +1,207 @@
+"""The single-stream sorted accumulation of one checkout, timed on one
+CUDA card.
+
+    python3 accum_timing.py [--repo DIR] [--profile]
+
+Runs the port in ``DIR`` (a checkout of the repository; this one by
+default) through this checkout's ``chip_smoke.py`` helpers, in two parts:
+
+1. ``sorted_accum`` (#2, and #2w with ``count_lanes``) at the main-path
+   calls that ``chip_smoke.py`` checks, each held against
+   ``sorted_accum_plain`` first (payload within 1e-5 max|plain|, the count
+   granule exact; a mismatch exits non-zero) and timed beside the library
+   calls that compute the same function (``index_add_`` of the live rows
+   into a zeroed buffer, and ``bincount`` for the counts), both as the
+   median of 20 single calls (``time_ms``) and as the mean of 20
+   back-to-back calls (``loop_ms``); ``--profile`` adds each call's device
+   time by CUDA kernel (``torch.profiler``).
+2. The two phases of ``chip_smoke.py`` that call it most, as it runs
+   them: ``relmf-ml20m`` (1,000 device-prep RelMF steps: 2,000 calls; ms
+   a step), before and after ``full`` (3 epochs of BPR d=20 at ML-20M
+   through ``fit``, pipeline v4: 453 calls; each epoch's host prep and
+   device seconds are printed); ``--profile`` adds the card's busy share
+   of the RelMF steps after ``full`` and their device time by kernel
+   (``chip_smoke.profile_relmf``).
+
+To compare two checkouts (a ``git archive`` of the other unpacked under
+``build/``), run them in turns in one command, A, B, B, A, and compare
+within it.  The call sites' inputs are built the first time (ML-20M
+shapes: ~1 min of host work) and kept in ``build/`` under a hash of
+``chip_smoke.py``, so that every run of the command times the same
+tensors.  Prints the card's name and power limit and, last, one JSON line
+of the call sites' times and the RelMF steps (before and after
+``full``).  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+REPS = 20
+
+
+def build_inputs(dev):
+    """``{site: (args, kw)}`` of the single-stream calls, on the CPU."""
+    import chip_smoke as cs
+    from cymf_tpu_torch.ops import fused_sample as fs
+    from cymf_tpu_torch.ops import glove_epoch as ge
+    from cymf_tpu_torch.ops import relmf_epoch as tre
+
+    X = cs.bench_matrix()
+    sites = {}
+    t, rw, rh = cs.first_step(X, 20, dev)
+    SW, Q, _ = fs.bpr_sample_phase_plain(t["Du"], t["Di"], t["Dj"], K=20,
+                                         wd=0.01)
+    sites["#2 ML-20M d=20 step 0, W side"] = (
+        (t["phys"], SW, t["winw"][0], t["winw"][1]),
+        dict(r_pad=rw, wrows=cs.WROWS))
+    sites["#2 ML-20M d=20 step 0, i side (v8's item-side stream)"] = (
+        (t["rowsi"], Q.index_select(0, t["si"]), t["wini"][0],
+         t["wini"][1]), dict(r_pad=rh, wrows=cs.WROWS))
+    del t, SW, Q
+    wide = cs.wide_step0(X, dev)
+    for K in (cs.WIDE_K, 300):
+        w_args, _, rw, _ = wide[K]
+        sites[f"#2w ML-20M d={K} step 0, W side, width "
+              f"{w_args[1].shape[1]}"] = (
+            w_args, dict(r_pad=rw, wrows=cs.WIDE_WROWS, count_lanes=True))
+    del wide
+    st = cs.relmf_ml20m_state(X, dev)
+    del X
+
+    def relmf_step0():
+        tre.packed_relmf_epoch_device(
+            st["Wp"].clone(), st["Hp"].clone(),
+            {k: v.clone() for k, v in st["ow"].items()},
+            {k: v.clone() for k, v in st["oh"].items()}, st["hs"],
+            tre.epoch_generator(1234, 0, dev), 1, 1.0, **st["kw"])
+
+    def glove_epoch0():
+        import cymf_tpu_torch as ct
+        np.random.seed(0)
+        ct.GloVe(cs.GLOVE_K, batch_size=cs.BATCH, device=dev).fit(
+            cs.glove_matrix(), num_epochs=1)
+
+    for module, run, what in ((tre, relmf_step0, "RelMF ML-20M step 0"),
+                              (ge, glove_epoch0, "GloVe 50k-word step 0")):
+        got = cs.record_calls(module, {"sorted_accum": 2}, run)
+        for call, side in zip(got["sorted_accum"], ("W", "H")):
+            sites[f"#2 {what}, {side} side"] = call
+    return {k: (tuple(a.cpu() if torch.is_tensor(a) else a for a in args),
+                kw) for k, (args, kw) in sites.items()}
+
+
+def inputs_path() -> Path:
+    """The cached call sites, keyed by the helpers that build them."""
+    key = hashlib.sha256((ROOT / "chip_smoke.py").read_bytes()).hexdigest()
+    return ROOT / "build" / f"accum_inputs_{key[:16]}.pt"
+
+
+def time_site(what, args, kw) -> dict:
+    """One call site: ``chip_smoke.accum_against_library``, printed."""
+    import chip_smoke as cs
+
+    res = cs.accum_against_library(args, kw, what, REPS)
+    print(f"{what} (B={args[1].shape[0]}, width {args[1].shape[1]}, r_pad "
+          f"{kw['r_pad']}): kernel {res['ms']:.4f} ms a call, "
+          f"{res['loop_ms']:.4f} ms in a loop; library "
+          f"{res['library_ms']:.4f} / {res['library_loop_ms']:.4f} ms; "
+          f"bound {res['bound_ms']:.4f} ms; max abs "
+          f"{res['max_abs_err']:.3e} (limit {res['limit']:.3e})", flush=True)
+    return res
+
+
+def profile_site(what, args, kw) -> dict:
+    """Device time of each CUDA kernel (and memset) over ``REPS``
+    back-to-back calls, per call, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cymf_tpu_torch.ops import sorted_accum as sa
+
+    sa.sorted_accum(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            sa.sorted_accum(*args, **kw)
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = ev.self_cuda_time_total
+        if t > 0:
+            split[ev.key[:60]] = t / 1e3 / REPS
+    print(f"{what}: device ms a call by kernel "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()), flush=True)
+    return split
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repo", type=Path, default=ROOT,
+                    help="checkout whose cymf_tpu_torch is timed")
+    ap.add_argument("--profile", action="store_true",
+                    help="also split each site's kernel calls by CUDA "
+                         "kernel with torch.profiler")
+    opts = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("accum_timing: no CUDA device", file=sys.stderr)
+        return 1
+    # the timed package first, so that this checkout's chip_smoke helpers
+    # use it too
+    sys.path.insert(0, str(opts.repo.resolve()))
+    import cymf_tpu_torch
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    sys.modules["chip_smoke"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules["chip_smoke"])
+    from cymf_tpu_torch.ops import _kernels
+
+    dev = torch.device("cuda", 0)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip(), flush=True)
+    print(f"package {Path(cymf_tpu_torch.__file__).parent}, library "
+          f"{_kernels.build().name}", flush=True)
+    _kernels.lib()
+    cache = inputs_path()
+    if not cache.exists():
+        cache.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(build_inputs(dev), cache)
+    sites = torch.load(cache)
+    out = {}
+    for what, (args, kw) in sites.items():
+        args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+        out[what] = time_site(what, args, kw)
+        if opts.profile:
+            out[what]["split_ms"] = profile_site(what, args, kw)
+    del sites, args
+    cs = sys.modules["chip_smoke"]
+    X = cs.bench_matrix()
+    st = cs.relmf_ml20m_state(X, dev)
+    relmf_ms = [cs.relmf_ml20m(st, dev)]
+    cs.full_width(X, dev)
+    relmf_ms.append(cs.relmf_ml20m(st, dev))
+    if opts.profile:
+        cs.profile_relmf(st, dev, relmf_ms[-1])
+        print((cs.ROOT / "chiprun_out" / "relmf_profile.txt").read_text()
+              .split("\n\n")[0], flush=True)
+    print(json.dumps({"repo": str(opts.repo), "sites": out,
+                      "relmf_ml20m_ms_a_step": relmf_ms}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

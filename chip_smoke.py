@@ -28,7 +28,13 @@ Phases, one line each; any failure raises and exits non-zero:
    The count-lane form of both accumulations (#2w/#3w, the wide engine)
    on step 0 of the ML-20M d=256 fit (batch 131,072, ``wrows`` 512) and
    of a K = 300 fit (width 384): payload within 1e-5 of its max, the
-   count lane and the unused lanes exact;
+   count lane and the unused lanes exact.  Every single-stream call
+   (#2, #2w; also the v8 item-side call on bpr-pool's first step, checked
+   after that phase) prints its grid (CTAs, samples a CTA) and the
+   stream's runs, and is timed beside the library calls that compute its
+   function, each both ways: the median of 20 single calls between CUDA
+   events, and the mean of 20 back-to-back calls (the host queues ahead,
+   so the wrapper's host work hides as in a training step);
    probes: P1 (``phase_v4r``) and P2 (``copy_phase``) at their scripts'
    shapes (B = 131,072, K = 20) beside #1; P3 (``gather_rows``) at R =
    27,136 and 131,072, width 128, random and sorted ids, and at the wide
@@ -86,7 +92,9 @@ Phases, one line each; any failure raises and exits non-zero:
     exactly one.
 
 Then it prints the kernels' JSON line (all seventeen), with each kernel's
-launches on its main path (a probe's: those of the probes phase), its
+launches on its main path (a probe's: those of the probes phase), the
+accumulations' loop times (``loop_ms``, and ``library_loop_ms`` for the
+single stream's library calls), its
 bound (the larger of bytes over 3.35 TB/s and float32 operations over 67
 TFLOP/s, counted on this run's inputs) and the time of the library call
 that computes the same function: ``index_add_`` for ``sorted_accum``,
@@ -200,6 +208,24 @@ def time_ms(fn, reps: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def loop_ms(fn, reps: int = 20) -> float:
+    """Mean time of ``fn()`` over ``reps`` back-to-back calls between two
+    CUDA events, after a warm-up: the host queues ahead of the card, so a
+    wrapper's host work (checks, allocation, the launch) hides behind the
+    kernels as it does in a training step, where :func:`time_ms`'s events
+    around one call include it."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -318,47 +344,28 @@ def check_kernels(X, dev):
             continue
 
         w_args = (t["phys"], SW, t["winw"][0], t["winw"][1])
-        Aw = sa.sorted_accum(*w_args, r_pad=rw, wrows=WROWS)
-        Awp = sa.sorted_accum_plain(*w_args, r_pad=rw, wrows=WROWS)
+        results["sorted_accum"] = check_sorted_accum(
+            w_args, dict(r_pad=rw, wrows=WROWS),
+            f"ML-20M d={K} step 0, W side, wrows {WROWS}")
         h_args = (t["rowsi"], Q.index_select(0, t["si"]), t["wini"][0],
                   t["wini"][1], t["rowsj"], Q.index_select(0, t["sj"]),
                   t["winj"][0], t["winj"][1])
-        D = sa.sorted_accum_dual(*h_args, r_pad=rh, neg_lanes=K,
-                                 wrows=WROWS)
-        Dp = sa.sorted_accum_dual_plain(*h_args, r_pad=rh, neg_lanes=K,
-                                        wrows=WROWS)
+        kw = dict(r_pad=rh, neg_lanes=K, wrows=WROWS)
+        D = sa.sorted_accum_dual(*h_args, **kw)
+        Dp = sa.sorted_accum_dual_plain(*h_args, **kw)
         torch.cuda.synchronize()
-        for name, got, want, fn, plain, kw, a in (
-                ("sorted_accum", Aw, Awp, sa.sorted_accum,
-                 sa.sorted_accum_plain, dict(r_pad=rw, wrows=WROWS), w_args),
-                ("sorted_accum_dual", D, Dp, sa.sorted_accum_dual,
-                 sa.sorted_accum_dual_plain,
-                 dict(r_pad=rh, neg_lanes=K, wrows=WROWS), h_args)):
-            scale = float(want.abs().max())
-            e = close(got, want, 0.0, 1e-5 * scale, name)
-            ms = time_ms(lambda: fn(*a, **kw))
-            pms = time_ms(lambda: plain(*a, **kw))
-            results[name] = dict(max_abs_err=e[0], ms=ms, plain_ms=pms,
-                                 **accum_bound(a, kw["r_pad"]),
-                                 library_ms=None)
-            msg = (f"{name}: max abs {e[0]:.3e} (limit {1e-5 * scale:.3e} = "
-                   f"1e-5 max|plain|), max rel {e[1]:.3e}; {ms:.4f} ms vs "
-                   f"plain {pms:.4f} ms")
-            if name == "sorted_accum":
-                # the library call computing the same function: index_add_
-                # of the in-range rows into a zeroed (r_pad, 128) buffer
-                rows = a[0].reshape(-1)[:a[1].shape[0]].long()
-                keep = rows < kw["r_pad"]
-                rows, g = rows[keep], a[1][keep]
-
-                def lib():
-                    return torch.zeros_like(want).index_add_(0, rows, g)
-
-                close(lib(), want, 0.0, 1e-5 * scale, "index_add_")
-                results[name]["library_ms"] = time_ms(lib)
-                msg += (f"; index_add_ "
-                        f"{results[name]['library_ms']:.4f} ms")
-            phase("kernels", msg)
+        scale = float(Dp.abs().max())
+        e = close(D, Dp, 0.0, 1e-5 * scale, "sorted_accum_dual")
+        ms = time_ms(lambda: sa.sorted_accum_dual(*h_args, **kw))
+        lms = loop_ms(lambda: sa.sorted_accum_dual(*h_args, **kw))
+        pms = time_ms(lambda: sa.sorted_accum_dual_plain(*h_args, **kw))
+        results["sorted_accum_dual"] = dict(
+            max_abs_err=e[0], ms=ms, loop_ms=lms, plain_ms=pms,
+            **accum_bound(h_args, rh), library_ms=None)
+        phase("kernels", f"sorted_accum_dual: max abs {e[0]:.3e} (limit "
+              f"{1e-5 * scale:.3e} = 1e-5 max|plain|), max rel {e[1]:.3e}; "
+              f"{ms:.4f} ms a call, {lms:.4f} ms in a loop, vs plain "
+              f"{pms:.4f} ms")
     return results
 
 
@@ -678,10 +685,9 @@ def check_wide_kernels(X, dev):
     """Phase 3 for #2/#3's count-lane form (``sorted_accum_wide``,
     ``sorted_accum_dual_wide``): both accumulations of step 0 of the
     ML-20M d=256 fit (width 256) and of a K = 300 fit (width 384, three
-    granules a row), kernel against plain, by lane group
-    (:func:`counted_lanes`).  ``sorted_accum_wide`` is also timed against
-    the library calls that compute its function, ``index_add_`` and
-    ``bincount`` into a zeroed buffer."""
+    granules a row), kernel against plain, the single stream by
+    :func:`check_sorted_accum` (with the library calls that compute its
+    function), the dual by lane group (:func:`counted_lanes`)."""
     from cymf_tpu_torch.ops import sorted_accum as sa
 
     steps = wide_step0(X, dev)
@@ -689,43 +695,26 @@ def check_wide_kernels(X, dev):
     for K in (WIDE_K, 300):
         w_args, h_args, rw, rh = steps[K]
         width = w_args[1].shape[1]
-        for name, fn, plain, a, kw in (
-                ("sorted_accum_wide", sa.sorted_accum, sa.sorted_accum_plain,
-                 w_args, dict(r_pad=rw, wrows=WIDE_WROWS, count_lanes=True)),
-                ("sorted_accum_dual_wide", sa.sorted_accum_dual,
-                 sa.sorted_accum_dual_plain, h_args,
-                 dict(r_pad=rh, neg_lanes=width, wrows=WIDE_WROWS,
-                      count_lanes=True))):
-            live = sum(int((rows.reshape(-1) < kw["r_pad"]).sum())
-                       for rows in a[::4])
-            res = check_fused(
-                f"{name} (ML-20M step 0, K={K}, width {width} + count "
-                f"granule, wrows {WIDE_WROWS}, r_pad {kw['r_pad']}, {live} "
-                "live samples)", lambda *x, fn=fn, **k: (fn(*x, **k),),
-                lambda *x, plain=plain, **k: (plain(*x, **k),), a, kw,
-                ("out",), (("lanes", counted_lanes(width)),), 0, 0)
-            res.update(accum_bound(a, kw["r_pad"], width + 128))
-            if K != WIDE_K:
-                continue
-            if name == "sorted_accum_wide":
-                rows = a[0].reshape(-1).long()
-                keep = rows < rw
-                rows, g = rows[keep], a[1][keep]
-
-                def lib():
-                    out = torch.zeros((rw, width + 128), device=dev)
-                    out[:, :width].index_add_(0, rows, g)
-                    out[:, width] = torch.bincount(rows, minlength=rw)
-                    return out
-
-                want = sa.sorted_accum_plain(*a, **kw)
-                close(lib(), want, 0.0, 1e-5 * float(want.abs().max()),
-                      "index_add_ + bincount")
-                res["library_ms"] = time_ms(lib)
-                phase("kernels", f"{name}: index_add_ + bincount "
-                      f"{res['library_ms']:.4f} ms; bound "
-                      f"{res['bound_ms']:.4f} ms")
-            results[name] = res
+        res = check_sorted_accum(
+            w_args, dict(r_pad=rw, wrows=WIDE_WROWS, count_lanes=True),
+            f"ML-20M d={K} step 0, W side, wrows {WIDE_WROWS}")
+        if K == WIDE_K:
+            results["sorted_accum_wide"] = res
+        kw = dict(r_pad=rh, neg_lanes=width, wrows=WIDE_WROWS,
+                  count_lanes=True)
+        live = sum(int((rows.reshape(-1) < rh).sum()) for rows in h_args[::4])
+        res = check_fused(
+            f"sorted_accum_dual_wide (ML-20M step 0, K={K}, width {width} + "
+            f"count granule, wrows {WIDE_WROWS}, r_pad {rh}, {live} live "
+            "samples)", lambda *x, **k: (sa.sorted_accum_dual(*x, **k),),
+            lambda *x, **k: (sa.sorted_accum_dual_plain(*x, **k),), h_args,
+            kw, ("out",), (("lanes", counted_lanes(width)),), 0, 0)
+        res.update(accum_bound(h_args, rh, width + 128))
+        res["loop_ms"] = loop_ms(lambda: sa.sorted_accum_dual(*h_args, **kw))
+        phase("kernels", f"sorted_accum_dual_wide K={K}: "
+              f"{res['loop_ms']:.4f} ms in a loop")
+        if K == WIDE_K:
+            results["sorted_accum_dual_wide"] = res
     return results, steps["ids"]
 
 
@@ -1102,6 +1091,8 @@ def v6_against_v4(dev):
 def pipeline_fits(X, dev):
     """The v5, v6, v7 and v8 pipelines through their main paths; returns
     each kernel's launches there."""
+    from cymf_tpu_torch.ops import packed_epoch as tpe
+
     launches = bpr_fit(ml1m_matrix(), dev, EPOCHS, "bpr-ml1m", 5,
                        {"bpr_sample_phase_v5": 1, "sorted_accum": 1,
                         "sorted_accum_dual": 1})
@@ -1111,10 +1102,20 @@ def pipeline_fits(X, dev):
         launches = bpr_fit(X, dev, 1, "bpr-v7", 7,
                            {"bpr_range_step_v7": 1, "sorted_accum_dual": 1})
     out["bpr_range_step_v7"] = launches["bpr_range_step_v7"]
-    launches = bpr_fit(X, dev, 2, "bpr-pool", 8,
-                       {"bpr_pool_step_v8": 1, "sorted_accum": 1},
-                       neg_pool=POOL_P)
-    out["bpr_pool_step_v8"] = launches["bpr_pool_step_v8"]
+    # the v8 step's item-side accumulation, recorded on the fit's first
+    # step and checked after it (outside the launch count)
+    pool = {}
+
+    def pool_fit():
+        pool["launches"] = bpr_fit(X, dev, 2, "bpr-pool", 8,
+                                   {"bpr_pool_step_v8": 1, "sorted_accum": 1},
+                                   neg_pool=POOL_P)
+
+    (args, kw), = record_calls(tpe, {"sorted_accum": 1},
+                               pool_fit)["sorted_accum"]
+    check_sorted_accum(args, kw, "bpr-pool step 0, item side (v8)")
+    del args
+    out["bpr_pool_step_v8"] = pool["launches"]["bpr_pool_step_v8"]
     quickstart(dev, neg_pool=128)
     return out
 
@@ -1352,22 +1353,86 @@ def check_glove_sample(Du, Dx, Kp, what):
                 library_ms=None)
 
 
-def check_sorted_accum(args, kw, what):
-    """Phase 3 for the windowed accumulation at one main-path call.
-    Limit: |kernel - plain| <= 1e-5 max|plain|."""
+def accum_against_library(args, kw, what, reps: int = 20) -> dict:
+    """The single-stream accumulation (#2, or #2w with ``count_lanes``) at
+    one call: kernel against plain, the payload within 1e-5 max|plain|,
+    with ``count_lanes`` the count lane and the 127 unused lanes exact;
+    then the times of the kernel and of the library calls that compute the
+    same function (``index_add_`` of the live rows into a zeroed buffer,
+    and ``bincount`` for the counts), each as :func:`time_ms` and
+    :func:`loop_ms` give them.  Uses only what every version of the
+    wrapper has, so that ``accum_timing.py`` times older checkouts with
+    it."""
     from cymf_tpu_torch.ops import sorted_accum as sa
 
+    rows, g = args[0].reshape(-1), args[1]
+    r_pad, width = kw["r_pad"], g.shape[1]
+    counts = kw.get("count_lanes", False)
     got = sa.sorted_accum(*args, **kw)
     want = sa.sorted_accum_plain(*args, **kw)
     torch.cuda.synchronize()
-    scale = float(want.abs().max())
-    e = close(got, want, 0.0, 1e-5 * scale, f"sorted_accum {what}")
-    ms = time_ms(lambda: sa.sorted_accum(*args, **kw))
-    pms = time_ms(lambda: sa.sorted_accum_plain(*args, **kw))
-    phase("kernels", f"sorted_accum {what} (B={args[1].shape[0]}, r_pad="
-          f"{kw['r_pad']}): max abs {e[0]:.3e} (limit {1e-5 * scale:.3e} "
-          f"= 1e-5 max|plain|), max rel {e[1]:.3e}; {ms:.4f} ms vs plain "
-          f"{pms:.4f} ms")
+    limit = 1e-5 * float(want[:, :width].abs().max())
+    e = close(got[:, :width], want[:, :width], 0.0, limit,
+              f"sorted_accum {what}")
+    close(got[:, width:], want[:, width:], 0.0, 0.0,
+          f"sorted_accum {what}, count granule")
+    keep = (rows >= 0) & (rows < r_pad)
+    live_rows, live_g = rows[keep].long(), g[keep]
+
+    def lib():
+        out = torch.zeros_like(want)
+        out[:, :width].index_add_(0, live_rows, live_g)
+        if counts:
+            out[:, width] = torch.bincount(live_rows, minlength=r_pad)
+        return out
+
+    close(lib(), want, 0.0, limit, f"library call, {what}")
+
+    def kernel():
+        return sa.sorted_accum(*args, **kw)
+
+    return dict(max_abs_err=e[0], max_rel_err=e[1], limit=limit,
+                live=int(keep.sum()), ms=time_ms(kernel, reps),
+                loop_ms=loop_ms(kernel, reps),
+                **accum_bound(args, r_pad, got.shape[1]),
+                library_ms=time_ms(lib, reps),
+                library_loop_ms=loop_ms(lib, reps))
+
+
+def check_sorted_accum(args, kw, what):
+    """Phase 3 for the single-stream accumulation at one main-path call:
+    :func:`accum_against_library`, the plain version's time, the launch's
+    grid and the stream's runs
+    (:func:`~cymf_tpu_torch.ops.sorted_accum.segment_twin`, which also
+    holds the stream to the kernel's precondition)."""
+    from cymf_tpu_torch.ops import sorted_accum as sa
+
+    rows, g = args[0].reshape(-1), args[1]
+    r_pad, width = kw["r_pad"], g.shape[1]
+    counts = kw.get("count_lanes", False)
+    res = accum_against_library(args, kw, what)
+    limit, live = res.pop("limit"), res.pop("live")
+    max_rel = res.pop("max_rel_err")
+    res["plain_ms"] = time_ms(lambda: sa.sorted_accum_plain(*args, **kw))
+    plan = sa.segment_plan(rows.numel(), r_pad, width)
+    twin = sa.segment_twin(rows.cpu().numpy(), r_pad, plan["part"],
+                           plan["zero_gap"])
+    phase("kernels", f"{'sorted_accum_wide' if counts else 'sorted_accum'} "
+          f"{what} (B={g.shape[0]}, width {width}"
+          f"{' + count granule' if counts else ''}, r_pad {r_pad}, {live} "
+          f"live samples): {plan['blocks']} CTAs of {plan['share']} "
+          f"samples ({plan['parts']} parts of {plan['part']}); "
+          f"{twin['runs']} runs, {twin['joined']} joined across parts, the "
+          f"longest {twin['longest']} samples, the longest join "
+          f"{twin['walk']} parts; max abs {res['max_abs_err']:.3e} (limit "
+          f"{limit:.3e} = 1e-5 max|plain|"
+          f"{', count granule exact' if counts else ''}), max rel "
+          f"{max_rel:.3e}; {res['ms']:.4f} ms a call, {res['loop_ms']:.4f} "
+          f"ms in a loop; plain {res['plain_ms']:.4f} ms; "
+          f"{'index_add_ + bincount' if counts else 'index_add_'} "
+          f"{res['library_ms']:.4f} ms a call, {res['library_loop_ms']:.4f}"
+          f" ms in a loop; bound {res['bound_ms']:.4f} ms")
+    return res
 
 
 def relmf_ml20m_state(X, dev):

@@ -1,52 +1,88 @@
-// Windowed sorted accumulation (scatter-add over row-sorted streams) on
-// Hopper (sm_90a).
+// Sorted accumulation (scatter-add over row-sorted streams) on Hopper
+// (sm_90a).
 //
 // Replaces cymf_tpu/ops/sorted_accum.py::sorted_accum (_accum_kernel) and
-// ::sorted_accum_dual (_accum_kernel_dual): out[rows[b]] += g[b] for an
-// ascending row stream, where the host supplies, per window of `wrows`
-// output rows, the sample range [start, start + count) that can hit it.
-// Rows outside the window (the range's aligned-down head, padding
-// sentinels >= r_pad) are skipped.  The dual form walks two streams into
-// one window and negates the first stream's lanes < neg_lanes, which gives
-// the packed BPR step's H-side operand  scatter(j, gj) - scatter(i, gi)
-// with the count lane adding.
+// ::sorted_accum_dual (_accum_kernel_dual): out[rows[b]] += g[b] for rows in
+// [0, r_pad); rows outside it (padding sentinels, the wide engine's dead
+// samples routed to r_pad) drop.  The dual form walks two streams into one
+// output and negates the first stream's lanes < neg_lanes, which gives the
+// packed BPR step's H-side operand  scatter(j, gj) - scatter(i, gi)  with
+// the count lane adding.  With count_lanes the output has a 128-lane
+// granule after the `width` payload lanes whose lane 0 holds each row's
+// count of live samples and whose other lanes are zero.
 //
-// Two forms.  The packed pipelines' form takes 128-lane rows (accum_kernel).
-// The wide form (accum_wide_kernel, the wide BPR engine for K >= 128) takes
-// rows of any multiple of 128 lanes and, with count_lanes, appends a
-// 128-lane granule whose lane 0 holds each output row's count of samples
-// (the caller routes dead samples to a sentinel row >= r_pad, so a match is
-// a live sample) and whose other lanes are zero: a (r_pad, width + 128)
-// output.  The dual form's counts add both streams.
+// Bound on the H100: memory.  The rows and g are read once and the output
+// written once; nothing is computed but one add an element.  At the packed
+// main-path shape (ML-20M d=20, W side) one call reads 64 MiB of g and
+// 0.5 MiB of row ids and writes 11 MiB; at the wide engine's ML-20M d=256
+// step the W side reads 128 MiB and writes 203 MiB.
 //
-// Bound on the H100: memory.  Each sample row (width f32) is read once and
-// added into shared memory; each output row is written once.  At the
-// packed main-path shape one W-side call reads 64 MiB plus 0.5 MiB of row
-// ids and writes 11 MiB; the H-side call reads twice that and writes 13
-// MiB.  At the wide engine's ML-20M d=256 step the W side reads 128 MiB and
-// writes 203 MiB, the H side reads 256 MiB and writes 40 MiB.
+// The single-stream form: a sample-balanced segmented reduction.
 //
-// Design: the TPU kernel turns the scatter into one-hot MXU matmuls per
-// window.  Here a window's rows are split into near-equal slices, one CTA
-// a slice, which keeps its rows x width f32 accumulator (and, with counts,
-// one float count a row) in dynamic shared memory.  A slice holds at most
-// MAX_SLICE = 256 rows and at most what fits the 227 KiB a CTA may opt in
-// to: one slice for wrows <= 256 at width 128, two at the JAX default
-// wrows = 512; at width 256 with counts 226 rows, so 3 slices of 171 rows.
-// Every CTA of a window walks the window's whole range and keeps only the
-// rows of its own slice, so no output row is written twice.  Each warp
-// walks a contiguous part of the range: lane t holds columns [4t, 4t + 4)
-// of each 128-lane granule (one float4 per granule per sample row,
-// coalesced), register run-sums grow while the row id stays the same, and
-// a row change flushes them into shared memory with atomicAdd, the run's
-// length into the row's count.  Sorted rows make runs long, so few
-// atomics are issued, and only warps whose parts meet at a run boundary
-// ever touch the same address.  A walk keeps at most MAX_GRANULES granules
-// in registers; wider rows walk the range once per group of granules (the
-// counts on the first).  The CTA then writes its whole slice, zeros and
-// the count granule included, so the output needs no memset.  Sums come
-// in another order than a sequential scatter: equal to float32 round-off;
-// counts are exact below 2^24.
+// Why not one CTA per output window, as the TPU kernel's grid (and this
+// file's first form, which the dual form still uses) has it: the W side's
+// user ids follow a power law, heaviest first.  At ML-20M d=20, 256-row
+// windows, the first of 91 windows held ~33,900 of 131,072 samples (26%;
+// the mean is ~1,440), so its CTA's 16 warps each walked ~2,100 samples one
+// after another, ~0.5 us a sample with each load behind the previous
+// sample's branch and flush, while 41 of 132 SMs had no CTA at all: 1.03-
+// 1.06 ms against a 0.024 ms byte bound and `index_add_`'s 0.17 ms.  At
+// d=256 the first of 271 windows held ~20,800 samples (43x the mean) and
+// each of its three slice-CTAs walked all of them.  A 128-227 KiB shared
+// accumulator let one CTA fit an SM, so no other warps hid the latency.
+//
+// What this form does instead:
+// 1. The grid is cut by samples.  Warp p takes the PART = 64 samples
+//    [p PART, (p + 1) PART), a CTA eight parts: every warp does the same
+//    work whatever the skew, and the grid holds several CTAs an SM (no
+//    shared memory).  plan_segmented sizes the grid and the scratch, and
+//    cymf_sorted_accum_plan hands that plan to the wrapper.
+// 2. Loads are pipelined: lane t holds columns [4t, 4t + 4) of each
+//    128-lane granule, and a warp issues the float4 loads of U samples at
+//    once (U x granules 8-12; 16 measured slower at width 128),
+//    predicated on the sample being live, before it adds any of them, so
+//    U samples' DRAM latency is paid once; the next 32 row ids load under
+//    the current 32 samples.
+// 3. A run is a row's consecutive live samples (live rows are
+//    non-decreasing along the stream, which the callers guarantee and both
+//    kernels assert; sentinel rows may sit anywhere).  A part's runs are summed in registers; a run
+//    that begins and ends inside the part is stored at once with plain
+//    float4 stores.  The part's first and last pieces may belong to runs
+//    that other parts share: they go to a scratch slot each (boundary
+//    partials), with the part's first and last live row.  A second short
+//    kernel has the part that holds a run's first live sample add the head
+//    pieces of the following parts until the run ends (skipping parts with
+//    no live sample), and store the row once.  No atomics: every sum is
+//    taken in stream order, the same from run to run.  The longest run at
+//    ML-20M step 0 is ~400 samples (six users a packed d=20 row), a join
+//    over 7 parts.
+// 4. Every row with no live sample is written with zeros exactly once.
+//    Rows strictly between two runs of one part are such rows; the part
+//    zeroes them itself, as it reads, if they are at most ZERO_GAP.  The
+//    first kernel marks every row it or the joins write (a byte a row,
+//    cleared before it), and the second kernel's other CTAs zero the
+//    unmarked rest, count granule included, a warp to 32 rows at a time
+//    over the whole grid, so a long gap (a padding tail, a sparse stream,
+//    a stream with no live sample) is spread over every SM.  The output
+//    needs no memset.
+// Widths: any multiple of 128; a walk holds at most MAX_GRANULES granules
+// in registers, wider rows walk a part once per group (counts, marks and
+// the part's rows on the first).  Sums come in another order than a
+// sequential scatter: equal to float32 round-off; counts are exact below
+// 2^24.
+//
+// The dual form keeps the window grid: one CTA per slice of `wrows`
+// output rows (at most MAX_SLICE rows, and what fits the 227 KiB a CTA may
+// opt in to), its rows x width f32 accumulator (and a float count a row)
+// in dynamic shared memory.  Every CTA of a window walks the window's whole
+// sample range (starts/counts from the host) for both streams and keeps
+// only the rows of its own slice; each warp walks a contiguous part of the
+// range with register run-sums flushed into shared memory by atomicAdd at
+// a row change (accum.cuh).  The CTA then writes its whole slice, zeros and
+// the count granule included.  The H side's windows are balanced, so the
+// window grid serves it.
+
+#include <cassert>
 
 #include <cuda_runtime.h>
 
@@ -63,6 +99,351 @@ constexpr int MAX_SLICE = 256;     // rows a CTA accumulates at most
 constexpr int SMEM_LIMIT = 232448; // dynamic shared memory a CTA may take
 constexpr int MAX_GRANULES = 4;    // 128-lane granules one walk holds
 constexpr unsigned FULL = 0xffffffffu;
+
+// ---------------------------------------------------------------------------
+// The single-stream form: a sample-balanced segmented reduction.
+// ---------------------------------------------------------------------------
+
+constexpr int PART = 64;          // samples a warp (parts of 32 and 128
+                                  // measured slower at ML-20M)
+constexpr int SEG_THREADS = 256;
+constexpr int SEG_WARPS = SEG_THREADS / 32;  // parts a CTA
+constexpr int ZERO_GAP = 32;      // rows a part zeroes between two of its
+                                  // runs
+constexpr int ZERO_BLOCKS = 1024; // CTAs that zero the rest at most
+
+// The launch for n samples of `width` lanes into r_pad rows.
+struct Plan {
+  long long parts, blocks, zero_blocks, scratch_bytes;
+};
+
+Plan plan_segmented(int n, int r_pad, int width) {
+  Plan q;
+  q.parts = (static_cast<long long>(n) + PART - 1) / PART;
+  q.blocks = (q.parts + SEG_WARPS - 1) / SEG_WARPS;
+  const long long want = (static_cast<long long>(r_pad) + 32 * SEG_WARPS - 1) /
+                         (32 * SEG_WARPS);
+  q.zero_blocks = want < ZERO_BLOCKS ? want : ZERO_BLOCKS;
+  // the parts' two slots (payload and count), their first and last rows,
+  // a mark a row
+  q.scratch_bytes = 8 * q.parts * (width + 2) + r_pad;
+  return q;
+}
+
+struct Segmented {
+  const int* rows;
+  const float* g;
+  float* out;
+  float* sums;             // [2 parts, width]: part p's first piece at 2p,
+                           // its last (when another) at 2p + 1
+  float* lens;             // [2 parts]: the pieces' live samples
+  int* first;              // [parts]: the part's first live row, -1: none
+  int* last;               // [parts]: its last live row, -1: none
+  unsigned char* touched;  // [r_pad]: 1 where a live sample lands
+  int n, r_pad, width, stride, parts, count_lanes;
+};
+
+__device__ __forceinline__ float4 zero4() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// Writes output row `row`: this lane's payload columns col[k] (k < ng) from
+// v, and with `counts` the count granule (len in lane 0, zeros elsewhere).
+__device__ __forceinline__ void store_row(const Segmented& s, int row,
+                                          const int* col, const float4* v,
+                                          int ng, bool counts, float len) {
+  const int lane = threadIdx.x & 31;
+  float* dst = s.out + static_cast<size_t>(row) * s.stride;
+#pragma unroll
+  for (int k = 0; k < MAX_GRANULES; ++k)
+    if (k < ng) *reinterpret_cast<float4*>(dst + col[k]) = v[k];
+  if (counts) {
+    float4 c = zero4();
+    if (lane == 0) c.x = len;
+    *reinterpret_cast<float4*>(dst + s.width + lane * 4) = c;
+  }
+}
+
+// Zeroes output rows (lo, hi) (at most ZERO_GAP of them), count granule
+// included, and marks them written.  Warp-collective.
+__device__ __forceinline__ void zero_gap(const Segmented& s, int lo, int hi) {
+  const int lane = threadIdx.x & 31;
+  const int out4 = s.stride / 4;
+  for (int r = lo + 1; r < hi; ++r) {
+    float4* o = reinterpret_cast<float4*>(s.out + static_cast<size_t>(r) *
+                                                      s.stride);
+    for (int q = lane; q < out4; q += 32) o[q] = zero4();
+  }
+  if (lo + 1 + lane < hi) s.touched[lo + 1 + lane] = 1;
+}
+
+// Part p's walk over granules [g0, g0 + NG), U samples' loads at a time.
+template <int NG, int U>
+__device__ void segment_part(const Segmented& s, int p, int g0) {
+  const int lane = threadIdx.x & 31;
+  const bool lead = g0 == 0;  // counts, marks and the part's rows
+  const int a = p * PART;
+  const int e = min(a + PART, s.n);
+  int col[MAX_GRANULES];
+  float4 run[MAX_GRANULES];
+#pragma unroll
+  for (int k = 0; k < MAX_GRANULES; ++k) {
+    col[k] = (g0 + k) * LANES + lane * 4;
+    run[k] = zero4();
+  }
+  int cur = -1, head = -1, pieces = 0;
+  float len = 0.f;
+  // The piece of row `cur` ends: the part's first piece and its last go to
+  // their scratch slots, a piece between them is a whole run.
+  auto close = [&](bool last_piece) {
+    if (pieces == 0 || last_piece) {
+      const int slot = 2 * p + (pieces == 0 ? 0 : 1);
+      float* dst = s.sums + static_cast<size_t>(slot) * s.width;
+#pragma unroll
+      for (int k = 0; k < NG; ++k)
+        *reinterpret_cast<float4*>(dst + col[k]) = run[k];
+      if (lead && lane == 0) s.lens[slot] = len;
+    } else {
+      store_row(s, cur, col, run, NG, lead && s.count_lanes, len);
+    }
+    if (lead && lane == 0) s.touched[cur] = 1;
+    ++pieces;
+  };
+  int next = a + lane < e ? s.rows[a + lane] : -1;
+  for (int b0 = a; b0 < e; b0 += 32) {
+    const int nb = min(32, e - b0);
+    const int mine = next;  // the next 32 row ids load under this batch
+    next = b0 + 32 + lane < e ? s.rows[b0 + 32 + lane] : -1;
+    const unsigned live = __ballot_sync(
+        FULL, lane < nb && static_cast<unsigned>(mine) <
+                               static_cast<unsigned>(s.r_pad));
+    for (int t0 = 0; t0 < nb; t0 += U) {
+      float4 v[U][NG];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = t0 + u;
+        const bool on = t < nb && ((live >> (t & 31)) & 1u);
+        const float4* src = reinterpret_cast<const float4*>(
+            s.g + static_cast<size_t>(b0 + (on ? t : 0)) * s.width);
+#pragma unroll
+        for (int k = 0; k < NG; ++k)
+          v[u][k] = on ? __ldg(src + col[k] / 4) : zero4();
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = t0 + u;
+        const int r = __shfl_sync(FULL, mine, t & 31);
+        if (t >= nb || !((live >> (t & 31)) & 1u)) continue;
+        if (r != cur) {
+          assert(r > cur && "live rows must be non-decreasing");
+          if (cur >= 0) {
+            close(false);
+            // rows between two runs of the part: no sample lands on them
+            if (lead && r - cur - 1 <= ZERO_GAP) zero_gap(s, cur, r);
+          }
+          if (head < 0) head = r;
+          cur = r;
+          len = 0.f;
+#pragma unroll
+          for (int k = 0; k < NG; ++k) run[k] = zero4();
+        }
+#pragma unroll
+        for (int k = 0; k < NG; ++k) add4(run[k], v[u][k]);
+        len += 1.f;
+      }
+    }
+  }
+  if (cur >= 0) close(true);
+  if (lead && lane == 0) {
+    s.first[p] = head;
+    s.last[p] = cur;
+  }
+}
+
+template <int NG, int U>
+__global__ void __launch_bounds__(SEG_THREADS)
+segment_kernel(Segmented s, int g0) {
+  const int p = blockIdx.x * SEG_WARPS + (threadIdx.x >> 5);
+  if (p < s.parts) segment_part<NG, U>(s, p, g0);
+}
+
+// The last live row before part p (-1 if none), skipping parts with no
+// live sample 32 at a time.  Warp-collective.
+__device__ int previous_last(const Segmented& s, int p) {
+  const int lane = threadIdx.x & 31;
+  for (int q = p - 1; q >= 0; q -= 32) {
+    const int at = q - lane;
+    const int f = at >= 0 ? s.first[at] : -2;
+    const unsigned hit = __ballot_sync(FULL, f != -1);
+    if (hit) {
+      const int r = f >= 0 ? s.last[at] : -1;
+      return __shfl_sync(FULL, r, __ffs(hit) - 1);
+    }
+  }
+  return -1;
+}
+
+// Stores row `row`, whose first live sample part p holds: scratch slot
+// `slot`, plus, with `walk`, the first pieces of the following parts while
+// the run goes on.  Warp-collective.
+__device__ void emit(const Segmented& s, int p, int slot, int row,
+                     bool walk) {
+  const int lane = threadIdx.x & 31;
+  const int granules = s.width / LANES;
+  for (int g0 = 0; g0 < granules; g0 += MAX_GRANULES) {
+    const int ng = min(MAX_GRANULES, granules - g0);
+    int col[MAX_GRANULES];
+    float4 acc[MAX_GRANULES];
+    const float* src = s.sums + static_cast<size_t>(slot) * s.width;
+#pragma unroll
+    for (int k = 0; k < MAX_GRANULES; ++k) {
+      col[k] = (g0 + k) * LANES + lane * 4;
+      acc[k] = k < ng ? *reinterpret_cast<const float4*>(src + col[k])
+                      : zero4();
+    }
+    float len = s.lens[slot];
+    for (int q = p + 1; walk; q += 32) {
+      // lane i looks at part q + i: it ends the walk if it is past the
+      // last part, starts another row, or its run of `row` ends inside it
+      const int at = q + lane;
+      const int f = at < s.parts ? s.first[at] : -2;
+      const int l = f == row ? s.last[at] : -1;
+      const unsigned stops = __ballot_sync(
+          FULL, f == -2 || (f >= 0 && f != row) || (f == row && l != row));
+      const int end = stops ? __ffs(stops) - 1 : 31;
+      unsigned take = __ballot_sync(FULL, f == row) & ((2u << end) - 1u);
+      while (take) {
+        // up to four parts' pieces loaded together
+        int js[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          js[i] = take ? __ffs(take) - 1 : -1;
+          take &= take - 1u;
+        }
+        float4 x[4][MAX_GRANULES];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float* ps = s.sums + static_cast<size_t>(
+              2 * (q + max(js[i], 0))) * s.width;
+#pragma unroll
+          for (int k = 0; k < MAX_GRANULES; ++k)
+            x[i][k] = js[i] >= 0 && k < ng
+                          ? *reinterpret_cast<const float4*>(ps + col[k])
+                          : zero4();
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (js[i] < 0) continue;
+#pragma unroll
+          for (int k = 0; k < MAX_GRANULES; ++k) add4(acc[k], x[i][k]);
+          len += s.lens[2 * (q + js[i])];
+        }
+      }
+      if (stops) break;
+    }
+    store_row(s, row, col, acc, ng, g0 == 0 && s.count_lanes, len);
+  }
+}
+
+// The second pass: CTAs [0, combine_blocks) store the runs that parts
+// share (a warp a part: the part's first piece if a run starts there, its
+// last piece if it is another); the other CTAs zero every row no live
+// sample landed on.
+__global__ void __launch_bounds__(SEG_THREADS)
+combine_kernel(Segmented s, int combine_blocks) {
+  if (static_cast<int>(blockIdx.x) < combine_blocks) {
+    const int p = blockIdx.x * SEG_WARPS + (threadIdx.x >> 5);
+    if (p >= s.parts) return;
+    const int f = s.first[p];
+    if (f < 0) return;
+    const int l = s.last[p];
+    const int before = previous_last(s, p);
+    assert(before <= f && "live rows must be non-decreasing");
+    if (before != f) emit(s, p, 2 * p, f, l == f);
+    if (l != f) emit(s, p, 2 * p + 1, l, true);
+    return;
+  }
+  // a warp looks at 32 rows at a time and zeroes the unmarked ones
+  const int lane = threadIdx.x & 31;
+  const int out4 = s.stride / 4;
+  const int warps = (gridDim.x - combine_blocks) * SEG_WARPS;
+  for (int r0 = ((blockIdx.x - combine_blocks) * SEG_WARPS +
+                 (threadIdx.x >> 5)) * 32;
+       r0 < s.r_pad; r0 += warps * 32) {
+    unsigned todo = __ballot_sync(
+        FULL, r0 + lane < s.r_pad && !s.touched[r0 + lane]);
+    while (todo) {
+      const int r = r0 + __ffs(todo) - 1;
+      todo &= todo - 1u;
+      float4* o = reinterpret_cast<float4*>(s.out + static_cast<size_t>(r) *
+                                                        s.stride);
+      for (int q = lane; q < out4; q += 32) o[q] = zero4();
+    }
+  }
+}
+
+template <int NG, int U>
+cudaError_t launch_parts(const Segmented& s, int blocks, int g0,
+                         cudaStream_t stream) {
+  segment_kernel<NG, U><<<blocks, SEG_THREADS, 0, stream>>>(s, g0);
+  return cudaGetLastError();
+}
+
+int launch_segmented(const int* rows, const float* g, float* out,
+                     void* scratch, long long scratch_bytes, int n,
+                     int r_pad, int width, int count_lanes,
+                     cudaStream_t stream) {
+  if (width <= 0 || width % LANES || n < 0 || r_pad < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Plan q = plan_segmented(n, r_pad, width);
+  if (scratch_bytes < q.scratch_bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Segmented s;
+  s.rows = rows;
+  s.g = g;
+  s.out = out;
+  s.n = n;
+  s.r_pad = r_pad;
+  s.width = width;
+  s.stride = width + (count_lanes ? LANES : 0);
+  s.parts = static_cast<int>(q.parts);
+  s.count_lanes = count_lanes;
+  char* base = static_cast<char*>(scratch);
+  const size_t slots = 2 * static_cast<size_t>(s.parts);
+  s.sums = reinterpret_cast<float*>(base);
+  s.lens = s.sums + slots * width;
+  s.first = reinterpret_cast<int*>(s.lens + slots);
+  s.last = s.first + s.parts;
+  s.touched = reinterpret_cast<unsigned char*>(s.last + s.parts);
+  if (r_pad == 0) return static_cast<int>(cudaSuccess);
+  cudaError_t err = cudaMemsetAsync(s.touched, 0, r_pad, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = static_cast<int>(q.blocks);
+  const int granules = width / LANES;
+  for (int g0 = 0; blocks > 0 && g0 < granules; g0 += MAX_GRANULES) {
+    switch (min(MAX_GRANULES, granules - g0)) {
+      case 1: err = launch_parts<1, 8>(s, blocks, g0, stream); break;
+      case 2: err = launch_parts<2, 4>(s, blocks, g0, stream); break;
+      case 3: err = launch_parts<3, 4>(s, blocks, g0, stream); break;
+      default: err = launch_parts<4, 2>(s, blocks, g0, stream); break;
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  combine_kernel<<<blocks + static_cast<int>(q.zero_blocks), SEG_THREADS, 0,
+                   stream>>>(s, blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The dual form: one CTA per slice of a window of output rows.
+// ---------------------------------------------------------------------------
 
 struct Stream {
   const int* rows;
@@ -137,8 +518,8 @@ __device__ void walk(const Stream& st, float* acc, float* cnt, int width,
 
 // The packed pipelines' form: 128-lane rows, no counts.
 __global__ void __launch_bounds__(THREADS)
-accum_kernel(Stream s1, Stream s2, int two, float* __restrict__ out,
-             int wrows, int nslices, int slice) {
+accum_kernel(Stream s1, Stream s2, float* __restrict__ out, int wrows,
+             int nslices, int slice) {
   extern __shared__ float4 acc4[];
   float* acc = reinterpret_cast<float*>(acc4);
   const int w = blockIdx.x / nslices;
@@ -150,7 +531,7 @@ accum_kernel(Stream s1, Stream s2, int two, float* __restrict__ out,
     acc4[t] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
   walk<1>(s1, acc, nullptr, LANES, 0, w, r0, nrows);
-  if (two) walk<1>(s2, acc, nullptr, LANES, 0, w, r0, nrows);
+  walk<1>(s2, acc, nullptr, LANES, 0, w, r0, nrows);
   __syncthreads();
   float4* o = reinterpret_cast<float4*>(out + static_cast<size_t>(r0) * LANES);
   for (int t = threadIdx.x; t < n4; t += THREADS) o[t] = acc4[t];
@@ -170,9 +551,8 @@ __device__ void walk_group(const Stream& st, float* acc, float* cnt,
 // The wide form: rows of `width` (a multiple of 128) floats, and with
 // count_lanes the count granule after them.
 __global__ void __launch_bounds__(THREADS)
-accum_wide_kernel(Stream s1, Stream s2, int two, float* __restrict__ out,
-                  int wrows, int nslices, int slice, int width,
-                  int count_lanes) {
+accum_wide_kernel(Stream s1, Stream s2, float* __restrict__ out, int wrows,
+                  int nslices, int slice, int width, int count_lanes) {
   extern __shared__ float4 acc4[];
   float* acc = reinterpret_cast<float*>(acc4);
   const int w = blockIdx.x / nslices;
@@ -191,7 +571,7 @@ accum_wide_kernel(Stream s1, Stream s2, int two, float* __restrict__ out,
     const int ng = min(MAX_GRANULES, granules - g0);
     float* c = g0 == 0 ? cnt : nullptr;
     walk_group(s1, acc, c, width, g0, ng, w, r0, nrows);
-    if (two) walk_group(s2, acc, c, width, g0, ng, w, r0, nrows);
+    walk_group(s2, acc, c, width, g0, ng, w, r0, nrows);
   }
   __syncthreads();
   const int row4 = width / 4;                        // float4s of payload
@@ -214,9 +594,8 @@ int max_slice(int width, int count_lanes) {
   return min(MAX_SLICE, SMEM_LIMIT / per_row);
 }
 
-int launch(const Stream& s1, const Stream& s2, int two, float* out,
-           int r_pad, int wrows, int width, int count_lanes,
-           cudaStream_t stream) {
+int launch_dual(const Stream& s1, const Stream& s2, float* out, int r_pad,
+                int wrows, int width, int count_lanes, cudaStream_t stream) {
   const int most = max_slice(width, count_lanes);
   if (most < 1) return static_cast<int>(cudaErrorInvalidValue);
   // the window's rows in nslices near-equal slices of at most `most`
@@ -235,27 +614,44 @@ int launch(const Stream& s1, const Stream& s2, int two, float* out,
   if (windows > 0) {
     if (packed)
       accum_kernel<<<windows * nslices, THREADS, smem, stream>>>(
-          s1, s2, two, out, wrows, nslices, slice);
+          s1, s2, out, wrows, nslices, slice);
     else
       accum_wide_kernel<<<windows * nslices, THREADS, smem, stream>>>(
-          s1, s2, two, out, wrows, nslices, slice, width, count_lanes);
+          s1, s2, out, wrows, nslices, slice, width, count_lanes);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Rows a CTA's slice holds at this width (0: the width does not fit).
-extern "C" int cymf_sorted_accum_max_slice(int width, int count_lanes) {
-  return max_slice(width, count_lanes);
+// The single-stream launch for n samples of `width` lanes into r_pad rows,
+// into plan[0..6): samples a part, parts, CTAs of the first kernel, samples
+// a CTA, rows a part zeroes between two of its runs, scratch bytes.
+extern "C" int cymf_sorted_accum_plan(int n, int r_pad, int width,
+                                      long long* plan) {
+  if (width <= 0 || width % LANES || n < 0 || r_pad < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Plan q = plan_segmented(n, r_pad, width);
+  const long long got[6] = {PART, q.parts, q.blocks, PART * SEG_WARPS,
+                            ZERO_GAP, q.scratch_bytes};
+  for (int i = 0; i < 6; ++i) plan[i] = got[i];
+  return static_cast<int>(cudaSuccess);
 }
 
+// The single-stream form, any width that is a multiple of 128, with or
+// without the count granule; `scratch` holds the plan's scratch bytes.
 extern "C" int cymf_sorted_accum(const int* rows, const float* g,
-                                 const int* starts, const int* counts,
-                                 float* out, int n, int r_pad, int wrows,
+                                 float* out, void* scratch,
+                                 long long scratch_bytes, int n, int r_pad,
+                                 int width, int count_lanes,
                                  cudaStream_t stream) {
-  const Stream s1{rows, g, starts, counts, n, 0};
-  return launch(s1, s1, 0, out, r_pad, wrows, LANES, 0, stream);
+  return launch_segmented(rows, g, out, scratch, scratch_bytes, n, r_pad,
+                          width, count_lanes, stream);
+}
+
+// Rows a dual-form CTA's slice holds at this width (0: it does not fit).
+extern "C" int cymf_sorted_accum_max_slice(int width, int count_lanes) {
+  return max_slice(width, count_lanes);
 }
 
 extern "C" int cymf_sorted_accum_dual(
@@ -265,16 +661,7 @@ extern "C" int cymf_sorted_accum_dual(
     int r_pad, int wrows, int neg_lanes, cudaStream_t stream) {
   const Stream si{rows_i, g_i, starts_i, counts_i, n_i, neg_lanes};
   const Stream sj{rows_j, g_j, starts_j, counts_j, n_j, 0};
-  return launch(si, sj, 1, out, r_pad, wrows, LANES, 0, stream);
-}
-
-extern "C" int cymf_sorted_accum_wide(const int* rows, const float* g,
-                                      const int* starts, const int* counts,
-                                      float* out, int n, int r_pad,
-                                      int wrows, int width, int count_lanes,
-                                      cudaStream_t stream) {
-  const Stream s1{rows, g, starts, counts, n, 0};
-  return launch(s1, s1, 0, out, r_pad, wrows, width, count_lanes, stream);
+  return launch_dual(si, sj, out, r_pad, wrows, LANES, 0, stream);
 }
 
 extern "C" int cymf_sorted_accum_dual_wide(
@@ -285,7 +672,7 @@ extern "C" int cymf_sorted_accum_dual_wide(
     cudaStream_t stream) {
   const Stream si{rows_i, g_i, starts_i, counts_i, n_i, neg_lanes};
   const Stream sj{rows_j, g_j, starts_j, counts_j, n_j, 0};
-  return launch(si, sj, 1, out, r_pad, wrows, width, count_lanes, stream);
+  return launch_dual(si, sj, out, r_pad, wrows, width, count_lanes, stream);
 }
 
 extern "C" const char* cymf_error_string(int err) {

@@ -68,10 +68,10 @@ _SIGNATURES = {
     "cymf_bpr_pool_step_v8": [_P] * 10 + [_I] * 8 + [_F, _P],
     "cymf_glove_sample_blocks": [_I],
     "cymf_glove_sample_phase": [_P] * 6 + [_I] * 4 + [_P],
-    "cymf_sorted_accum": [_P] * 5 + [_I] * 3 + [_P],
+    "cymf_sorted_accum_plan": [_I, _I, _I, _P],
+    "cymf_sorted_accum": [_P] * 4 + [_L] + [_I] * 4 + [_P],
     "cymf_sorted_accum_dual": [_P] * 9 + [_I] * 5 + [_P],
     "cymf_sorted_accum_max_slice": [_I, _I],
-    "cymf_sorted_accum_wide": [_P] * 5 + [_I] * 5 + [_P],
     "cymf_sorted_accum_dual_wide": [_P] * 9 + [_I] * 7 + [_P],
     "cymf_phase_v4r_blocks": [_I],
     "cymf_phase_v4r": [_P] * 7 + [_I] * 4 + [_F, _P],

@@ -4,12 +4,22 @@ Port of `cymf_tpu/ops/sorted_accum.py`.  The trainer keeps each batch's
 target rows sorted and the host computes, per window of ``wrows`` output
 rows, the sample range that can hit it (:func:`window_ranges`, verbatim).
 On a CUDA tensor :func:`sorted_accum` and :func:`sorted_accum_dual`
-launch the hand-written kernels of ``csrc/sorted_accum.cu`` (one CTA per
-slice of a window, its accumulator in shared memory: any ``wrows`` the JAX
-package takes, its default 512 included); on a CPU tensor they run their
-plain PyTorch versions, an ``index_add_`` that needs no window ranges.
-Sums come in another order than a sequential scatter, so results agree to
-float32 round-off, not bit for bit.
+launch the hand-written kernels of ``csrc/sorted_accum.cu``; on a CPU
+tensor they run their plain PyTorch versions, an ``index_add_`` that needs
+no window ranges.  Sums come in another order than a sequential scatter,
+so results agree to float32 round-off, not bit for bit.
+
+:func:`sorted_accum` (one stream) is a sample-balanced segmented
+reduction: each warp sums the runs of a part of consecutive samples and
+zeroes the short gaps between them, a second short pass joins the runs
+that parts share and zeroes the rows still unwritten (:func:`segment_plan`
+reads the kernel's grid and scratch, :func:`segment_twin` is its partition
+in Python).  It relies on the live rows (those in ``[0, r_pad)``) being
+non-decreasing along the stream, and the kernel asserts it; rows outside
+``[0, r_pad)`` may sit anywhere, and the window ranges are checked but not
+read.  :func:`sorted_accum_dual` keeps one CTA per slice
+of a window (its accumulator in shared memory), walking the window ranges
+of both streams.
 
 Two forms, as in the JAX package: 128-lane rows (the packed pipelines,
 launches counted as ``sorted_accum`` / ``sorted_accum_dual``) and rows of
@@ -21,10 +31,13 @@ Left behind, with no counterpart here: the TPU kernel's
 ``precision="split"`` bf16 hi+lo matmul (the port accumulates in float32);
 its window starts pre-divided by 128 (a Mosaic proof of DMA offset
 divisibility); and its one-hot MXU contraction with double-buffered DMA
-slots (a CUDA CTA adds rows into shared memory as it reads them).
+slots (a CUDA warp adds rows in registers as it reads them).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -82,6 +95,111 @@ def pad_samples(rows_sorted: np.ndarray, sentinel: int, tile: int = 1024):
     out = np.full(total, sentinel, np.int32)
     out[:n] = rows_sorted
     return out.reshape(total // LANES, LANES)
+
+
+@functools.lru_cache(maxsize=64)
+def segment_plan(n: int, r_pad: int, width: int) -> dict:
+    """The single-stream kernel's launch for ``n`` samples of ``width``
+    lanes into ``r_pad`` rows, as ``csrc/sorted_accum.cu::plan_segmented``
+    chooses it: ``parts`` warps of ``part`` samples in ``blocks`` CTAs of
+    ``share`` samples, ``zero_gap`` (the most rows a part zeroes between
+    two of its runs; the second pass zeroes longer gaps) and the
+    ``scratch_bytes`` the call needs.  Loads the kernel library."""
+    plan = (ctypes.c_longlong * 6)()
+    _kernels.check(_kernels.lib().cymf_sorted_accum_plan(
+        n, r_pad, width, ctypes.addressof(plan)), "sorted_accum plan")
+    return dict(zip(("part", "parts", "blocks", "share", "zero_gap",
+                     "scratch_bytes"), plan))
+
+
+def segment_twin(rows, r_pad: int, part: int, zero_gap: int) -> dict:
+    """The single-stream kernel's partition, in Python: which part sums
+    each live sample into which row, and how often each output row is
+    written, with ``part`` and ``zero_gap`` as :func:`segment_plan` gives
+    them.
+
+    Pass 1: part ``p`` (samples ``[p part, (p + 1) part)``) cuts its live
+    samples into pieces of one row each; a piece between its first and
+    last is a whole run, stored at once; the first and the last go to
+    scratch slots, with the part's first and last live row; the rows
+    strictly between two of its pieces, if at most ``zero_gap``, are
+    zeroed.  Pass 2: a part whose first piece starts a run (the last live
+    row of the nearest earlier part with a live sample differs), and a
+    part's last piece (when another than its first), store their row after
+    adding the first pieces of the following parts while the run goes on,
+    skipping parts with no live sample; every row not yet written is
+    zeroed.
+
+    Returns ``writes`` (``[r_pad]``, stores of each row, zeros included),
+    ``carried`` (``[n]``, times each sample is summed into a stored row),
+    ``into`` (``[n]``, that row, -1 for none), and the plan's counts:
+    ``parts``, ``runs``, ``joined`` (runs that pass 2 stores), ``longest``
+    (samples of the longest run) and ``walk`` (most following parts whose
+    first pieces one join adds).
+    Raises ``ValueError`` if the live rows are not non-decreasing: the
+    kernel's precondition."""
+    rows = np.asarray(rows).reshape(-1).astype(np.int64)
+    n = rows.size
+    live = (rows >= 0) & (rows < r_pad)
+    if (np.diff(rows[live]) < 0).any():
+        raise ValueError("live rows must be non-decreasing along the stream")
+    parts = -(-n // part)
+    first = np.full(parts, -1, np.int64)
+    last = np.full(parts, -1, np.int64)
+    slots = {}
+    writes = np.zeros(r_pad, np.int64)
+    carried = np.zeros(n, np.int64)
+    into = np.full(n, -1, np.int64)
+    stats = dict(parts=parts, runs=0, joined=0, longest=0, walk=0)
+
+    def store(row, samples):
+        writes[row] += 1
+        carried[samples] += 1
+        into[samples] = row
+        stats["runs"] += 1
+        stats["longest"] = max(stats["longest"], len(samples))
+
+    for p in range(parts):
+        idx = np.flatnonzero(live[p * part:(p + 1) * part]) + p * part
+        cuts = np.flatnonzero(np.diff(rows[idx])) + 1
+        pieces = [(int(rows[s[0]]), s) for s in np.split(idx, cuts) if s.size]
+        for k, (row, samples) in enumerate(pieces):
+            if k and row - pieces[k - 1][0] - 1 <= zero_gap:
+                writes[pieces[k - 1][0] + 1:row] += 1
+            if k == 0:
+                slots[p, 0] = samples
+            elif k == len(pieces) - 1:
+                slots[p, 1] = samples
+            else:
+                store(row, samples)
+        if pieces:
+            first[p], last[p] = pieces[0][0], pieces[-1][0]
+
+    def emit(p, slot, row, walk):
+        samples, q = [slots[p, slot]], p + 1
+        while walk and q < parts:
+            if first[q] >= 0:
+                if first[q] != row:
+                    break
+                samples.append(slots[q, 0])
+                if last[q] != row:
+                    break
+            q += 1
+        stats["walk"] = max(stats["walk"], len(samples) - 1)
+        stats["joined"] += 1
+        store(row, np.concatenate(samples))
+
+    for p in range(parts):
+        f = first[p]
+        if f < 0:
+            continue
+        before = last[:p][first[:p] >= 0]
+        if not before.size or before[-1] != f:
+            emit(p, 0, f, last[p] == f)
+        if last[p] != f:
+            emit(p, 1, last[p], True)
+    writes[writes == 0] += 1    # the zero fill: rows not yet written
+    return dict(writes=writes, carried=carried, into=into, **stats)
 
 
 def _rows_flat(rows: torch.Tensor, n: int) -> torch.Tensor:
@@ -160,8 +278,8 @@ def _check_cuda(rows, g, starts, counts, r_pad: int, wrows: int, what: str):
             raise ValueError(f"{what} {name} must hold one entry per window")
 
 
-def _wide(width: int, count_lanes: bool) -> bool:
-    """Whether a call takes the wide kernel (and its launch count)."""
+def _wide_dual(width: int, count_lanes: bool) -> bool:
+    """Whether a dual call takes the wide kernel (and its launch count)."""
     if width == LANES and not count_lanes:
         return False
     if _kernels.lib().cymf_sorted_accum_max_slice(width,
@@ -177,13 +295,16 @@ def sorted_accum(rows, g, starts, counts, *, r_pad: int,
     """Accumulate ``g[b]`` into output row ``rows[b]``.
 
     Args:
-      rows: int32 ascending target rows, any shape with ``B`` elements (the
-        JAX package's folded ``(B/128, 128)`` layout is a free view here).
-        Rows ``>= r_pad`` (padding sentinels, and with ``count_lanes`` the
-        dead samples the caller routed there) drop.
+      rows: int32 target rows, any shape with ``B`` elements (the JAX
+        package's folded ``(B/128, 128)`` layout is a free view here).
+        Rows outside ``[0, r_pad)`` (padding sentinels, and with
+        ``count_lanes`` the dead samples the caller routed there) drop and
+        may sit anywhere; the others must be non-decreasing along the
+        stream (the kernel's precondition: it fails a device-side assert
+        otherwise, which leaves the CUDA context unusable).
       g: float32 ``(B, width)`` gradient rows, ``width`` a multiple of 128.
       starts/counts: int32 ``[r_pad // wrows]`` window ranges from
-        :func:`window_ranges`.
+        :func:`window_ranges` (checked; the kernel needs no window).
       r_pad: output rows, a multiple of ``wrows``.
       count_lanes: append a 128-lane granule whose lane 0 holds each row's
         count of samples (the other 127 lanes zero).
@@ -203,13 +324,14 @@ def sorted_accum(rows, g, starts, counts, *, r_pad: int,
     width = g.shape[1]
     out = torch.empty((r_pad, _out_width(width, count_lanes)),
                       dtype=torch.float32, device=g.device)
-    if _wide(width, count_lanes):
-        _kernels.launch("sorted_accum_wide", g.device, rows, g, starts,
-                        counts, out, g.shape[0], r_pad, wrows, width,
-                        int(count_lanes))
-    else:
-        _kernels.launch("sorted_accum", g.device, rows, g, starts, counts,
-                        out, g.shape[0], r_pad, wrows)
+    plan = segment_plan(g.shape[0], r_pad, width)
+    scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8,
+                          device=g.device)
+    name = ("sorted_accum_wide" if count_lanes or width != LANES
+            else "sorted_accum")
+    _kernels.launch(name, g.device, rows, g, out, scratch,
+                    plan["scratch_bytes"], g.shape[0], r_pad, width,
+                    int(count_lanes), entry="cymf_sorted_accum")
     return out
 
 
@@ -245,7 +367,7 @@ def sorted_accum_dual(rows_i, gi, starts_i, counts_i, rows_j, gj, starts_j,
                       dtype=torch.float32, device=gi.device)
     args = (rows_i, gi, starts_i, counts_i, rows_j, gj, starts_j, counts_j,
             out, gi.shape[0], gj.shape[0], r_pad, wrows, int(neg_lanes))
-    if _wide(width, count_lanes):
+    if _wide_dual(width, count_lanes):
         _kernels.launch("sorted_accum_dual_wide", gi.device, *args, width,
                         int(count_lanes))
     else:

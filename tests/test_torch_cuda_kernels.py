@@ -16,7 +16,10 @@ lane group by lane group: the payload within ``1e-5`` of its own max
 lanes dwarf it), the count channel and unused lanes exact (sums of 0/1
 masks), ``Aw``'s loss lane ``rtol 1e-5``; the count-lane form of the
 accumulations alike (payload within ``1e-5`` of its max, the count lane
-and the 127 unused lanes exact); the probes P2 and P3 exact, P1's SW and
+and the 127 unused lanes exact), the single-stream form also on streams
+built to cut runs at every part and CTA boundary, its launch plan against
+its scratch layout, and a stream whose live rows decrease failing the
+kernel's assert (in a process of its own); the probes P2 and P3 exact, P1's SW and
 Q equal to #1's kernel and within #1's bounds of plain; the packed epochs of every pipeline on the card against the
 CPU, ``rtol 1e-4, atol 1e-5`` under sgd and adagrad and under adam the
 sequential epochs' drift class below; the batched
@@ -29,6 +32,10 @@ outside that and none off by more than ``2.5 lr`` (a first touch whose
 tiny gradient flips sign moves a row by ``+-lr``), the loss relative
 ``1e-5``.
 """
+
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -210,6 +217,142 @@ def test_sorted_accum_wide_widths(dev, width, count):
         _close_counted(got, want, width)
     else:
         _close_accum(got, want)
+
+
+# Streams that stress the single-stream kernel's partition into parts of
+# 64 samples and CTAs of 512 (sa.segment_twin holds the same streams on the
+# CPU, tests/test_torch_sorted_accum.py).
+SEGMENT_STREAMS = ("power-law", "long-run", "blocks", "sentinels",
+                   "broken-run", "padding-tail", "all-sentinels", "last-row",
+                   "sparse")
+
+
+def segment_streams(R: int = 4096) -> dict:
+    """``{name: rows}`` into ``R`` output rows, live rows non-decreasing,
+    rows outside ``[0, R)`` anywhere: a power law whose first 256 rows hold
+    about half the samples; one row's run longer than a CTA's share; runs
+    of 1, 31, 32, 33, 63, 64, 65, 257, 511, 512 and 513 samples, cut at
+    every part and CTA boundary; 30% sentinels interleaved; one row's run
+    broken by sentinels across one part boundary and across two (with -1
+    as the sentinel); a padding tail; no live sample; the last live row at
+    ``R - 1`` with 5,003 samples (not a multiple of a share); five live
+    samples among 20,000 (long gaps between parts, and a long and a short
+    one inside a part)."""
+    rng = np.random.default_rng(7)
+    w = np.arange(1, R + 1) ** -0.8
+    sizes = [1, 31, 32, 33, 63, 64, 65, 257, 511, 512, 513]
+    mixed = np.sort(rng.integers(0, R, 6000))
+    mixed[rng.random(6000) < 0.3] = R + 1000
+    broken = np.full(400, 9)
+    broken[56:72] = R          # samples 116-131: the part boundary at 128
+    broken[200:330] = -1       # samples 260-389: those at 320 and 384
+    sparse = np.full(20000, R)
+    sparse[[5, 6, 40, 9000, 19999]] = [2, 900, 920, 1000, 4000]
+    streams = {
+        "power-law": np.sort(rng.choice(R, 20000, p=w / w.sum())),
+        "long-run": np.repeat([3, 7, 8], [50, 3000, 20]),
+        "blocks": np.repeat(np.arange(3 * len(sizes)), sizes * 3),
+        "sentinels": mixed,
+        "broken-run": np.concatenate([np.repeat([1, 2], 30), broken,
+                                      np.repeat([10, 11], 100)]),
+        "padding-tail": np.concatenate([np.sort(rng.integers(0, R, 1000)),
+                                        np.full(5000, R)]),
+        "all-sentinels": np.full(3000, R),
+        "last-row": np.sort(np.append(rng.integers(R - 300, R, 5002),
+                                      R - 1)),
+        "sparse": sparse,
+    }
+    return {k: v.astype(np.int32) for k, v in streams.items()}
+
+
+def _dirty(dev, nbytes):
+    """Leaves NaNs in the caching allocator's free blocks, so that a row
+    a kernel fails to write shows in the next ``torch.empty``."""
+    torch.full((nbytes // 4 + 1,), float("nan"), device=dev)
+
+
+@pytest.mark.parametrize("count", [False, True])
+@pytest.mark.parametrize("width", [128, 256, 384])
+@pytest.mark.parametrize("stream", SEGMENT_STREAMS)
+def test_sorted_accum_segment_streams(dev, stream, width, count):
+    """The single-stream kernel (#2, and #2w with the count granule) on
+    the adversarial streams, every row written (zeros included) into a
+    buffer left dirty: payload within 1e-5 of its max, counts and unused
+    lanes exact."""
+    R, wrows = 4096, 512
+    rows = segment_streams(R)[stream]
+    g = np.random.default_rng(width).normal(
+        size=(rows.size, width)).astype(np.float32)
+    r, x = torch.from_numpy(rows).to(dev), torch.from_numpy(g).to(dev)
+    win = torch.zeros(R // wrows, dtype=torch.int32, device=dev)
+    _dirty(dev, 4 * R * (width + 128))
+    _kernels.reset_launches()
+    got = sa.sorted_accum(r, x, win, win, r_pad=R, wrows=wrows,
+                          count_lanes=count)
+    name = "sorted_accum_wide" if count or width != 128 else "sorted_accum"
+    assert dict(_kernels.launches) == {name: 1}
+    want = sa.sorted_accum_plain(r, x, win, win, r_pad=R, wrows=wrows,
+                                 count_lanes=count)
+    if count:
+        _close_counted(got, want, width)
+    else:
+        _close_accum(got, want)
+    if stream == "all-sentinels":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("n,r_pad,width", [
+    (131072, 23296, 128),     # ML-20M d=20, W side
+    (131072, 138752, 256),    # ML-20M d=256, W side
+    (5003, 4096, 384),
+    (1, 128, 128),
+    (0, 256, 128),
+])
+def test_segment_plan_sizes(dev, n, r_pad, width):
+    """The kernel library's plan: parts of ``part`` samples cover the
+    stream, CTAs of ``share / part`` parts cover the parts, and the scratch
+    holds two slots a part (width floats and a count each), the part's
+    first and last live row and a byte a row."""
+    plan = sa.segment_plan(n, r_pad, width)
+    part, parts, blocks = plan["part"], plan["parts"], plan["blocks"]
+    per = plan["share"] // part
+    assert plan["share"] == part * per and per >= 1
+    assert (parts - 1) * part < n <= parts * part or n == parts == 0
+    assert (blocks - 1) * per < parts <= blocks * per or parts == blocks == 0
+    assert plan["scratch_bytes"] == (2 * parts * (4 * width + 4)
+                                     + 2 * parts * 4 + r_pad)
+    if n == 131072:
+        assert (part, parts, blocks) == (64, 2048, 256)
+    # the partition the twin checks on the CPU, at the kernel's sizes
+    rows = segment_streams()["blocks"]
+    t = sa.segment_twin(rows, 4096, part, plan["zero_gap"])
+    np.testing.assert_array_equal(t["writes"], np.ones(4096))
+
+
+# live rows that decrease inside a part, and between two parts
+DECREASING = {"inside a part": [5, 7, 3, 9],
+              "across parts": [10] * 64 + [3] * 64}
+
+
+@pytest.mark.parametrize("case", sorted(DECREASING))
+def test_sorted_accum_asserts_sorted_live_rows(dev, case):
+    """A stream that breaks the kernel's precondition fails its
+    device-side assert instead of losing sums; the assert leaves the CUDA
+    context unusable, so the call runs in a process of its own."""
+    code = (
+        "import torch\n"
+        "from cymf_tpu_torch.ops import sorted_accum as sa\n"
+        f"rows = torch.tensor({DECREASING[case]}, dtype=torch.int32,\n"
+        "                    device='cuda')\n"
+        "g = torch.ones(rows.numel(), 128, device='cuda')\n"
+        "win = torch.zeros(1, dtype=torch.int32, device='cuda')\n"
+        "sa.sorted_accum(rows, g, win, win, r_pad=128, wrows=128)\n"
+        "torch.cuda.synchronize()\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode != 0
+    assert "live rows must be non-decreasing" in proc.stdout + proc.stderr
 
 
 def _probe_tiles(dev, B, K=20, seed=0):

@@ -4,6 +4,10 @@ Host helpers (window ranges, padding) must be bit-equal.  The plain
 PyTorch versions of the two accumulation kernels must match the Pallas
 kernels run in interpret mode with ``precision="highest"`` to
 ``rtol 2e-5, atol 2e-6``: both sum float32 rows, in different orders.
+The single-stream kernel's partition (``segment_twin``, its Python twin)
+must sum every live sample once and write every output row once, on the
+adversarial streams the card tests run the kernel on, at the kernel's part
+and gap sizes and at others.
 """
 
 import jax.numpy as jnp
@@ -14,6 +18,8 @@ import torch
 from cymf_tpu.ops import sorted_accum as jsa
 from cymf_tpu_torch.ops import _kernels
 from cymf_tpu_torch.ops import sorted_accum as tsa
+# the streams the card tests run the single-stream kernel on
+from test_torch_cuda_kernels import SEGMENT_STREAMS, segment_streams
 
 RTOL, ATOL = 2e-5, 2e-6
 
@@ -235,3 +241,59 @@ def test_width_not_a_multiple_of_128_raises():
     with pytest.raises(ValueError, match="multiple of 128"):
         tsa.sorted_accum(rows, torch.zeros(1024, 200), win, win, r_pad=512,
                          wrows=128, count_lanes=True)
+
+
+# the kernel's parts of 64 samples and gaps of at most 32 rows zeroed by a
+# part (csrc/sorted_accum.cu::PART, ZERO_GAP), and other sizes
+@pytest.mark.parametrize("zero_gap", [0, 32])
+@pytest.mark.parametrize("part", [32, 64, 100])
+@pytest.mark.parametrize("stream", SEGMENT_STREAMS)
+def test_segment_twin_owns_each_sample_once(stream, part, zero_gap):
+    """Every live sample is summed exactly once, into its own row; no dead
+    sample is; every row in [0, r_pad) is written exactly once (a run's
+    sum, a part's gap or the zero fill)."""
+    R = 4096
+    rows = segment_streams(R)[stream]
+    t = tsa.segment_twin(rows, R, part, zero_gap)
+    live = (rows >= 0) & (rows < R)
+    assert t["parts"] == -(-rows.size // part)
+    np.testing.assert_array_equal(t["writes"], np.ones(R))
+    np.testing.assert_array_equal(t["carried"], live)
+    np.testing.assert_array_equal(t["into"][live], rows[live])
+    assert t["runs"] == np.unique(rows[live]).size
+    if stream == "power-law":          # the first 256-row window's share
+        assert (rows < 256).mean() >= 0.25
+    if stream == "long-run":           # one run over more parts than a CTA
+        assert t["longest"] == 3000
+        assert t["walk"] >= 3000 // part - 1
+
+
+def test_segment_twin_refuses_decreasing_live_rows():
+    R = 64
+    tsa.segment_twin(np.array([5, R, 6, -1, 7, 900, 7]), R, 2, 32)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        tsa.segment_twin(np.array([5, R, 4]), R, 2, 32)
+
+
+@pytest.mark.parametrize("count", [False, True])
+@pytest.mark.parametrize("stream", SEGMENT_STREAMS)
+def test_sorted_accum_plain_on_segment_streams(stream, count):
+    """The CPU path on interleaved, negative and tail sentinels: a float64
+    scatter of the live samples, within 1e-5 of its max (float32 sums of
+    up to 3,000 samples a row), the counts exact."""
+    R, width = 4096, 128
+    rows = segment_streams(R)[stream]
+    g = np.random.default_rng(3).normal(size=(rows.size, width)).astype(
+        np.float32)
+    win = torch.zeros(R // 512, dtype=torch.int32)
+    got = tsa.sorted_accum(torch.from_numpy(rows), torch.from_numpy(g), win,
+                           win, r_pad=R, wrows=512, count_lanes=count)
+    live = (rows >= 0) & (rows < R)
+    want = np.zeros((R, width + 128 if count else width))
+    np.add.at(want[:, :width], rows[live], g[live].astype(np.float64))
+    if count:
+        want[:, width] = np.bincount(rows[live], minlength=R)
+    got = got.numpy()
+    np.testing.assert_allclose(got[:, :width], want[:, :width], rtol=0,
+                               atol=1e-5 * max(np.abs(want).max(), 1.0))
+    np.testing.assert_array_equal(got[:, width:], want[:, width:])
