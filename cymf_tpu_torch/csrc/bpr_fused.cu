@@ -5,9 +5,9 @@
 // Replaces, in cymf_tpu/ops/:
 //   fused_sample.py::bpr_sample_phase_v5 (_bpr_sample_kernel_v5) by
 //     bpr_v5_kernel;
-//   fused_step.py::bpr_block_step_v6 (_kernel), ::bpr_range_step_v7
-//     (_kernel_v7) and ::bpr_pool_step_v8 (_kernel_v8) by fused_kernel<6>,
-//     <7> and <8>.
+//   fused_step.py::bpr_block_step_v6 (_kernel) and ::bpr_range_step_v7
+//     (_kernel_v7) by fused_kernel<6> and <7>;
+//   fused_step.py::bpr_pool_step_v8 (_kernel_v8) by pool_step_kernel.
 // The per-sample math is bpr_math.cuh's, shared with the v4 sample kernel.
 //
 // What the TPU kernels compute, and what of it is kept:
@@ -25,8 +25,9 @@
 //   ceil(counts[w] / 1024) * 1024) whose row lies in the window, sample math
 //   on a gathered decorated Du stream, SW (loss on lane 127) summed into the
 //   window.  Q for every sample.
-// - v8: v7 with hj = Hpool[rj[b]] and the pool gradient Apool[rj[b]] += Q[b]
-//   of the samples a window accumulates (each once).
+// - v8: v7 with hj = Hpool[rj[b]] (zeros for a slot outside the pool) and
+//   the pool gradient Apool[rj[b]] += Q[b] of the samples a window
+//   accumulates (each once).
 // The window DMA, the one-hot MXU expansion and accumulation with their bf16
 // hi+lo split, the double-buffered slabs, the revisited loss block and the
 // spill buffer are the TPU's way to gather and scatter: here rows are read
@@ -34,38 +35,84 @@
 //
 // Bound on the H100: memory.  A step reads three (B, 128) float32 streams
 // (64 MiB each at the main-path B = 131,072), writes Q and, for v5, SW; the
-// W side of v6-v8 lands in shared memory instead of a (B, 128) round trip.
+// W side of v6-v8 never makes a (B, 128) round trip.
 //
-// Design.  v5 is the v4 sample kernel with its W row loaded from the table:
-// a warp a sample, a float4 a lane, loss partials summed in a fixed order.
-// v6-v8 give each CTA a slice of SLICE output rows, accumulated in shared
+// v5 is the v4 sample kernel with its W row loaded from the table: a warp a
+// sample, a float4 a lane, loss partials summed in a fixed order.
+//
+// v6, v7: each CTA owns a slice of SLICE output rows, accumulated in shared
 // memory and written once, so no output row is written twice and no atomics
 // reach device memory for Aw.  The rows of a step are ascending, so a
 // slice's samples are one contiguous run: the CTA finds it by binary search
 // in its block's home chunks (v6; also in the previous block's chunks for
-// the spill) or in its window's range (v7, v8), splits it over its warps,
-// and each warp sums runs of equal rows in registers and flushes a run into
+// the spill) or in its window's range (v7), splits it over its warps, and
+// each warp sums runs of equal rows in registers and flushes a run into
 // shared memory with atomicAdd (accum.cuh, shared with sorted_accum.cu).  Q
 // is written once per sample, by the CTA whose slice holds the sample's row.
 // v6 rows in no slice (past the spill, padding sentinels >= rw) are written
-// by the last slice of their home block.  The v7/v8 padding tail (the
-// samples of the last window's range with rows >= rw, ~54k in ML-20M's last
-// step) is split in equal shares over every CTA of the grid, so no CTA
-// carries it alone.  v8 adds Q into Apool with device-memory float atomics
-// (P <= 2048 rows, resident in L2): its summation order changes from run to
-// run.
+// by the last slice of their home block.  The v7 padding tail (the samples
+// of the last window's range with rows >= rw, ~54k in ML-20M's last step)
+// is split in equal shares over every CTA of the grid.  The power-law users
+// make the slices unequal: at ML-20M step 0 the heaviest 8-row slice holds
+// thousands of samples, walked by one CTA in dependent chains, which sets
+// the kernel's time (v7 4-6x its byte bound on the H100).
+//
+// v8: a sample-balanced fused reduction, the single-stream accumulation's
+// design (sorted_accum.cu) with the fused sample math as its per-sample
+// source.
+// The slice grid it had before took 0.68 ms at ML-20M step 0 against a
+// 0.064 ms byte bound, for the reason above.  Now:
+// 1. Warp p takes the PART = 64 samples [p PART, (p + 1) PART), eight parts
+//    a CTA (256 CTAs at B = 131,072), whatever the users' skew.  The
+//    padding tail is parts like any other.
+// 2. Per sample: the float4 loads of Du, Hi and Hpool[rj] (zeros for a
+//    slot outside the pool), bpr_math.cuh's math (the lane rotations
+//    through a per-warp shared row), Q stored for every sample; for a kept
+//    sample (the plain version's _window_keep: row in [0, rw) and the
+//    sample inside its window's tile-extended range, O(1) a sample) Q
+//    added into Apool[rj] if the slot is in the pool, with a 128-bit
+//    atomicAdd (sm_90: one vector reduction; P <= 2048 rows stay in L2),
+//    and SW added into the part's current run in registers.  The next 32
+//    row ids and slots load under the current 32 samples.
+// 3. The runs (segment.cuh's PartRuns): a run that begins and ends inside
+//    the part is stored once with float4 stores; the part's first and last
+//    pieces go to scratch, and segment.cuh's second pass joins them in
+//    stream order and zeroes every row no kept sample landed on, so Aw
+//    needs no memset and each of its rows is written exactly once.  Kept
+//    rows must be non-decreasing (the rows are ascending), and the kernel
+//    asserts it.
+// What sets the pace (measured on the H100): the per-sample math, a chain
+// of shared reads, shuffles and FMAs, not the bytes or the atomics (taking
+// the atomics out left the time as it was; taking the math out saved 40%).
+// So the kernel keeps 32 warps an SM (V8_MIN_BLOCKS) and one sample's
+// loads at a time: keeping two or four samples' loads in flight, or a
+// padded shared row free of bank conflicts, measured slower.
+// Aw's sums come in stream order, the same from run to run; only Apool's
+// order changes (float atomics).  The wrapper allocates the scratch of
+// segment.cuh's plan at width 128, as cymf_sorted_accum_plan reports it.
 
 #include <cuda_runtime.h>
 
 #include "accum.cuh"
 #include "bpr_math.cuh"
 #include "reduce.cuh"
+#include "segment.cuh"
 
 namespace {
 
+using cymf::bind_segmented;
 using cymf::bpr_sample_math;
+using cymf::clear_marks;
 using cymf::flush_run;
+using cymf::FULL_MASK;
+using cymf::launch_combine;
 using cymf::lower_bound;
+using cymf::PART;
+using cymf::PartRuns;
+using cymf::plan_segmented;
+using cymf::SEG_THREADS;
+using cymf::SEG_WARPS;
+using cymf::Segmented;
 using cymf::sum_partials_kernel;
 using cymf::SUM_THREADS;
 
@@ -176,12 +223,9 @@ struct Fused {
   const float* du;   // v7, v8: decorated gathered W rows
   const int* starts; // v7, v8: per-window sample ranges
   const int* counts;
-  const int* rj;     // v8: per-sample pool slots
-  const float* hpool;// v8: (P, 128) pool rows
-  float* apool;      // v8: (P, 128), zeroed by the caller
   float* aw;         // (rw, 128)
   float* q;          // (B, 128)
-  int B, rw, wrows, tile, P, K, s, cb;
+  int B, rw, wrows, tile, K, s, cb;
   float wd;
 };
 
@@ -200,23 +244,12 @@ __device__ __forceinline__ void load_sample(const Fused& f, int b, int row,
     return;
   }
   load4(f.du + off, u);
-  if (V == 7) {
-    load4(f.dj + off, hj);
-    return;
-  }
-  const int p = f.rj[b];
-  if (static_cast<unsigned>(p) < static_cast<unsigned>(f.P)) {
-    load4(f.hpool + static_cast<size_t>(p) * LANES + c0, hj);
-  } else {  // a slot outside the pool matches no one-hot row on the TPU
-#pragma unroll
-    for (int k = 0; k < 4; ++k) hj[k] = 0.f;
-  }
+  load4(f.dj + off, hj);
 }
 
 // Samples [lo, hi), split over the CTA's warps.  A sample whose row lies in
-// [r0, r0 + nrows) is summed into the slice (and, for v8, its Q into
-// Apool); its Q is written if its row lies in the slice, or below it and
-// q_below, or above it and q_above.
+// [r0, r0 + nrows) is summed into the slice; its Q is written if its row
+// lies in the slice, or below it and q_below, or above it and q_above.
 template <int V>
 __device__ void walk(const Fused& f, float* acc, float* r, float* v, int lo,
                      int hi, int r0, int nrows, bool q_below, bool q_above) {
@@ -251,25 +284,19 @@ __device__ void walk(const Fused& f, float* acc, float* r, float* v, int lo,
     run.y += o[1];
     run.z += o[2];
     run.w += o[3];
-    if (V == 8) {
-      const int p = f.rj[b];
-      if (static_cast<unsigned>(p) < static_cast<unsigned>(f.P)) {
-        float* dst = f.apool + static_cast<size_t>(p) * LANES + c0;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) atomicAdd(dst + k, qo[k]);
-      }
-    }
   }
   if (cur >= 0) flush_run(acc, cur, c0, run);
 }
 
-// v7, v8: window w's sample range [st, en), extended to whole chunks of
-// `tile` samples as the TPU kernel walks it.
-__device__ __forceinline__ void window_range(const Fused& f, int w, int& st,
+// v7, v8: window w's sample range [st, en) over B samples, extended to
+// whole chunks of `tile` samples as the TPU kernel walks it.
+__device__ __forceinline__ void window_range(const int* starts,
+                                             const int* counts, int w,
+                                             int tile, int B, int& st,
                                              int& en) {
-  st = max(f.starts[w], 0);
-  const int cnt = f.counts[w];
-  en = cnt > 0 ? min(st + (cnt + f.tile - 1) / f.tile * f.tile, f.B) : st;
+  st = max(starts[w], 0);
+  const int cnt = counts[w];
+  en = cnt > 0 ? min(st + (cnt + tile - 1) / tile * tile, B) : st;
 }
 
 template <int V>
@@ -281,7 +308,7 @@ fused_kernel(Fused f, int nslices) {
   float* acc = reinterpret_cast<float*>(acc4);
   float* r = row_s[threadIdx.x >> 5];
   float* v = vals_s[threadIdx.x >> 5];
-  const int w = blockIdx.x / nslices;  // W block (v6) or window (v7, v8)
+  const int w = blockIdx.x / nslices;  // W block (v6) or window (v7)
   const int k = blockIdx.x % nslices;
   const int base = w * f.wrows;
   const int r0 = base + k * SLICE;
@@ -310,13 +337,14 @@ fused_kernel(Fused f, int nslices) {
     }
   } else {
     int st, en;
-    window_range(f, w, st, en);
+    window_range(f.starts, f.counts, w, f.tile, f.B, st, en);
     walk<V>(f, acc, r, v, lower_bound(f.rows, st, en, r0),
             lower_bound(f.rows, st, en, r0 + nrows), r0, nrows, false,
             false);
     // this CTA's share of the padding tail: the Q rows of the last
     // window's samples with rows >= rw (every CTA finds the same tail)
-    window_range(f, gridDim.x / nslices - 1, st, en);
+    window_range(f.starts, f.counts, gridDim.x / nslices - 1, f.tile, f.B,
+                 st, en);
     const int t0 = lower_bound(f.rows, st, en, f.rw);
     const int share = (en - t0 + gridDim.x - 1) / gridDim.x;
     const int a = min(t0 + static_cast<int>(blockIdx.x) * share, en);
@@ -335,6 +363,119 @@ int launch_fused(const Fused& f, cudaStream_t stream) {
   if (grid > 0)
     fused_kernel<V><<<grid, F_THREADS, 0, stream>>>(f, nslices);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// v8: the sample-balanced fused step
+// ---------------------------------------------------------------------------
+
+// CTAs an SM at least: a cap of 64 registers, so that 32 warps share an SM
+// (the per-sample math is latency-bound; 2 or 3 CTAs an SM measured slower)
+constexpr int V8_MIN_BLOCKS = 4;
+
+struct Pool {
+  const int* rows;    // B ascending packed W rows (padding sentinels >= rw)
+  const int* rj;      // per-sample pool slots
+  const float* du;    // (B, 128) decorated gathered W rows
+  const float* hi;    // (B, 128) item rows
+  const float* hpool; // (P, 128) pool rows
+  const int* starts;  // per-window sample ranges
+  const int* counts;
+  float* apool;       // (P, 128), zeroed by the caller
+  float* q;           // (B, 128)
+  int B, rw, wrows, tile, P, K, s, cb;
+  float wd;
+};
+
+// The plain version's _window_keep: the row lies in the table and the
+// sample in its window's tile-extended range.
+__device__ __forceinline__ bool keep_sample(const Pool& f, int b, int row) {
+  if (static_cast<unsigned>(row) >= static_cast<unsigned>(f.rw)) return false;
+  int st, en;
+  window_range(f.starts, f.counts, row / f.wrows, f.tile, f.B, st, en);
+  return b >= st && b < en;
+}
+
+// float4 atomicAdd in global memory (sm_90) came with CUDA 12.1.
+static_assert(CUDART_VERSION >= 12010, "float4 atomicAdd needs CUDA 12.1");
+
+// Apool[p] += qo: one 128-bit vector reduction.
+__device__ __forceinline__ void pool_add(float* dst, const float qo[4]) {
+  atomicAdd(reinterpret_cast<float4*>(dst),
+            make_float4(qo[0], qo[1], qo[2], qo[3]));
+}
+
+// Warp p takes the PART samples [p PART, (p + 1) PART): Q for each, the
+// pool gradient of each kept sample whose slot is in the pool, and the
+// kept samples' SW into Aw through segment.cuh's runs.
+__global__ void __launch_bounds__(SEG_THREADS, V8_MIN_BLOCKS)
+pool_step_kernel(Pool f, Segmented sg) {
+  __shared__ float row_s[SEG_WARPS][LANES];
+  __shared__ float vals_s[SEG_WARPS][LANES];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c0 = lane * 4;
+  const int p = blockIdx.x * SEG_WARPS + warp;
+  if (p >= sg.parts) return;  // the whole warp; no CTA barrier follows
+  float* r = row_s[warp];
+  float* v = vals_s[warp];
+  const int a = p * PART;
+  const int e = min(a + PART, f.B);
+  PartRuns<1> runs(sg, p, 0);
+  int next_row = a + lane < e ? f.rows[a + lane] : -1;
+  int next_rj = a + lane < e ? f.rj[a + lane] : -1;
+  for (int b0 = a; b0 < e; b0 += 32) {
+    const int nb = min(32, e - b0);
+    // the next 32 row ids and slots load under this batch
+    const int mrow = next_row, mrj = next_rj;
+    next_row = b0 + 32 + lane < e ? f.rows[b0 + 32 + lane] : -1;
+    next_rj = b0 + 32 + lane < e ? f.rj[b0 + 32 + lane] : -1;
+    const unsigned kept =
+        __ballot_sync(FULL_MASK, lane < nb && keep_sample(f, b0 + lane, mrow));
+    for (int t = 0; t < nb; ++t) {
+      const int row = __shfl_sync(FULL_MASK, mrow, t);
+      const int pj = __shfl_sync(FULL_MASK, mrj, t);
+      const bool in_pool =
+          static_cast<unsigned>(pj) < static_cast<unsigned>(f.P);
+      const size_t off = static_cast<size_t>(b0 + t) * LANES + c0;
+      float u[4], h[4], hj[4] = {0.f, 0.f, 0.f, 0.f};
+      load4(f.du + off, u);
+      load4(f.hi + off, h);
+      // a slot outside the pool matches no one-hot row on the TPU
+      if (in_pool) load4(f.hpool + static_cast<size_t>(pj) * LANES + c0, hj);
+      float o[4], qo[4];
+      store4(r + c0, u);
+      __syncwarp();
+      bpr_sample_math(r, v, u, h, hj, c0, f.K, f.s, f.cb, f.cb + f.s, f.wd,
+                      LOSS_LANE, o, qo);
+      store4(f.q + off, qo);
+      if (!((kept >> t) & 1u)) continue;
+      if (in_pool) pool_add(f.apool + static_cast<size_t>(pj) * LANES + c0, qo);
+      const float4 o4 = make_float4(o[0], o[1], o[2], o[3]);
+      runs.add(row, &o4);
+    }
+  }
+  runs.finish();
+}
+
+int launch_pool(const Pool& f, float* aw, void* scratch,
+                long long scratch_bytes, cudaStream_t stream) {
+  Segmented sg;
+  if (!bind_segmented(sg, scratch, scratch_bytes, f.B, f.rw, LANES, 0) ||
+      f.wrows <= 0 || f.rw % f.wrows || f.tile <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  sg.rows = f.rows;
+  sg.g = nullptr;
+  sg.out = aw;
+  cudaError_t err = clear_marks(sg, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = static_cast<int>(plan_segmented(f.B, f.rw, LANES).blocks);
+  if (blocks > 0) {
+    pool_step_kernel<<<blocks, SEG_THREADS, 0, stream>>>(f, sg);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(launch_combine(sg, blocks, stream));
 }
 
 }  // namespace
@@ -408,30 +549,16 @@ extern "C" int cymf_bpr_range_step_v7(
   return launch_fused<7>(f, stream);
 }
 
+// `scratch` holds the scratch bytes of segment.cuh's plan for B samples
+// into rw rows at width 128 (cymf_sorted_accum_plan); Apool is zeroed
+// by the caller, Aw and Q need no initialisation.
 extern "C" int cymf_bpr_pool_step_v8(
     const int* rows, const int* rj, const float* du, const float* hi,
     const float* hpool, const int* starts, const int* counts, float* aw,
-    float* apool, float* q, int B, int rw, int wrows, int tile, int P, int K,
-    int s, int cb, float wd, cudaStream_t stream) {
-  Fused f{};
-  f.rows = rows;
-  f.rj = rj;
-  f.du = du;
-  f.hi = hi;
-  f.hpool = hpool;
-  f.starts = starts;
-  f.counts = counts;
-  f.aw = aw;
-  f.apool = apool;
-  f.q = q;
-  f.B = B;
-  f.rw = rw;
-  f.wrows = wrows;
-  f.tile = tile;
-  f.P = P;
-  f.K = K;
-  f.s = s;
-  f.cb = cb;
-  f.wd = wd;
-  return launch_fused<8>(f, stream);
+    float* apool, float* q, void* scratch, long long scratch_bytes, int B,
+    int rw, int wrows, int tile, int P, int K, int s, int cb, float wd,
+    cudaStream_t stream) {
+  return launch_pool(Pool{rows, rj, du, hi, hpool, starts, counts, apool, q,
+                          B, rw, wrows, tile, P, K, s, cb, wd},
+                     aw, scratch, scratch_bytes, stream);
 }

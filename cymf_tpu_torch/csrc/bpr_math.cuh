@@ -14,7 +14,11 @@
 //   Q    = sig wu on lanes < K, mask on lane K
 // as the TPU kernels compute them (cymf_tpu/ops/fused_sample.py,
 // cymf_tpu/ops/fused_step.py), their lane rotations read from a per-warp
-// shared copy of the row.
+// shared copy of the row.  The two sums over the s slots (wu, and the
+// rotated placement of SW) run the lane's four columns side by side, each
+// column's terms in the same order as alone, so the same bits: four
+// independent chains of shared reads and FMAs, where one chain a column
+// was the latency that set these kernels' pace.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,17 +40,24 @@ __device__ __forceinline__ float bpr_sample_math(
     const float* r, float* v, const float u[4], const float hi[4],
     const float hj[4], int c0, int K, int s, int cb, int cmask_hi, float wd,
     int loss_lane, float o[4], float qo[4]) {
+  // wu[l] = sum_c Du[cb + c] * Du[l + c K] for l < K, the four columns'
+  // sums side by side (each in the same order as one column alone)
   float wu[4], diff[4];
+  const float r0 = r[cb];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    wu[k] = c0 + k < K ? r0 * r[c0 + k] : 0.f;
+  for (int c = 1; c < s; ++c) {
+    const float rc = r[cb + c];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (c0 + k < K) wu[k] += rc * r[c0 + k + c * K];
+  }
   float x = 0.f, l2 = 0.f, m = 0.f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int l = c0 + k;
-    float w = 0.f;
-    if (l < K) {  // wu[l] = sum_c Du[cb + c] * Du[l + c K]
-      w = r[cb] * r[l];
-      for (int c = 1; c < s; ++c) w += r[cb + c] * r[l + c * K];
-    }
-    wu[k] = w;
+    const float w = wu[k];
     diff[k] = hi[k] - hj[k];
     x += w * diff[k];
     l2 += w * w + hi[k] * hi[k] + hj[k] * hj[k];
@@ -63,16 +74,23 @@ __device__ __forceinline__ float bpr_sample_math(
 #pragma unroll
   for (int k = 0; k < 4; ++k) v[c0 + k] = sig * diff[k];
   __syncwarp();
+  // slot c's lanes receive vals rotated right by c K (lane-wise as the TPU
+  // kernel's roll, wrapping at 128); the four columns side by side
+  float acc[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    acc[k] = (c0 + k >= cb && c0 + k < cmask_hi) ? u[k] : 0.f;
+  for (int c = 0; c < s; ++c) {
+    const float rc = r[cb + c];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      acc[k] += rc * v[(c0 + k - c * K) & (BPR_LANES - 1)];
+  }
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int l = c0 + k;
-    float acc = (l >= cb && l < cmask_hi) ? u[k] : 0.f;
-    // slot c's lanes receive vals rotated right by c K (lane-wise as the
-    // TPU kernel's roll, wrapping at 128)
-    for (int c = 0; c < s; ++c)
-      acc += r[cb + c] * v[(l - c * K) & (BPR_LANES - 1)];
-    if (l == loss_lane) acc += loss;
-    o[k] = acc;
+    if (l == loss_lane) acc[k] += loss;
+    o[k] = acc[k];
     qo[k] = sig * wu[k] + (l == K ? m : 0.f);
   }
   __syncwarp();  // r and v are rewritten for the next sample

@@ -69,7 +69,10 @@
 // in registers, wider rows walk a part once per group (counts, marks and
 // the part's rows on the first).  Sums come in another order than a
 // sequential scatter: equal to float32 round-off; counts are exact below
-// 2^24.
+// 2^24.  The plan, the scratch, a part's run bookkeeping (PartRuns) and
+// the second pass live in segment.cuh, which the v8 pool step (#7,
+// bpr_fused.cu) shares: there the per-sample source is the fused BPR
+// sample math instead of a stream row.
 //
 // The dual form keeps the window grid: one CTA per slice of `wrows`
 // output rows (at most MAX_SLICE rows, and what fits the 227 KiB a CTA may
@@ -82,140 +85,47 @@
 // the count granule included.  The H side's windows are balanced, so the
 // window grid serves it.
 
-#include <cassert>
-
 #include <cuda_runtime.h>
 
 #include "accum.cuh"
+#include "segment.cuh"
 
 namespace {
 
+using cymf::bind_segmented;
+using cymf::clear_marks;
 using cymf::flush_run;
+using cymf::launch_combine;
+using cymf::MAX_GRANULES;
+using cymf::PART;
+using cymf::PartRuns;
+using cymf::Plan;
+using cymf::plan_segmented;
+using cymf::SEG_THREADS;
+using cymf::SEG_WARPS;
+using cymf::Segmented;
+using cymf::zero4;
+using cymf::ZERO_GAP;
 
 constexpr int LANES = 128;
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_SLICE = 256;     // rows a CTA accumulates at most
 constexpr int SMEM_LIMIT = 232448; // dynamic shared memory a CTA may take
-constexpr int MAX_GRANULES = 4;    // 128-lane granules one walk holds
 constexpr unsigned FULL = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
-// The single-stream form: a sample-balanced segmented reduction.
+// The single-stream form: a sample-balanced segmented reduction (the plan,
+// the run bookkeeping and the second pass are segment.cuh's).
 // ---------------------------------------------------------------------------
-
-constexpr int PART = 64;          // samples a warp (parts of 32 and 128
-                                  // measured slower at ML-20M)
-constexpr int SEG_THREADS = 256;
-constexpr int SEG_WARPS = SEG_THREADS / 32;  // parts a CTA
-constexpr int ZERO_GAP = 32;      // rows a part zeroes between two of its
-                                  // runs
-constexpr int ZERO_BLOCKS = 1024; // CTAs that zero the rest at most
-
-// The launch for n samples of `width` lanes into r_pad rows.
-struct Plan {
-  long long parts, blocks, zero_blocks, scratch_bytes;
-};
-
-Plan plan_segmented(int n, int r_pad, int width) {
-  Plan q;
-  q.parts = (static_cast<long long>(n) + PART - 1) / PART;
-  q.blocks = (q.parts + SEG_WARPS - 1) / SEG_WARPS;
-  const long long want = (static_cast<long long>(r_pad) + 32 * SEG_WARPS - 1) /
-                         (32 * SEG_WARPS);
-  q.zero_blocks = want < ZERO_BLOCKS ? want : ZERO_BLOCKS;
-  // the parts' two slots (payload and count), their first and last rows,
-  // a mark a row
-  q.scratch_bytes = 8 * q.parts * (width + 2) + r_pad;
-  return q;
-}
-
-struct Segmented {
-  const int* rows;
-  const float* g;
-  float* out;
-  float* sums;             // [2 parts, width]: part p's first piece at 2p,
-                           // its last (when another) at 2p + 1
-  float* lens;             // [2 parts]: the pieces' live samples
-  int* first;              // [parts]: the part's first live row, -1: none
-  int* last;               // [parts]: its last live row, -1: none
-  unsigned char* touched;  // [r_pad]: 1 where a live sample lands
-  int n, r_pad, width, stride, parts, count_lanes;
-};
-
-__device__ __forceinline__ float4 zero4() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-__device__ __forceinline__ void add4(float4& a, const float4& b) {
-  a.x += b.x;
-  a.y += b.y;
-  a.z += b.z;
-  a.w += b.w;
-}
-
-// Writes output row `row`: this lane's payload columns col[k] (k < ng) from
-// v, and with `counts` the count granule (len in lane 0, zeros elsewhere).
-__device__ __forceinline__ void store_row(const Segmented& s, int row,
-                                          const int* col, const float4* v,
-                                          int ng, bool counts, float len) {
-  const int lane = threadIdx.x & 31;
-  float* dst = s.out + static_cast<size_t>(row) * s.stride;
-#pragma unroll
-  for (int k = 0; k < MAX_GRANULES; ++k)
-    if (k < ng) *reinterpret_cast<float4*>(dst + col[k]) = v[k];
-  if (counts) {
-    float4 c = zero4();
-    if (lane == 0) c.x = len;
-    *reinterpret_cast<float4*>(dst + s.width + lane * 4) = c;
-  }
-}
-
-// Zeroes output rows (lo, hi) (at most ZERO_GAP of them), count granule
-// included, and marks them written.  Warp-collective.
-__device__ __forceinline__ void zero_gap(const Segmented& s, int lo, int hi) {
-  const int lane = threadIdx.x & 31;
-  const int out4 = s.stride / 4;
-  for (int r = lo + 1; r < hi; ++r) {
-    float4* o = reinterpret_cast<float4*>(s.out + static_cast<size_t>(r) *
-                                                      s.stride);
-    for (int q = lane; q < out4; q += 32) o[q] = zero4();
-  }
-  if (lo + 1 + lane < hi) s.touched[lo + 1 + lane] = 1;
-}
 
 // Part p's walk over granules [g0, g0 + NG), U samples' loads at a time.
 template <int NG, int U>
 __device__ void segment_part(const Segmented& s, int p, int g0) {
   const int lane = threadIdx.x & 31;
-  const bool lead = g0 == 0;  // counts, marks and the part's rows
   const int a = p * PART;
   const int e = min(a + PART, s.n);
-  int col[MAX_GRANULES];
-  float4 run[MAX_GRANULES];
-#pragma unroll
-  for (int k = 0; k < MAX_GRANULES; ++k) {
-    col[k] = (g0 + k) * LANES + lane * 4;
-    run[k] = zero4();
-  }
-  int cur = -1, head = -1, pieces = 0;
-  float len = 0.f;
-  // The piece of row `cur` ends: the part's first piece and its last go to
-  // their scratch slots, a piece between them is a whole run.
-  auto close = [&](bool last_piece) {
-    if (pieces == 0 || last_piece) {
-      const int slot = 2 * p + (pieces == 0 ? 0 : 1);
-      float* dst = s.sums + static_cast<size_t>(slot) * s.width;
-#pragma unroll
-      for (int k = 0; k < NG; ++k)
-        *reinterpret_cast<float4*>(dst + col[k]) = run[k];
-      if (lead && lane == 0) s.lens[slot] = len;
-    } else {
-      store_row(s, cur, col, run, NG, lead && s.count_lanes, len);
-    }
-    if (lead && lane == 0) s.touched[cur] = 1;
-    ++pieces;
-  };
+  PartRuns<NG> runs(s, p, g0);
   int next = a + lane < e ? s.rows[a + lane] : -1;
   for (int b0 = a; b0 < e; b0 += 32) {
     const int nb = min(32, e - b0);
@@ -234,37 +144,18 @@ __device__ void segment_part(const Segmented& s, int p, int g0) {
             s.g + static_cast<size_t>(b0 + (on ? t : 0)) * s.width);
 #pragma unroll
         for (int k = 0; k < NG; ++k)
-          v[u][k] = on ? __ldg(src + col[k] / 4) : zero4();
+          v[u][k] = on ? __ldg(src + runs.col[k] / 4) : zero4();
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int t = t0 + u;
         const int r = __shfl_sync(FULL, mine, t & 31);
         if (t >= nb || !((live >> (t & 31)) & 1u)) continue;
-        if (r != cur) {
-          assert(r > cur && "live rows must be non-decreasing");
-          if (cur >= 0) {
-            close(false);
-            // rows between two runs of the part: no sample lands on them
-            if (lead && r - cur - 1 <= ZERO_GAP) zero_gap(s, cur, r);
-          }
-          if (head < 0) head = r;
-          cur = r;
-          len = 0.f;
-#pragma unroll
-          for (int k = 0; k < NG; ++k) run[k] = zero4();
-        }
-#pragma unroll
-        for (int k = 0; k < NG; ++k) add4(run[k], v[u][k]);
-        len += 1.f;
+        runs.add(r, v[u]);
       }
     }
   }
-  if (cur >= 0) close(true);
-  if (lead && lane == 0) {
-    s.first[p] = head;
-    s.last[p] = cur;
-  }
+  runs.finish();
 }
 
 template <int NG, int U>
@@ -272,121 +163,6 @@ __global__ void __launch_bounds__(SEG_THREADS)
 segment_kernel(Segmented s, int g0) {
   const int p = blockIdx.x * SEG_WARPS + (threadIdx.x >> 5);
   if (p < s.parts) segment_part<NG, U>(s, p, g0);
-}
-
-// The last live row before part p (-1 if none), skipping parts with no
-// live sample 32 at a time.  Warp-collective.
-__device__ int previous_last(const Segmented& s, int p) {
-  const int lane = threadIdx.x & 31;
-  for (int q = p - 1; q >= 0; q -= 32) {
-    const int at = q - lane;
-    const int f = at >= 0 ? s.first[at] : -2;
-    const unsigned hit = __ballot_sync(FULL, f != -1);
-    if (hit) {
-      const int r = f >= 0 ? s.last[at] : -1;
-      return __shfl_sync(FULL, r, __ffs(hit) - 1);
-    }
-  }
-  return -1;
-}
-
-// Stores row `row`, whose first live sample part p holds: scratch slot
-// `slot`, plus, with `walk`, the first pieces of the following parts while
-// the run goes on.  Warp-collective.
-__device__ void emit(const Segmented& s, int p, int slot, int row,
-                     bool walk) {
-  const int lane = threadIdx.x & 31;
-  const int granules = s.width / LANES;
-  for (int g0 = 0; g0 < granules; g0 += MAX_GRANULES) {
-    const int ng = min(MAX_GRANULES, granules - g0);
-    int col[MAX_GRANULES];
-    float4 acc[MAX_GRANULES];
-    const float* src = s.sums + static_cast<size_t>(slot) * s.width;
-#pragma unroll
-    for (int k = 0; k < MAX_GRANULES; ++k) {
-      col[k] = (g0 + k) * LANES + lane * 4;
-      acc[k] = k < ng ? *reinterpret_cast<const float4*>(src + col[k])
-                      : zero4();
-    }
-    float len = s.lens[slot];
-    for (int q = p + 1; walk; q += 32) {
-      // lane i looks at part q + i: it ends the walk if it is past the
-      // last part, starts another row, or its run of `row` ends inside it
-      const int at = q + lane;
-      const int f = at < s.parts ? s.first[at] : -2;
-      const int l = f == row ? s.last[at] : -1;
-      const unsigned stops = __ballot_sync(
-          FULL, f == -2 || (f >= 0 && f != row) || (f == row && l != row));
-      const int end = stops ? __ffs(stops) - 1 : 31;
-      unsigned take = __ballot_sync(FULL, f == row) & ((2u << end) - 1u);
-      while (take) {
-        // up to four parts' pieces loaded together
-        int js[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          js[i] = take ? __ffs(take) - 1 : -1;
-          take &= take - 1u;
-        }
-        float4 x[4][MAX_GRANULES];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float* ps = s.sums + static_cast<size_t>(
-              2 * (q + max(js[i], 0))) * s.width;
-#pragma unroll
-          for (int k = 0; k < MAX_GRANULES; ++k)
-            x[i][k] = js[i] >= 0 && k < ng
-                          ? *reinterpret_cast<const float4*>(ps + col[k])
-                          : zero4();
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (js[i] < 0) continue;
-#pragma unroll
-          for (int k = 0; k < MAX_GRANULES; ++k) add4(acc[k], x[i][k]);
-          len += s.lens[2 * (q + js[i])];
-        }
-      }
-      if (stops) break;
-    }
-    store_row(s, row, col, acc, ng, g0 == 0 && s.count_lanes, len);
-  }
-}
-
-// The second pass: CTAs [0, combine_blocks) store the runs that parts
-// share (a warp a part: the part's first piece if a run starts there, its
-// last piece if it is another); the other CTAs zero every row no live
-// sample landed on.
-__global__ void __launch_bounds__(SEG_THREADS)
-combine_kernel(Segmented s, int combine_blocks) {
-  if (static_cast<int>(blockIdx.x) < combine_blocks) {
-    const int p = blockIdx.x * SEG_WARPS + (threadIdx.x >> 5);
-    if (p >= s.parts) return;
-    const int f = s.first[p];
-    if (f < 0) return;
-    const int l = s.last[p];
-    const int before = previous_last(s, p);
-    assert(before <= f && "live rows must be non-decreasing");
-    if (before != f) emit(s, p, 2 * p, f, l == f);
-    if (l != f) emit(s, p, 2 * p + 1, l, true);
-    return;
-  }
-  // a warp looks at 32 rows at a time and zeroes the unmarked ones
-  const int lane = threadIdx.x & 31;
-  const int out4 = s.stride / 4;
-  const int warps = (gridDim.x - combine_blocks) * SEG_WARPS;
-  for (int r0 = ((blockIdx.x - combine_blocks) * SEG_WARPS +
-                 (threadIdx.x >> 5)) * 32;
-       r0 < s.r_pad; r0 += warps * 32) {
-    unsigned todo = __ballot_sync(
-        FULL, r0 + lane < s.r_pad && !s.touched[r0 + lane]);
-    while (todo) {
-      const int r = r0 + __ffs(todo) - 1;
-      todo &= todo - 1u;
-      float4* o = reinterpret_cast<float4*>(s.out + static_cast<size_t>(r) *
-                                                        s.stride);
-      for (int q = lane; q < out4; q += 32) o[q] = zero4();
-    }
-  }
 }
 
 template <int NG, int U>
@@ -400,32 +176,17 @@ int launch_segmented(const int* rows, const float* g, float* out,
                      void* scratch, long long scratch_bytes, int n,
                      int r_pad, int width, int count_lanes,
                      cudaStream_t stream) {
-  if (width <= 0 || width % LANES || n < 0 || r_pad < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Plan q = plan_segmented(n, r_pad, width);
-  if (scratch_bytes < q.scratch_bytes)
-    return static_cast<int>(cudaErrorInvalidValue);
   Segmented s;
+  if (!bind_segmented(s, scratch, scratch_bytes, n, r_pad, width,
+                      count_lanes))
+    return static_cast<int>(cudaErrorInvalidValue);
   s.rows = rows;
   s.g = g;
   s.out = out;
-  s.n = n;
-  s.r_pad = r_pad;
-  s.width = width;
-  s.stride = width + (count_lanes ? LANES : 0);
-  s.parts = static_cast<int>(q.parts);
-  s.count_lanes = count_lanes;
-  char* base = static_cast<char*>(scratch);
-  const size_t slots = 2 * static_cast<size_t>(s.parts);
-  s.sums = reinterpret_cast<float*>(base);
-  s.lens = s.sums + slots * width;
-  s.first = reinterpret_cast<int*>(s.lens + slots);
-  s.last = s.first + s.parts;
-  s.touched = reinterpret_cast<unsigned char*>(s.last + s.parts);
   if (r_pad == 0) return static_cast<int>(cudaSuccess);
-  cudaError_t err = cudaMemsetAsync(s.touched, 0, r_pad, stream);
+  cudaError_t err = clear_marks(s, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = static_cast<int>(q.blocks);
+  const int blocks = static_cast<int>(plan_segmented(n, r_pad, width).blocks);
   const int granules = width / LANES;
   for (int g0 = 0; blocks > 0 && g0 < granules; g0 += MAX_GRANULES) {
     switch (min(MAX_GRANULES, granules - g0)) {
@@ -436,9 +197,7 @@ int launch_segmented(const int* rows, const float* g, float* out,
     }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  combine_kernel<<<blocks + static_cast<int>(q.zero_blocks), SEG_THREADS, 0,
-                   stream>>>(s, blocks);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_combine(s, blocks, stream));
 }
 
 // ---------------------------------------------------------------------------

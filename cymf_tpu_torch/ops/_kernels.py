@@ -19,7 +19,9 @@ The kernels, by source and the wrapper that launches them:
 - ``bpr_fused.cu``: ``fused_sample.bpr_sample_phase_v5``,
   ``fused_step.bpr_block_step_v6``, ``fused_step.bpr_range_step_v7`` and
   ``fused_step.bpr_pool_step_v8`` (the per-sample math of these and of
-  ``bpr_sample.cu`` is the one device function of ``bpr_math.cuh``);
+  ``bpr_sample.cu`` is the one device function of ``bpr_math.cuh``; v8's
+  segmented reduction is ``segment.cuh``'s, shared with
+  ``sorted_accum.cu``);
 - ``glove_sample.cu``: ``glove_epoch.glove_sample_phase`` (GloVe and
   RelMF);
 - ``sorted_accum.cu``: ``sorted_accum.sorted_accum`` and
@@ -65,7 +67,7 @@ _SIGNATURES = {
     "cymf_bpr_sample_phase_v5": [_P] * 9 + [_I] * 6 + [_F, _P],
     "cymf_bpr_block_step_v6": [_P] * 9 + [_I] * 7 + [_F, _P],
     "cymf_bpr_range_step_v7": [_P] * 8 + [_I] * 7 + [_F, _P],
-    "cymf_bpr_pool_step_v8": [_P] * 10 + [_I] * 8 + [_F, _P],
+    "cymf_bpr_pool_step_v8": [_P] * 11 + [_L] + [_I] * 8 + [_F, _P],
     "cymf_glove_sample_blocks": [_I],
     "cymf_glove_sample_phase": [_P] * 6 + [_I] * 4 + [_P],
     "cymf_sorted_accum_plan": [_I, _I, _I, _P],

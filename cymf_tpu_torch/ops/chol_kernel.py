@@ -5,11 +5,14 @@ blocked ALS solve.  Port of `cymf_tpu/ops/chol_kernel.py`.
 ``block x block`` float32 matrices and returns ``(L, Linv)``: the lower
 Cholesky factors, with exact zeros above the diagonal, and their
 inverses.  On a CUDA tensor it launches the hand-written kernel of
-``csrc/chol_inv.cu`` (one CTA per matrix, both factors from one
-right-looking column loop in shared memory); on a CPU tensor it runs
-:func:`chol_inv_batched_plain`.  A matrix that is not SPD comes out NaN in
-both outputs, in both versions, as XLA's Cholesky gives: nothing syncs
-with the host to raise.
+``csrc/chol_inv.cu`` (a thread, or two at ``block > 64``, per row of a
+matrix, holding in registers that row of ``A`` until its pivot, then that
+column of ``Linv``; one named barrier per right-looking column step; a
+matrix smaller than 64 or 128 padded with the identity);
+:func:`chol_inv_twin` is its column step in
+Python.  On a CPU tensor it runs :func:`chol_inv_batched_plain`.  A matrix
+that is not SPD comes out NaN in both outputs, in both versions, as XLA's
+Cholesky gives: nothing syncs with the host to raise.
 
 Left behind: the JAX wrapper's XLA fallback for batches whose tile
 ``G`` would fall below 8 (`chol_kernel.py:97-106`) works round a Mosaic
@@ -22,7 +25,8 @@ import torch
 
 from . import _kernels
 
-MAX_BLOCK = 128  # two (B, B + 1) f32 buffers in one CTA's shared memory
+MAX_BLOCK = 128  # the kernel's larger size: two threads' registers a row
+                 # and a (128, 129) f32 staging tile in shared memory
 
 
 def cholesky_nan(A: torch.Tensor) -> torch.Tensor:
@@ -42,6 +46,59 @@ def chol_inv_batched_plain(A: torch.Tensor):
     L = cholesky_nan(A)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     return L, torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+
+
+def chol_inv_twin(A: torch.Tensor, size: int | None = None):
+    """The kernel's column step in Python, on ``A (C, B, B)``: returns
+    ``(L, Linv, pad)``, ``pad`` the padded threads' registers after the
+    last step taken (``(C, size - B, size)``).
+
+    ``A``'s lower triangle is padded with the identity to ``size`` (64 for
+    ``B <= 64``, else 128), ``diag(A, I)``.  Thread ``i`` keeps one array
+    ``w[i, k]``, index ``j + k`` at step ``j``: row ``i`` of A while ``j <=
+    i`` (its entries past column ``i`` are never read), then column ``i``
+    of ``Z`` (``L Z = I``; its entries above row ``i`` are zero, so they
+    need no register before).  Step ``j < B``: every row ``i >= j``
+    publishes ``w[i, 0]`` at ``i - j`` of the column vector; every thread
+    reads the pivot ``d``, ``s = 1/sqrt(d)``, and takes ``L[i, j] = w[i,
+    0] s`` for ``i > j`` (``d s`` on the diagonal) and ``Linv[j, i] = w[i,
+    0] s`` for ``i < j`` (``s`` at ``i = j``, zero above); then shifts its
+    array against the vector: ``w[i, k] <- keep w[i, k + 1] - mult colv[k
+    + 1]``, ``mult = L[i, j] s`` for ``i > j`` and ``Linv[j, i] s`` for
+    ``i <= j``, ``keep = 0`` at ``i = j`` (the column of Linv starts
+    there) and 1 elsewhere.  The steps ``j >= B`` would touch only the
+    identity block and are not taken.  A pivot that is not > 0 makes the
+    matrix NaN."""
+    C, B, _ = A.shape
+    N = size or (64 if B <= 64 else 128)
+    dev = A.device
+    w = torch.zeros((C, N, N), dtype=torch.float32, device=dev)
+    w[:, :B, :B] = torch.tril(A.float())
+    w[:, B:, B:] = torch.eye(N - B, device=dev)
+    L = torch.zeros((C, N, N), dtype=torch.float32, device=dev)
+    Linv = torch.zeros_like(L)
+    bad = torch.zeros(C, dtype=torch.bool, device=dev)
+    rows = torch.arange(N, device=dev)
+    zero = torch.zeros((C, N, 1), device=dev)
+    for j in range(B):
+        w0 = w[:, :, 0]
+        colv = torch.zeros((C, N), dtype=torch.float32, device=dev)
+        colv[:, :N - j] = w0[:, j:]
+        d = colv[:, 0]
+        s = torch.rsqrt(d)[:, None]
+        bad |= ~(d > 0)
+        lij = torch.where(rows > j, w0 * s, 0.0)
+        zj = torch.where(rows < j, w0 * s, torch.where(rows == j, s, 0.0))
+        L[:, j:, j] = torch.where(rows[j:] == j, d[:, None] * s, lij[:, j:])
+        Linv[:, j] = zj
+        mult = torch.where(rows > j, lij * s, zj * s)[:, :, None]
+        keep = (rows != j).float()[None, :, None]
+        w = torch.cat([w[:, :, 1:] * keep - mult * colv[:, None, 1:], zero],
+                      dim=2)
+    nan = torch.full((), float("nan"), device=dev)
+    L = torch.where(bad[:, None, None], nan, torch.tril(L[:, :B, :B]))
+    Linv = torch.where(bad[:, None, None], nan, Linv[:, :B, :B])
+    return L, Linv, w[:, B:]
 
 
 def chol_inv_batched(A: torch.Tensor, block: int = 64):
@@ -65,8 +122,8 @@ def chol_inv_batched(A: torch.Tensor, block: int = 64):
     if A.dtype != torch.float32:
         raise ValueError(f"A has dtype {A.dtype}, expected torch.float32")
     if block > MAX_BLOCK:
-        raise ValueError(f"block {block} > {MAX_BLOCK}: the kernel's two "
-                         "buffers do not fit in shared memory")
+        raise ValueError(f"block {block} > {MAX_BLOCK}: the kernel's rows "
+                         "do not fit its registers and shared memory")
     if A.shape[0] and A.stride(2) != 1:
         raise ValueError("A must have unit column stride")
     C = A.shape[0]

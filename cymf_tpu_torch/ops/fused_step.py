@@ -21,9 +21,15 @@ never reaches device memory:
   W row.
 
 On a CUDA tensor each wrapper launches its hand-written kernel of
-``csrc/bpr_fused.cu`` (a CTA per 8-row slice of the output, its samples
-found by binary search in the ascending rows); on a CPU tensor it runs
-its ``_plain`` version, written as the TPU kernel computes: the same
+``csrc/bpr_fused.cu``: for v6 and v7 a CTA per 8-row slice of the output,
+its samples found by binary search in the ascending rows; for v8 a
+sample-balanced fused reduction (a warp per part of consecutive samples,
+runs summed in registers, the runs that parts share joined and the
+untouched rows zeroed by a second pass, ``csrc/segment.cuh``, shared
+with the single-stream :func:`~.sorted_accum.sorted_accum`), whose
+partition :func:`pool_step_twin` writes out in Python.  On a CPU tensor
+each wrapper runs its ``_plain`` version, written as the TPU kernel
+computes: the same
 expansion window rule, the lane rotations of :func:`~.fused_sample.
 sample_math_plain`, and ``index_add_`` for the sums.  Sums come in another
 order than the TPU's bf16 hi+lo one-hot matmuls, which are exact to about
@@ -35,11 +41,13 @@ counterpart here.  ``CROWS`` stays: it is part of ``supports_v6``, of
 
 from __future__ import annotations
 
+
 import numpy as np
 import torch
 
 from . import _kernels
 from . import packed as pk
+from . import sorted_accum as sa
 from .fused_sample import expand_rows, sample_math_plain
 
 LANES = 128
@@ -299,7 +307,12 @@ def bpr_pool_step_v8(rowsw, rjs, Du_dec, Hi, Hpool, starts, counts, *,
         counts at lane K), each sample once; scatter them as
         ``Hacc.index_add_(0, pool, Apool)``.  The kernel sums them with
         device-memory atomics, in an order that changes from run to run.
-      Q: (B, 128) compact H-side product for the i-side accumulation.
+      Q: (B, 128) compact H-side product for the i-side accumulation,
+        every sample's row.
+
+    The kernel sums ``Aw`` in stream order and asserts that the rows it
+    keeps are non-decreasing (the rows are ascending); a failed
+    device-side assert leaves the CUDA context unusable.
     """
     B = Hi.shape[0]
     P = Hpool.shape[0]
@@ -325,8 +338,56 @@ def bpr_pool_step_v8(rowsw, rjs, Du_dec, Hi, Hpool, starts, counts, *,
     Aw = torch.empty((rw, LANES), dtype=torch.float32, device=dev)
     Apool = torch.zeros((P, LANES), dtype=torch.float32, device=dev)
     Q = torch.empty_like(Hi)
+    nbytes = sa.segment_plan(B, rw, LANES)["scratch_bytes"]
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     _kernels.launch("bpr_pool_step_v8", dev,
-            rowsw, rjs, Du_dec, Hi, Hpool, starts, counts, Aw, Apool, Q, B,
-            rw, wrows, tile, P, int(K), pk.num_slots(K), pk.count_base(K),
-            float(wd))
+            rowsw, rjs, Du_dec, Hi, Hpool, starts, counts, Aw, Apool, Q,
+            scratch, nbytes, B, rw, wrows, tile, P, int(K), pk.num_slots(K),
+            pk.count_base(K), float(wd))
     return Aw, Apool, Q
+
+
+def pool_step_twin(rowsw, rjs, starts, counts, *, P: int, rw: int,
+                   wrows: int = 512, tile: int = TILE, part: int,
+                   zero_gap: int) -> dict:
+    """The v8 kernel's partition, in Python, with ``part`` and
+    ``zero_gap`` as :func:`~.sorted_accum.segment_plan` gives them: part
+    ``p`` (samples ``[p part, (p + 1) part)``) writes the Q row of each of
+    its samples, adds the Q of each kept sample whose slot lies in
+    ``[0, P)`` into that Apool row, and cuts its kept samples into the
+    runs of :func:`~.sorted_accum.segment_twin` (a sample that is not kept
+    counts as a sentinel there).  A sample is kept by the kernel's test,
+    written here as it is there: its row lies in ``[0, rw)`` and the
+    sample in ``[st, en)`` of the row's window, ``st = max(starts[w], 0)``
+    and ``en = min(st + ceil(counts[w] / tile) tile, B)`` if ``counts[w] >
+    0``, else ``st``.
+
+    Returns :func:`~.sorted_accum.segment_twin`'s dict (``writes``,
+    ``carried``, ``into`` and the counts) plus ``keep`` (``[B]`` bool),
+    ``q_writes`` (``[B]``, stores of each Q row) and ``pool_adds``
+    (``[P]``, Q rows added into each Apool row) with ``pool_from``
+    (``[B]``, times each sample's Q is added into Apool)."""
+    rows = np.asarray(rowsw).reshape(-1).astype(np.int64)
+    rj = np.asarray(rjs).reshape(-1).astype(np.int64)
+    starts = np.asarray(starts).astype(np.int64)
+    counts = np.asarray(counts).astype(np.int64)
+    B = rows.size
+    b = np.arange(B)
+    inside = (rows >= 0) & (rows < rw)
+    w = np.where(inside, rows, 0) // wrows
+    st = np.maximum(starts[w], 0)
+    cnt = counts[w]
+    en = np.where(cnt > 0, np.minimum(st + -(-cnt // tile) * tile, B), st)
+    keep = inside & (b >= st) & (b < en)
+    out = sa.segment_twin(np.where(keep, rows, -1), rw, part, zero_gap)
+    q_writes = np.zeros(B, np.int64)
+    pool_from = np.zeros(B, np.int64)
+    pool_adds = np.zeros(P, np.int64)
+    for a in range(0, B, part):
+        idx = b[a:a + part]
+        q_writes[idx] += 1
+        add = idx[keep[idx] & (rj[idx] >= 0) & (rj[idx] < P)]
+        pool_from[add] += 1
+        np.add.at(pool_adds, rj[add], 1)
+    return dict(out, keep=keep, q_writes=q_writes, pool_adds=pool_adds,
+                pool_from=pool_from)

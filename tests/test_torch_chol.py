@@ -17,7 +17,7 @@ import torch
 from cymf_tpu.ops.chol_kernel import chol_inv_batched as jax_chol_inv
 from cymf_tpu_torch.ops import _kernels
 from cymf_tpu_torch.ops.als import get_solver, resolve_chol_solver
-from cymf_tpu_torch.ops.chol_kernel import chol_inv_batched
+from cymf_tpu_torch.ops.chol_kernel import chol_inv_batched, chol_inv_twin
 
 CPU, CUDA = torch.device("cpu"), torch.device("cuda")
 
@@ -131,3 +131,56 @@ def test_solver_names_solve(name, C):
     ref = np.linalg.solve(A.astype(np.float64), b[..., None])[..., 0]
     got = get_solver(name)(torch.from_numpy(A), torch.from_numpy(b)).numpy()
     assert np.abs(got - ref).max() / np.abs(ref).max() < 5e-4
+
+
+def _spd_cases(B, C, seed):
+    """``C`` SPD matrices; with ``C > 1`` the second is not SPD and, with
+    ``C > 2``, the third has a NaN pivot."""
+    A = _spd(np.random.default_rng(seed), C, B)
+    if C > 1:
+        A[1] = -A[1]
+    if C > 2:
+        A[2, B // 2, B // 2] = np.nan
+    return A
+
+
+@pytest.mark.parametrize("C", [1, 3, 262])
+@pytest.mark.parametrize("B", [8, 32, 64, 128])
+def test_chol_twin_matches_plain_and_jax(B, C):
+    """The kernel's column step (``chol_inv_twin``: one array a thread,
+    row i of A until its pivot, then column i of Linv, held shifted so
+    that the pivot is register 0; one published column a step; the
+    identity padding to 64 or 128) against the plain version
+    and the JAX kernel, within the JAX package's limits; a matrix that is
+    not SPD and one with a NaN pivot come out all NaN in the twin and the
+    plain version, and with NaN in the JAX one."""
+    A = _spd_cases(B, C, B + C)
+    L, Linv, _ = chol_inv_twin(torch.from_numpy(A))
+    Lp, _ = chol_inv_batched(torch.from_numpy(A), B)
+    Lj, _ = jax_chol_inv(jnp.asarray(A), block=B, interpret=True)
+    nan = np.isnan(Lp.numpy()).all(axis=(1, 2))
+    np.testing.assert_array_equal(nan, np.isin(np.arange(C), [1, 2]))
+    got = [np.isnan(x.numpy()).all(axis=(1, 2)) for x in (L, Linv)]
+    np.testing.assert_array_equal(got[0], nan)
+    np.testing.assert_array_equal(got[1], nan)
+    # XLA's factor marks a failed matrix with NaN, not in every entry
+    assert np.isnan(np.array(Lj)[nan]).any(axis=(1, 2)).all()
+    ok = ~nan
+    for ref in (Lp.numpy()[ok], np.array(Lj)[ok]):
+        _check(L.numpy()[ok], Linv.numpy()[ok], ref)
+
+
+@pytest.mark.parametrize("B", [8, 33, 48, 64, 100])
+def test_chol_twin_identity_padding(B):
+    """``diag(A, I)`` factors to ``diag(L, I)``: the twin padded to 64 or
+    128 gives the unpadded twin's factors bit for bit, and its padded
+    threads still hold the identity's rows after the last step taken
+    (shifted by B)."""
+    A = torch.from_numpy(_spd(np.random.default_rng(B), 4, B))
+    L, Linv, pad = chol_inv_twin(A)
+    L0, Linv0, _ = chol_inv_twin(A, size=B)
+    assert torch.equal(L, L0) and torch.equal(Linv, Linv0)
+    N = 64 if B <= 64 else 128
+    assert torch.equal(pad[:, :, :N - B], torch.eye(N)[B:, B:].expand(4, -1,
+                                                                      -1))
+    assert not pad[:, :, N - B:].any()

@@ -19,12 +19,18 @@ accumulations alike (payload within ``1e-5`` of its max, the count lane
 and the 127 unused lanes exact), the single-stream form also on streams
 built to cut runs at every part and CTA boundary, its launch plan against
 its scratch layout, and a stream whose live rows decrease failing the
-kernel's assert (in a process of its own); the probes P2 and P3 exact, P1's SW and
+kernel's assert (in a process of its own); the v8 pool step also on
+streams built to break it (one user with 40% of the samples, runs cut at
+every part boundary, a padding tail; slots outside the pool; window
+ranges that drop samples) at P = 128 and 2048, into outputs left dirty;
+the probes P2 and P3 exact, P1's SW and
 Q equal to #1's kernel and within #1's bounds of plain; the packed epochs of every pipeline on the card against the
 CPU, ``rtol 1e-4, atol 1e-5`` under sgd and adagrad and under adam the
 sequential epochs' drift class below; the batched
 Cholesky ``|dL| <= 1e-4 max|L|`` and ``|Linv L - I| <= 1e-3``, the JAX
-package's own bounds for its kernel; ALS fits ``rtol 2e-3, atol 2e-4``,
+package's own bounds for its kernel, at every B of both instantiations
+(16-128, the identity padding included), with a matrix that is not SPD
+and one with a NaN pivot among 262; ALS fits ``rtol 2e-3, atol 2e-4``,
 its bound between solver forms.  The sequential epochs: tables ``rtol
 1e-4, atol 1e-5`` under sgd and adagrad (the dot products' summation
 order compounding over the chain), under adam fewer than 1% of elements
@@ -614,6 +620,91 @@ def test_bpr_range_step_v7_kernel(dev, U, K, B, wrows, monkeypatch):
     _close_aw(Aw, Awp, K)
 
 
+POOL_STREAMS = ("heavy-user", "part-cuts", "padding-tail")
+
+
+def pool_streams(B: int = 4096, U: int = 3000, K: int = 20) -> dict:
+    """``{name: u}``: user-sorted BPR steps of ``B`` samples for the v8
+    pool step (packed rows ``u // num_slots(K)``), each with a tail of
+    ``PAD_USER`` samples: one user holding 40% of the samples; runs of
+    one packed row of 1, 31-33, 63-65, 127-129, 257, 511 and 513 samples
+    back to back, cut at every part boundary; 1,200 live samples and a
+    2,896-sample padding tail."""
+    rng = np.random.default_rng(8)
+    s = pk.num_slots(K)
+    heavy = np.concatenate([np.full(int(0.4 * B), 7),
+                            rng.integers(0, U, B - int(0.4 * B) - 300)])
+    sizes = [1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 257, 511, 513]
+    runs = np.repeat(np.arange(len(sizes) * 2) * 3, sizes * 2)[:B - 300]
+    streams = {"heavy-user": np.sort(heavy),
+               "part-cuts": runs * s + rng.integers(0, s, runs.size),
+               "padding-tail": np.sort(rng.integers(0, U, 1200))}
+    return {k: np.concatenate([v, np.full(B - v.size, PAD_USER)]).astype(
+        np.int32) for k, v in streams.items()}
+
+
+def pool_slots(B: int, P: int) -> np.ndarray:
+    """Per-sample pool slots, about one in nine outside ``[0, P)`` (-1
+    or ``P`` and above), which the kernel must treat as no pool row."""
+    return np.random.default_rng(P).integers(-1, P + P // 8, B).astype(
+        np.int32)
+
+
+def drop_samples(counts: np.ndarray) -> np.ndarray:
+    """Window counts that drop samples, so that the keep rule decides:
+    every third window's range cut by 1,100 samples (more than a tile, the
+    unit in which a range counts; a short one goes negative), and the
+    second window's range empty."""
+    counts = np.maximum(counts - np.where(np.arange(counts.size) % 3, 0,
+                                          1100), -5).astype(np.int32)
+    if counts.size > 1:
+        counts[1] = 0
+    return counts
+
+
+def _pool_case(dev, u, P, drop, K=20, wrows=256, I=500):
+    """The v8 inputs of step ``u`` on ``dev`` (the port's pool prep)."""
+    from cymf_tpu_torch.ops import packed_epoch as tpe
+    rng = np.random.default_rng(u.size + P)
+    B, s = u.size, pk.num_slots(K)
+    U = int(u[u < PAD_USER].max()) + 1
+    Wp = pk.pack_array(rng.normal(size=(U, K)) * 0.3, K, multiple=wrows)
+    Hp = pk.pack_logical(rng.normal(size=(I, K)) * 0.3, K, multiple=wrows)
+    rw = Wp.shape[0]
+    i = rng.integers(0, I, B)
+    winw, *_ = tpe.prep_static_pool(u[None], i[None], K, rw,
+                                    pk.logical_rows(I, wrows), wrows, wrows)
+    starts, counts = winw[0]
+    if drop:
+        counts = drop_samples(counts)
+    mf = ((rng.random(B) > 0.1) & (u < U)).astype(np.float32)
+    phys = (u // s).astype(np.int32)
+    pool = rng.integers(0, I, P)
+    rows, rj, st, ct, Hpd, id_, pl = _on(dev, phys, pool_slots(B, P),
+                                         starts, counts, Hp, i, pool)
+    Du = _decorated_rows(Wp, np.minimum(phys, rw - 1), u, mf, K, dev)
+    return (rows, rj, Du, Hpd.index_select(0, id_), Hpd.index_select(0, pl),
+            st, ct), dict(K=K, wd=0.01, rw=rw, wrows=wrows)
+
+
+@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("P", [128, 2048])
+@pytest.mark.parametrize("stream", POOL_STREAMS)
+def test_bpr_pool_step_v8_kernel_adversarial(dev, stream, P, drop):
+    """#7 on the adversarial streams, pool slots outside the pool, and
+    window ranges that drop samples, into outputs left dirty: Aw and
+    Apool by lane group, Q for every sample."""
+    args, kw = _pool_case(dev, pool_streams()[stream], P, drop)
+    _dirty(dev, 4 * 128 * (args[2].shape[0] + kw["rw"]))
+    _kernels.reset_launches()
+    Aw, Ap, Q = fst.bpr_pool_step_v8(*args, **kw)
+    assert dict(_kernels.launches) == {"bpr_pool_step_v8": 1}
+    Awp, App, Qp = fst.bpr_pool_step_v8_plain(*args, **kw)
+    _close_rows(Q, Qp)
+    _close_aw(Aw, Awp, kw["K"])
+    _close_apool(Ap, App, kw["K"])
+
+
 @pytest.mark.parametrize("P,U,B", [(128, 12000, 2048), (1024, 138493, 131072),
                                    (2048, 50000, 32768)])
 def test_bpr_pool_step_v8_kernel(dev, P, U, B, monkeypatch):
@@ -775,7 +866,7 @@ def _close_chol(L, Linv, Lp):
     assert (L.triu(1) == 0).all() and (Linv.triu(1) == 0).all()
 
 
-@pytest.mark.parametrize("B", [32, 64, 128])
+@pytest.mark.parametrize("B", [16, 32, 48, 64, 96, 128])
 @pytest.mark.parametrize("C", [1, 7, 262, 2048])
 def test_chol_inv_kernel(dev, C, B):
     A = _spd(np.random.default_rng(C * B), C, B, dev)
@@ -799,6 +890,24 @@ def test_chol_inv_kernel_strided_view_and_not_spd(dev):
             assert torch.isnan(L[c]).all() and torch.isnan(Linv[c]).all(), \
                 (what, c)
         assert torch.isfinite(L[[0, 1, 3]]).all(), what
+
+
+@pytest.mark.parametrize("B", [8, 33, 64, 65, 128])
+def test_chol_inv_kernel_not_spd_and_nan_pivot(dev, B):
+    """Among C = 262 matrices, one that is not SPD and one whose pivot is
+    NaN come out all NaN; the others match plain (both instantiations,
+    identity padding at 8, 33 and 65)."""
+    A = _spd(np.random.default_rng(B), 262, B, dev)
+    A[3] = -A[3]
+    A[200, B // 2, B // 2] = float("nan")
+    L, Linv = ck.chol_inv_batched(A, B)
+    Lp, _ = ck.chol_inv_batched_plain(A)
+    for c in (3, 200):
+        assert torch.isnan(L[c]).all() and torch.isnan(Linv[c]).all(), c
+        assert torch.isnan(Lp[c]).all(), c
+    ok = torch.ones(262, dtype=torch.bool, device=dev)
+    ok[[3, 200]] = False
+    _close_chol(L[ok], Linv[ok], Lp[ok])
 
 
 def test_chol_inv_raises_on_what_it_does_not_take(dev):

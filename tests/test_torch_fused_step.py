@@ -24,6 +24,8 @@ from cymf_tpu.ops import packed_epoch as jpe
 from cymf_tpu_torch.ops import _kernels
 from cymf_tpu_torch.ops import fused_sample as tfs
 from cymf_tpu_torch.ops import fused_step as tst
+# the streams and inputs the card tests run the v8 kernel on
+from test_torch_cuda_kernels import POOL_STREAMS, _pool_case, pool_streams
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 WD, I, PAD = 0.013, 300, np.int32(2**31 - 1)
@@ -206,3 +208,89 @@ def test_prep_blocks_bit_equal(rw, wrows):
                          jst.prep_blocks(wstart, rw, wrows)):
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
+
+
+def _pool_twin(stream, drop, P, part, zero_gap):
+    args, kw = _pool_case(torch.device("cpu"), pool_streams()[stream], P,
+                          drop)
+    rows, rj, *_, st, ct = args
+    t = tst.pool_step_twin(rows.numpy(), rj.numpy(), st.numpy(), ct.numpy(),
+                           P=P, rw=kw["rw"], wrows=kw["wrows"], part=part,
+                           zero_gap=zero_gap)
+    return args, kw, t
+
+
+@pytest.mark.parametrize("zero_gap", [0, 32])
+@pytest.mark.parametrize("part", [64, 100])
+@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("stream", POOL_STREAMS)
+def test_pool_step_twin_owns_each_sample_once(stream, drop, part, zero_gap):
+    """The v8 kernel's partition on the card tests' adversarial streams
+    (one user with 40% of the samples, runs cut at every part boundary, a
+    padding tail; slots outside the pool; window ranges that drop
+    samples): its keep rule is the plain version's, each kept sample is
+    summed once into its own row and no other sample anywhere, each Aw row
+    is written once (zeros included), each Q row once, and each kept
+    sample whose slot is in the pool adds into Apool once."""
+    P = 128
+    args, kw, t = _pool_twin(stream, drop, P, part, zero_gap)
+    rows, rj, *_, st, ct = args
+    keep = tst._window_keep(rows.long(), st, ct, rw=kw["rw"],
+                            wrows=kw["wrows"], tile=tst.TILE,
+                            B=rows.numel()).numpy()
+    np.testing.assert_array_equal(t["keep"], keep)
+    assert 0 < keep.sum() < keep.size or (drop and stream == "padding-tail")
+    np.testing.assert_array_equal(t["carried"], keep)
+    np.testing.assert_array_equal(t["into"][keep], rows.numpy()[keep])
+    np.testing.assert_array_equal(t["writes"], np.ones(kw["rw"]))
+    np.testing.assert_array_equal(t["q_writes"], np.ones(rows.numel()))
+    rj = rj.numpy()
+    home = keep & (rj >= 0) & (rj < P)
+    assert (rj >= P).any() and (rj < 0).any()
+    np.testing.assert_array_equal(t["pool_from"], home)
+    np.testing.assert_array_equal(t["pool_adds"],
+                                  np.bincount(rj[home], minlength=P))
+    if stream == "part-cuts":     # runs joined, one over 513 samples
+        assert t["joined"] >= 15 and t["walk"] >= 513 // part - 1
+
+
+@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("stream", POOL_STREAMS)
+def test_pool_step_twin_sums_match_plain_and_jax(stream, drop):
+    """The sums the twin's partition gives (SW of each sample into the row
+    the twin stores it in, Q into Apool where the twin adds it) against
+    the plain version and the JAX kernel in interpret mode; Q against the
+    JAX kernel's on the samples it writes (those inside a window's
+    tile-extended range)."""
+    P = 128
+    args, kw, t = _pool_twin(stream, drop, P, 64, 32)
+    rows, rj, Du, Hi, Hpool, st, ct = args
+    K = kw["K"]
+    inpool = (rj >= 0) & (rj < P)
+    hj = torch.where(inpool[:, None], Hpool[rj.long().clamp(0, P - 1)], 0.0)
+    SW, Q = tst._fused_math(Du, Hi, hj, K, kw["wd"])
+    sel = torch.from_numpy(t["carried"] > 0)
+    Aw = torch.zeros((kw["rw"], tst.LANES))
+    Aw.index_add_(0, torch.from_numpy(t["into"])[sel], SW[sel])
+    frm = torch.from_numpy(t["pool_from"] > 0)
+    Ap = torch.zeros((P, tst.LANES))
+    Ap.index_add_(0, rj.long()[frm], Q[frm])
+    _kernels.reset_launches()
+    Awp, App, Qp = tst.bpr_pool_step_v8(*args, **kw)
+    assert not _kernels.launches
+    for got, want in ((Aw, Awp), (Ap, App), (Q, Qp)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    Awj, Apj, Qj = jst.bpr_pool_step_v8(
+        jnp.asarray(rows.numpy().reshape(-1, 128)),
+        jnp.asarray(rj.numpy().reshape(-1, 128)), jnp.asarray(Du.numpy()),
+        jnp.asarray(Hi.numpy()), jnp.asarray(Hpool.numpy()),
+        jnp.asarray(st.numpy()), jnp.asarray(ct.numpy()), K=K, wd=kw["wd"],
+        rw=kw["rw"], wrows=kw["wrows"], interpret=True)
+    _close(Aw, Awj)
+    _close(Ap, Apj)
+    b = np.arange(rows.numel())
+    s0, c0 = np.maximum(st.numpy(), 0), np.maximum(ct.numpy(), 0)
+    covered = ((b[:, None] >= s0) & (b[:, None] < s0 + -(-c0 // tst.TILE)
+                                     * tst.TILE)).any(axis=1)
+    _close(Q[covered], np.array(Qj)[covered])
