@@ -1,10 +1,10 @@
-"""The single-stream sorted accumulation of one checkout, timed on one
-CUDA card.
+"""The sorted accumulations of one checkout, timed on one CUDA card.
 
     python3 accum_timing.py [--repo DIR] [--profile]
 
 Runs the port in ``DIR`` (a checkout of the repository; this one by
-default) through this checkout's ``chip_smoke.py`` helpers, in two parts:
+default) through this checkout's ``chip_smoke.py`` helpers, in three
+parts:
 
 1. ``sorted_accum`` (#2, and #2w with ``count_lanes``) at the main-path
    calls that ``chip_smoke.py`` checks, each held against
@@ -14,23 +14,35 @@ default) through this checkout's ``chip_smoke.py`` helpers, in two parts:
    into a zeroed buffer, and ``bincount`` for the counts), both as the
    median of 20 single calls (``time_ms``) and as the mean of 20
    back-to-back calls (``loop_ms``); ``--profile`` adds each call's device
-   time by CUDA kernel (``torch.profiler``).
-2. The two phases of ``chip_smoke.py`` that call it most, as it runs
-   them: ``relmf-ml20m`` (1,000 device-prep RelMF steps: 2,000 calls; ms
-   a step), before and after ``full`` (3 epochs of BPR d=20 at ML-20M
-   through ``fit``, pipeline v4: 453 calls; each epoch's host prep and
-   device seconds are printed); ``--profile`` adds the card's busy share
-   of the RelMF steps after ``full`` and their device time by kernel
-   (``chip_smoke.profile_relmf``).
+   time by CUDA kernel (``torch.profiler``).  The v8 pool step (#7),
+   which shares their segmented reduction, on ML-20M step 0: its loop
+   time and device time by CUDA kernel.
+2. ``sorted_accum_dual`` (#3, and #3w with ``count_lanes``) at the
+   main-path calls that ``chip_smoke.py`` checks (ML-20M step 0's H side
+   at d=20, ``wrows`` 256 and 512; at d=256 and d=300, widths 256 and 384
+   with the count granule), each held against ``sorted_accum_dual_plain``
+   first (``chip_smoke.dual_against_plain``: payload within 1e-5
+   max|plain|, the count granule exact) and timed by call, in a loop and
+   by device time a call, by CUDA kernel (no single library call computes
+   its function).
+3. The phases of ``chip_smoke.py`` that call them most, as it runs them,
+   in this order: ``relmf-ml20m`` (1,000
+   device-prep RelMF steps: 2,000 calls of #2; ms a step), before and
+   after ``full`` (3 epochs of BPR d=20 at ML-20M through ``fit``,
+   pipeline v4: 453 calls of #2 and #3 each), and ``bpr-wide`` (2 epochs
+   of BPR d=256: 302 calls of #2w and #3w each); each epoch's host prep
+   and device seconds are printed.  ``--profile`` adds the card's busy
+   share of the RelMF steps after ``full`` and their device time by
+   kernel (``chip_smoke.profile_relmf``).
 
 To compare two checkouts (a ``git archive`` of the other unpacked under
 ``build/``), run them in turns in one command, A, B, B, A, and compare
 within it.  The call sites' inputs are built the first time (ML-20M
 shapes: ~1 min of host work) and kept in ``build/`` under a hash of
-``chip_smoke.py``, so that every run of the command times the same
-tensors.  Prints the card's name and power limit and, last, one JSON line
-of the call sites' times and the RelMF steps (before and after
-``full``).  Imports nothing of JAX.
+``chip_smoke.py`` and this script, so that every run of the command
+times the same tensors.  Prints the card's name and power limit and,
+last, one JSON line of the call sites' times and the RelMF steps (before
+and after ``full``).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -51,11 +63,15 @@ REPS = 20
 
 
 def build_inputs(dev):
-    """``{site: (args, kw)}`` of the single-stream calls, on the CPU."""
+    """``{site: (args, kw)}`` of the single-stream calls, the dual calls
+    (sites named ``#3...``) and the v8 pool step (``#7...``), on the
+    CPU."""
     import chip_smoke as cs
     from cymf_tpu_torch.ops import fused_sample as fs
     from cymf_tpu_torch.ops import glove_epoch as ge
+    from cymf_tpu_torch.ops import packed as pk
     from cymf_tpu_torch.ops import relmf_epoch as tre
+    from cymf_tpu_torch.ops import sorted_accum as sa
 
     X = cs.bench_matrix()
     sites = {}
@@ -65,16 +81,36 @@ def build_inputs(dev):
     sites["#2 ML-20M d=20 step 0, W side"] = (
         (t["phys"], SW, t["winw"][0], t["winw"][1]),
         dict(r_pad=rw, wrows=cs.WROWS))
+    sites["#7 ML-20M d=20 step 0, P 1024"] = (
+        cs.pool_step_args(t, 20, rw, rh, dev),
+        dict(K=20, wd=0.01, rw=rw, wrows=cs.WROWS))
+    sides = (t["rowsi"], Q.index_select(0, t["si"]), t["rowsj"],
+             Q.index_select(0, t["sj"]))
     sites["#2 ML-20M d=20 step 0, i side (v8's item-side stream)"] = (
-        (t["rowsi"], Q.index_select(0, t["si"]), t["wini"][0],
-         t["wini"][1]), dict(r_pad=rh, wrows=cs.WROWS))
-    del t, SW, Q
+        (*sides[:2], t["wini"][0], t["wini"][1]),
+        dict(r_pad=rh, wrows=cs.WROWS))
+    sites[f"#3 ML-20M d=20 step 0, H side, wrows {cs.WROWS}"] = (
+        (*sides[:2], t["wini"][0], t["wini"][1], *sides[2:],
+         t["winj"][0], t["winj"][1]),
+        dict(r_pad=rh, neg_lanes=20, wrows=cs.WROWS))
+    rh5 = pk.logical_rows(cs.I, multiple=512)
+    args = []
+    for rows, g in (sides[:2], sides[2:]):
+        args += [rows, g] + [torch.from_numpy(a).to(dev) for a in
+                             sa.window_ranges(rows.reshape(-1).cpu().numpy(),
+                                              rh5, 512, 1024, align=128)]
+    sites["#3 ML-20M d=20 step 0, H side, wrows 512"] = (
+        tuple(args), dict(r_pad=rh5, neg_lanes=20, wrows=512))
+    del t, SW, Q, sides, args
     wide = cs.wide_step0(X, dev)
     for K in (cs.WIDE_K, 300):
-        w_args, _, rw, _ = wide[K]
-        sites[f"#2w ML-20M d={K} step 0, W side, width "
-              f"{w_args[1].shape[1]}"] = (
+        w_args, h_args, rw, rh = wide[K]
+        width = w_args[1].shape[1]
+        sites[f"#2w ML-20M d={K} step 0, W side, width {width}"] = (
             w_args, dict(r_pad=rw, wrows=cs.WIDE_WROWS, count_lanes=True))
+        sites[f"#3w ML-20M d={K} step 0, H side, width {width}"] = (
+            h_args, dict(r_pad=rh, neg_lanes=width, wrows=cs.WIDE_WROWS,
+                         count_lanes=True))
     del wide
     st = cs.relmf_ml20m_state(X, dev)
     del X
@@ -103,12 +139,51 @@ def build_inputs(dev):
 
 def inputs_path() -> Path:
     """The cached call sites, keyed by the helpers that build them."""
-    key = hashlib.sha256((ROOT / "chip_smoke.py").read_bytes()).hexdigest()
-    return ROOT / "build" / f"accum_inputs_{key[:16]}.pt"
+    h = hashlib.sha256()
+    for name in ("chip_smoke.py", "accum_timing.py"):
+        h.update((ROOT / name).read_bytes())
+    return ROOT / "build" / f"accum_inputs_{h.hexdigest()[:16]}.pt"
+
+
+def time_dual(what, args, kw) -> dict:
+    """One dual call site: ``chip_smoke.dual_against_plain``, printed."""
+    import chip_smoke as cs
+
+    res = cs.dual_against_plain(args, kw, what, REPS)
+    print(f"{what} (B={args[1].shape[0]} + {args[5].shape[0]}, width "
+          f"{args[1].shape[1]}, r_pad {kw['r_pad']}): kernel "
+          f"{res['ms']:.4f} ms a call, {res['loop_ms']:.4f} ms in a loop, "
+          f"device {res['device_ms']:.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in res["split_ms"].items())
+          + f"); bound {res['bound_ms']:.4f} ms; max abs "
+          f"{res['max_abs_err']:.3e} (limit {res['limit']:.3e})", flush=True)
+    return res
+
+
+def time_pool(what, args, kw) -> dict:
+    """The v8 pool step (#7, which shares the dual's ``segment.cuh``):
+    its loop time and device time a call by CUDA kernel, printed (its
+    check against plain is ``chip_smoke.py``'s)."""
+    import chip_smoke as cs
+
+    from cymf_tpu_torch.ops import fused_step as fst
+
+    def kernel():
+        return fst.bpr_pool_step_v8(*args, **kw)
+
+    split = cs.device_split(kernel, REPS)
+    res = dict(loop_ms=cs.loop_ms(kernel, REPS),
+               device_ms=sum(split.values()), split_ms=split)
+    print(f"{what}: {res['loop_ms']:.4f} ms in a loop, device "
+          f"{res['device_ms']:.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + ")",
+          flush=True)
+    return res
 
 
 def time_site(what, args, kw) -> dict:
-    """One call site: ``chip_smoke.accum_against_library``, printed."""
+    """One single-stream call site: ``chip_smoke.accum_against_library``,
+    printed."""
     import chip_smoke as cs
 
     res = cs.accum_against_library(args, kw, what, REPS)
@@ -122,26 +197,13 @@ def time_site(what, args, kw) -> dict:
 
 
 def profile_site(what, args, kw) -> dict:
-    """Device time of each CUDA kernel (and memset) over ``REPS``
-    back-to-back calls, per call, from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of each CUDA kernel (and memset) of a single-stream
+    call, per call (``chip_smoke.device_split``)."""
+    import chip_smoke as cs
 
     from cymf_tpu_torch.ops import sorted_accum as sa
 
-    sa.sorted_accum(*args, **kw)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            sa.sorted_accum(*args, **kw)
-        torch.cuda.synchronize()
-    split = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = ev.self_cuda_time_total
-        if t > 0:
-            split[ev.key[:60]] = t / 1e3 / REPS
+    split = cs.device_split(lambda: sa.sorted_accum(*args, **kw), REPS)
     print(f"{what}: device ms a call by kernel "
           + ", ".join(f"{k} {v:.4f}" for k, v in split.items()), flush=True)
     return split
@@ -152,8 +214,8 @@ def main() -> int:
     ap.add_argument("--repo", type=Path, default=ROOT,
                     help="checkout whose cymf_tpu_torch is timed")
     ap.add_argument("--profile", action="store_true",
-                    help="also split each site's kernel calls by CUDA "
-                         "kernel with torch.profiler")
+                    help="also split each single-stream site's kernel "
+                         "calls by CUDA kernel with torch.profiler")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("accum_timing: no CUDA device", file=sys.stderr)
@@ -184,6 +246,12 @@ def main() -> int:
     out = {}
     for what, (args, kw) in sites.items():
         args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+        if what.startswith("#7"):
+            out[what] = time_pool(what, args, kw)
+            continue
+        if what.startswith("#3"):
+            out[what] = time_dual(what, args, kw)
+            continue
         out[what] = time_site(what, args, kw)
         if opts.profile:
             out[what]["split_ms"] = profile_site(what, args, kw)
@@ -198,6 +266,8 @@ def main() -> int:
         cs.profile_relmf(st, dev, relmf_ms[-1])
         print((cs.ROOT / "chiprun_out" / "relmf_profile.txt").read_text()
               .split("\n\n")[0], flush=True)
+    del st
+    cs.bpr_wide(X, dev)
     print(json.dumps({"repo": str(opts.repo), "sites": out,
                       "relmf_ml20m_ms_a_step": relmf_ms}), flush=True)
     return 0

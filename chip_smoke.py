@@ -36,7 +36,11 @@ Phases, one line each; any failure raises and exits non-zero:
    stream's runs, and is timed beside the library calls that compute its
    function, each both ways: the median of 20 single calls between CUDA
    events, and the mean of 20 back-to-back calls (the host queues ahead,
-   so the wrapper's host work hides as in a training step);
+   so the wrapper's host work hides as in a training step).  Every dual
+   call (#3 at ``wrows`` 256 and 512, #3w at widths 256 and 384) prints
+   its grid (each stream's parts) and must give the same bits on two
+   calls; it is timed by call, in a loop and by device time a call, by
+   CUDA kernel (``torch.profiler``), beside its bound;
    probes: P1 (``phase_v4r``) and P2 (``copy_phase``) at their scripts'
    shapes (B = 131,072, K = 20) beside #1; P3 (``gather_rows``) at R =
    27,136 and 131,072, width 128, random and sorted ids, and at the wide
@@ -96,9 +100,9 @@ Phases, one line each; any failure raises and exits non-zero:
 Then it prints the kernels' JSON line (all seventeen), with each kernel's
 launches on its main path (a probe's: those of the probes phase), the
 accumulations' loop times (``loop_ms``, and ``library_loop_ms`` for the
-single stream's library calls), its
-bound (the larger of bytes over 3.35 TB/s and float32 operations over 67
-TFLOP/s, counted on this run's inputs) and the time of the library call
+single stream's library calls), the dual's device time (``device_ms``),
+its bound (the larger of bytes over 3.35 TB/s and float32 operations over
+67 TFLOP/s, counted on this run's inputs) and the time of the library call
 that computes the same function: ``index_add_`` for ``sorted_accum``,
 ``index_add_`` and ``bincount`` for ``sorted_accum_wide``,
 ``index_select`` for ``gather_rows``, and for ``chol_inv_batched`` the two
@@ -233,6 +237,29 @@ def loop_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
+def device_split(fn, reps: int = 20) -> dict:
+    """Device time of ``fn()`` a call by CUDA kernel (memsets included),
+    ``{name: ms}``, from ``torch.profiler`` over ``reps`` back-to-back
+    calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = ev.self_cuda_time_total
+        if t > 0:
+            split[ev.key[:60]] = t / 1e3 / reps
+    return split
+
+
 def bound(nbytes: float, ops: float) -> dict:
     """``bound_ms``, the least time the card could take for the work: the
     larger of ``nbytes`` (each input read once, each output written once)
@@ -314,7 +341,6 @@ def check_kernels(X, dev):
     """Phase 3: every kernel against its plain version on the card."""
     from cymf_tpu_torch.ops import fused_sample as fs
     from cymf_tpu_torch.ops import packed as pk
-    from cymf_tpu_torch.ops import sorted_accum as sa
 
     results = {}
     for K in (20, 64):
@@ -355,22 +381,9 @@ def check_kernels(X, dev):
         h_args = (t["rowsi"], Q.index_select(0, t["si"]), t["wini"][0],
                   t["wini"][1], t["rowsj"], Q.index_select(0, t["sj"]),
                   t["winj"][0], t["winj"][1])
-        kw = dict(r_pad=rh, neg_lanes=K, wrows=WROWS)
-        D = sa.sorted_accum_dual(*h_args, **kw)
-        Dp = sa.sorted_accum_dual_plain(*h_args, **kw)
-        torch.cuda.synchronize()
-        scale = float(Dp.abs().max())
-        e = close(D, Dp, 0.0, 1e-5 * scale, "sorted_accum_dual")
-        ms = time_ms(lambda: sa.sorted_accum_dual(*h_args, **kw))
-        lms = loop_ms(lambda: sa.sorted_accum_dual(*h_args, **kw))
-        pms = time_ms(lambda: sa.sorted_accum_dual_plain(*h_args, **kw))
-        results["sorted_accum_dual"] = dict(
-            max_abs_err=e[0], ms=ms, loop_ms=lms, plain_ms=pms,
-            **accum_bound(h_args, rh), library_ms=None)
-        phase("kernels", f"sorted_accum_dual: max abs {e[0]:.3e} (limit "
-              f"{1e-5 * scale:.3e} = 1e-5 max|plain|), max rel {e[1]:.3e}; "
-              f"{ms:.4f} ms a call, {lms:.4f} ms in a loop, vs plain "
-              f"{pms:.4f} ms")
+        results["sorted_accum_dual"] = check_dual(
+            h_args, dict(r_pad=rh, neg_lanes=K, wrows=WROWS),
+            f"ML-20M d={K} step 0, H side, wrows {WROWS}")
     return results
 
 
@@ -482,6 +495,30 @@ def check_fused(name, fn, plain, args, kw, outs, limits, nbytes_in, ops):
                 library_ms=None)
 
 
+def pool_step_args(t, K: int, rw: int, rh: int, dev) -> tuple:
+    """The v8 pool step's (#7) arguments on the step of
+    :func:`first_step` (``t``): P = 1024 pool rows and the slots drawn as
+    ``BPR(neg_pool=1024)`` draws them, the step's window ranges."""
+    from cymf_tpu_torch.ops import fused_sample as fs
+    from cymf_tpu_torch.ops import packed as pk
+    from cymf_tpu_torch.ops.packed_epoch import (prep_pool_epoch,
+                                                 prep_static_pool)
+    winp, *_ = prep_static_pool(t["u2"], t["i2"], K, rw, rh, WROWS, WROWS)
+    r2 = np.random.default_rng((1234, 1 << 20)).integers(
+        0, POOL_P, t["u2"].shape, dtype=np.int32)
+    pool2, rjs, maskp, _ = prep_pool_epoch(
+        np.random.default_rng((1234, 0)), t["u2"], t["pos_keys"], U, I,
+        POOL_P, r2=r2)
+    pool, rj, mp = (torch.from_numpy(np.ascontiguousarray(a[0])).to(dev)
+                    for a in (pool2, rjs, maskp))
+    s = pk.num_slots(K)
+    Dup = fs.decorate(t["Wp"].index_select(0, t["phys"].clamp(max=rw - 1)),
+                      t["u"] % s, mp.float(), K)
+    stp, ctp = (torch.from_numpy(a).to(dev) for a in winp[0])
+    return (t["phys"], rj, Dup, t["Di"], t["Hp"].index_select(0, pool),
+            stp, ctp)
+
+
 def check_fused_kernels(X, dev):
     """Phase 3 for #4-#7 on step 0 of their main paths: v5 and v6 on the
     ml-1m stream at d=20 (``wrows_w`` 256 gives v5, 512 gives v6), v7 and
@@ -495,10 +532,7 @@ def check_fused_kernels(X, dev):
     from cymf_tpu_torch.ops import fused_step as fst
     from cymf_tpu_torch.ops import packed as pk
     from cymf_tpu_torch.ops import sorted_accum as sa
-    from cymf_tpu_torch.ops.packed_epoch import (prep_epoch,
-                                                 prep_pool_epoch,
-                                                 prep_static,
-                                                 prep_static_pool)
+    from cymf_tpu_torch.ops.packed_epoch import prep_epoch, prep_static
     K, s = 20, pk.num_slots(20)
     rows_lim = ("rows", 1e-5, 1e-6)
     results = {}
@@ -566,28 +600,14 @@ def check_fused_kernels(X, dev):
             (("lanes", aw_lanes(K)), rows_lim), nbytes(*args),
             B * 128 * (2 * s + 21))
 
-        winp, *_ = prep_static_pool(t["u2"], t["i2"], K, rw, rh, WROWS,
-                                    WROWS)
-        r2 = np.random.default_rng((1234, 1 << 20)).integers(
-            0, POOL_P, t["u2"].shape, dtype=np.int32)
-        pool2, rjs, maskp, _ = prep_pool_epoch(
-            np.random.default_rng((1234, 0)), t["u2"], t["pos_keys"], U, I,
-            POOL_P, r2=r2)
-        pool, rj, mp = (torch.from_numpy(np.ascontiguousarray(a[0])).to(dev)
-                        for a in (pool2, rjs, maskp))
-        Dup = fs.decorate(
-            t["Wp"].index_select(0, t["phys"].clamp(max=rw - 1)),
-            t["u"] % s, mp.float(), K)
-        stp, ctp = (torch.from_numpy(a).to(dev) for a in winp[0])
-        args = (t["phys"], rj, Dup, t["Di"], t["Hp"].index_select(0, pool),
-                stp, ctp)
+        args = pool_step_args(t, K, rw, rh, dev)
         results["bpr_pool_step_v8"] = check_fused(
             f"bpr_pool_step_v8 ({when}, P={POOL_P})",
             fst.bpr_pool_step_v8, fst.bpr_pool_step_v8_plain, args,
             dict(K=K, wd=0.01, rw=rw, wrows=WROWS), ("Aw", "Apool", "Q"),
             (("lanes", aw_lanes(K)), ("lanes", apool_lanes(K)), rows_lim),
             nbytes(*args), B * 128 * (2 * s + 22))
-        del Dup, args
+        del args
 
     # the windowed accumulations at wrows = 512 on the step's H side
     _, Q, _ = fs.bpr_sample_phase(t["Du"], t["Di"], t["Dj"], K=K, wd=0.01)
@@ -600,17 +620,8 @@ def check_fused_kernels(X, dev):
             torch.from_numpy(a).to(dev) for a in win]
     check_sorted_accum(tuple(sides[:4]), dict(r_pad=rh5, wrows=512),
                        "ML-20M step 0, i side, wrows 512")
-    got = sa.sorted_accum_dual(*sides, r_pad=rh5, neg_lanes=K, wrows=512)
-    want = sa.sorted_accum_dual_plain(*sides, r_pad=rh5, neg_lanes=K,
-                                      wrows=512)
-    torch.cuda.synchronize()
-    scale = float(want.abs().max())
-    e = close(got, want, 0.0, 1e-5 * scale, "sorted_accum_dual wrows 512")
-    ms = time_ms(lambda: sa.sorted_accum_dual(*sides, r_pad=rh5,
-                                              neg_lanes=K, wrows=512))
-    phase("kernels", f"sorted_accum_dual ML-20M step 0, wrows 512 (r_pad "
-          f"{rh5}): max abs {e[0]:.3e} (limit {1e-5 * scale:.3e} = 1e-5 "
-          f"max|plain|); {ms:.4f} ms")
+    check_dual(tuple(sides), dict(r_pad=rh5, neg_lanes=K, wrows=512),
+               "ML-20M d=20 step 0, H side, wrows 512")
     return results
 
 
@@ -680,24 +691,13 @@ def wide_step0(X, dev, Ks=(WIDE_K, 300)):
     return out
 
 
-def counted_lanes(width: int) -> list:
-    """Lane groups of a count-lane accumulation for :func:`check_fused`:
-    the payload [0, width) within 1e-5 of its own max, the count lane and
-    the 127 unused lanes exact (sums of ones, and zeros)."""
-    return [("payload", slice(0, width), 0.0, 1e-5),
-            ("counts", slice(width, width + 1), 0.0, 0.0),
-            ("unused", slice(width + 1, width + 128), 0.0, 0.0)]
-
-
 def check_wide_kernels(X, dev):
     """Phase 3 for #2/#3's count-lane form (``sorted_accum_wide``,
     ``sorted_accum_dual_wide``): both accumulations of step 0 of the
     ML-20M d=256 fit (width 256) and of a K = 300 fit (width 384, three
     granules a row), kernel against plain, the single stream by
     :func:`check_sorted_accum` (with the library calls that compute its
-    function), the dual by lane group (:func:`counted_lanes`)."""
-    from cymf_tpu_torch.ops import sorted_accum as sa
-
+    function), the dual by :func:`check_dual`."""
     steps = wide_step0(X, dev)
     results = {}
     for K in (WIDE_K, 300):
@@ -708,19 +708,10 @@ def check_wide_kernels(X, dev):
             f"ML-20M d={K} step 0, W side, wrows {WIDE_WROWS}")
         if K == WIDE_K:
             results["sorted_accum_wide"] = res
-        kw = dict(r_pad=rh, neg_lanes=width, wrows=WIDE_WROWS,
-                  count_lanes=True)
-        live = sum(int((rows.reshape(-1) < rh).sum()) for rows in h_args[::4])
-        res = check_fused(
-            f"sorted_accum_dual_wide (ML-20M step 0, K={K}, width {width} + "
-            f"count granule, wrows {WIDE_WROWS}, r_pad {rh}, {live} live "
-            "samples)", lambda *x, **k: (sa.sorted_accum_dual(*x, **k),),
-            lambda *x, **k: (sa.sorted_accum_dual_plain(*x, **k),), h_args,
-            kw, ("out",), (("lanes", counted_lanes(width)),), 0, 0)
-        res.update(accum_bound(h_args, rh, width + 128))
-        res["loop_ms"] = loop_ms(lambda: sa.sorted_accum_dual(*h_args, **kw))
-        phase("kernels", f"sorted_accum_dual_wide K={K}: "
-              f"{res['loop_ms']:.4f} ms in a loop")
+        res = check_dual(
+            h_args, dict(r_pad=rh, neg_lanes=width, wrows=WIDE_WROWS,
+                         count_lanes=True),
+            f"ML-20M d={K} step 0, H side, wrows {WIDE_WROWS}")
         if K == WIDE_K:
             results["sorted_accum_dual_wide"] = res
     return results, steps["ids"]
@@ -1414,6 +1405,76 @@ def accum_against_library(args, kw, what, reps: int = 20) -> dict:
                 **accum_bound(args, r_pad, got.shape[1]),
                 library_ms=time_ms(lib, reps),
                 library_loop_ms=loop_ms(lib, reps))
+
+
+def dual_against_plain(args, kw, what, reps: int = 20) -> dict:
+    """The dual accumulation (#3, or #3w with ``count_lanes``) at one
+    call: kernel against plain, the payload within 1e-5 max|plain|, with
+    ``count_lanes`` the count lane and the 127 unused lanes exact; then
+    the kernel's times: :func:`time_ms`, :func:`loop_ms` and its device
+    time a call by CUDA kernel (:func:`device_split`, ``split_ms``; its
+    sum is ``device_ms``).  No single PyTorch call computes the function.
+    Uses only what every version of the wrapper has, so that
+    ``accum_timing.py`` times older checkouts with it."""
+    from cymf_tpu_torch.ops import sorted_accum as sa
+
+    width = args[1].shape[1]
+    got = sa.sorted_accum_dual(*args, **kw)
+    want = sa.sorted_accum_dual_plain(*args, **kw)
+    torch.cuda.synchronize()
+    limit = 1e-5 * float(want[:, :width].abs().max())
+    e = close(got[:, :width], want[:, :width], 0.0, limit,
+              f"sorted_accum_dual {what}")
+    close(got[:, width:], want[:, width:], 0.0, 0.0,
+          f"sorted_accum_dual {what}, count granule")
+
+    def kernel():
+        return sa.sorted_accum_dual(*args, **kw)
+
+    split = device_split(kernel, reps)
+    return dict(max_abs_err=e[0], max_rel_err=e[1], limit=limit,
+                ms=time_ms(kernel, reps), loop_ms=loop_ms(kernel, reps),
+                device_ms=sum(split.values()), split_ms=split,
+                **accum_bound(args, kw["r_pad"], got.shape[1]))
+
+
+def check_dual(args, kw, what):
+    """Phase 3 for the dual accumulation at one main-path call:
+    :func:`dual_against_plain`, two calls equal to the bit, the plain
+    version's time and the launch's grid, printed."""
+    from cymf_tpu_torch.ops import sorted_accum as sa
+
+    n_i, width, n_j = args[1].shape[0], args[1].shape[1], args[5].shape[0]
+    r_pad, counts = kw["r_pad"], kw.get("count_lanes", False)
+    res = dual_against_plain(args, kw, what)
+    limit, max_rel = res.pop("limit"), res.pop("max_rel_err")
+    split = res.pop("split_ms")
+    a = sa.sorted_accum_dual(*args, **kw)
+    b = sa.sorted_accum_dual(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError(f"sorted_accum_dual {what}: two calls differ")
+    res["plain_ms"] = time_ms(lambda: sa.sorted_accum_dual_plain(*args,
+                                                                 **kw))
+    res["library_ms"] = None
+    plan = sa.dual_plan(n_i, n_j, r_pad, width)
+    live = sum(int(((r.reshape(-1) >= 0) & (r.reshape(-1) < r_pad)).sum())
+               for r in (args[0], args[4]))
+    name = "sorted_accum_dual_wide" if counts else "sorted_accum_dual"
+    phase("kernels", f"{name} {what} (B={n_i} + {n_j}, width {width}"
+          f"{' + count granule' if counts else ''}, r_pad {r_pad}, {live} "
+          f"live samples): j then i, {plan['blocks_j']} + "
+          f"{plan['blocks_i']} CTAs ({plan['parts_j']} + {plan['parts_i']} "
+          f"parts of {plan['part']}); max abs "
+          f"{res['max_abs_err']:.3e} (limit {limit:.3e} = 1e-5 max|plain|"
+          f"{', count granule exact' if counts else ''}), max rel "
+          f"{max_rel:.3e}, two calls equal to the bit; {res['ms']:.4f} ms a "
+          f"call, {res['loop_ms']:.4f} ms in a loop, device "
+          f"{res['device_ms']:.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"); plain {res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} "
+          "ms")
+    return res
 
 
 def check_sorted_accum(args, kw, what):

@@ -1,8 +1,7 @@
-// Pieces shared by the windowed accumulations (sorted_accum.cu and the
-// fused BPR steps of bpr_fused.cu): a warp's register run-sum of one output
-// row flushed into the CTA's shared-memory accumulator, and the binary
-// search for a row in an ascending row stream.  Internal linkage, like
-// reduce.cuh.
+// Pieces of the windowed accumulations (the fused BPR steps v5-v7 of
+// bpr_fused.cu): a warp's register run-sum of one output row flushed into
+// the CTA's shared-memory accumulator, and the binary search for a row in
+// an ascending row stream.  Internal linkage, like reduce.cuh.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -47,7 +47,7 @@
 // in its block's home chunks (v6; also in the previous block's chunks for
 // the spill) or in its window's range (v7), splits it over its warps, and
 // each warp sums runs of equal rows in registers and flushes a run into
-// shared memory with atomicAdd (accum.cuh, shared with sorted_accum.cu).  Q
+// shared memory with atomicAdd (accum.cuh).  Q
 // is written once per sample, by the CTA whose slice holds the sample's row.
 // v6 rows in no slice (past the spill, padding sentinels >= rw) are written
 // by the last slice of their home block.  The v7 padding tail (the samples
@@ -100,6 +100,7 @@
 
 namespace {
 
+using cymf::atomic_add4;
 using cymf::bind_segmented;
 using cymf::bpr_sample_math;
 using cymf::clear_marks;
@@ -396,13 +397,9 @@ __device__ __forceinline__ bool keep_sample(const Pool& f, int b, int row) {
   return b >= st && b < en;
 }
 
-// float4 atomicAdd in global memory (sm_90) came with CUDA 12.1.
-static_assert(CUDART_VERSION >= 12010, "float4 atomicAdd needs CUDA 12.1");
-
-// Apool[p] += qo: one 128-bit vector reduction.
+// Apool[p] += qo: one 128-bit vector reduction (segment.cuh).
 __device__ __forceinline__ void pool_add(float* dst, const float qo[4]) {
-  atomicAdd(reinterpret_cast<float4*>(dst),
-            make_float4(qo[0], qo[1], qo[2], qo[3]));
+  atomic_add4(dst, make_float4(qo[0], qo[1], qo[2], qo[3]));
 }
 
 // Warp p takes the PART samples [p PART, (p + 1) PART): Q for each, the

@@ -1,11 +1,16 @@
-// The sample-balanced segmented reduction shared by the single-stream
-// sorted accumulation (sorted_accum.cu, #2/#2w) and the v8 pool step
-// (bpr_fused.cu, #7): the launch plan, the scratch layout, a part's run
-// bookkeeping, and the second pass that joins the runs parts share and
-// zeroes every row no live sample landed on.  What each kernel sums per
-// sample (a stream row, or the fused BPR sample math) stays in its own
-// source; sorted_accum.cu's note says how the partition works.  Internal
-// linkage, like reduce.cuh.
+// The sample-balanced segmented reduction shared by the sorted
+// accumulations (sorted_accum.cu: the single stream #2/#2w and the dual
+// form #3/#3w) and the v8 pool step (bpr_fused.cu, #7): the launch plan,
+// the scratch layout, a part's run bookkeeping, and the second pass that
+// joins the runs parts share and zeroes every row no live sample landed
+// on.  Two store policies, a template argument ADD of the device code: a
+// run's sum is stored (and every other row zeroed), or added by 128-bit
+// atomics onto rows already written (no marks, no zero fill: the dual form
+// adds its second stream onto its first that way).  What each kernel sums
+// per sample (a stream row, or the fused BPR sample math) stays in its own
+// source;
+// sorted_accum.cu's note says how the partition works.  Internal linkage,
+// like reduce.cuh.
 #pragma once
 
 #include <cassert>
@@ -32,7 +37,8 @@ struct Plan {
   long long parts, blocks, zero_blocks, scratch_bytes;
 };
 
-inline Plan plan_segmented(int n, int r_pad, int width) {
+// `add`: the add policy, which has no mark a row.
+inline Plan plan_segmented(int n, int r_pad, int width, bool add = false) {
   Plan q;
   q.parts = (static_cast<long long>(n) + PART - 1) / PART;
   q.blocks = (q.parts + SEG_WARPS - 1) / SEG_WARPS;
@@ -40,8 +46,8 @@ inline Plan plan_segmented(int n, int r_pad, int width) {
                          (32 * SEG_WARPS);
   q.zero_blocks = want < ZERO_BLOCKS ? want : ZERO_BLOCKS;
   // the parts' two slots (payload and count), their first and last rows,
-  // a mark a row
-  q.scratch_bytes = 8 * q.parts * (width + 2) + r_pad;
+  // a mark a row; a multiple of 16 bytes without the marks
+  q.scratch_bytes = 8 * q.parts * (width + 2) + (add ? 0 : r_pad);
   return q;
 }
 
@@ -54,17 +60,21 @@ struct Segmented {
   float* lens;             // [2 parts]: the pieces' live samples
   int* first;              // [parts]: the part's first live row, -1: none
   int* last;               // [parts]: its last live row, -1: none
-  unsigned char* touched;  // [r_pad]: 1 where a live sample lands
+  unsigned char* touched;  // [r_pad]: 1 where a live sample lands (the
+                           // store policy's)
   int n, r_pad, width, stride, parts, count_lanes;
+  int neg_lanes;           // the add policy's: lanes [0, neg_lanes) add
+                           // negated
 };
 
-// Fills s's sizes and carves its scratch (plan_segmented's bytes); false
-// if the arguments or the scratch do not do.
+// Fills s's sizes and carves its scratch (plan_segmented's bytes, without
+// the marks for the add policy, `add`); false if the arguments or the
+// scratch do not do.
 inline bool bind_segmented(Segmented& s, void* scratch,
                            long long scratch_bytes, int n, int r_pad,
-                           int width, int count_lanes) {
+                           int width, int count_lanes, bool add = false) {
   if (width <= 0 || width % SEG_LANES || n < 0 || r_pad < 0) return false;
-  const Plan q = plan_segmented(n, r_pad, width);
+  const Plan q = plan_segmented(n, r_pad, width, add);
   if (scratch_bytes < q.scratch_bytes) return false;
   s.n = n;
   s.r_pad = r_pad;
@@ -72,13 +82,15 @@ inline bool bind_segmented(Segmented& s, void* scratch,
   s.stride = width + (count_lanes ? SEG_LANES : 0);
   s.parts = static_cast<int>(q.parts);
   s.count_lanes = count_lanes;
+  s.neg_lanes = 0;
   char* base = static_cast<char*>(scratch);
   const size_t slots = 2 * static_cast<size_t>(s.parts);
   s.sums = reinterpret_cast<float*>(base);
   s.lens = s.sums + slots * width;
   s.first = reinterpret_cast<int*>(s.lens + slots);
   s.last = s.first + s.parts;
-  s.touched = reinterpret_cast<unsigned char*>(s.last + s.parts);
+  s.touched = add ? nullptr
+                  : reinterpret_cast<unsigned char*>(s.last + s.parts);
   return true;
 }
 
@@ -93,13 +105,41 @@ __device__ __forceinline__ void add4(float4& a, const float4& b) {
   a.w += b.w;
 }
 
+// float4 atomicAdd in global memory (sm_90) came with CUDA 12.1.
+static_assert(CUDART_VERSION >= 12010, "float4 atomicAdd needs CUDA 12.1");
+
+// *dst += v: one 128-bit vector reduction (dst 16-byte aligned).
+__device__ __forceinline__ void atomic_add4(float* dst, const float4& v) {
+  atomicAdd(reinterpret_cast<float4*>(dst), v);
+}
+
+// -v on the columns [c0, c0 + 4) that are < neg.
+__device__ __forceinline__ float4 negate_below(float4 v, int c0, int neg) {
+  if (c0 + 0 < neg) v.x = -v.x;
+  if (c0 + 1 < neg) v.y = -v.y;
+  if (c0 + 2 < neg) v.z = -v.z;
+  if (c0 + 3 < neg) v.w = -v.w;
+  return v;
+}
+
 // Writes output row `row`: this lane's payload columns col[k] (k < ng) from
 // v, and with `counts` the count granule (len in lane 0, zeros elsewhere).
+// ADD adds them instead (lanes < neg_lanes negated, len to lane 0 of the
+// count granule; the other lanes keep what was written).
+template <bool ADD>
 __device__ __forceinline__ void store_row(const Segmented& s, int row,
                                           const int* col, const float4* v,
                                           int ng, bool counts, float len) {
   const int lane = threadIdx.x & 31;
   float* dst = s.out + static_cast<size_t>(row) * s.stride;
+  if (ADD) {
+#pragma unroll
+    for (int k = 0; k < MAX_GRANULES; ++k)
+      if (k < ng)
+        atomic_add4(dst + col[k], negate_below(v[k], col[k], s.neg_lanes));
+    if (counts && lane == 0) atomicAdd(dst + s.width, len);
+    return;
+  }
 #pragma unroll
   for (int k = 0; k < MAX_GRANULES; ++k)
     if (k < ng) *reinterpret_cast<float4*>(dst + col[k]) = v[k];
@@ -127,9 +167,9 @@ __device__ __forceinline__ void zero_gap(const Segmented& s, int lo, int hi) {
 // stream order, finish() at the part's end.  A run that begins and ends
 // inside the part is stored at once; the part's first and last pieces go
 // to their scratch slots.  The lead walk (g0 == 0) also writes the counts,
-// the marks and the part's first and last live rows.  Warp-collective:
-// every lane calls with the same rows.
-template <int NG>
+// the marks and short gaps (the store policy's) and the part's first and
+// last live rows.  Warp-collective: every lane calls with the same rows.
+template <int NG, bool ADD = false>
 struct PartRuns {
   const Segmented& s;
   const int p;
@@ -160,9 +200,9 @@ struct PartRuns {
         *reinterpret_cast<float4*>(dst + col[k]) = run[k];
       if (lead && (threadIdx.x & 31) == 0) s.lens[slot] = len;
     } else {
-      store_row(s, cur, col, run, NG, lead && s.count_lanes, len);
+      store_row<ADD>(s, cur, col, run, NG, lead && s.count_lanes, len);
     }
-    if (lead && (threadIdx.x & 31) == 0) s.touched[cur] = 1;
+    if (!ADD && lead && (threadIdx.x & 31) == 0) s.touched[cur] = 1;
     ++pieces;
   }
 
@@ -173,7 +213,7 @@ struct PartRuns {
       if (cur >= 0) {
         close(false);
         // rows between two runs of the part: no sample lands on them
-        if (lead && r - cur - 1 <= ZERO_GAP) zero_gap(s, cur, r);
+        if (!ADD && lead && r - cur - 1 <= ZERO_GAP) zero_gap(s, cur, r);
       }
       if (head < 0) head = r;
       cur = r;
@@ -214,6 +254,7 @@ __device__ int previous_last(const Segmented& s, int p) {
 // Stores row `row`, whose first live sample part p holds: scratch slot
 // `slot`, plus, with `walk`, the first pieces of the following parts while
 // the run goes on.  Warp-collective.
+template <bool ADD>
 __device__ void emit(const Segmented& s, int p, int slot, int row,
                      bool walk) {
   const int lane = threadIdx.x & 31;
@@ -269,7 +310,7 @@ __device__ void emit(const Segmented& s, int p, int slot, int row,
       }
       if (stops) break;
     }
-    store_row(s, row, col, acc, ng, g0 == 0 && s.count_lanes, len);
+    store_row<ADD>(s, row, col, acc, ng, g0 == 0 && s.count_lanes, len);
   }
 }
 
@@ -277,6 +318,7 @@ __device__ void emit(const Segmented& s, int p, int slot, int row,
 // share (a warp a part: the part's first piece if a run starts there, its
 // last piece if it is another); the other CTAs zero every row no live
 // sample landed on.
+template <bool ADD>
 __global__ void __launch_bounds__(SEG_THREADS)
 combine_kernel(Segmented s, int combine_blocks) {
   if (static_cast<int>(blockIdx.x) < combine_blocks) {
@@ -287,8 +329,8 @@ combine_kernel(Segmented s, int combine_blocks) {
     const int l = s.last[p];
     const int before = previous_last(s, p);
     assert(before <= f && "live rows must be non-decreasing");
-    if (before != f) emit(s, p, 2 * p, f, l == f);
-    if (l != f) emit(s, p, 2 * p + 1, l, true);
+    if (before != f) emit<ADD>(s, p, 2 * p, f, l == f);
+    if (l != f) emit<ADD>(s, p, 2 * p + 1, l, true);
     return;
   }
   // a warp looks at 32 rows at a time and zeroes the unmarked ones
@@ -315,12 +357,15 @@ inline cudaError_t clear_marks(const Segmented& s, cudaStream_t stream) {
   return cudaMemsetAsync(s.touched, 0, s.r_pad, stream);
 }
 
-// The second pass after the first pass's `blocks` CTAs.
+// The second pass after the first pass's `blocks` CTAs (the add policy
+// zeroes no row).
+template <bool ADD = false>
 inline cudaError_t launch_combine(const Segmented& s, int blocks,
                                   cudaStream_t stream) {
-  const Plan q = plan_segmented(s.n, s.r_pad, s.width);
-  combine_kernel<<<blocks + static_cast<int>(q.zero_blocks), SEG_THREADS, 0,
-                   stream>>>(s, blocks);
+  const int zero = ADD ? 0 : static_cast<int>(plan_segmented(
+                                 s.n, s.r_pad, s.width).zero_blocks);
+  if (blocks + zero == 0) return cudaSuccess;
+  combine_kernel<ADD><<<blocks + zero, SEG_THREADS, 0, stream>>>(s, blocks);
   return cudaGetLastError();
 }
 

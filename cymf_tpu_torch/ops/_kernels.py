@@ -26,7 +26,8 @@ The kernels, by source and the wrapper that launches them:
   RelMF);
 - ``sorted_accum.cu``: ``sorted_accum.sorted_accum`` and
   ``sorted_accum.sorted_accum_dual`` (counted as ``sorted_accum_wide`` and
-  ``sorted_accum_dual_wide`` where they take the wide form);
+  ``sorted_accum_dual_wide`` where they take the wide form; both run
+  ``segment.cuh``'s segmented reduction);
 - ``chol_inv.cu``: ``chol_kernel.chol_inv_batched``;
 - ``probes.cu``: ``probes.phase_v4r``, ``probes.copy_phase`` and
   ``probes.gather_rows`` (the probes P1-P3);
@@ -72,9 +73,8 @@ _SIGNATURES = {
     "cymf_glove_sample_phase": [_P] * 6 + [_I] * 4 + [_P],
     "cymf_sorted_accum_plan": [_I, _I, _I, _P],
     "cymf_sorted_accum": [_P] * 4 + [_L] + [_I] * 4 + [_P],
-    "cymf_sorted_accum_dual": [_P] * 9 + [_I] * 5 + [_P],
-    "cymf_sorted_accum_max_slice": [_I, _I],
-    "cymf_sorted_accum_dual_wide": [_P] * 9 + [_I] * 7 + [_P],
+    "cymf_sorted_accum_dual_plan": [_I] * 4 + [_P],
+    "cymf_sorted_accum_dual": [_P] * 6 + [_L] + [_I] * 6 + [_P],
     "cymf_phase_v4r_blocks": [_I],
     "cymf_phase_v4r": [_P] * 7 + [_I] * 4 + [_F, _P],
     "cymf_copy_phase": [_P] * 6 + [_L, _I, _P],

@@ -9,17 +9,20 @@ tensor they run their plain PyTorch versions, an ``index_add_`` that needs
 no window ranges.  Sums come in another order than a sequential scatter,
 so results agree to float32 round-off, not bit for bit.
 
-:func:`sorted_accum` (one stream) is a sample-balanced segmented
-reduction: each warp sums the runs of a part of consecutive samples and
-zeroes the short gaps between them, a second short pass joins the runs
-that parts share and zeroes the rows still unwritten (:func:`segment_plan`
-reads the kernel's grid and scratch, :func:`segment_twin` is its partition
-in Python).  It relies on the live rows (those in ``[0, r_pad)``) being
-non-decreasing along the stream, and the kernel asserts it; rows outside
-``[0, r_pad)`` may sit anywhere, and the window ranges are checked but not
-read.  :func:`sorted_accum_dual` keeps one CTA per slice
-of a window (its accumulator in shared memory), walking the window ranges
-of both streams.
+Both kernels are a sample-balanced segmented reduction: each warp sums
+the runs of a part of consecutive samples, a second short pass joins the
+runs that parts share (:func:`segment_plan` and :func:`dual_plan` read
+the kernels' grid and scratch).  :func:`sorted_accum` (one stream) stores each run's sum, zeroes
+the short gaps between a part's runs and, in the second pass, the rows
+still unwritten (:func:`segment_twin` is its partition in Python).
+:func:`sorted_accum_dual` runs the j stream as :func:`sorted_accum`
+does (every row written once), then adds the i stream's run sums onto it
+with atomics: a row gets at most one add, so the result is the same from
+run to run (:func:`dual_twin`).  Both rely on the live
+rows (those in ``[0, r_pad)``) being non-decreasing along each stream, and
+the kernels assert it; rows outside ``[0, r_pad)`` may sit anywhere.  No
+kernel reads the window ranges: the wrappers check them (the JAX
+package's signature) and pass them nowhere.
 
 Two forms, as in the JAX package: 128-lane rows (the packed pipelines,
 launches counted as ``sorted_accum`` / ``sorted_accum_dual``) and rows of
@@ -97,26 +100,57 @@ def pad_samples(rows_sorted: np.ndarray, sentinel: int, tile: int = 1024):
     return out.reshape(total // LANES, LANES)
 
 
+def _plan(entry, what: str, keys: tuple, *args) -> dict:
+    plan = (ctypes.c_longlong * len(keys))()
+    _kernels.check(getattr(_kernels.lib(), entry)(
+        *args, ctypes.addressof(plan)), what)
+    return dict(zip(keys, plan))
+
+
 @functools.lru_cache(maxsize=64)
 def segment_plan(n: int, r_pad: int, width: int) -> dict:
     """The single-stream kernel's launch for ``n`` samples of ``width``
-    lanes into ``r_pad`` rows, as ``csrc/sorted_accum.cu::plan_segmented``
+    lanes into ``r_pad`` rows, as ``csrc/segment.cuh::plan_segmented``
     chooses it: ``parts`` warps of ``part`` samples in ``blocks`` CTAs of
     ``share`` samples, ``zero_gap`` (the most rows a part zeroes between
     two of its runs; the second pass zeroes longer gaps) and the
     ``scratch_bytes`` the call needs.  Loads the kernel library."""
-    plan = (ctypes.c_longlong * 6)()
-    _kernels.check(_kernels.lib().cymf_sorted_accum_plan(
-        n, r_pad, width, ctypes.addressof(plan)), "sorted_accum plan")
-    return dict(zip(("part", "parts", "blocks", "share", "zero_gap",
-                     "scratch_bytes"), plan))
+    return _plan("cymf_sorted_accum_plan", "sorted_accum plan",
+                 ("part", "parts", "blocks", "share", "zero_gap",
+                  "scratch_bytes"), n, r_pad, width)
 
 
-def segment_twin(rows, r_pad: int, part: int, zero_gap: int) -> dict:
-    """The single-stream kernel's partition, in Python: which part sums
-    each live sample into which row, and how often each output row is
-    written, with ``part`` and ``zero_gap`` as :func:`segment_plan` gives
-    them.
+@functools.lru_cache(maxsize=64)
+def dual_plan(n_i: int, n_j: int, r_pad: int, width: int) -> dict:
+    """The dual kernel's launch for ``n_i`` i-stream and ``n_j`` j-stream
+    samples (``csrc/sorted_accum.cu::plan_dual``): ``parts_i`` and
+    ``parts_j`` warps of ``part`` samples in ``blocks_i`` and ``blocks_j``
+    CTAs of ``share`` samples, and the ``scratch_bytes`` the call needs.
+    Loads the kernel library."""
+    return _plan("cymf_sorted_accum_dual_plan", "sorted_accum_dual plan",
+                 ("part", "parts_i", "parts_j", "blocks_i", "blocks_j",
+                  "share", "scratch_bytes"), n_i, n_j, r_pad, width)
+
+
+def _ordered_sum(g: np.ndarray, pieces: list) -> np.ndarray:
+    """A run's float32 sum as a kernel forms it: each piece's rows added
+    in stream order from zero, then the pieces added in order."""
+    acc = None
+    for idx in pieces:
+        piece = np.add.accumulate(g[idx], axis=0, dtype=np.float32)[-1]
+        acc = piece if acc is None else acc + piece
+    return acc
+
+
+def segment_twin(rows, r_pad: int, part: int, zero_gap: int, g=None,
+                 add: bool = False) -> dict:
+    """A segmented-reduction kernel's partition of one stream, in Python:
+    which part sums each live sample into which row, and how often each
+    output row is written, with ``part`` and ``zero_gap`` as
+    :func:`segment_plan` gives them; ``add=True`` is the add policy of the
+    dual kernel's i stream (no row is zeroed, and ``writes`` counts the
+    run sums added to each row).  With ``g`` (``(n, width)`` float32) it
+    also forms the run sums as the kernel does (:func:`_ordered_sum`).
 
     Pass 1: part ``p`` (samples ``[p part, (p + 1) part)``) cuts its live
     samples into pieces of one row each; a piece between its first and
@@ -132,7 +166,9 @@ def segment_twin(rows, r_pad: int, part: int, zero_gap: int) -> dict:
 
     Returns ``writes`` (``[r_pad]``, stores of each row, zeros included),
     ``carried`` (``[n]``, times each sample is summed into a stored row),
-    ``into`` (``[n]``, that row, -1 for none), and the plan's counts:
+    ``into`` (``[n]``, that row, -1 for none), ``sums`` (with ``g``:
+    ``(r_pad, width)``, each stored run's sum, zeros elsewhere; else
+    None), and the plan's counts:
     ``parts``, ``runs``, ``joined`` (runs that pass 2 stores), ``longest``
     (samples of the longest run) and ``walk`` (most following parts whose
     first pieces one join adds).
@@ -151,27 +187,34 @@ def segment_twin(rows, r_pad: int, part: int, zero_gap: int) -> dict:
     carried = np.zeros(n, np.int64)
     into = np.full(n, -1, np.int64)
     stats = dict(parts=parts, runs=0, joined=0, longest=0, walk=0)
+    sums = None
+    if g is not None:
+        g = np.asarray(g, np.float32)
+        sums = np.zeros((r_pad, g.shape[1]), np.float32)
 
-    def store(row, samples):
+    def store(row, pieces):
+        samples = np.concatenate(pieces)
         writes[row] += 1
         carried[samples] += 1
         into[samples] = row
         stats["runs"] += 1
         stats["longest"] = max(stats["longest"], len(samples))
+        if sums is not None:
+            sums[row] = _ordered_sum(g, pieces)
 
     for p in range(parts):
         idx = np.flatnonzero(live[p * part:(p + 1) * part]) + p * part
         cuts = np.flatnonzero(np.diff(rows[idx])) + 1
         pieces = [(int(rows[s[0]]), s) for s in np.split(idx, cuts) if s.size]
         for k, (row, samples) in enumerate(pieces):
-            if k and row - pieces[k - 1][0] - 1 <= zero_gap:
+            if k and not add and row - pieces[k - 1][0] - 1 <= zero_gap:
                 writes[pieces[k - 1][0] + 1:row] += 1
             if k == 0:
                 slots[p, 0] = samples
             elif k == len(pieces) - 1:
                 slots[p, 1] = samples
             else:
-                store(row, samples)
+                store(row, [samples])
         if pieces:
             first[p], last[p] = pieces[0][0], pieces[-1][0]
 
@@ -187,7 +230,7 @@ def segment_twin(rows, r_pad: int, part: int, zero_gap: int) -> dict:
             q += 1
         stats["walk"] = max(stats["walk"], len(samples) - 1)
         stats["joined"] += 1
-        store(row, np.concatenate(samples))
+        store(row, samples)
 
     for p in range(parts):
         f = first[p]
@@ -198,8 +241,45 @@ def segment_twin(rows, r_pad: int, part: int, zero_gap: int) -> dict:
             emit(p, 0, f, last[p] == f)
         if last[p] != f:
             emit(p, 1, last[p], True)
-    writes[writes == 0] += 1    # the zero fill: rows not yet written
-    return dict(writes=writes, carried=carried, into=into, **stats)
+    if not add:
+        writes[writes == 0] += 1    # the zero fill: rows not yet written
+    return dict(writes=writes, carried=carried, into=into, sums=sums,
+                **stats)
+
+
+def dual_twin(rows_i, gi, rows_j, gj, r_pad: int, part: int,
+              zero_gap: int, neg_lanes: int,
+              count_lanes: bool = False) -> dict:
+    """The dual kernel, in Python: the j stream as :func:`segment_twin`
+    stores it (every row written once: a run sum, a part's gap or the zero
+    fill), then the i stream's parts under the add policy, each of its
+    run sums added once onto the stored row, negated on lanes
+    ``< neg_lanes`` (negation commutes with rounding, so negating the sum
+    is negating its samples), and with ``count_lanes`` its length added
+    on lane ``width``.
+
+    Returns ``out`` (float32, ``(r_pad, width)`` or ``(r_pad, width +
+    128)``, the sums as the kernel forms them: ``b + a``, the j stream's
+    sum stored, the i stream's added), ``stores`` (``[r_pad]``, the j
+    pass's writes of each row), ``adds`` (``[r_pad]``, the i stream's run
+    sums added to each row), ``parts_i``, ``parts_j`` and each stream's
+    twin (``i``, ``j``).  Raises ``ValueError`` if a stream's live rows
+    are not non-decreasing."""
+    gi, gj = np.asarray(gi, np.float32), np.asarray(gj, np.float32)
+    width = gi.shape[1]
+    sign = np.ones(width, np.float32)
+    sign[:neg_lanes] = -1.0
+    tj = segment_twin(rows_j, r_pad, part, zero_gap, g=gj)
+    ti = segment_twin(rows_i, r_pad, part, zero_gap, g=gi * sign, add=True)
+    out = np.zeros((r_pad, _out_width(width, count_lanes)), np.float32)
+    out[:, :width] = tj["sums"]
+    out[:, :width] += ti["sums"]
+    if count_lanes:
+        for t in (tj, ti):
+            live = t["into"] >= 0
+            out[:, width] += np.bincount(t["into"][live], minlength=r_pad)
+    return dict(out=out, stores=tj["writes"], adds=ti["writes"],
+                parts_i=ti["parts"], parts_j=tj["parts"], i=ti, j=tj)
 
 
 def _rows_flat(rows: torch.Tensor, n: int) -> torch.Tensor:
@@ -278,17 +358,6 @@ def _check_cuda(rows, g, starts, counts, r_pad: int, wrows: int, what: str):
             raise ValueError(f"{what} {name} must hold one entry per window")
 
 
-def _wide_dual(width: int, count_lanes: bool) -> bool:
-    """Whether a dual call takes the wide kernel (and its launch count)."""
-    if width == LANES and not count_lanes:
-        return False
-    if _kernels.lib().cymf_sorted_accum_max_slice(width,
-                                                  int(count_lanes)) < 1:
-        raise ValueError(f"width {width} does not fit a CTA's shared "
-                         "memory")
-    return True
-
-
 def sorted_accum(rows, g, starts, counts, *, r_pad: int,
                  wrows: int = 512, count_lanes: bool = False
                  ) -> torch.Tensor:
@@ -344,7 +413,10 @@ def sorted_accum_dual(rows_i, gi, starts_i, counts_i, rows_j, gj, starts_j,
     on lanes ``< neg_lanes`` and ``+1`` elsewhere, i.e. ``Aj - Ai`` on the
     payload lanes; with ``count_lanes`` both streams' counts add on lane
     ``width``.  Argument contracts are as :func:`sorted_accum`, once per
-    stream."""
+    stream (the window ranges are checked, and the kernel reads none).
+    The kernel's result is the same bits from call to call: each row gets
+    the j stream's run sum (or zeros) stored, then at most one i-stream
+    run sum added."""
     _check_shapes(gi, r_pad, wrows)
     if gj.shape[1:] != gi.shape[1:]:
         raise ValueError("gradient widths must match")
@@ -360,16 +432,19 @@ def sorted_accum_dual(rows_i, gi, starts_i, counts_i, rows_j, gj, starts_j,
     _check_cuda(rows_j, gj, starts_j, counts_j, r_pad, wrows, "j stream")
     if gj.device != gi.device:
         raise ValueError("both streams must be on one device")
-    rows_i = _rows_flat(rows_i, gi.shape[0])
-    rows_j = _rows_flat(rows_j, gj.shape[0])
+    n_i, n_j = gi.shape[0], gj.shape[0]
+    rows_i = _rows_flat(rows_i, n_i)
+    rows_j = _rows_flat(rows_j, n_j)
     width = gi.shape[1]
     out = torch.empty((r_pad, _out_width(width, count_lanes)),
                       dtype=torch.float32, device=gi.device)
-    args = (rows_i, gi, starts_i, counts_i, rows_j, gj, starts_j, counts_j,
-            out, gi.shape[0], gj.shape[0], r_pad, wrows, int(neg_lanes))
-    if _wide_dual(width, count_lanes):
-        _kernels.launch("sorted_accum_dual_wide", gi.device, *args, width,
-                        int(count_lanes))
-    else:
-        _kernels.launch("sorted_accum_dual", gi.device, *args)
+    plan = dual_plan(n_i, n_j, r_pad, width)
+    scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8,
+                          device=gi.device)
+    name = ("sorted_accum_dual_wide" if count_lanes or width != LANES
+            else "sorted_accum_dual")
+    _kernels.launch(name, gi.device, rows_i, gi, rows_j, gj, out, scratch,
+                    plan["scratch_bytes"], n_i, n_j, r_pad, width,
+                    int(neg_lanes), int(count_lanes),
+                    entry="cymf_sorted_accum_dual")
     return out

@@ -19,7 +19,10 @@ accumulations alike (payload within ``1e-5`` of its max, the count lane
 and the 127 unused lanes exact), the single-stream form also on streams
 built to cut runs at every part and CTA boundary, its launch plan against
 its scratch layout, and a stream whose live rows decrease failing the
-kernel's assert (in a process of its own); the v8 pool step also on
+kernel's assert (in a process of its own); the dual form alike on pairs
+of those streams at widths 128-640, two calls and its Python twin equal
+to the bit, its plan against what the wrapper allocates, and its assert
+on either stream; the v8 pool step also on
 streams built to break it (one user with 40% of the samples, runs cut at
 every part boundary, a padding tail; slots outside the pool; window
 ranges that drop samples) at P = 128 and 2048, into outputs left dirty;
@@ -271,6 +274,23 @@ def segment_streams(R: int = 4096) -> dict:
     return {k: v.astype(np.int32) for k, v in streams.items()}
 
 
+# Pairs of those streams for the dual kernel (i stream, j stream): both on
+# the same rows, runs of one stream cut where the other's are not, one
+# stream empty, both with no live sample.
+DUAL_PAIRS = (("power-law", "power-law"), ("power-law", "sentinels"),
+              ("long-run", "blocks"), ("broken-run", "padding-tail"),
+              ("sparse", "last-row"), ("empty", "long-run"),
+              ("sentinels", "empty"), ("all-sentinels", "all-sentinels"))
+
+
+def dual_streams(pair, R: int = 4096):
+    """The rows of the i and j streams of ``pair`` (``"empty"``: no
+    sample)."""
+    streams = segment_streams(R)
+    return tuple(np.zeros(0, np.int32) if name == "empty" else streams[name]
+                 for name in pair)
+
+
 def _dirty(dev, nbytes):
     """Leaves NaNs in the caching allocator's free blocks, so that a row
     a kernel fails to write shows in the next ``torch.empty``."""
@@ -335,6 +355,93 @@ def test_segment_plan_sizes(dev, n, r_pad, width):
     np.testing.assert_array_equal(t["writes"], np.ones(4096))
 
 
+@pytest.mark.parametrize("count", [False, True])
+@pytest.mark.parametrize("width", [128, 256, 384, 640])
+@pytest.mark.parametrize("pair", DUAL_PAIRS, ids="+".join)
+def test_sorted_accum_dual_pairs(dev, pair, width, count):
+    """The dual kernel (#3, and #3w with the count granule) on pairs of
+    the adversarial streams, into a buffer left dirty: payload within 1e-5
+    of its max, counts and unused lanes exact, one launch; a second call
+    gives the same bits (a row gets at most one i-stream run sum, added
+    onto the j stream's stored row), and so does the twin, which forms
+    the sums in the kernel's order (``sa.dual_twin``)."""
+    R, wrows = 4096, 512
+    neg = width if count else 20
+    streams = dual_streams(pair, R)
+    rng = np.random.default_rng(width)
+    g = [rng.normal(size=(r.size, width)).astype(np.float32)
+         for r in streams]
+    win = torch.zeros(R // wrows, dtype=torch.int32, device=dev)
+    a = []
+    for rows, x in zip(streams, g):
+        a += [torch.from_numpy(rows).to(dev), torch.from_numpy(x).to(dev),
+              win, win]
+    kw = dict(r_pad=R, neg_lanes=neg, wrows=wrows, count_lanes=count)
+    _dirty(dev, 4 * R * (width + 128))
+    _kernels.reset_launches()
+    got = sa.sorted_accum_dual(*a, **kw)
+    name = ("sorted_accum_dual_wide" if count or width != 128
+            else "sorted_accum_dual")
+    assert dict(_kernels.launches) == {name: 1}
+    want = sa.sorted_accum_dual_plain(*a, **kw)
+    if count:
+        _close_counted(got, want, width)
+    else:
+        _close_accum(got, want)
+    _dirty(dev, 4 * R * (width + 128))
+    again = sa.sorted_accum_dual(*a, **kw)
+    torch.cuda.synchronize()
+    bits = got.cpu().numpy().view(np.int32)
+    np.testing.assert_array_equal(again.cpu().numpy().view(np.int32), bits)
+    plan = sa.segment_plan(1, R, width)
+    twin = sa.dual_twin(streams[0], g[0], streams[1], g[1], R, plan["part"],
+                        plan["zero_gap"], neg, count_lanes=count)
+    np.testing.assert_array_equal(twin["out"].view(np.int32), bits)
+
+
+@pytest.mark.parametrize("n_i,n_j,r_pad,width", [
+    (131072, 131072, 26880, 128),    # ML-20M d=20, H side
+    (131072, 131072, 27136, 384),    # ML-20M d=256, H side, + counts
+    (5003, 0, 4096, 640),
+    (1, 64, 128, 128),
+    (0, 0, 256, 128),
+])
+def test_dual_plan_sizes(dev, monkeypatch, n_i, n_j, r_pad, width):
+    """The dual plan: each stream's parts in CTAs of ``share / part``
+    parts; two slots a part (width floats and a count each) and the part's
+    first and last live row, and the j stream's mark a row (the i stream
+    adds, unmarked); and the wrapper allocates exactly the plan's
+    scratch."""
+    plan = sa.dual_plan(n_i, n_j, r_pad, width)
+    part, pi, pj = plan["part"], plan["parts_i"], plan["parts_j"]
+    assert (pi, pj) == (-(-n_i // part), -(-n_j // part))
+    per = plan["share"] // part
+    assert plan["blocks_i"] == -(-pi // per)
+    assert plan["blocks_j"] == -(-pj // per)
+    assert plan["scratch_bytes"] == (2 * (pi + pj) * (4 * width + 4)
+                                     + 2 * (pi + pj) * 4 + r_pad)
+    if n_i == 131072:
+        assert (part, pi, plan["blocks_i"]) == (64, 2048, 256)
+    asked, real = [], torch.empty
+
+    def spy(*shape, **kw):
+        if kw.get("dtype") is torch.uint8:
+            asked.append(shape[0])
+        return real(*shape, **kw)
+
+    a = []
+    for n in (n_i, n_j):
+        a += [torch.full((n,), r_pad, dtype=torch.int32, device=dev),
+              torch.zeros(n, width, device=dev)] + [
+            torch.zeros(r_pad // 128, dtype=torch.int32, device=dev)] * 2
+    monkeypatch.setattr(torch, "empty", spy)
+    out = sa.sorted_accum_dual(*a, r_pad=r_pad, neg_lanes=width,
+                               wrows=128, count_lanes=width != 128)
+    monkeypatch.undo()
+    assert asked == [plan["scratch_bytes"]]
+    assert not out.any()
+
+
 # live rows that decrease inside a part, and between two parts
 DECREASING = {"inside a part": [5, 7, 3, 9],
               "across parts": [10] * 64 + [3] * 64}
@@ -353,6 +460,32 @@ def test_sorted_accum_asserts_sorted_live_rows(dev, case):
         "g = torch.ones(rows.numel(), 128, device='cuda')\n"
         "win = torch.zeros(1, dtype=torch.int32, device='cuda')\n"
         "sa.sorted_accum(rows, g, win, win, r_pad=128, wrows=128)\n"
+        "torch.cuda.synchronize()\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode != 0
+    assert "live rows must be non-decreasing" in proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("stream", ["i", "j"])
+@pytest.mark.parametrize("case", sorted(DECREASING))
+def test_sorted_accum_dual_asserts_sorted_live_rows(dev, case, stream):
+    """The dual kernel asserts the precondition on each stream: one whose
+    live rows decrease (the other sorted) fails the device-side assert, in
+    a process of its own."""
+    bad = DECREASING[case]
+    rows_i, rows_j = (bad, sorted(bad)) if stream == "i" else (sorted(bad),
+                                                               bad)
+    code = (
+        "import torch\n"
+        "from cymf_tpu_torch.ops import sorted_accum as sa\n"
+        "def side(rows):\n"
+        "    r = torch.tensor(rows, dtype=torch.int32, device='cuda')\n"
+        "    win = torch.zeros(1, dtype=torch.int32, device='cuda')\n"
+        "    return [r, torch.ones(r.numel(), 128, device='cuda'), win, win]\n"
+        f"sa.sorted_accum_dual(*side({rows_i}), *side({rows_j}), r_pad=128,\n"
+        "                     neg_lanes=20, wrows=128)\n"
         "torch.cuda.synchronize()\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300,

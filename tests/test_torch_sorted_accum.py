@@ -7,7 +7,14 @@ kernels run in interpret mode with ``precision="highest"`` to
 The single-stream kernel's partition (``segment_twin``, its Python twin)
 must sum every live sample once and write every output row once, on the
 adversarial streams the card tests run the kernel on, at the kernel's part
-and gap sizes and at others.
+and gap sizes and at others.  The dual kernel's (``dual_twin``) must, on
+pairs of those streams, sum every live sample of each stream once into its
+own row, write every row once in the j pass and add at most one run sum
+of the i stream to a row; its sums
+must match the plain version and the JAX kernel in interpret mode to
+``rtol 1e-4`` and ``1e-5`` of the output's max absolute (float32 sums of
+up to ~2,000 samples a row in other orders: where a row's sum cancels,
+two orders differ by ~3e-5 of a max of ~50), the counts exact.
 """
 
 import jax.numpy as jnp
@@ -18,8 +25,10 @@ import torch
 from cymf_tpu.ops import sorted_accum as jsa
 from cymf_tpu_torch.ops import _kernels
 from cymf_tpu_torch.ops import sorted_accum as tsa
-# the streams the card tests run the single-stream kernel on
-from test_torch_cuda_kernels import SEGMENT_STREAMS, segment_streams
+# the streams the card tests run the single-stream kernel on, and the
+# pairs of them they run the dual kernel on
+from test_torch_cuda_kernels import (DUAL_PAIRS, SEGMENT_STREAMS,
+                                     dual_streams, segment_streams)
 
 RTOL, ATOL = 2e-5, 2e-6
 
@@ -297,3 +306,101 @@ def test_sorted_accum_plain_on_segment_streams(stream, count):
     np.testing.assert_allclose(got[:, :width], want[:, :width], rtol=0,
                                atol=1e-5 * max(np.abs(want).max(), 1.0))
     np.testing.assert_array_equal(got[:, width:], want[:, width:])
+
+
+@pytest.mark.parametrize("stream", SEGMENT_STREAMS)
+def test_segment_twin_sums_match_plain(stream):
+    """The twin's run sums, formed in the kernel's order, are the plain
+    scatter's to float32 round-off."""
+    R = 4096
+    rows = segment_streams(R)[stream]
+    g = np.random.default_rng(4).normal(size=(rows.size, 128)).astype(
+        np.float32)
+    t = tsa.segment_twin(rows, R, 64, 32, g=g)
+    win = torch.zeros(R // 512, dtype=torch.int32)
+    want = tsa.sorted_accum_plain(torch.from_numpy(rows), torch.from_numpy(g),
+                                  win, win, r_pad=R, wrows=512)
+    np.testing.assert_allclose(t["sums"], want.numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("zero_gap", [0, 32])
+@pytest.mark.parametrize("part", [64, 100])
+@pytest.mark.parametrize("pair", DUAL_PAIRS, ids="+".join)
+def test_dual_twin_owns_each_sample_once(pair, part, zero_gap):
+    """Every live sample of each stream is summed exactly once, into its
+    own row, no dead sample is; the j pass writes every row exactly once
+    (a run sum, a gap or the zero fill), and the i pass adds one run sum
+    to each row that has an i sample on it and none to the others."""
+    R = 4096
+    streams = dual_streams(pair, R)
+    g = [np.ones((r.size, 128), np.float32) for r in streams]
+    t = tsa.dual_twin(streams[0], g[0], streams[1], g[1], R, part,
+                      zero_gap, 20)
+    assert t["parts_i"] == -(-streams[0].size // part)
+    assert t["parts_j"] == -(-streams[1].size // part)
+    np.testing.assert_array_equal(t["stores"], np.ones(R))
+    live_i = (streams[0] >= 0) & (streams[0] < R)
+    np.testing.assert_array_equal(
+        t["adds"], np.bincount(streams[0][live_i], minlength=R) > 0)
+    for rows, tw in zip(streams, (t["i"], t["j"])):
+        live = (rows >= 0) & (rows < R)
+        np.testing.assert_array_equal(tw["carried"], live)
+        np.testing.assert_array_equal(tw["into"][live], rows[live])
+        assert tw["runs"] == np.unique(rows[live]).size
+
+
+def _monotone(rows, R):
+    """A non-decreasing stand-in of a stream whose sentinels sit anywhere:
+    each sentinel takes the last live row before it, so that
+    :func:`window_ranges` over it covers every live sample of a window."""
+    live = (rows >= 0) & (rows < R)
+    return np.maximum(np.maximum.accumulate(np.where(live, rows, -1)), 0)
+
+
+def _jax_dual_on(streams, g, R, wrows, neg_lanes, count_lanes):
+    """The JAX dual kernel in interpret mode on streams whose sentinels sit
+    anywhere: each padded to a tile multiple (sentinel R, zero rows), its
+    window ranges taken over :func:`_monotone`."""
+    args = []
+    for rows, x in zip(streams, g):
+        rows2d = jsa.pad_samples(rows, R)
+        xp = np.zeros((rows2d.size, x.shape[1]), np.float32)
+        xp[:rows.size] = x
+        args += [rows2d, xp, *jsa.window_ranges(_monotone(rows, R), R, wrows,
+                                                1024, align=128)]
+    return np.asarray(jsa.sorted_accum_dual(
+        *(jnp.asarray(a) for a in args), r_pad=R, neg_lanes=neg_lanes,
+        wrows=wrows, interpret=True, precision="highest",
+        count_lanes=count_lanes))
+
+
+@pytest.mark.parametrize("count", [False, True])
+@pytest.mark.parametrize("pair", DUAL_PAIRS, ids="+".join)
+def test_dual_twin_matches_plain_and_jax(pair, count):
+    """The twin's output (the kernel's partition, sums and meet rule)
+    against the plain version and the JAX kernel on the same numpy
+    inputs: width 128 with 20 negated lanes (the packed H side), or width
+    256 with every payload lane negated and the count granule (the wide
+    engine's)."""
+    R, wrows = 4096, 512
+    width, neg = (256, 256) if count else (128, 20)
+    streams = dual_streams(pair, R)
+    rng = np.random.default_rng(len(pair[0]) + 7 * len(pair[1]))
+    g = [rng.normal(size=(r.size, width)).astype(np.float32)
+         for r in streams]
+    t = tsa.dual_twin(streams[0], g[0], streams[1], g[1], R, 64, 32, neg,
+                      count_lanes=count)
+    win = torch.zeros(R // wrows, dtype=torch.int32)
+    plain = tsa.sorted_accum_dual(
+        torch.from_numpy(streams[0]), torch.from_numpy(g[0]), win, win,
+        torch.from_numpy(streams[1]), torch.from_numpy(g[1]), win, win,
+        r_pad=R, neg_lanes=neg, wrows=wrows, count_lanes=count).numpy()
+    want = _jax_dual_on(streams, g, R, wrows, neg, count)
+    for ref in (plain, want):
+        assert t["out"].shape == ref.shape
+        scale = max(float(np.abs(ref[:, :width]).max(initial=0)), 1.0)
+        np.testing.assert_allclose(t["out"][:, :width], ref[:, :width],
+                                   rtol=1e-4, atol=1e-5 * scale)
+        np.testing.assert_array_equal(t["out"][:, width:], ref[:, width:])
+    if pair == ("all-sentinels", "all-sentinels"):
+        assert not t["out"].any()
