@@ -1,9 +1,10 @@
-"""The sorted accumulations of one checkout, timed on one CUDA card.
+"""The sorted accumulations and the sequential epochs of one checkout,
+timed on one CUDA card.
 
     python3 accum_timing.py [--repo DIR] [--profile]
 
 Runs the port in ``DIR`` (a checkout of the repository; this one by
-default) through this checkout's ``chip_smoke.py`` helpers, in three
+default) through this checkout's ``chip_smoke.py`` helpers, in four
 parts:
 
 1. ``sorted_accum`` (#2, and #2w with ``count_lanes``) at the main-path
@@ -25,7 +26,13 @@ parts:
    max|plain|, the count granule exact) and timed by call, in a loop and
    by device time a call, by CUDA kernel (no single library call computes
    its function).
-3. The phases of ``chip_smoke.py`` that call them most, as it runs them,
+3. The sequential kernels (#10-#12, ``pallas_engine``) at the launches
+   that ``chip_smoke.py``'s ``pallas-full`` phase makes: BPR's epoch
+   launch and its 10-epoch launch (a fit without a validator), RelMF's
+   epoch (1,586,126 cells of ml-100k) and GloVe's (5,000 words), each from
+   the fit's starting tables: the median of 5 CUDA-event timings of the
+   wrapper, ns a group.
+4. The phases of ``chip_smoke.py`` that call them most, as it runs them,
    in this order: ``relmf-ml20m`` (1,000
    device-prep RelMF steps: 2,000 calls of #2; ms a step), before and
    after ``full`` (3 epochs of BPR d=20 at ML-20M through ``fit``,
@@ -64,8 +71,8 @@ REPS = 20
 
 def build_inputs(dev):
     """``{site: (args, kw)}`` of the single-stream calls, the dual calls
-    (sites named ``#3...``) and the v8 pool step (``#7...``), on the
-    CPU."""
+    (sites named ``#3...``), the v8 pool step (``#7...``) and the
+    sequential launches (``#10``-``#12``), on the CPU."""
     import chip_smoke as cs
     from cymf_tpu_torch.ops import fused_sample as fs
     from cymf_tpu_torch.ops import glove_epoch as ge
@@ -133,6 +140,13 @@ def build_inputs(dev):
         got = cs.record_calls(module, {"sorted_accum": 2}, run)
         for call, side in zip(got["sorted_accum"], ("W", "H")):
             sites[f"#2 {what}, {side} side"] = call
+    seq = cs.seq_launches(cs.ml100k_matrix(),
+                          cs.glove_matrix(cs.GLOVE_SMALL_V,
+                                          cs.GLOVE_SMALL_NNZ), dev)
+    sites["#10 BPR ml-100k epoch launch"] = seq["bpr_pallas_epoch"][0]
+    sites["#10 BPR ml-100k 10-epoch launch"] = seq["bpr_pallas_epoch"][1]
+    sites["#11 RelMF ml-100k epoch launch"] = seq["relmf_pallas_epoch"][0]
+    sites["#12 GloVe 5,000-word epoch launch"] = seq["glove_pallas_epoch"][0]
     return {k: (tuple(a.cpu() if torch.is_tensor(a) else a for a in args),
                 kw) for k, (args, kw) in sites.items()}
 
@@ -179,6 +193,27 @@ def time_pool(what, args, kw) -> dict:
           + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + ")",
           flush=True)
     return res
+
+
+_SEQ = {"#10": "bpr_pallas_epoch", "#11": "relmf_pallas_epoch",
+        "#12": "glove_pallas_epoch"}
+
+
+def time_seq(what, args, kw) -> dict:
+    """One sequential launch: ``chip_smoke.seq_launch_ms`` (the median
+    of 5 CUDA-event timings of the wrapper from the fit's starting
+    tables), printed with ns a group."""
+    import chip_smoke as cs
+
+    from cymf_tpu_torch.ops import pallas_engine as pe
+
+    fn = getattr(pe, _SEQ[what.split()[0]])
+    ms = cs.seq_launch_ms(fn, args, kw)
+    groups = args[2].numel() // kw["group"]
+    print(f"{what} ({args[2].numel()} samples, {groups} groups of "
+          f"{kw['group']}): {ms:.3f} ms, {1e6 * ms / groups:.1f} ns a group",
+          flush=True)
+    return dict(ms=ms, groups=groups)
 
 
 def time_site(what, args, kw) -> dict:
@@ -251,6 +286,9 @@ def main() -> int:
             continue
         if what.startswith("#3"):
             out[what] = time_dual(what, args, kw)
+            continue
+        if what.split()[0] in _SEQ:
+            out[what] = time_seq(what, args, kw)
             continue
         out[what] = time_site(what, args, kw)
         if opts.profile:

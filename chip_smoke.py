@@ -88,14 +88,26 @@ Phases, one line each; any failure raises and exits non-zero:
     samples) of its first launch in a full-width fit: BPR and RelMF d=20
     at ml-100k shapes (943 x 1682; BPR on 55,296 distinct interactions)
     under sgd, adagrad and adam, GloVe d=50 on the JAX bench's small
-    stream (5,000 words, 200,000 draws), each at group 1 and 8;
+    stream (5,000 words, 200,000 draws), each at group 1 and 8; then
+    each timed at the whole launch that phase 15 counts (BPR's 10-epoch
+    launch, and its epoch launch too; RelMF's and GloVe's epochs), which
+    must give the same bits on two calls, with the placement of its
+    tables that the kernels' plan chose (``cymf_seq_epoch_plan``: the
+    block's shared memory or device memory); then the same checks on
+    catalogs whose tables fit the block's shared memory, where the plan
+    keeps them (BPR and RelMF on the quickstart data, 600 x 300, as
+    ``pallas-quickstart`` runs BPR; GloVe on 256 words), each whole
+    launch also timed with its tables forced into device memory, which
+    must give the same bits;
 14. pallas-quickstart: ``BPR(engine="pallas")`` on the quickstart data
     must beat an untrained model's test DCG@5 by 0.1;
 15. pallas-full: the sequential engine through the public ``fit`` at
     those shapes: BPR 10 epochs without a validator must launch its
     kernel exactly once, BPR and RelMF 3 epochs with a validator and
     GloVe 3 epochs once an epoch; GloVe's constant-one columns must stay
-    exactly one.
+    exactly one; BPR's epochs/s, on the device alone (``bench.py``'s
+    measure) and over the fit's wall time, are printed beside
+    ``bench.py``'s CPU reference (98.46 epochs/s on 8 threads).
 
 Then it prints the kernels' JSON line (all seventeen), with each kernel's
 launches on its main path (a probe's: those of the probes phase), the
@@ -108,8 +120,15 @@ that computes the same function: ``index_add_`` for ``sorted_accum``,
 ``index_select`` for ``gather_rows``, and for ``chol_inv_batched`` the two
 calls of its plain version, ``cholesky_ex`` and ``solve_triangular``
 (``library_call`` says so; no single PyTorch call computes both factors,
-nor any other kernel's function); the fused kernels #4-#7 and the
-Cholesky also carry ``loop_ms``; and, last, the device JSON line.
+nor any other kernel's function); the fused kernels #4-#7, the
+Cholesky and the GloVe/RelMF sample kernel also carry ``loop_ms`` (the
+sample kernel its ``device_ms`` too, from ``torch.profiler``); the
+sequential kernels' ``ms`` and ``bound_ms`` are those of the main-path
+launch, beside ``slice_ms`` and ``plain_ms`` on 8,192 samples
+(``plain_samples``), ``samples``, ``placement``, BPR's ``epoch_ms``,
+and under ``small_catalog`` the same check and whole-launch time at the
+block's shared memory with ``placement_0_ms`` beside it; and, last, the
+device JSON line.
 ``--profile`` adds a ``torch.profiler`` split of one WMF d=256 epoch,
 written to ``chiprun_out/wmf_profile.txt``, and of 50 device-prep RelMF
 steps at ML-20M shapes with the card's idle share, written to
@@ -186,6 +205,12 @@ GLOVE_K, GLOVE_V, GLOVE_NNZ, GLOVE_EPOCHS = 50, 50_000, 3_000_000, 3
 # its small GloVe stream (5,000 words, 200,000 draws)
 ML100K_U, ML100K_I, ML100K_N, PALLAS_K = 943, 1682, 55_296, 20
 GLOVE_SMALL_V, GLOVE_SMALL_NNZ, SEQ_CHUNKS, PALLAS_EPOCHS = 5000, 200_000, 2, 3
+# a GloVe catalog whose tables (d=50 under AdaGrad, 416 B a row) fit the
+# sequential kernel's block beside its ring, as the quickstart's BPR does
+GLOVE_TINY_V, GLOVE_TINY_NNZ = 256, 20_000
+# bench.py's bpr_pallas mode divides by the Cython reference's epochs/s
+# on 8 CPU threads at these shapes
+BENCH_SEQ_CPU_EPOCHS_S = 98.46
 # the BPR pipelines' other data: the JAX relmf bench's ml-1m shapes
 # (6040 x 3706, density 0.04: 725,248 train interactions, 6 steps), the
 # pool size of the JAX bpr_pool bench mode, and the v6 comparison's sgd
@@ -1344,18 +1369,26 @@ def check_glove_sample(Du, Dx, Kp, what):
     e_sw = close(SW, SWp, 1e-5, 1e-6, f"SW {what}")
     e_q = close(Q, Qp, 1e-5, 1e-6, f"Q {what}")
     e_l = close(loss, lossp, 1e-5, 0.0, f"loss {what}")
-    ms = time_ms(lambda: ge.glove_sample_phase(Du, Dx, Kp=Kp))
+    def kernel():
+        return ge.glove_sample_phase(Du, Dx, Kp=Kp)
+
+    ms = time_ms(kernel)
+    lms = loop_ms(kernel)
+    split = device_split(kernel)
     pms = time_ms(lambda: ge.glove_sample_phase_plain(Du, Dx, Kp=Kp))
     live = int((Q[:, Kp] != 0).sum())
     phase("kernels", f"glove_sample_phase {what} (B={Du.shape[0]}, Kp={Kp},"
           f" {live} live rows): SW max abs {e_sw[0]:.3e} rel {e_sw[1]:.3e};"
           f" Q max abs {e_q[0]:.3e} rel {e_q[1]:.3e}; loss {float(loss):.6f}"
-          f" vs {float(lossp):.6f} (rel {e_l[1]:.3e}); {ms:.4f} ms vs plain"
-          f" {pms:.4f} ms")
+          f" vs {float(lossp):.6f} (rel {e_l[1]:.3e}); {ms:.4f} ms a call, "
+          f"{lms:.4f} in a loop, device {sum(split.values()):.4f} ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f") vs plain {pms:.4f} ms")
     # Du and Dx read, SW and Q written; per row the slot extraction and
     # placement (2 x 128 x slots) and ~12 elementwise operations a lane
     B = Du.shape[0]
-    return dict(max_abs_err=max(e_sw[0], e_q[0]), ms=ms, plain_ms=pms,
+    return dict(max_abs_err=max(e_sw[0], e_q[0]), ms=ms, loop_ms=lms,
+                device_ms=sum(split.values()), plain_ms=pms,
                 **bound(4 * B * 128 * 4,
                         B * 128 * (2 * pk.num_slots(Kp) + 12)),
                 library_ms=None)
@@ -1760,21 +1793,27 @@ def pallas_models(dev):
                                                device=dev)}
 
 
-def seq_first_launches(X, G, dev):
-    """The arguments of each sequential kernel's first launch in a
-    one-epoch public fit at full width (X for BPR and RelMF, G for
-    GloVe), recorded before the launch runs."""
+def seq_launches(X, G, dev):
+    """``{name: (epoch launch, main-path launch)}``: the arguments of each
+    sequential kernel's first launch in a one-epoch public fit at full
+    width (X for BPR and RelMF, G for GloVe), and of the launch that
+    :func:`pallas_full`'s launch count counts (BPR's: the whole 10-epoch
+    fit without a validator; the others': an epoch), recorded before the
+    launches run."""
     from cymf_tpu_torch.ops import pallas_engine as pe
     make = pallas_models(dev)
 
     def run():
         make["bpr_pallas_epoch"]().fit(X, num_epochs=1, verbose=False)
+        make["bpr_pallas_epoch"]().fit(X, num_epochs=10, verbose=False)
         make["relmf_pallas_epoch"]().fit(X, num_epochs=1)
         np.random.seed(0)
         make["glove_pallas_epoch"]().fit(G, num_epochs=1)
 
-    got = record_calls(pe, dict.fromkeys(PALLAS_KERNELS, 1), run)
-    return {name: calls[0] for name, calls in got.items()}
+    keep = dict.fromkeys(PALLAS_KERNELS, 1)
+    keep["bpr_pallas_epoch"] = 2
+    got = record_calls(pe, keep, run)
+    return {name: (calls[0], calls[-1]) for name, calls in got.items()}
 
 
 def seq_close(got, want, optimizer, lr, what):
@@ -1829,13 +1868,27 @@ def seq_bound(name, tables, streams, optimizer) -> dict:
     return bound(nbytes, int(keep.sum()) * per)
 
 
-def check_seq_kernels(first, dev):
+def quickstart_data():
+    """The quickstart's synthetic data (600 users x 300 items)."""
+    from cymf_tpu_torch.dataset import SyntheticImplicitDataset
+    return SyntheticImplicitDataset(num_user=600, num_item=300, rank=6,
+                                    density=0.08, seed=7)
+
+
+def check_seq_kernels(launches, dev, tag="full width"):
     """Phase 3 for the sequential kernels: each against its plain version
-    on the first SEQ_CHUNKS chunks (8,192 samples) of its first launch in
-    the full-width fit, from the fit's initial parameters, under every
+    on the first SEQ_CHUNKS chunks (8,192 samples) of the first launch in
+    ``launches``' fit, from the fit's initial parameters, under every
     optimizer it takes and at group 1 and 8.  Limits as
     :func:`seq_close`; the loss within 1e-5 relative; GloVe's
-    constant-one columns stay exactly one."""
+    constant-one columns stay exactly one.  Then each is timed at its
+    main-path launch (:func:`seq_launches`; BPR's epoch launch too),
+    which must give the same bits twice, beside its bound there, and the
+    placement its plan chose is printed.  The JSON's ``ms`` and
+    ``bound_ms`` are the main-path launch's; ``plain_ms`` is the plain
+    version's once on the 8,192 samples (``plain_samples``; on a whole
+    launch it would take tens of minutes), ``slice_ms`` the kernel's
+    there."""
     from cymf_tpu_torch.ops import pallas_engine as pe
     spec = {"bpr_pallas_epoch": (pe.bpr_pallas_epoch,
                                  pe.bpr_pallas_epoch_plain, PALLAS_K),
@@ -1844,7 +1897,7 @@ def check_seq_kernels(first, dev):
             "glove_pallas_epoch": (pe.glove_pallas_epoch,
                                    pe.glove_pallas_epoch_plain, GLOVE_K + 2)}
     results = {}
-    for name, (args, kw) in first.items():
+    for name, ((args, kw), main) in launches.items():
         fn, plain, width = spec[name]
         params = [pe.unpack_table(t, width).cpu().numpy() for t in args[:2]]
         streams = [a[:SEQ_CHUNKS].contiguous() for a in args[2:]]
@@ -1862,7 +1915,7 @@ def check_seq_kernels(first, dev):
             want = plain(*(t.clone() for t in base), *streams, **k2)
             torch.cuda.synchronize()
             pms = 1e3 * (time.perf_counter() - t0)
-            what = f"{name} {opt} group={group}"
+            what = f"{name} {tag} {opt} group={group}"
             errs = [seq_close(g, w, opt, kw["lr"], f"{what} {side}")
                     for g, w, side in zip(got[:2], want[:2], "WH")]
             e_l = close(got[2], want[2], 1e-5, 0.0, f"{what} loss")
@@ -1884,20 +1937,78 @@ def check_seq_kernels(first, dev):
             phase("kernels", msg)
             if opt == main_opt and group == kw["group"]:
                 results[name] = dict(
-                    max_abs_err=max(errs[0][0], errs[1][0]), ms=ms,
-                    plain_ms=pms, **seq_bound(name, base, streams, opt),
+                    max_abs_err=max(errs[0][0], errs[1][0]), slice_ms=ms,
+                    plain_ms=pms, plain_samples=streams[0].numel(),
                     library_ms=None)
+        results[name].update(time_seq_launch(name, fn, *main,
+                                             f"{tag} main-path launch"))
+        if name == "bpr_pallas_epoch":
+            results[name]["epoch_ms"] = time_seq_launch(
+                name, fn, args, kw, f"{tag} epoch launch")["ms"]
     return results
+
+
+_PLACEMENTS = {0: "device memory (L2)", 1: "the block's shared memory"}
+
+
+def seq_launch_ms(fn, args, kw, reps: int = 5) -> float:
+    """A sequential wrapper ``fn`` at one whole launch: the median of
+    ``reps`` CUDA-event timings from ``args``' starting tables (cloned
+    once: each timed launch goes on from the tables the last one left)."""
+    scratch = [t.clone() for t in args[:2]]
+    return time_ms(lambda: fn(*scratch, *args[2:], **kw), reps=reps)
+
+
+def seq_plan(tables) -> int:
+    """The placement the kernel's plan (``cymf_seq_epoch_plan``, which
+    the launch applies) chooses for two fused tables."""
+    from cymf_tpu_torch.ops import _kernels
+    return _kernels.lib().cymf_seq_epoch_plan(
+        tables[0].shape[0], tables[1].shape[0], tables[0].shape[1] * 4)
+
+
+def time_seq_launch(name, fn, args, kw, what="main-path launch") -> dict:
+    """A sequential kernel at a whole launch of a fit: the median of 5
+    CUDA-event timings from the fit's starting tables, the same bits on
+    two calls, its bound and the placement its plan chose, printed.  Where
+    the plan keeps the tables in the block's shared memory, the launch is
+    also timed with them forced into device memory (``placement_0_ms``),
+    which must give the same bits."""
+    tables, streams = args[:2], args[2:]
+    placement = seq_plan(tables)
+    outs = []
+    for p in [None, None] + ([0] if placement == 1 else []):
+        outs.append(fn(*(t.clone() for t in tables), *streams,
+                       _placement=p, **kw))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0]))
+    if not (same and all(bool(torch.isfinite(t).all()) for t in outs[0])):
+        raise AssertionError(f"{name} {what}: two calls (or the placements) "
+                             "differ or a value is not finite")
+    ms = seq_launch_ms(fn, args, kw)
+    n = streams[0].numel()
+    opt = kw.get("optimizer", "adagrad")
+    b = seq_bound(name, tables, streams, opt)
+    res = dict(ms=ms, samples=n, placement=placement, **b)
+    msg = (f"{name} {what} ({n} samples, {n // kw['group']} groups of "
+           f"{kw['group']}, {opt}, tables {tuple(tables[0].shape)} "
+           f"{tuple(tables[1].shape)} in {_PLACEMENTS[placement]}, placement "
+           f"{placement}): {ms:.3f} ms, {1e6 * ms / (n // kw['group']):.1f} "
+           "ns a group; two calls the same bits")
+    if placement == 1:
+        res["placement_0_ms"] = seq_launch_ms(fn, args, dict(kw, _placement=0))
+        msg += (f"; forced into device memory the same bits, "
+                f"{res['placement_0_ms']:.3f} ms")
+    phase("kernels", f"{msg}; bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
+    return res
 
 
 def pallas_quickstart(dev):
     """BPR(engine="pallas") on the quickstart data with validation and
     early stopping must beat an untrained model's test DCG@5 by 0.1."""
     import cymf_tpu_torch as ct
-    from cymf_tpu_torch.dataset import SyntheticImplicitDataset
 
-    d = SyntheticImplicitDataset(num_user=600, num_item=300, rank=6,
-                                 density=0.08, seed=7)
+    d = quickstart_data()
     valid = ct.AoaEvaluator(d.valid, d.train, metrics=["DCG"], k=5,
                             device=dev)
     test = ct.AoaEvaluator(d.test, d.train, k=5, device=dev)
@@ -1955,6 +2066,13 @@ def pallas_full(X, G, dev):
         else:
             dev_s = sum(e["device_s"] for e in m.epoch_times_)
             n, extra = m._samples_per_epoch, ""
+        if name == "bpr_pallas_epoch":
+            ref = BENCH_SEQ_CPU_EPOCHS_S
+            extra += (f"; against bench.py's CPU reference of {ref} epochs/s"
+                      f": {epochs / dev_s / ref:.2f}x on the device alone "
+                      f"(bpr_pallas mode's measure), {epochs / wall:.2f} "
+                      f"epochs/s and {epochs / wall / ref:.2f}x over the fit"
+                      " wall (host sampling and packing included)")
         phase("pallas-full", f"{what}, {epochs} epochs ({n} samples an "
               f"epoch): {1e3 * dev_s / epochs:.3f} ms an epoch on the "
               f"device, {epochs / dev_s:.2f} epochs/s, "
@@ -2161,8 +2279,14 @@ def main() -> int:
 
     X100k = ml100k_matrix()
     G5k = glove_matrix(GLOVE_SMALL_V, GLOVE_SMALL_NNZ)
-    results.update(check_seq_kernels(seq_first_launches(X100k, G5k, dev),
-                                     dev))
+    results.update(check_seq_kernels(seq_launches(X100k, G5k, dev), dev))
+    small = check_seq_kernels(seq_launches(
+        quickstart_data().train, glove_matrix(GLOVE_TINY_V, GLOVE_TINY_NNZ),
+        dev), dev, "small catalog")
+    for name, res in small.items():
+        if res["placement"] != 1:
+            raise AssertionError(f"{name}: the small catalog left the block")
+        results[name]["small_catalog"] = res
     pallas_quickstart(dev)
     launches.update(pallas_full(X100k, G5k, dev))
     launches.update(probe_launches)

@@ -81,11 +81,12 @@ _SIGNATURES = {
     "cymf_gather_rows": [_P] * 3 + [_I] * 4 + [_P],
     "cymf_chol_inv_batched": [_P, _L, _L, _P, _P, _I, _I, _P],
     "cymf_seq_epoch_max_group": [],
-    "cymf_bpr_seq_epoch": [_P, _P, _I, _I] + [_P] * 4 + [_L] + [_I] * 4
+    "cymf_seq_epoch_plan": [_I] * 3,
+    "cymf_bpr_seq_epoch": [_P, _P, _I, _I] + [_P] * 4 + [_L] + [_I] * 5
     + [_F] * 7 + [_P, _P],
-    "cymf_relmf_seq_epoch": [_P, _P, _I, _I] + [_P] * 4 + [_L] + [_I] * 4
+    "cymf_relmf_seq_epoch": [_P, _P, _I, _I] + [_P] * 4 + [_L] + [_I] * 5
     + [_F] * 7 + [_P, _P],
-    "cymf_glove_seq_epoch": [_P, _P, _I, _I] + [_P] * 5 + [_L] + [_I] * 4
+    "cymf_glove_seq_epoch": [_P, _P, _I, _I] + [_P] * 5 + [_L] + [_I] * 5
     + [_F, _P, _P],
 }
 

@@ -25,6 +25,21 @@ moves a JAX fused table into this layout.
 Applicability: :func:`fits_vmem` is the JAX package's gate (tables and
 optimizer state at 128 lanes a segment within 10 MiB), kept so that both
 packages accept and refuse the same fits; it is not a limit of the card.
+
+The kernels (one launch is one chain of dependent group steps, so they are
+bound by latency): one block of ``group`` chain warps and a stager warp.
+The stager stages the streams ahead of the chain in shared memory,
+computes which of a group's writes win, and sums the loss terms, all off
+the chain.  Where the tables live is the launch's *placement*, which the
+C launch takes from ``csrc/seq_epoch.cu::seq_plan`` (the C entry
+``cymf_seq_epoch_plan``; :func:`seq_placement` is its twin for the CPU
+tests): 1, both fused tables in the block's shared memory, the TPU
+kernel's VMEM residency, where they fit beside the staging ring; else 0,
+device memory (through L2).  Both compute the same bits.  (A thread-block
+cluster's distributed shared memory measured slower than L2 on the H100,
+so it is no placement.)  The wrappers' private ``_placement`` forces one
+(tests and ``chip_smoke.py`` only); a placement the tables do not fit
+raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -39,6 +54,13 @@ from . import _kernels
 VMEM_BUDGET_BYTES = 10 * 1024 * 1024
 LANES = 128
 _N_STATE = {"sgd": 0, "adagrad": 1, "adam": 2}
+# seq_placement's copy of csrc/seq_epoch.cu's constants: the opt-in
+# shared memory of one block, and the staging ring's share of it (two
+# slices of 256 samples: five streams, the loss terms and a flag byte a
+# sample)
+SMEM_MAX_BYTES = 232_448
+RING_BYTES = 2 * 256 * (4 * 5 + 4 + 1)
+TABLE_BYTES = SMEM_MAX_BYTES - RING_BYTES
 
 
 def fits_vmem(num_rows_total: int, optimizer: str) -> bool:
@@ -46,6 +68,16 @@ def fits_vmem(num_rows_total: int, optimizer: str) -> bool:
     segment is at most :data:`VMEM_BUDGET_BYTES`."""
     width = LANES * (1 + _N_STATE[optimizer])
     return num_rows_total * width * 4 <= VMEM_BUDGET_BYTES
+
+
+def seq_placement(rows_a: int, rows_b: int, row_bytes: int) -> int:
+    """Where a sequential launch keeps two tables of ``rows_a`` and
+    ``rows_b`` fused rows of ``row_bytes``: 1, the block's shared memory,
+    where they fit beside the staging ring, else 0, device memory.  The
+    twin of ``csrc/seq_epoch.cu::seq_plan`` for the CPU tests (the card
+    tests hold the two equal): the launch itself applies the C plan, and
+    ``cymf_seq_epoch_plan`` reports it on the card."""
+    return int((rows_a + rows_b) * row_bytes <= TABLE_BYTES)
 
 
 def segment_width(K: int) -> int:
@@ -266,11 +298,13 @@ def glove_pallas_epoch_plain(Wc, Wx, c, x, f, logcnt, mask, *, lr: float,
 
 # --------------------------------------------------------------- kernels --
 
-def _launch(name, entry, tables, ints, floats, mask, chunk, group, tail):
+def _launch(name, entry, tables, ints, floats, mask, chunk, group, tail,
+            placement):
     """Checks what the kernel takes and launches ``entry``: the tables,
     their row counts, the int32 streams ``ints`` and float32 streams
-    ``floats`` (flattened), the mask, ``n``, chunk, group, then ``tail``
-    (the entry point's own ints and floats) and the loss."""
+    ``floats`` (flattened), the mask, ``n``, chunk, group, the placement
+    (-1, the C plan's, unless ``placement`` forces one), then
+    ``tail`` (the entry point's own ints and floats) and the loss."""
     dev = tables[0].device
     for k, t in enumerate(tables):
         _kernels.require(t, f"table {k}", torch.float32, dev, ndim=2)
@@ -284,18 +318,23 @@ def _launch(name, entry, tables, ints, floats, mask, chunk, group, tail):
                          f"{lib.cymf_seq_epoch_max_group()}, got {group}")
     loss = torch.empty((), dtype=torch.float32, device=dev)
     _kernels.launch(name, dev, *tables, *(t.shape[0] for t in tables),
-                    *ints, *floats, mask, mask.numel(), chunk, group, *tail,
-                    loss, entry=entry)
+                    *ints, *floats, mask, mask.numel(), chunk, group,
+                    -1 if placement is None else int(placement), *tail, loss,
+                    entry=entry)
     return loss
 
 
-def _route(name, tables):
-    """``"plain"`` for tables on the CPU, ``"kernel"`` on the card."""
+def _route(name, tables, placement=None):
+    """``"plain"`` for tables on the CPU, ``"kernel"`` on the card.  A
+    forced placement has no meaning for the plain version: it raises."""
     devs = {t.device for t in tables}
     if len(devs) != 1:
         raise ValueError(f"{name}: the tables are on {sorted(map(str, devs))}")
     dev = devs.pop()
     if dev.type == "cpu":
+        if placement is not None:
+            raise ValueError(f"{name}: _placement applies to the kernel; "
+                             "tables on the CPU run the plain version")
         return "plain"
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
@@ -310,7 +349,7 @@ def _opt_floats(lr, wd, beta1, beta2, eps):
 @torch.no_grad()
 def bpr_pallas_epoch(W, H, u, i, j, mask, *, optimizer: str, lr: float,
                      wd: float, beta1: float = 0.9, beta2: float = 0.999,
-                     eps: float = 1e-8, group: int = 1):
+                     eps: float = 1e-8, group: int = 1, _placement=None):
     """One launch of sequential BPR updates on fused tables.
 
     Args:
@@ -321,24 +360,29 @@ def bpr_pallas_epoch(W, H, u, i, j, mask, *, optimizer: str, lr: float,
         1 = the reference's exact schedule, 8 = its 8-thread analogue.
 
     Returns ``(W, H, loss_sum)``, the loss a 0-d float32 tensor.  Tables
-    on the card launch ``csrc/seq_epoch.cu`` (and count the launch); on
-    the CPU the plain version runs."""
+    on the card launch ``csrc/seq_epoch.cu`` (and count the launch) at
+    its plan's placement, or at ``_placement`` (0 or 1; tests
+    only: a placement the kernel refuses raises ``RuntimeError``); on the
+    CPU the plain version runs, and a ``_placement`` raises
+    ``ValueError``."""
     chunk = _check_streams([u, i, j, mask], group)
     n, Kp = _same_layout(W, H, optimizer)
     kw = dict(optimizer=optimizer, lr=lr, wd=wd, beta1=beta1, beta2=beta2,
               eps=eps, group=group)
-    if _route("bpr_pallas_epoch", [W, H]) == "plain":
+    if _route("bpr_pallas_epoch", [W, H], _placement) == "plain":
         return bpr_pallas_epoch_plain(W, H, u, i, j, mask, **kw)
     loss = _launch("bpr_pallas_epoch", "cymf_bpr_seq_epoch", [W, H],
                    [u, i, j], [], mask, chunk, group,
-                   [Kp, n, *_opt_floats(lr, wd, beta1, beta2, eps)])
+                   [Kp, n, *_opt_floats(lr, wd, beta1, beta2, eps)],
+                   _placement)
     return W, H, loss
 
 
 @torch.no_grad()
 def relmf_pallas_epoch(W, H, u, i, w, mask, *, optimizer: str, lr: float,
                        wd: float, beta1: float = 0.9, beta2: float = 0.999,
-                       eps: float = 1e-8, group: int = 1):
+                       eps: float = 1e-8, group: int = 1,
+                       _placement=None):
     """One launch of sequential RelMF updates on fused tables: ``u, i``
     int32 ``[S, 1, chunk]`` sampled cells, ``w`` float32 label weights
     ``r / max(p_i, M)``, ``mask`` nonzero = keep (0 for padding).
@@ -348,17 +392,18 @@ def relmf_pallas_epoch(W, H, u, i, w, mask, *, optimizer: str, lr: float,
     n, Kp = _same_layout(W, H, optimizer)
     kw = dict(optimizer=optimizer, lr=lr, wd=wd, beta1=beta1, beta2=beta2,
               eps=eps, group=group)
-    if _route("relmf_pallas_epoch", [W, H]) == "plain":
+    if _route("relmf_pallas_epoch", [W, H], _placement) == "plain":
         return relmf_pallas_epoch_plain(W, H, u, i, w, mask, **kw)
     loss = _launch("relmf_pallas_epoch", "cymf_relmf_seq_epoch", [W, H],
                    [u, i], [w], mask, chunk, group,
-                   [Kp, n, *_opt_floats(lr, wd, beta1, beta2, eps)])
+                   [Kp, n, *_opt_floats(lr, wd, beta1, beta2, eps)],
+                   _placement)
     return W, H, loss
 
 
 @torch.no_grad()
 def glove_pallas_epoch(Wc, Wx, c, x, f, logcnt, mask, *, lr: float,
-                       k_dim: int, group: int = 1):
+                       k_dim: int, group: int = 1, _placement=None):
     """One launch of sequential fused-bias GloVe AdaGrad updates.  The
     tables are ``pack_table(augmented, "adagrad")`` of ``[w | b_c | 1]`` and
     ``[h | 1 | b_x]`` (width ``k_dim + 2``); their constant-one columns get
@@ -371,10 +416,10 @@ def glove_pallas_epoch(Wc, Wx, c, x, f, logcnt, mask, *, lr: float,
     if k_dim + 2 > Kp:
         raise ValueError(f"k_dim + 2 = {k_dim + 2} exceeds the segment "
                          f"width {Kp}")
-    if _route("glove_pallas_epoch", [Wc, Wx]) == "plain":
+    if _route("glove_pallas_epoch", [Wc, Wx], _placement) == "plain":
         return glove_pallas_epoch_plain(Wc, Wx, c, x, f, logcnt, mask, lr=lr,
                                         k_dim=k_dim, group=group)
     loss = _launch("glove_pallas_epoch", "cymf_glove_seq_epoch", [Wc, Wx],
                    [c, x], [f, logcnt], mask, chunk, group,
-                   [Kp, int(k_dim), lr])
+                   [Kp, int(k_dim), lr], _placement)
     return Wc, Wx, loss

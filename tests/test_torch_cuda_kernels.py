@@ -1248,3 +1248,170 @@ def test_seq_epoch_raises_on_what_it_does_not_take(dev):
         pe.bpr_pallas_epoch(W, W.clone(), idx.cpu(), idx, idx, idx, **kw)
     with pytest.raises(ValueError, match="tables are on"):
         pe.bpr_pallas_epoch(W, W.cpu(), idx, idx, idx, idx, **kw)
+
+
+# the sequential kernels' placements: device memory, the block's shared
+# memory
+SEQ_PLACEMENTS = [0, 1]
+SEQ_MODELS = [("bpr", o) for o in ("sgd", "adagrad", "adam")] + [
+    ("relmf", o) for o in ("sgd", "adagrad", "adam")] + [("glove", "adagrad")]
+
+
+def _seq_case(model, optimizer, rows, group, dev, S=3, K=None, rows_a=300):
+    """``(wrapper, plain, tables, streams, kw)`` of a small launch whose
+    tables hold ``rows`` rows each (3: rows collide in every group; BPR and
+    RelMF's W ``rows_a``), in chunks of 64 (every group size divides it);
+    ``K`` the payload width (20; GloVe's ``k_dim`` 50)."""
+    rng = np.random.default_rng(rows * 31 + group)
+    chunk = 64
+    if model == "glove":
+        from cymf_tpu_torch.ops.glove_epoch import augment_tables
+        K = K or 50
+        c, x, mask = _seq_streams(rng, rows, rows, S, chunk, 2, dev)
+        cnt = rng.integers(1, 50, S * chunk).astype(np.float64)
+        f = torch.from_numpy(np.minimum((cnt / 10) ** 0.75, 1.0).astype(
+            np.float32).reshape(S, 1, chunk)).to(dev)
+        lc = torch.from_numpy(np.log(cnt).astype(np.float32).reshape(
+            S, 1, chunk)).to(dev)
+        Zc, Zx = augment_tables(*(rng.uniform(-0.5, 0.5, shape) / K for shape
+                                  in ((rows, K), (rows,), (rows, K),
+                                      (rows,))))
+        tables = [pe.pack_table(Z, "adagrad", dev) for Z in (Zc, Zx)]
+        return (pe.glove_pallas_epoch, pe.glove_pallas_epoch_plain, tables,
+                [c, x, f, lc, mask], dict(lr=0.05, k_dim=K, group=group))
+    n_idx = 3 if model == "bpr" else 2
+    streams = _seq_streams(rng, rows_a, rows, S, chunk, n_idx, dev)
+    if model == "relmf":
+        w = torch.from_numpy(((rng.random(S * chunk) < 0.3)
+                              * rng.uniform(1, 5, S * chunk)).astype(
+                                  np.float32).reshape(S, 1, chunk)).to(dev)
+        streams = streams[:2] + [w, streams[2]]
+    tables = [pe.pack_table(rng.normal(size=(r, K or 20)) * 0.1, optimizer,
+                            dev) for r in (rows_a, rows)]
+    fns = {"bpr": (pe.bpr_pallas_epoch, pe.bpr_pallas_epoch_plain),
+           "relmf": (pe.relmf_pallas_epoch, pe.relmf_pallas_epoch_plain)}
+    return (*fns[model], tables, streams,
+            dict(optimizer=optimizer, lr=0.05, wd=0.01, group=group))
+
+
+@pytest.mark.parametrize("placement", SEQ_PLACEMENTS)
+@pytest.mark.parametrize("group", [1, 8, 16])
+@pytest.mark.parametrize("rows", [3, 200])
+@pytest.mark.parametrize("model,optimizer", SEQ_MODELS)
+def test_seq_epoch_placement(dev, model, optimizer, rows, group, placement):
+    """Each placement, forced, against the plain version; the 3-row
+    catalog makes rows collide in every group, so one group's stores are
+    read by the next."""
+    fn, plain, tables, streams, kw = _seq_case(model, optimizer, rows, group,
+                                               dev)
+    _kernels.reset_launches()
+    got = fn(*(t.clone() for t in tables), *streams, _placement=placement,
+             **kw)
+    assert sum(_kernels.launches.values()) == 1
+    want = plain(*(t.clone() for t in tables), *streams, **kw)
+    for g, w in zip(got[:2], want[:2]):
+        _close_seq(g, w, optimizer, kw["lr"])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0.0)
+    if model == "glove":
+        assert (got[0][:, 51] == 1).all() and (got[1][:, 50] == 1).all()
+
+
+@pytest.mark.parametrize("placement", SEQ_PLACEMENTS)
+@pytest.mark.parametrize("K", [30, 34, 62, 66, 126])
+@pytest.mark.parametrize("model,optimizer", SEQ_MODELS)
+def test_seq_epoch_column_widths(dev, model, optimizer, K, placement):
+    """One, two and four columns a lane: segment widths on each side of
+    the kernel's edges (32 | 36, 64 | 68) and the widest, 128 (GloVe's
+    ``k_dim`` K - 2 gives the same widths), at both placements, against
+    the plain version on a colliding 3-row catalog."""
+    k = K - 2 if model == "glove" else K
+    fn, plain, tables, streams, kw = _seq_case(model, optimizer, 3, 8, dev,
+                                               K=k, rows_a=50)
+    assert tables[0].shape[1] % pe.segment_width(K) == 0
+    got = fn(*(t.clone() for t in tables), *streams, _placement=placement,
+             **kw)
+    want = plain(*(t.clone() for t in tables), *streams, **kw)
+    for g, w in zip(got[:2], want[:2]):
+        _close_seq(g, w, optimizer, kw["lr"])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0.0)
+    if model == "glove":
+        assert (got[0][:, k + 1] == 1).all() and (got[1][:, k] == 1).all()
+
+
+@pytest.mark.parametrize("group", [1, 8, 16])
+@pytest.mark.parametrize("model,optimizer", SEQ_MODELS)
+def test_seq_epoch_placements_bit_identical(dev, model, optimizer, group):
+    """Both placements compute the same bits (only where a row lives
+    differs), and two calls of the planned one do too."""
+    for rows in (3, 200):
+        fn, _, tables, streams, kw = _seq_case(model, optimizer, rows, group,
+                                               dev)
+        outs = [fn(*(t.clone() for t in tables), *streams, _placement=p,
+                   **kw) for p in SEQ_PLACEMENTS + [None, None]]
+        torch.cuda.synchronize()
+        for o in outs[1:]:
+            for g, w in zip(o, outs[0]):
+                assert torch.equal(g, w)
+
+
+def test_seq_glove_over_block_capacity(dev):
+    """GloVe tables over the block's shared memory (the 5,000-word GloVe
+    of ``chip_smoke.py`` is too) stay in device memory, match plain there
+    over many staged slices, and forcing them into the block raises."""
+    V = 4000
+    row_bytes = 2 * pe.segment_width(52) * 4
+    assert 2 * V * row_bytes > pe.TABLE_BYTES
+    assert pe.seq_placement(V, V, row_bytes) == 0
+    assert _kernels.lib().cymf_seq_epoch_plan(V, V, row_bytes) == 0
+    fn, plain, tables, streams, kw = _seq_case("glove", "adagrad", V, 8, dev,
+                                               S=40)
+    got = fn(*(t.clone() for t in tables), *streams, **kw)
+    want = plain(*(t.clone() for t in tables), *streams, **kw)
+    for g, w in zip(got[:2], want[:2]):
+        _close_seq(g, w, "adagrad", kw["lr"])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0.0)
+    with pytest.raises(RuntimeError, match="glove_pallas_epoch"):
+        fn(*(t.clone() for t in tables), *streams, _placement=1, **kw)
+
+
+def _plan_edges():
+    """(rows_a, rows_b, row_bytes) at the chip_smoke shapes, and one row
+    under and over the block's capacity at three row widths and table
+    ratios."""
+    shapes = [(943, 1682, 240), (5000, 5000, 416), (600, 300, 240),
+              (300, 3, 240), (0, 0, 240)]
+    for rb, ratio in ((240, 1), (416, 2), (80, 3)):
+        r = pe.TABLE_BYTES // rb // (ratio + 1)
+        assert (ratio + 1) * r * rb <= pe.TABLE_BYTES
+        assert (ratio + 1) * (r + 1) * rb > pe.TABLE_BYTES
+        shapes += [(ratio * r, r, rb), (ratio * r + 1, r, rb),
+                   (ratio * (r + 1), r + 1, rb)]
+    return shapes
+
+
+@pytest.mark.parametrize("rows_a,rows_b,row_bytes", _plan_edges())
+def test_seq_plan_matches_mirror(dev, rows_a, rows_b, row_bytes):
+    got = _kernels.lib().cymf_seq_epoch_plan(rows_a, rows_b, row_bytes)
+    assert got == pe.seq_placement(rows_a, rows_b, row_bytes)
+
+
+@pytest.mark.parametrize("model", ["bpr", "relmf", "glove"])
+def test_seq_refused_placement_raises(dev, model):
+    """A placement the kernel refuses raises, and nothing runs in its
+    place: tables over the block's shared memory forced into it (the
+    ml-100k tables of ``chip_smoke.py``), and a placement that does not
+    exist (the C entries read -1 as the plan's)."""
+    fn, _, tables, streams, kw = _seq_case(model, "adam", 200, 8, dev)
+    if model == "glove":
+        big = [pe.pack_table(np.ones((300, 52)), "adagrad", dev)] * 2
+    else:
+        big = [pe.pack_table(np.zeros((r, 20)), "adam", dev)
+               for r in (943, 1682)]
+    assert pe.seq_placement(big[0].shape[0], big[1].shape[0],
+                            big[0].shape[1] * 4) == 0
+    name = fn.__name__
+    for t, p in ((big, 1), (tables, 2), (tables, -2)):
+        _kernels.reset_launches()
+        with pytest.raises(RuntimeError, match=name):
+            fn(*(x.clone() for x in t), *streams, _placement=p, **kw)
+        assert not _kernels.launches

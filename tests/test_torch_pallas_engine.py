@@ -304,3 +304,58 @@ def test_pallas_gates():
         tpe.bpr_pallas_epoch(W, tpe.pack_table(np.zeros((4, 12)), "sgd",
                                                "cpu"), idx, idx, idx, idx,
                              optimizer="sgd", lr=0.1, wd=0.0, group=4)
+
+
+@pytest.mark.parametrize("rows_a,rows_b,optimizer,K,want", [
+    (943, 1682, "adam", 20, 0),      # chip_smoke's ml-100k BPR and RelMF
+    (5000, 5000, "adagrad", 52, 0),  # its 5,000-word GloVe (d=50 + 2)
+    (600, 300, "adam", 20, 1),       # the pallas quickstart
+    (6826, 0, "adam", 128, 0),       # fits_vmem's edge: 6826 rows fit ...
+    (20480, 0, "sgd", 128, 0),       # ... and 20480 under sgd
+    (0, 0, "adam", 20, 1)])
+def test_seq_placement_at_the_main_shapes(rows_a, rows_b, optimizer, K,
+                                          want):
+    """The plan mirror keeps the tables in the block's shared memory only
+    where both fused tables fit beside the staging ring; every catalog
+    the JAX gate admits at 128 lanes goes to device memory."""
+    n = {"sgd": 0, "adagrad": 1, "adam": 2}[optimizer]
+    row_bytes = (1 + n) * tpe.segment_width(K) * 4
+    assert tpe.seq_placement(rows_a, rows_b, row_bytes) == want
+    if rows_a in (6826, 20480):
+        assert tpe.fits_vmem(rows_a, optimizer)
+        assert not tpe.fits_vmem(rows_a + 1, optimizer)
+
+
+@pytest.mark.parametrize("row_bytes", [16, 80, 240, 416, 1536])
+@pytest.mark.parametrize("ratio", [1, 3])
+def test_seq_placement_block_edge(row_bytes, ratio):
+    """One row under the block's capacity stays in shared memory, one row
+    over goes to device memory; the ring leaves the tables
+    ``SMEM_MAX_BYTES - RING_BYTES``."""
+    assert tpe.TABLE_BYTES == tpe.SMEM_MAX_BYTES - tpe.RING_BYTES == 219_648
+    rows = tpe.TABLE_BYTES // row_bytes
+    a = rows * ratio // (ratio + 1)
+    assert tpe.seq_placement(a, rows - a, row_bytes) == 1
+    assert tpe.seq_placement(a + 1, rows - a, row_bytes) == 0
+    assert tpe.seq_placement(a, rows - a + 1, row_bytes) == 0
+
+
+@pytest.mark.parametrize("placement", [0, 1])
+def test_forced_placement_on_cpu_raises(placement):
+    """``_placement`` applies to the kernel: on CPU tables (the plain
+    version) it raises instead of being ignored."""
+    W = tpe.pack_table(np.zeros((4, 8)), "sgd", "cpu")
+    idx = torch.zeros((1, 1, 8), dtype=torch.int32)
+    val = torch.zeros((1, 1, 8), dtype=torch.float32)
+    kw = dict(optimizer="sgd", lr=0.1, wd=0.0, _placement=placement)
+    with pytest.raises(ValueError, match="_placement"):
+        tpe.bpr_pallas_epoch(W, W.clone(), idx, idx, idx, idx, **kw)
+    with pytest.raises(ValueError, match="_placement"):
+        tpe.relmf_pallas_epoch(W, W.clone(), idx, idx, val, idx, **kw)
+    G = tpe.pack_table(np.ones((4, 8)), "adagrad", "cpu")
+    with pytest.raises(ValueError, match="_placement"):
+        tpe.glove_pallas_epoch(G, G.clone(), idx, idx, val, val, idx,
+                               lr=0.1, k_dim=6, _placement=placement)
+    # without it the same calls run the plain version
+    tpe.bpr_pallas_epoch(W, W.clone(), idx, idx, idx, idx,
+                         optimizer="sgd", lr=0.1, wd=0.0)
