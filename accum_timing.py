@@ -1,10 +1,10 @@
-"""The sorted accumulations and the sequential epochs of one checkout,
-timed on one CUDA card.
+"""The sorted accumulations, the fused BPR steps and the sequential
+epochs of one checkout, timed on one CUDA card.
 
-    python3 accum_timing.py [--repo DIR] [--profile]
+    python3 accum_timing.py [--repo DIR] [--profile] [--only PREFIXES]
 
 Runs the port in ``DIR`` (a checkout of the repository; this one by
-default) through this checkout's ``chip_smoke.py`` helpers, in four
+default) through this checkout's ``chip_smoke.py`` helpers, in five
 parts:
 
 1. ``sorted_accum`` (#2, and #2w with ``count_lanes``) at the main-path
@@ -15,10 +15,18 @@ parts:
    into a zeroed buffer, and ``bincount`` for the counts), both as the
    median of 20 single calls (``time_ms``) and as the mean of 20
    back-to-back calls (``loop_ms``); ``--profile`` adds each call's device
-   time by CUDA kernel (``torch.profiler``).  The v8 pool step (#7),
-   which shares their segmented reduction, on ML-20M step 0: its loop
-   time and device time by CUDA kernel.
-2. ``sorted_accum_dual`` (#3, and #3w with ``count_lanes``) at the
+   time by CUDA kernel (``torch.profiler``).
+2. The fused steps that share their segmented reduction, at the calls
+   that ``chip_smoke.py`` checks: the v6 block step (#5) on step 0 of
+   the ml-1m stream at ``wrows`` 512, the v7 range step (#6) on ML-20M
+   step 0 and on the last step (its padding tail), the v8 pool step (#7,
+   P = 1024) on ML-20M step 0.  Each is held against its plain version
+   first (``chip_smoke.check_fused``: Aw and Apool lane group by lane
+   group, Q rtol 1e-5 and atol 1e-6), then timed by call and in a loop
+   and, with ``--profile``, by device time a call, by CUDA kernel; a hash
+   of Aw's and Q's bits is printed, with whether two calls agree, which
+   two checkouts share where they sum in the same order.
+3. ``sorted_accum_dual`` (#3, and #3w with ``count_lanes``) at the
    main-path calls that ``chip_smoke.py`` checks (ML-20M step 0's H side
    at d=20, ``wrows`` 256 and 512; at d=256 and d=300, widths 256 and 384
    with the count granule), each held against ``sorted_accum_dual_plain``
@@ -26,13 +34,13 @@ parts:
    max|plain|, the count granule exact) and timed by call, in a loop and
    by device time a call, by CUDA kernel (no single library call computes
    its function).
-3. The sequential kernels (#10-#12, ``pallas_engine``) at the launches
+4. The sequential kernels (#10-#12, ``pallas_engine``) at the launches
    that ``chip_smoke.py``'s ``pallas-full`` phase makes: BPR's epoch
    launch and its 10-epoch launch (a fit without a validator), RelMF's
    epoch (1,586,126 cells of ml-100k) and GloVe's (5,000 words), each from
    the fit's starting tables: the median of 5 CUDA-event timings of the
    wrapper, ns a group.
-4. The phases of ``chip_smoke.py`` that call them most, as it runs them,
+5. The phases of ``chip_smoke.py`` that call them most, as it runs them,
    in this order: ``relmf-ml20m`` (1,000
    device-prep RelMF steps: 2,000 calls of #2; ms a step), before and
    after ``full`` (3 epochs of BPR d=20 at ML-20M through ``fit``,
@@ -42,14 +50,18 @@ parts:
    share of the RelMF steps after ``full`` and their device time by
    kernel (``chip_smoke.profile_relmf``).
 
-To compare two checkouts (a ``git archive`` of the other unpacked under
-``build/``), run them in turns in one command, A, B, B, A, and compare
-within it.  The call sites' inputs are built the first time (ML-20M
-shapes: ~1 min of host work) and kept in ``build/`` under a hash of
-``chip_smoke.py`` and this script, so that every run of the command
-times the same tensors.  Prints the card's name and power limit and,
-last, one JSON line of the call sites' times and the RelMF steps (before
-and after ``full``).  Imports nothing of JAX.
+``--only '#5,#6,#7,bpr-v7'`` times only the sites whose names start with
+one of the prefixes given and runs only the phases named, in that order;
+``bpr-v7`` is ``chip_smoke.py``'s phase of that name (``fit`` under
+``CYMF_TPU_PACKED_KERNEL=7``) run for 2 epochs, the second one steady.
+To compare two checkouts (a ``git
+archive`` of the other unpacked under ``build/``), run them in turns in
+one command, A, B, B, A, and compare within it.  The call sites' inputs
+are built the first time (ML-20M shapes: ~1 min of host work) and kept in
+``build/`` under a hash of ``chip_smoke.py`` and this script, so that
+every run of the command times the same tensors.  Prints the card's name
+and power limit and, last, one JSON line of the call sites' times and
+the RelMF steps (before and after ``full``).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -71,7 +83,7 @@ REPS = 20
 
 def build_inputs(dev):
     """``{site: (args, kw)}`` of the single-stream calls, the dual calls
-    (sites named ``#3...``), the v8 pool step (``#7...``) and the
+    (sites named ``#3...``), the fused steps (``#5...``-``#7...``) and the
     sequential launches (``#10``-``#12``), on the CPU."""
     import chip_smoke as cs
     from cymf_tpu_torch.ops import fused_sample as fs
@@ -88,9 +100,11 @@ def build_inputs(dev):
     sites["#2 ML-20M d=20 step 0, W side"] = (
         (t["phys"], SW, t["winw"][0], t["winw"][1]),
         dict(r_pad=rw, wrows=cs.WROWS))
+    fused_kw = dict(K=20, wd=0.01, rw=rw, wrows=cs.WROWS)
+    sites["#6 ML-20M d=20 step 0"] = (cs.range_step_args(t, 20, rw, rh, dev),
+                                      fused_kw)
     sites["#7 ML-20M d=20 step 0, P 1024"] = (
-        cs.pool_step_args(t, 20, rw, rh, dev),
-        dict(K=20, wd=0.01, rw=rw, wrows=cs.WROWS))
+        cs.pool_step_args(t, 20, rw, rh, dev), fused_kw)
     sides = (t["rowsi"], Q.index_select(0, t["si"]), t["rowsj"],
              Q.index_select(0, t["sj"]))
     sites["#2 ML-20M d=20 step 0, i side (v8's item-side stream)"] = (
@@ -109,6 +123,13 @@ def build_inputs(dev):
     sites["#3 ML-20M d=20 step 0, H side, wrows 512"] = (
         tuple(args), dict(r_pad=rh5, neg_lanes=20, wrows=512))
     del t, SW, Q, sides, args
+    t, rw, rh = cs.first_step(X, 20, dev, -1)
+    sites[f"#6 ML-20M d=20 last step, {int((t['phys'] >= rw).sum())} "
+          "padding samples"] = (cs.range_step_args(t, 20, rw, rh, dev),
+                                fused_kw)
+    del t
+    sites["#5 ml-1m d=20 step 0, wrows 512"] = cs.ml1m_step_args(
+        cs.ml1m_matrix(), dev, 512)
     wide = cs.wide_step0(X, dev)
     for K in (cs.WIDE_K, 300):
         w_args, h_args, rw, rh = wide[K]
@@ -174,24 +195,55 @@ def time_dual(what, args, kw) -> dict:
     return res
 
 
-def time_pool(what, args, kw) -> dict:
-    """The v8 pool step (#7, which shares the dual's ``segment.cuh``):
-    its loop time and device time a call by CUDA kernel, printed (its
-    check against plain is ``chip_smoke.py``'s)."""
+_FUSED = {"#5": "bpr_block_step_v6", "#6": "bpr_range_step_v7",
+          "#7": "bpr_pool_step_v8"}
+
+
+def time_fused(what, args, kw, profile: bool) -> dict:
+    """One fused step call site (#5-#7, which share the dual's
+    ``segment.cuh``): held against its plain version first
+    (``chip_smoke.check_fused``: Aw by lane group, Apool likewise, Q rtol
+    1e-5 and atol 1e-6), timed by call and in a loop, and with
+    ``profile`` by device time a call, by CUDA kernel; printed with a hash
+    of Aw's and Q's bits on two calls (whether they agree is recorded, not
+    required: a checkout with another design may sum in another order
+    each call), which two checkouts share where they sum in the same
+    order."""
     import chip_smoke as cs
 
     from cymf_tpu_torch.ops import fused_step as fst
+    from cymf_tpu_torch.ops import packed as pk
 
-    def kernel():
-        return fst.bpr_pool_step_v8(*args, **kw)
-
-    split = cs.device_split(kernel, REPS)
-    res = dict(loop_ms=cs.loop_ms(kernel, REPS),
-               device_ms=sum(split.values()), split_ms=split)
-    print(f"{what}: {res['loop_ms']:.4f} ms in a loop, device "
-          f"{res['device_ms']:.4f} ms ("
-          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + ")",
-          flush=True)
+    name = _FUSED[what.split()[0]]
+    fn, plain = getattr(fst, name), getattr(fst, name + "_plain")
+    K = kw["K"]
+    # chip_smoke.check_fused_kernels' count: per sample the slot
+    # extraction and placement and ~21 operations a lane (v8 ~22)
+    ops = args[2].shape[0] * 128 * (2 * pk.num_slots(K) + (
+        22 if name == "bpr_pool_step_v8" else 21))
+    rows = ("rows", 1e-5, 1e-6)
+    outs, limits, bits = (("Aw", "Q"), (("lanes", cs.aw_lanes(K)), rows),
+                          (0, 1))
+    if name == "bpr_pool_step_v8":
+        outs, limits, bits = (("Aw", "Apool", "Q"), (
+            ("lanes", cs.aw_lanes(K)), ("lanes", cs.apool_lanes(K)), rows),
+            (0, 2))
+    res = cs.check_fused(what, fn, plain, args, kw, outs, limits,
+                         cs.nbytes(*args), ops)
+    hashes = [{outs[i]: hashlib.sha256(got[i].cpu().numpy().tobytes())
+               .hexdigest()[:16] for i in bits}
+              for got in (fn(*args, **kw), fn(*args, **kw))]
+    res["bits"], res["same_bits_two_calls"] = hashes[0], hashes[0] == hashes[1]
+    line = (f"{what}: {res['ms']:.4f} ms a call, {res['loop_ms']:.4f} ms "
+            f"in a loop; bits " + ", ".join(f"{k} {v}" for k, v in
+                                            res["bits"].items())
+            + f", the same on two calls: {res['same_bits_two_calls']}")
+    if profile:
+        split = cs.device_split(lambda: fn(*args, **kw), REPS)
+        res.update(device_ms=sum(split.values()), split_ms=split)
+        line += (f"; device {res['device_ms']:.4f} ms ("
+                 + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + ")")
+    print(line, flush=True)
     return res
 
 
@@ -249,8 +301,12 @@ def main() -> int:
     ap.add_argument("--repo", type=Path, default=ROOT,
                     help="checkout whose cymf_tpu_torch is timed")
     ap.add_argument("--profile", action="store_true",
-                    help="also split each single-stream site's kernel "
-                         "calls by CUDA kernel with torch.profiler")
+                    help="also split each single-stream and fused site's "
+                         "kernel calls by CUDA kernel with torch.profiler")
+    ap.add_argument("--only", default="",
+                    help="comma-separated site prefixes (e.g. '#5,#6,#7') "
+                         "and phase names (relmf-ml20m, full, bpr-wide, "
+                         "bpr-v7): time only those, in that order")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("accum_timing: no CUDA device", file=sys.stderr)
@@ -278,11 +334,15 @@ def main() -> int:
         cache.parent.mkdir(parents=True, exist_ok=True)
         torch.save(build_inputs(dev), cache)
     sites = torch.load(cache)
+    only = tuple(p for p in opts.only.split(",") if p)
+    prefixes = tuple(p for p in only if p.startswith("#"))
     out = {}
     for what, (args, kw) in sites.items():
+        if only and not what.startswith(prefixes):
+            continue
         args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
-        if what.startswith("#7"):
-            out[what] = time_pool(what, args, kw)
+        if what.split()[0] in _FUSED:
+            out[what] = time_fused(what, args, kw, opts.profile)
             continue
         if what.startswith("#3"):
             out[what] = time_dual(what, args, kw)
@@ -295,17 +355,31 @@ def main() -> int:
             out[what]["split_ms"] = profile_site(what, args, kw)
     del sites, args
     cs = sys.modules["chip_smoke"]
-    X = cs.bench_matrix()
-    st = cs.relmf_ml20m_state(X, dev)
-    relmf_ms = [cs.relmf_ml20m(st, dev)]
-    cs.full_width(X, dev)
-    relmf_ms.append(cs.relmf_ml20m(st, dev))
-    if opts.profile:
-        cs.profile_relmf(st, dev, relmf_ms[-1])
-        print((cs.ROOT / "chiprun_out" / "relmf_profile.txt").read_text()
-              .split("\n\n")[0], flush=True)
-    del st
-    cs.bpr_wide(X, dev)
+    phases = [p for p in only if not p.startswith("#")] if only else [
+        "relmf-ml20m", "full", "relmf-ml20m", "bpr-wide"]
+    X = cs.bench_matrix() if phases else None
+    st, relmf_ms = None, []
+    for i, name in enumerate(phases):
+        if name == "relmf-ml20m":
+            st = st or cs.relmf_ml20m_state(X, dev)
+            relmf_ms.append(cs.relmf_ml20m(st, dev))
+            if "relmf-ml20m" in phases[i + 1:]:
+                continue
+            if opts.profile:
+                cs.profile_relmf(st, dev, relmf_ms[-1])
+                print((cs.ROOT / "chiprun_out" / "relmf_profile.txt")
+                      .read_text().split("\n\n")[0], flush=True)
+            st = None       # its tables leave the card before later phases
+        elif name == "full":
+            cs.full_width(X, dev)
+        elif name == "bpr-wide":
+            cs.bpr_wide(X, dev)
+        elif name == "bpr-v7":
+            with cs.forced_kernel("7"):
+                cs.bpr_fit(X, dev, 2, "bpr-v7", 7, {"bpr_range_step_v7": 1,
+                                                    "sorted_accum_dual": 1})
+        else:
+            raise SystemExit(f"accum_timing: no phase {name!r}")
     print(json.dumps({"repo": str(opts.repo), "sites": out,
                       "relmf_ml20m_ms_a_step": relmf_ms}), flush=True)
     return 0

@@ -482,11 +482,13 @@ def apool_lanes(K: int) -> list:
             ("unused", slice(K + 1, 128), 0.0, 0.0)]
 
 
-def check_fused(name, fn, plain, args, kw, outs, limits, nbytes_in, ops):
+def check_fused(name, fn, plain, args, kw, outs, limits, nbytes_in, ops,
+                same_bits=()):
     """Phase 3 for one of #4-#7: kernel against plain on ``args``; each
     output checked as ``limits`` says (``("rows", rtol, atol)``, or
     ``("lanes", groups)`` group by group as :func:`aw_lanes` gives
-    them)."""
+    them); the outputs at the indices ``same_bits`` must give the same
+    bits on a second call."""
     got = fn(*args, **kw)
     want = plain(*args, **kw)
     torch.cuda.synchronize()
@@ -508,6 +510,16 @@ def check_fused(name, fn, plain, args, kw, outs, limits, nbytes_in, ops):
             parts.append(f"{what} {group} max abs {e[0]:.3e} rel "
                          f"{e[1]:.3e} (limit {limit})")
             errs.append(e[0])
+    again = fn(*args, **kw)
+    for i in same_bits:
+        if not torch.equal(again[i].view(torch.int32),
+                           got[i].view(torch.int32)):
+            raise AssertionError(f"{name}: two calls gave other {outs[i]} "
+                                 "bits")
+    if same_bits:
+        parts.append(f"{', '.join(outs[i] for i in same_bits)} the same "
+                     "bits on two calls")
+    del again
     ms = time_ms(lambda: fn(*args, **kw))
     lms = loop_ms(lambda: fn(*args, **kw))
     pms = time_ms(lambda: plain(*args, **kw))
@@ -544,66 +556,89 @@ def pool_step_args(t, K: int, rw: int, rh: int, dev) -> tuple:
             stp, ctp)
 
 
+def range_step_args(t, K: int, rw: int, rh: int, dev) -> tuple:
+    """The v7 range step's (#6) arguments on the step of
+    :func:`first_step` (``t``): its window ranges under
+    ``CYMF_TPU_PACKED_KERNEL=7`` (the last window's range re-anchored over
+    the padding tail)."""
+    from cymf_tpu_torch.ops.packed_epoch import prep_static
+    with forced_kernel("7"):
+        winw7, *_, v = prep_static(t["u2"], t["i2"], K, rw, rh, WROWS, WROWS)
+    if v != 7:
+        raise AssertionError(f"forcing v7 gave v{v}")
+    st, ct = (torch.from_numpy(a).to(dev) for a in winw7[0])
+    return (t["phys"], t["Du"], t["Di"], t["Dj"], st, ct)
+
+
+def ml1m_step_args(X1, dev, wrows: int, K: int = 20):
+    """The v5 sample phase's (#4, ``wrows`` 256) or the v6 block step's
+    (#5, ``wrows`` 512) arguments and keywords on step 0 of ``BPR.fit``'s
+    ml-1m stream (X1, d=20), which the data gate sends to v5 or v6."""
+    from cymf_tpu_torch.ops import fused_sample as fs
+    from cymf_tpu_torch.ops import packed as pk
+    from cymf_tpu_torch.ops.packed_epoch import prep_epoch
+    want_v = {256: 5, 512: 6}[wrows]
+    s = pk.num_slots(K)
+    coo = X1.tocoo()
+    keys1 = np.sort(coo.row.astype(np.int64) * ML1M_I + coo.col)
+    rng = np.random.default_rng(0)
+    W1 = rng.uniform(-0.1, 0.1, (ML1M_U, K)) / K
+    H1 = rng.uniform(-0.1, 0.1, (ML1M_I, K)) / K
+    u2, i2, rw, rh, prep = ml1m_streams(X1, K, wrows)
+    winw, wstart, si, rowsi, wini, cs, cn, v = prep
+    if v != want_v:
+        raise AssertionError(f"the ml-1m stream at wrows {wrows} takes "
+                             f"v{v}, expected v{want_v}")
+    j2, mask, *_ = prep_epoch(np.random.default_rng((1234, 0)), u2[:1],
+                              i2[:1], keys1, ML1M_U, ML1M_I, K, rh, wrows)
+    Wp, Hp, u, i, j, mf, ws = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            pk.pack_array(W1, K, wrows), pk.pack_logical(H1, K, wrows),
+            u2[0], i2[0], j2[0], mask[0], wstart[0]))
+    phys = u // s
+    Di = Hp.index_select(0, i)
+    Dj = fs.decorate(Hp.index_select(0, j), u % s, mf.float(), K)
+    if v == 5:
+        return (Wp, ws, phys, Di, Dj), dict(K=K, wd=0.01)
+    cs_d, cn_d = (torch.from_numpy(a[0]).to(dev) for a in (cs, cn))
+    return (Wp, phys, Di, Dj, ws, cs_d, cn_d), dict(K=K, wd=0.01, rw=rw,
+                                                    wrows=wrows)
+
+
 def check_fused_kernels(X, dev):
     """Phase 3 for #4-#7 on step 0 of their main paths: v5 and v6 on the
     ml-1m stream at d=20 (``wrows_w`` 256 gives v5, 512 gives v6), v7 and
     v8 (P = 1024) on the ML-20M stream of :func:`first_step`; and the
     windowed accumulations at the JAX default ``wrows = 512`` on that
     step's H side; v7 and v8 also on the ML-20M stream's last step, whose
-    padding tail every CTA shares.  Limits: SW and Q rtol 1e-5, atol 1e-6,
-    the loss relative 1e-5, Aw and Apool by lane group (:func:`aw_lanes`,
-    :func:`apool_lanes`), the accumulations 1e-5 max|plain|."""
+    padding tail their parts take like any other samples.  Limits: SW and
+    Q rtol 1e-5, atol 1e-6, the loss relative 1e-5, Aw and Apool by lane
+    group (:func:`aw_lanes`, :func:`apool_lanes`), the accumulations 1e-5
+    max|plain|; #5-#7's Aw and Q the same bits on two calls."""
     from cymf_tpu_torch.ops import fused_sample as fs
     from cymf_tpu_torch.ops import fused_step as fst
     from cymf_tpu_torch.ops import packed as pk
     from cymf_tpu_torch.ops import sorted_accum as sa
-    from cymf_tpu_torch.ops.packed_epoch import prep_epoch, prep_static
     K, s = 20, pk.num_slots(20)
     rows_lim = ("rows", 1e-5, 1e-6)
     results = {}
     X1 = ml1m_matrix()
-    coo = X1.tocoo()
-    keys1 = np.sort(coo.row.astype(np.int64) * ML1M_I + coo.col)
-    rng = np.random.default_rng(0)
-    W1 = rng.uniform(-0.1, 0.1, (ML1M_U, K)) / K
-    H1 = rng.uniform(-0.1, 0.1, (ML1M_I, K)) / K
-    for name, wrows, want_v in (("bpr_sample_phase_v5", 256, 5),
-                                ("bpr_block_step_v6", 512, 6)):
-        u2, i2, rw, rh, prep = ml1m_streams(X1, K, wrows)
-        winw, wstart, si, rowsi, wini, cs, cn, v = prep
-        if v != want_v:
-            raise AssertionError(f"the ml-1m stream at wrows {wrows} takes "
-                                 f"v{v}, expected v{want_v}")
-        j2, mask, *_ = prep_epoch(np.random.default_rng((1234, 0)), u2[:1],
-                                  i2[:1], keys1, ML1M_U, ML1M_I, K, rh,
-                                  wrows)
-        Wp, Hp, u, i, j, mf, ws = (
-            torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
-                pk.pack_array(W1, K, wrows), pk.pack_logical(H1, K, wrows),
-                u2[0], i2[0], j2[0], mask[0], wstart[0]))
-        phys = u // s
-        Di = Hp.index_select(0, i)
-        Dj = fs.decorate(Hp.index_select(0, j), u % s, mf.float(), K)
-        B = Di.shape[0]
-        # per sample the slot extraction and placement (2 x 128 x slots)
-        # and ~20 elementwise operations a lane; v6 adds the row sums
-        ops = B * 128 * (2 * s + 20)
-        if v == 5:
-            args = (Wp, ws, phys, Di, Dj)
-            results[name] = check_fused(
-                name + f" (ml-1m step 0, B={B})", fs.bpr_sample_phase_v5,
-                fs.bpr_sample_phase_v5_plain, args, dict(K=K, wd=0.01),
-                ("SW", "Q", "loss"), (rows_lim, rows_lim, ("rows", 1e-5, 0)),
-                nbytes(*args), ops)
-        else:
-            cs_d, cn_d = (torch.from_numpy(a[0]).to(dev) for a in (cs, cn))
-            args = (Wp, phys, Di, Dj, ws, cs_d, cn_d)
-            results[name] = check_fused(
-                name + f" (ml-1m step 0, B={B}, wrows 512)",
-                fst.bpr_block_step_v6, fst.bpr_block_step_v6_plain, args,
-                dict(K=K, wd=0.01, rw=rw, wrows=wrows), ("Aw", "Q"),
-                (("lanes", aw_lanes(K)), rows_lim), nbytes(*args),
-                ops + B * 128)
+    # per sample the slot extraction and placement (2 x 128 x slots) and
+    # ~20 elementwise operations a lane; v6 adds the row sums
+    args, kw = ml1m_step_args(X1, dev, 256)
+    B = args[3].shape[0]
+    results["bpr_sample_phase_v5"] = check_fused(
+        f"bpr_sample_phase_v5 (ml-1m step 0, B={B})",
+        fs.bpr_sample_phase_v5, fs.bpr_sample_phase_v5_plain, args, kw,
+        ("SW", "Q", "loss"), (rows_lim, rows_lim, ("rows", 1e-5, 0)),
+        nbytes(*args), B * 128 * (2 * s + 20))
+    args, kw = ml1m_step_args(X1, dev, 512)
+    B = args[2].shape[0]
+    results["bpr_block_step_v6"] = check_fused(
+        f"bpr_block_step_v6 (ml-1m step 0, B={B}, wrows 512)",
+        fst.bpr_block_step_v6, fst.bpr_block_step_v6_plain, args, kw,
+        ("Aw", "Q"), (("lanes", aw_lanes(K)), rows_lim), nbytes(*args),
+        B * 128 * (2 * s + 21), same_bits=(0, 1))
 
     for step in (-1, 0):
         t, rw, rh = first_step(X, K, dev, step)
@@ -611,19 +646,13 @@ def check_fused_kernels(X, dev):
         when = (f"ML-20M step 0, B={B}" if step == 0 else
                 f"ML-20M last step, B={B}, "
                 f"{int((t['phys'] >= rw).sum())} padding samples")
-        with forced_kernel("7"):
-            winw7, *_, v = prep_static(t["u2"], t["i2"], K, rw, rh, WROWS,
-                                       WROWS)
-        if v != 7:
-            raise AssertionError(f"forcing v7 gave v{v}")
-        st, ct = (torch.from_numpy(a).to(dev) for a in winw7[0])
-        args = (t["phys"], t["Du"], t["Di"], t["Dj"], st, ct)
+        args = range_step_args(t, K, rw, rh, dev)
         results["bpr_range_step_v7"] = check_fused(
             f"bpr_range_step_v7 ({when})", fst.bpr_range_step_v7,
             fst.bpr_range_step_v7_plain, args,
             dict(K=K, wd=0.01, rw=rw, wrows=WROWS), ("Aw", "Q"),
             (("lanes", aw_lanes(K)), rows_lim), nbytes(*args),
-            B * 128 * (2 * s + 21))
+            B * 128 * (2 * s + 21), same_bits=(0, 1))
 
         args = pool_step_args(t, K, rw, rh, dev)
         results["bpr_pool_step_v8"] = check_fused(
@@ -631,7 +660,7 @@ def check_fused_kernels(X, dev):
             fst.bpr_pool_step_v8, fst.bpr_pool_step_v8_plain, args,
             dict(K=K, wd=0.01, rw=rw, wrows=WROWS), ("Aw", "Apool", "Q"),
             (("lanes", aw_lanes(K)), ("lanes", apool_lanes(K)), rows_lim),
-            nbytes(*args), B * 128 * (2 * s + 22))
+            nbytes(*args), B * 128 * (2 * s + 22), same_bits=(0, 2))
         del args
 
     # the windowed accumulations at wrows = 512 on the step's H side

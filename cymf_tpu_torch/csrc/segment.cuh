@@ -1,6 +1,7 @@
 // The sample-balanced segmented reduction shared by the sorted
 // accumulations (sorted_accum.cu: the single stream #2/#2w and the dual
-// form #3/#3w) and the v8 pool step (bpr_fused.cu, #7): the launch plan,
+// form #3/#3w) and the fused BPR steps v6-v8 (bpr_fused.cu, #5-#7): the
+// launch plan,
 // the scratch layout, a part's run bookkeeping, and the second pass that
 // joins the runs parts share and zeroes every row no live sample landed
 // on.  Two store policies, a template argument ADD of the device code: a

@@ -21,16 +21,14 @@ never reaches device memory:
   W row.
 
 On a CUDA tensor each wrapper launches its hand-written kernel of
-``csrc/bpr_fused.cu``: for v6 and v7 a CTA per 8-row slice of the output,
-its samples found by binary search in the ascending rows; for v8 a
-sample-balanced fused reduction (a warp per part of consecutive samples,
-runs summed in registers, the runs that parts share joined and the
-untouched rows zeroed by a second pass, ``csrc/segment.cuh``, shared
-with the single-stream :func:`~.sorted_accum.sorted_accum`), whose
-partition :func:`pool_step_twin` writes out in Python.  On a CPU tensor
-each wrapper runs its ``_plain`` version, written as the TPU kernel
-computes: the same
-expansion window rule, the lane rotations of :func:`~.fused_sample.
+``csrc/bpr_fused.cu``, one template for the three: a sample-balanced fused
+reduction (a warp per part of consecutive samples, runs summed in
+registers, the runs that parts share joined and the untouched rows
+zeroed by a second pass, ``csrc/segment.cuh``, shared with the
+single-stream :func:`~.sorted_accum.sorted_accum`), whose partition
+:func:`fused_step_twin` writes out in Python.  On a CPU tensor each
+wrapper runs its ``_plain`` version, written as the TPU kernel computes:
+the same expansion window rule, the lane rotations of :func:`~.fused_sample.
 sample_math_plain`, and ``index_add_`` for the sums.  Sums come in another
 order than the TPU's bf16 hi+lo one-hot matmuls, which are exact to about
 2^-16 relative: results agree to that, not bit for bit.  The TPU's window
@@ -122,6 +120,16 @@ def _chunk_home(cs, cn, nchunks: int):
     return home
 
 
+def _block_keep(rows, cs, cn, *, rw: int, wrows: int, tile: int, B: int):
+    """Per sample: whether its chunk has a home block (``home``) and
+    whether it lands (``keep``): its row lies in that block or the spill
+    after it, inside the table."""
+    home = _chunk_home(cs, cn, B // tile).repeat_interleave(tile)
+    keep = (home >= 0) & (rows >= home * wrows) \
+        & (rows < (home + 1) * wrows + CROWS) & (rows < rw)
+    return home >= 0, keep
+
+
 def bpr_block_step_v6_plain(Wp, rowsw, Hi, Dj_dec, wstart, cs, cn, *,
                             K: int, wd: float, rw: int, wrows: int = 512,
                             tile: int = TILE):
@@ -131,14 +139,11 @@ def bpr_block_step_v6_plain(Wp, rowsw, Hi, Dj_dec, wstart, cs, cn, *,
     start = wstart.long().repeat_interleave(tile)
     Du, hj = expand_rows(Wp, rows, start, CROWS, Dj_dec, K)
     SW, Q = _fused_math(Du, Hi, hj, K, wd)
-    # a sample lands if its row lies in its chunk's home block or the
-    # spill after it, inside the table
-    home = _chunk_home(cs, cn, B // tile).repeat_interleave(tile)
-    keep = (home >= 0) & (rows >= home * wrows) \
-        & (rows < (home + 1) * wrows + CROWS) & (rows < rw)
+    homed, keep = _block_keep(rows, cs, cn, rw=rw, wrows=wrows, tile=tile,
+                              B=B)
     Aw = torch.zeros((rw, LANES), dtype=SW.dtype, device=SW.device)
     Aw.index_add_(0, rows[keep], SW[keep])
-    return Aw, torch.where((home >= 0)[:, None], Q, 0.0)
+    return Aw, torch.where(homed[:, None], Q, 0.0)
 
 
 def bpr_block_step_v6(Wp, rowsw, Hi, Dj_dec, wstart, cs, cn, *, K: int,
@@ -159,8 +164,15 @@ def bpr_block_step_v6(Wp, rowsw, Hi, Dj_dec, wstart, cs, cn, *, K: int,
 
     Returns:
       Aw: (rw, 128) the W-side sums, the loss sum on lane 127.
-      Q: (B, 128) the compact H-side product, as v5.  Rows of chunks that
-        no block's range holds are not written (on the TPU neither).
+      Q: (B, 128) the compact H-side product, as v5; zeros for the samples
+        of a chunk that no block's range holds (the TPU kernel leaves those
+        rows unwritten; :func:`prep_blocks` homes every chunk).
+
+    The kernel sums ``Aw`` in stream order, so two calls give the same
+    bits, and asserts that the rows it keeps are non-decreasing (the rows
+    are ascending); a failed device-side assert leaves the CUDA context
+    unusable.  It needs ``tile`` a multiple of its part of
+    :func:`~.sorted_accum.segment_plan` (64 samples).
     """
     B = Hi.shape[0]
     _check_streams(B, tile, rowsw)
@@ -186,11 +198,18 @@ def bpr_block_step_v6(Wp, rowsw, Hi, Dj_dec, wstart, cs, cn, *, K: int,
         _kernels.require(t, name, torch.int32, dev, ndim=1)
         if t.numel() != n:
             raise ValueError(f"{name} must hold {n} entries")
+    plan = sa.segment_plan(B, rw, LANES)
+    if tile % plan["part"]:
+        raise ValueError(f"the v6 kernel needs tile a multiple of "
+                         f"{plan['part']}")
     Aw = torch.empty((rw, LANES), dtype=torch.float32, device=dev)
     Q = torch.empty_like(Hi)
+    scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8,
+                          device=dev)
     _kernels.launch("bpr_block_step_v6", dev,
-            Wp, rowsw, Hi, Dj_dec, wstart, cs, cn, Aw, Q, B, rw, wrows,
-            tile, int(K), pk.num_slots(K), pk.count_base(K), float(wd))
+            Wp, rowsw, Hi, Dj_dec, wstart, cs, cn, Aw, Q, scratch,
+            plan["scratch_bytes"], B, rw, wrows, tile, int(K),
+            pk.num_slots(K), pk.count_base(K), float(wd))
     return Aw, Q
 
 
@@ -244,7 +263,12 @@ def bpr_range_step_v7(rowsw, Du_dec, Hi, Dj, starts, counts, *, K: int,
         over the padding tail (`prep_static`) so that every sample's Q
         row is written.
 
-    Returns ``(Aw, Q)`` as :func:`bpr_block_step_v6`.
+    Returns ``(Aw, Q)`` as :func:`bpr_block_step_v6`, Q for every sample.
+
+    The kernel sums ``Aw`` in stream order, so two calls give the same
+    bits, and asserts that the rows it keeps are non-decreasing (the rows
+    are ascending); a failed device-side assert leaves the CUDA context
+    unusable.
     """
     B = Hi.shape[0]
     _check_streams(B, tile, rowsw)
@@ -265,9 +289,12 @@ def bpr_range_step_v7(rowsw, Du_dec, Hi, Dj, starts, counts, *, K: int,
                                    (Dj, "Dj")), starts, counts, rw // wrows)
     Aw = torch.empty((rw, LANES), dtype=torch.float32, device=dev)
     Q = torch.empty_like(Hi)
+    nbytes = sa.segment_plan(B, rw, LANES)["scratch_bytes"]
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     _kernels.launch("bpr_range_step_v7", dev,
-            rowsw, Du_dec, Hi, Dj, starts, counts, Aw, Q, B, rw, wrows, tile,
-            int(K), pk.num_slots(K), pk.count_base(K), float(wd))
+            rowsw, Du_dec, Hi, Dj, starts, counts, Aw, Q, scratch, nbytes, B,
+            rw, wrows, tile, int(K), pk.num_slots(K), pk.count_base(K),
+            float(wd))
     return Aw, Q
 
 
@@ -347,47 +374,73 @@ def bpr_pool_step_v8(rowsw, rjs, Du_dec, Hi, Hpool, starts, counts, *,
     return Aw, Apool, Q
 
 
-def pool_step_twin(rowsw, rjs, starts, counts, *, P: int, rw: int,
-                   wrows: int = 512, tile: int = TILE, part: int,
-                   zero_gap: int) -> dict:
-    """The v8 kernel's partition, in Python, with ``part`` and
-    ``zero_gap`` as :func:`~.sorted_accum.segment_plan` gives them: part
-    ``p`` (samples ``[p part, (p + 1) part)``) writes the Q row of each of
-    its samples, adds the Q of each kept sample whose slot lies in
-    ``[0, P)`` into that Apool row, and cuts its kept samples into the
-    runs of :func:`~.sorted_accum.segment_twin` (a sample that is not kept
-    counts as a sentinel there).  A sample is kept by the kernel's test,
-    written here as it is there: its row lies in ``[0, rw)`` and the
-    sample in ``[st, en)`` of the row's window, ``st = max(starts[w], 0)``
-    and ``en = min(st + ceil(counts[w] / tile) tile, B)`` if ``counts[w] >
-    0``, else ``st``.
+def fused_step_twin(version: int, rowsw, *, rw: int, wrows: int = 512,
+                    tile: int = TILE, part: int, zero_gap: int, starts=None,
+                    counts=None, cs=None, cn=None, rjs=None,
+                    P: int = 0) -> dict:
+    """The fused step kernels' partition (v6 with ``cs``/``cn``, v7 and v8
+    with ``starts``/``counts``, v8 also ``rjs`` and ``P``), in Python, with
+    ``part`` and ``zero_gap`` as :func:`~.sorted_accum.segment_plan` gives
+    them: part ``p`` (samples ``[p part, (p + 1) part)``) writes the Q row
+    of each of its samples, cuts its kept samples into the runs of
+    :func:`~.sorted_accum.segment_twin` (a sample that is not kept counts
+    as a sentinel there) and, for v8, adds the Q of each kept sample whose
+    slot lies in ``[0, P)`` into that Apool row.  A sample is kept by the
+    kernel's test, written here as it is there: its row lies in ``[0,
+    rw)`` and
+    - v7, v8: the sample in ``[st, en)`` of the row's window, ``st =
+      max(starts[w], 0)`` and ``en = min(st + ceil(counts[w] / tile) tile,
+      B)`` if ``counts[w] > 0``, else ``st``;
+    - v6: the row in ``[h wrows, (h + 1) wrows + CROWS)``, ``h`` the home
+      block of the part's chunk ``c = p part // tile`` (``tile`` a
+      multiple of ``part``): the last block ``h`` with ``cs[h] <= c``, if
+      ``c < cs[h] + cn[h]``.  A part whose chunk has no home block keeps
+      nothing and writes zeros to its Q rows.
 
     Returns :func:`~.sorted_accum.segment_twin`'s dict (``writes``,
     ``carried``, ``into`` and the counts) plus ``keep`` (``[B]`` bool),
-    ``q_writes`` (``[B]``, stores of each Q row) and ``pool_adds``
-    (``[P]``, Q rows added into each Apool row) with ``pool_from``
-    (``[B]``, times each sample's Q is added into Apool)."""
+    ``q_writes`` (``[B]``, stores of each Q row), ``q_zero`` (``[B]``
+    bool, the Q rows stored as zeros) and, for v8, ``pool_adds`` (``[P]``,
+    Q rows added into each Apool row) with ``pool_from`` (``[B]``, times
+    each sample's Q is added into Apool)."""
     rows = np.asarray(rowsw).reshape(-1).astype(np.int64)
-    rj = np.asarray(rjs).reshape(-1).astype(np.int64)
-    starts = np.asarray(starts).astype(np.int64)
-    counts = np.asarray(counts).astype(np.int64)
     B = rows.size
     b = np.arange(B)
     inside = (rows >= 0) & (rows < rw)
-    w = np.where(inside, rows, 0) // wrows
-    st = np.maximum(starts[w], 0)
-    cnt = counts[w]
-    en = np.where(cnt > 0, np.minimum(st + -(-cnt // tile) * tile, B), st)
-    keep = inside & (b >= st) & (b < en)
+    q_zero = np.zeros(B, bool)
+    if version == 6:
+        if tile % part:
+            raise ValueError("v6 needs tile a multiple of part")
+        cs = np.asarray(cs).astype(np.int64)
+        cn = np.asarray(cn).astype(np.int64)
+        keep = np.zeros(B, bool)
+        for a in range(0, B, part):
+            c = a // tile
+            h = np.searchsorted(cs, c, side="right") - 1
+            idx = b[a:a + part]
+            if h < 0 or c >= cs[h] + cn[h]:
+                q_zero[idx] = True
+                continue
+            r = rows[idx]
+            keep[idx] = inside[idx] & (r >= h * wrows) \
+                & (r < (h + 1) * wrows + CROWS)
+    else:
+        starts = np.asarray(starts).astype(np.int64)
+        counts = np.asarray(counts).astype(np.int64)
+        w = np.where(inside, rows, 0) // wrows
+        st = np.maximum(starts[w], 0)
+        cnt = counts[w]
+        en = np.where(cnt > 0, np.minimum(st + -(-cnt // tile) * tile, B),
+                      st)
+        keep = inside & (b >= st) & (b < en)
     out = sa.segment_twin(np.where(keep, rows, -1), rw, part, zero_gap)
     q_writes = np.zeros(B, np.int64)
-    pool_from = np.zeros(B, np.int64)
-    pool_adds = np.zeros(P, np.int64)
     for a in range(0, B, part):
-        idx = b[a:a + part]
-        q_writes[idx] += 1
-        add = idx[keep[idx] & (rj[idx] >= 0) & (rj[idx] < P)]
-        pool_from[add] += 1
-        np.add.at(pool_adds, rj[add], 1)
-    return dict(out, keep=keep, q_writes=q_writes, pool_adds=pool_adds,
-                pool_from=pool_from)
+        q_writes[a:a + part] += 1
+    out = dict(out, keep=keep, q_writes=q_writes, q_zero=q_zero)
+    if version != 8:
+        return out
+    rj = np.asarray(rjs).reshape(-1).astype(np.int64)
+    add = keep & (rj >= 0) & (rj < P)
+    return dict(out, pool_from=add.astype(np.int64),
+                pool_adds=np.bincount(rj[add], minlength=P))

@@ -22,10 +22,15 @@ its scratch layout, and a stream whose live rows decrease failing the
 kernel's assert (in a process of its own); the dual form alike on pairs
 of those streams at widths 128-640, two calls and its Python twin equal
 to the bit, its plan against what the wrapper allocates, and its assert
-on either stream; the v8 pool step also on
-streams built to break it (one user with 40% of the samples, runs cut at
-every part boundary, a padding tail; slots outside the pool; window
-ranges that drop samples) at P = 128 and 2048, into outputs left dirty;
+on either stream; the fused steps v6-v8 also on
+streams built to break them (one user with 40% of the samples, runs cut
+at every part boundary, a padding tail; v8's slots outside the pool;
+window ranges that drop samples; for v6 a chunk's rows spilling into the
+next block, rows past the spill, rows in the last block's spill past the
+table, and block ranges that leave chunks without a home block, whose Q
+rows must be zero), v8 at P = 128 and 2048, into outputs left dirty, Aw
+and Q the same bits on two calls and, for v6 and v7, every Aw row that
+no kept sample lands on exactly zero;
 the probes P2 and P3 exact, P1's SW and
 Q equal to #1's kernel and within #1's bounds of plain; the packed epochs of every pipeline on the card against the
 CPU, ``rtol 1e-4, atol 1e-5`` under sgd and adagrad and under adam the
@@ -718,6 +723,9 @@ def test_bpr_block_step_v6_kernel(dev, U, B):
                                           wrows=wrows)
     _close_rows(Q, Qp)
     _close_aw(Aw, Awp, K)
+    for got, again in zip((Aw, Q), fst.bpr_block_step_v6(
+            *args, K=K, wd=0.01, rw=rw, wrows=wrows)):
+        _same_bits(again, got)
 
 
 def _range_inputs(dev, U, K, B, wrows, monkeypatch):
@@ -751,6 +759,9 @@ def test_bpr_range_step_v7_kernel(dev, U, K, B, wrows, monkeypatch):
                                           wrows=wrows)
     _close_rows(Q, Qp)
     _close_aw(Aw, Awp, K)
+    for got, again in zip((Aw, Q), fst.bpr_range_step_v7(
+            *args, K=K, wd=0.01, rw=rw, wrows=wrows)):
+        _same_bits(again, got)
 
 
 POOL_STREAMS = ("heavy-user", "part-cuts", "padding-tail")
@@ -795,21 +806,34 @@ def drop_samples(counts: np.ndarray) -> np.ndarray:
     return counts
 
 
-def _pool_case(dev, u, P, drop, K=20, wrows=256, I=500):
-    """The v8 inputs of step ``u`` on ``dev`` (the port's pool prep)."""
-    from cymf_tpu_torch.ops import packed_epoch as tpe
-    rng = np.random.default_rng(u.size + P)
-    B, s = u.size, pk.num_slots(K)
-    U = int(u[u < PAD_USER].max()) + 1
+def _tables(u, K, wrows, I, seed, U=None):
+    """``(rng, U, Wp, Hp, rw)`` for step ``u`` over ``U`` users (by
+    default the stream's largest user + 1): seeded tables, and the
+    generator for the step's other draws."""
+    rng = np.random.default_rng(seed)
+    U = int(u[u < PAD_USER].max()) + 1 if U is None else U
     Wp = pk.pack_array(rng.normal(size=(U, K)) * 0.3, K, multiple=wrows)
     Hp = pk.pack_logical(rng.normal(size=(I, K)) * 0.3, K, multiple=wrows)
-    rw = Wp.shape[0]
-    i = rng.integers(0, I, B)
+    return rng, U, Wp, Hp, Wp.shape[0]
+
+
+def _windows(u, i, K, rw, wrows, I, drop):
+    """Step ``u``'s window ranges as the port's pool prep makes them (v7's:
+    the last window's range re-anchored over the padding tail), cut by
+    :func:`drop_samples` if ``drop``."""
+    from cymf_tpu_torch.ops import packed_epoch as tpe
     winw, *_ = tpe.prep_static_pool(u[None], i[None], K, rw,
                                     pk.logical_rows(I, wrows), wrows, wrows)
     starts, counts = winw[0]
-    if drop:
-        counts = drop_samples(counts)
+    return starts, drop_samples(counts) if drop else counts
+
+
+def _pool_case(dev, u, P, drop, K=20, wrows=256, I=500):
+    """The v8 inputs of step ``u`` on ``dev`` (the port's pool prep)."""
+    rng, U, Wp, Hp, rw = _tables(u, K, wrows, I, u.size + P)
+    B, s = u.size, pk.num_slots(K)
+    i = rng.integers(0, I, B)
+    starts, counts = _windows(u, i, K, rw, wrows, I, drop)
     mf = ((rng.random(B) > 0.1) & (u < U)).astype(np.float32)
     phys = (u // s).astype(np.int32)
     pool = rng.integers(0, I, P)
@@ -818,6 +842,144 @@ def _pool_case(dev, u, P, drop, K=20, wrows=256, I=500):
     Du = _decorated_rows(Wp, np.minimum(phys, rw - 1), u, mf, K, dev)
     return (rows, rj, Du, Hpd.index_select(0, id_), Hpd.index_select(0, pl),
             st, ct), dict(K=K, wd=0.01, rw=rw, wrows=wrows)
+
+
+def _range_case(dev, u, drop, K=20, wrows=256, I=500):
+    """The v7 inputs of step ``u`` on ``dev``: the window ranges of the
+    v8 case, raw j rows."""
+    rng, U, Wp, Hp, rw = _tables(u, K, wrows, I, u.size + 7)
+    B, s = u.size, pk.num_slots(K)
+    i, j = rng.integers(0, I, B), rng.integers(0, I, B)
+    starts, counts = _windows(u, i, K, rw, wrows, I, drop)
+    mf = ((rng.random(B) > 0.1) & (u < U)).astype(np.float32)
+    phys = (u // s).astype(np.int32)
+    rows, st, ct, Hpd, id_, jd = _on(dev, phys, starts, counts, Hp, i, j)
+    Du = _decorated_rows(Wp, np.minimum(phys, rw - 1), u, mf, K, dev)
+    return (rows, Du, Hpd.index_select(0, id_), Hpd.index_select(0, jd), st,
+            ct), dict(K=K, wd=0.01, rw=rw, wrows=wrows)
+
+
+BLOCK_STREAMS = ("spill", "past-spill", "last-spill")
+BLOCK_U = 4752          # 792 packed rows at K = 20: three blocks of 264
+
+
+def block_streams(B: int = 4096, K: int = 20) -> dict:
+    """``{name: u}``: user-sorted v6 steps of four 1024-sample chunks over
+    ``BLOCK_U`` users (three blocks of ``wrows`` 264), each chunk's rows
+    drawn in one range: ``spill``, a chunk homed in block 0 whose rows run
+    into block 1's first rows (within the 264-row spill); ``past-spill``, a
+    chunk homed in block 0 whose rows run past its spill (rows 528-699,
+    dropped); ``last-spill``, a tail of 300 samples on rows 792-999, past
+    the table, in the last block's spill (dropped).  The other two end in
+    300 ``PAD_USER`` samples."""
+    rng = np.random.default_rng(11)
+    s = pk.num_slots(K)
+    bounds = {"spill": [0, 150, 450, 700, 792],
+              "past-spill": [0, 100, 700, 750, 792],
+              "last-spill": [0, 264, 528, 700, 792]}
+    out = {}
+    for name, bd in bounds.items():
+        n = [B // 4] * 3 + [B // 4 - 300]
+        rows = np.concatenate([np.sort(rng.integers(lo, hi, k)) for lo, hi, k
+                               in zip(bd[:-1], bd[1:], n)])
+        u = rows * s + rng.integers(0, s, rows.size)
+        tail = (np.sort(rng.integers(792, 1000, 300)) * s
+                if name == "last-spill" else np.full(300, PAD_USER))
+        out[name] = np.concatenate([u, tail]).astype(np.int32)
+    return out
+
+
+def drop_chunks(cs: np.ndarray, cn: np.ndarray):
+    """Block ranges that leave chunks without a home block: every other
+    block's range of two or more chunks (the first included) cut by its
+    last chunk, and the second block's range empty."""
+    cn = np.where((np.arange(cn.size) % 2 == 0) & (cn > 1), cn - 1, cn)
+    if cn.size > 1:
+        cn[1] = 0
+    return cs, cn.astype(np.int32)
+
+
+def _block_case(dev, u, drop, U=None, K=20, wrows=264, I=500):
+    """The v6 inputs of step ``u`` on ``dev`` over ``U`` users (by default
+    the stream's largest user + 1): the expansion window starts and the
+    block ranges of the trainer's prep, the decorated j rows."""
+    rng, U, Wp, Hp, rw = _tables(u, K, wrows, I, u.size + 6, U)
+    B, s = u.size, pk.num_slots(K)
+    i, j = rng.integers(0, I, B), rng.integers(0, I, B)
+    mf = ((rng.random(B) > 0.1) & (u < U)).astype(np.float32)
+    phys = (u // s).astype(np.int32)
+    wstart = np.clip(phys[::fst.TILE], 0, rw - fst.CROWS).astype(np.int32)
+    cs, cn = fst.prep_blocks(wstart, rw, wrows)
+    if drop:
+        cs, cn = drop_chunks(cs, cn)
+    Wpd, rows, Hpd, id_, ws, cs_d, cn_d = _on(dev, Wp, phys, Hp, i, wstart,
+                                              cs, cn)
+    Dj = _decorated_rows(Hp, j, u, mf, K, dev)
+    return (Wpd, rows, Hpd.index_select(0, id_), Dj, ws, cs_d, cn_d), dict(
+        K=K, wd=0.01, rw=rw, wrows=wrows)
+
+
+def _block_stream(name):
+    """``(u, U)`` of a v6 stream of :func:`pool_streams` or
+    :func:`block_streams`."""
+    if name in BLOCK_STREAMS:
+        return block_streams()[name], BLOCK_U
+    return pool_streams()[name], None
+
+
+def _same_bits(a, b):
+    np.testing.assert_array_equal(a.cpu().numpy().view(np.int32),
+                                  b.cpu().numpy().view(np.int32))
+
+
+def _check_step(fn, plain, args, kw, dev, rows, keep):
+    """A v6 or v7 kernel against its plain version into outputs left
+    dirty (Q rows, Aw by lane group), two calls to the same bits, and the
+    Aw rows no kept sample lands on exactly zero."""
+    _dirty(dev, 4 * 128 * (args[2].shape[0] + kw["rw"]))
+    _kernels.reset_launches()
+    Aw, Q = fn(*args, **kw)
+    name = fn.__name__
+    assert dict(_kernels.launches) == {name: 1}
+    Awp, Qp = plain(*args, **kw)
+    _close_rows(Q, Qp)
+    _close_aw(Aw, Awp, kw["K"])
+    _dirty(dev, 4 * 128 * (args[2].shape[0] + kw["rw"]))
+    Aw2, Q2 = fn(*args, **kw)
+    _same_bits(Aw2, Aw)
+    _same_bits(Q2, Q)
+    landed = torch.zeros(kw["rw"], dtype=torch.bool, device=dev)
+    landed[rows.long()[keep]] = True
+    assert (Aw[~landed] == 0).all()
+
+
+@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("stream", POOL_STREAMS + BLOCK_STREAMS)
+def test_bpr_block_step_v6_kernel_adversarial(dev, stream, drop):
+    """#5 on the adversarial streams (the v8 streams, a chunk's spill into
+    the next block, rows past the spill, the last block's spill), with
+    block ranges that leave chunks without a home (Q rows zero)."""
+    u, U = _block_stream(stream)
+    args, kw = _block_case(dev, u, drop, U)
+    Wp, rows, Hi, Dj, ws, cs, cn = args
+    homed, keep = fst._block_keep(rows.long(), cs, cn, rw=kw["rw"],
+                                  wrows=kw["wrows"], tile=fst.TILE,
+                                  B=rows.numel())
+    assert drop == bool((~homed).any())
+    _check_step(fst.bpr_block_step_v6, fst.bpr_block_step_v6_plain, args,
+                kw, dev, rows, keep)
+
+
+@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("stream", POOL_STREAMS)
+def test_bpr_range_step_v7_kernel_adversarial(dev, stream, drop):
+    """#6 on the v8 kernel's adversarial streams and window ranges."""
+    args, kw = _range_case(dev, pool_streams()[stream], drop)
+    rows, *_, st, ct = args
+    keep = fst._window_keep(rows.long(), st, ct, rw=kw["rw"],
+                            wrows=kw["wrows"], tile=fst.TILE, B=rows.numel())
+    _check_step(fst.bpr_range_step_v7, fst.bpr_range_step_v7_plain, args,
+                kw, dev, rows, keep)
 
 
 @pytest.mark.parametrize("drop", [False, True])
@@ -836,6 +998,10 @@ def test_bpr_pool_step_v8_kernel_adversarial(dev, stream, P, drop):
     _close_rows(Q, Qp)
     _close_aw(Aw, Awp, kw["K"])
     _close_apool(Ap, App, kw["K"])
+    # Aw and Q in stream order; Apool's atomics in an order of their own
+    Aw2, _, Q2 = fst.bpr_pool_step_v8(*args, **kw)
+    _same_bits(Aw2, Aw)
+    _same_bits(Q2, Q)
 
 
 @pytest.mark.parametrize("P,U,B", [(128, 12000, 2048), (1024, 138493, 131072),

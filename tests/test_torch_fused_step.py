@@ -25,7 +25,9 @@ from cymf_tpu_torch.ops import _kernels
 from cymf_tpu_torch.ops import fused_sample as tfs
 from cymf_tpu_torch.ops import fused_step as tst
 # the streams and inputs the card tests run the v8 kernel on
-from test_torch_cuda_kernels import POOL_STREAMS, _pool_case, pool_streams
+from test_torch_cuda_kernels import (BLOCK_STREAMS, POOL_STREAMS, _block_case,
+                                     _block_stream, _pool_case, _range_case,
+                                     pool_streams)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 WD, I, PAD = 0.013, 300, np.int32(2**31 - 1)
@@ -214,9 +216,10 @@ def _pool_twin(stream, drop, P, part, zero_gap):
     args, kw = _pool_case(torch.device("cpu"), pool_streams()[stream], P,
                           drop)
     rows, rj, *_, st, ct = args
-    t = tst.pool_step_twin(rows.numpy(), rj.numpy(), st.numpy(), ct.numpy(),
-                           P=P, rw=kw["rw"], wrows=kw["wrows"], part=part,
-                           zero_gap=zero_gap)
+    t = tst.fused_step_twin(8, rows.numpy(), rjs=rj.numpy(),
+                            starts=st.numpy(), counts=ct.numpy(), P=P,
+                            rw=kw["rw"], wrows=kw["wrows"], part=part,
+                            zero_gap=zero_gap)
     return args, kw, t
 
 
@@ -294,3 +297,171 @@ def test_pool_step_twin_sums_match_plain_and_jax(stream, drop):
     covered = ((b[:, None] >= s0) & (b[:, None] < s0 + -(-c0 // tst.TILE)
                                      * tst.TILE)).any(axis=1)
     _close(Q[covered], np.array(Qj)[covered])
+
+
+CPU = torch.device("cpu")
+STEP_STREAMS = [(6, s) for s in POOL_STREAMS + BLOCK_STREAMS] + [
+    (7, s) for s in POOL_STREAMS]
+
+
+def _step_twin(version, stream, drop, part, zero_gap):
+    """The v6 or v7 inputs on the CPU, the kernel's twin, and the plain
+    version's ``(homed, keep)``."""
+    if version == 6:
+        args, kw = _block_case(CPU, *_block_stream(stream)[:1], drop,
+                               _block_stream(stream)[1])
+        rows, cs, cn = args[1], args[5], args[6]
+        t = tst.fused_step_twin(6, rows.numpy(), cs=cs.numpy(),
+                                cn=cn.numpy(), rw=kw["rw"],
+                                wrows=kw["wrows"], part=part,
+                                zero_gap=zero_gap)
+        homed, keep = tst._block_keep(rows.long(), cs, cn, rw=kw["rw"],
+                                      wrows=kw["wrows"], tile=tst.TILE,
+                                      B=rows.numel())
+        return args, kw, t, rows, homed.numpy(), keep.numpy()
+    args, kw = _range_case(CPU, pool_streams()[stream], drop)
+    rows, *_, st, ct = args
+    t = tst.fused_step_twin(7, rows.numpy(), starts=st.numpy(),
+                            counts=ct.numpy(), rw=kw["rw"], wrows=kw["wrows"],
+                            part=part, zero_gap=zero_gap)
+    keep = tst._window_keep(rows.long(), st, ct, rw=kw["rw"],
+                            wrows=kw["wrows"], tile=tst.TILE, B=rows.numel())
+    return args, kw, t, rows, np.ones(rows.numel(), bool), keep.numpy()
+
+
+@pytest.mark.parametrize("zero_gap", [0, 32])
+@pytest.mark.parametrize("part", [64, 128])
+@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("version,stream", STEP_STREAMS)
+def test_fused_step_twin_owns_each_sample_once(version, stream, drop, part,
+                                               zero_gap):
+    """The v6 and v7 kernels' partition on the adversarial streams (v8's,
+    and for v6 a chunk's spill into the next block, rows past the spill,
+    the last block's spill), with ranges that drop samples (v7) or leave
+    chunks without a home block (v6): its keep rule is the plain
+    version's, each kept sample is summed once into its own row and no
+    other sample anywhere, each Aw row is written once (zeros included),
+    each Q row once, as zeros exactly where the chunk has no home."""
+    args, kw, t, rows, homed, keep = _step_twin(version, stream, drop, part,
+                                                zero_gap)
+    np.testing.assert_array_equal(t["keep"], keep)
+    assert 0 < keep.sum() < keep.size or (
+        drop and version == 7 and stream == "padding-tail")
+    np.testing.assert_array_equal(t["carried"], keep)
+    np.testing.assert_array_equal(t["into"][keep], rows.numpy()[keep])
+    np.testing.assert_array_equal(t["writes"], np.ones(kw["rw"]))
+    np.testing.assert_array_equal(t["q_writes"], np.ones(rows.numel()))
+    np.testing.assert_array_equal(t["q_zero"], ~homed)
+    assert (~homed).any() == (drop and version == 6)
+    assert "pool_from" not in t
+
+
+def _jax_step(version, args, kw):
+    """The JAX kernel of ``version`` in interpret mode on ``args``."""
+    K, wd, rw, wrows = kw["K"], kw["wd"], kw["rw"], kw["wrows"]
+    if version == 6:
+        Wp, rows, Hi, Dj, ws, cs, cn = (jnp.asarray(a.numpy()) for a in args)
+        return jst.bpr_block_step_v6(Wp, rows.reshape(-1, 128), Hi, Dj, ws,
+                                     cs, cn, K=K, wd=wd, rw=rw, wrows=wrows,
+                                     interpret=True)
+    rows, Du, Hi, Dj, st, ct = (jnp.asarray(a.numpy()) for a in args)
+    return jst.bpr_range_step_v7(rows.reshape(-1, 128), Du, Hi, Dj, st, ct,
+                                 K=K, wd=wd, rw=rw, wrows=wrows,
+                                 interpret=True)
+
+
+@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("version,stream", STEP_STREAMS)
+def test_fused_step_twin_sums_match_plain_and_jax(version, stream, drop):
+    """The sums the v6/v7 twin's partition gives (SW of each sample into
+    the row the twin stores it in; Q, zeros where the twin writes zeros)
+    against the plain version and the JAX kernel in interpret mode; Q
+    against the JAX kernel's on the samples it writes (v6: those of a
+    chunk with a home block; v7: those inside a window's tile-extended
+    range)."""
+    args, kw, t, rows, homed, _ = _step_twin(version, stream, drop, 64, 32)
+    K = kw["K"]
+    if version == 6:
+        Wp, _, Hi, Dj, ws, *_ = args
+        Du, hj = tfs.expand_rows(Wp, rows.long(),
+                                 ws.long().repeat_interleave(tst.TILE),
+                                 tst.CROWS, Dj, K)
+        SW, Q = tst._fused_math(Du, Hi, hj, K, kw["wd"])
+        plain = tst.bpr_block_step_v6
+    else:
+        _, Du, Hi, Dj, st, ct = args
+        SW, Q = tst._fused_math(Du, Hi, Dj, K, kw["wd"])
+        plain = tst.bpr_range_step_v7
+    Q = torch.where(torch.from_numpy(t["q_zero"])[:, None], 0.0, Q)
+    sel = torch.from_numpy(t["carried"] > 0)
+    Aw = torch.zeros((kw["rw"], tst.LANES))
+    Aw.index_add_(0, torch.from_numpy(t["into"])[sel], SW[sel])
+    _kernels.reset_launches()
+    Awp, Qp = plain(*args, **kw)
+    assert not _kernels.launches
+    for got, want in ((Aw, Awp), (Q, Qp)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    Awj, Qj = _jax_step(version, args, kw)
+    if version == 6:
+        # the JAX v6 kernel also expands the W rows through its bf16 hi+lo
+        # one-hot matmul, so each sample's SW carries that 2^-16 relative
+        # error; part-cuts sums runs of up to 513 samples into one row
+        # (payload sums up to ~7, errors up to ~1.7e-5): atol 1e-5 scaled
+        # by the largest payload sum, at least 1
+        cb = tst.pk.count_base(K)
+        scale = max(1.0, float(np.abs(np.array(Awj)[:, :cb]).max()))
+        np.testing.assert_allclose(Aw.numpy(), np.array(Awj), rtol=1e-4,
+                                   atol=1e-5 * scale)
+        covered = homed
+    else:
+        _close(Aw, Awj)
+        b = np.arange(rows.numel())
+        s0, c0 = np.maximum(st.numpy(), 0), np.maximum(ct.numpy(), 0)
+        covered = ((b[:, None] >= s0) & (b[:, None] < s0 + -(-c0 // tst.TILE)
+                                         * tst.TILE)).any(axis=1)
+    _close(Q[covered], np.array(Qj)[covered])
+
+
+@pytest.mark.parametrize("stream", BLOCK_STREAMS)
+def test_block_step_v6_spill_rules(stream):
+    """v6's keep rule on the streams built for it, in the twin and the
+    plain version alike: a chunk homed in block 0 keeps its rows in block
+    1's first 264 (the spill), drops rows past that, and the samples on
+    rows past the table (the last block's spill) are dropped."""
+    args, kw, t, rows, homed, keep = _step_twin(6, stream, False, 64, 32)
+    r = rows.numpy()
+    chunk1 = np.arange(r.size) // tst.TILE == 1
+    assert homed.all() and (t["keep"] == keep).all()
+    spill = chunk1 & (r >= kw["wrows"]) & (r < kw["wrows"] + tst.CROWS)
+    past = chunk1 & (r >= kw["wrows"] + tst.CROWS)
+    beyond = (r >= kw["rw"]) & (r < kw["rw"] + tst.CROWS)
+    want = {"spill": (spill, past), "past-spill": (spill, past),
+            "last-spill": (None, beyond)}[stream]
+    if want[0] is not None:
+        assert want[0].any() and keep[want[0]].all()
+    assert (want[1].any() and not keep[want[1]].any()) == (
+        stream != "spill")
+    assert not keep[r >= kw["rw"]].any()
+
+
+def test_block_step_v6_homeless_chunk_q_is_zero():
+    """Hand-made block ranges that leave chunks without a home block: the
+    plain version writes zeros to those Q rows and sums none of their
+    samples, as the twin says the kernel does, and its Aw matches the JAX
+    kernel's, which never visits those chunks."""
+    args, kw, t, rows, homed, keep = _step_twin(6, "spill", True, 64, 32)
+    assert (~homed).sum() >= 2 * tst.TILE
+    Aw, Q = tst.bpr_block_step_v6(*args, **kw)
+    Wp, _, Hi, Dj, ws, *_ = args
+    Du, hj = tfs.expand_rows(Wp, rows.long(),
+                             ws.long().repeat_interleave(tst.TILE),
+                             tst.CROWS, Dj, kw["K"])
+    _, Qall = tst._fused_math(Du, Hi, hj, kw["K"], kw["wd"])
+    assert (Q.numpy()[~homed] == 0).all()
+    assert (Qall.numpy()[~homed] != 0).any()
+    np.testing.assert_array_equal(Q.numpy()[homed], Qall.numpy()[homed])
+    np.testing.assert_array_equal(t["q_zero"], ~homed)
+    assert not keep[~homed].any()
+    Awj, _ = _jax_step(6, args, kw)
+    _close(Aw, Awj)
