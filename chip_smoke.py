@@ -6,7 +6,19 @@ Phases, one line each; any failure raises and exits non-zero:
 
 1. device: requires CUDA, prints ``nvidia-smi`` name and power limit, and
    that float32 products run without TF32;
-2. build: compiles the CUDA kernels from ``cymf_tpu_torch/csrc``;
+2. build: compiles the CUDA kernels from ``cymf_tpu_torch/csrc`` and the
+   native host prep (``csrc/native_prep.cpp``, ``g++``); then prep: the
+   native prep at ML-20M shapes (151 steps x 131,072 on the
+   ``bench_interactions`` stream) prints the core count and both thread
+   counts, times the filter build, ``prep_epoch`` and ``prep_pool_epoch``
+   native against numpy, and checks that two native calls and 1 thread
+   against all give the same bits, that the native mask and j side equal
+   the numpy rejection and sort applied to the native draws, and that the
+   native pool rejection equals numpy's.  Every BPR fit below must draw
+   its negatives from the native prep (``prep_backend_ == "native"``;
+   bpr-pool and the pool quickstart: the numpy draws with the native
+   rejection) and prints per epoch ``prep_s`` and ``device_s``, and the
+   fit's wall time and end-to-end int/s beside the device int/s;
 3. kernels: each kernel against its plain PyTorch version on the card,
    with timings.  The BPR kernels at the BPR main-path shapes (ML-20M:
    138,493 users x 26,744 items, 20,000,263 interactions, d=20, batch
@@ -412,21 +424,125 @@ def check_kernels(X, dev):
     return results
 
 
-class forced_kernel:
-    """``CYMF_TPU_PACKED_KERNEL`` set to ``value`` inside the block (the
-    JAX package's switch, which the port honours), restored after."""
+class env_set:
+    """The environment variable ``name`` set to ``value`` inside the block,
+    restored after."""
 
-    def __init__(self, value: str):
-        self.value = value
+    def __init__(self, name: str, value: str):
+        self.name, self.value = name, value
 
     def __enter__(self):
-        self.saved = os.environ.get("CYMF_TPU_PACKED_KERNEL")
-        os.environ["CYMF_TPU_PACKED_KERNEL"] = self.value
+        self.saved = os.environ.get(self.name)
+        os.environ[self.name] = self.value
 
     def __exit__(self, *exc):
-        os.environ.pop("CYMF_TPU_PACKED_KERNEL")
+        os.environ.pop(self.name)
         if self.saved is not None:
-            os.environ["CYMF_TPU_PACKED_KERNEL"] = self.saved
+            os.environ[self.name] = self.saved
+
+
+def forced_kernel(value: str) -> env_set:
+    """``CYMF_TPU_PACKED_KERNEL=value`` inside the block (the JAX package's
+    switch, which the port honours)."""
+    return env_set("CYMF_TPU_PACKED_KERNEL", value)
+
+
+def numpy_prep() -> env_set:
+    """``CYMF_TPU_PREP=numpy`` inside the block: the numpy prep stream and
+    rejection."""
+    return env_set("CYMF_TPU_PREP", "numpy")
+
+
+def prep_phase(X):
+    """prep: the native host prep (``cymf_tpu_torch.native``) at ML-20M
+    shapes, 151 steps of 131,072 on the ``bench_interactions`` stream:
+    the filter build, ``prep_epoch`` and ``prep_pool_epoch`` (P = 1024)
+    native against numpy, each timed once on the host clock; two native
+    calls and 1 thread against all give the same bits; the native mask
+    and j side equal the numpy rejection and sort applied to the native
+    draws, and the native pool rejection equals numpy's."""
+    from cymf_tpu_torch import native
+    from cymf_tpu_torch.models.bpr import (shuffled_interactions,
+                                           sorted_batches)
+    from cymf_tpu_torch.ops import packed as pk
+    from cymf_tpu_torch.ops import packed_epoch as tpe
+
+    nthreads = native.num_threads()
+    tt = torch.get_num_threads()
+    phase("prep", f"os.cpu_count() {os.cpu_count()}, native OpenMP threads "
+          f"{nthreads}, torch intra-op threads {tt}")
+    np.random.seed(0)
+    u2, i2 = sorted_batches(*shuffled_interactions(X), BATCH)
+    coo = X.tocoo()
+    keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+    rh = pk.logical_rows(I, multiple=WROWS)
+    sec = {}
+
+    def timed(what, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sec[what] = time.perf_counter() - t0
+        return out
+
+    kf = timed("filter", lambda: tpe.make_reject_filter(keys, U, I))
+    seed = 1234 * 1_000_003
+
+    def native_epoch():
+        return tpe.prep_epoch(None, u2, i2, keys, U, I, 20, rh, WROWS,
+                              native_seed=seed, key_filter=kf)
+
+    got = timed("prep_epoch native", native_epoch)
+    again = native_epoch()
+    native.set_num_threads(1)
+    one = timed("prep_epoch native, 1 thread", native_epoch)
+    native.set_num_threads(0)
+    for a, b, c, name in zip(got, again, one, ("j2", "mask", "sj", "rowsj",
+                                               "winj")):
+        if not (np.array_equal(a, b) and np.array_equal(a, c)):
+            raise AssertionError(f"prep: native {name} differs between "
+                                 "calls or thread counts")
+    j2, mask, sj, rowsj, winj = got
+    with numpy_prep():
+        timed("prep_epoch numpy", lambda: tpe.prep_epoch(
+            np.random.default_rng((1234, 0)), u2, i2, keys, U, I, 20, rh,
+            WROWS))
+        want = (tpe._reject_mask(u2, j2, keys, U, I),
+                *tpe._sorted_side(j2, rh, WROWS, tpe.TILE))
+    for a, b, name in zip((mask, sj, rowsj, winj), want,
+                          ("mask", "sj", "rowsj", "winj")):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"prep: native {name} differs from numpy's "
+                                 "on the native draws")
+    r2 = np.random.default_rng((1234, 1 << 20)).integers(
+        0, POOL_P, u2.shape, dtype=np.int32)
+
+    def pool(key_filter=None):
+        return tpe.prep_pool_epoch(np.random.default_rng((1234, 0)), u2,
+                                   keys, U, I, POOL_P, r2=r2,
+                                   key_filter=key_filter)
+
+    pn = timed("prep_pool_epoch native", lambda: pool(kf))
+    with numpy_prep():
+        pp = timed("prep_pool_epoch numpy", pool)
+    for a, b, name in zip(pn, pp, ("pool2", "rjs", "mask", "j2")):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"prep: native pool {name} differs from "
+                                 "numpy's")
+    if native.num_threads() != nthreads or torch.get_num_threads() != tt:
+        raise AssertionError("prep: a thread count moved")
+    torch.set_num_threads(2)
+    two = torch.get_num_threads()
+    torch.set_num_threads(tt)
+    if two != 2:
+        raise AssertionError("prep: torch.set_num_threads does not hold "
+                             "beside the native library's OpenMP runtime")
+    phase("prep", f"{u2.shape[0]} steps x {BATCH}: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in sec.items())
+          + f"; native {sec['prep_epoch numpy'] / sec['prep_epoch native']:.1f}x"
+          " numpy; mask live share "
+          f"{mask.mean():.6f}; same bits on two calls and at 1 thread; "
+          "mask, sj, rowsj, winj equal numpy's on the native draws; pool "
+          "rejection equals numpy's")
 
 
 def nbytes(*tensors) -> int:
@@ -946,17 +1062,25 @@ def quickstart(dev, neg_pool: int = 0):
 
 class _DeviceProbe:
     """A stand-in validation evaluator that checks, once per epoch, that
-    the live tables are on the card (it scores nothing)."""
+    the live tables are on the card (it scores nothing), and stamps the
+    host clock at each call (``stamps``: each epoch's end)."""
 
     def __init__(self, model):
         self.model = model
         self.calls = 0
+        self.stamps = []
 
     def evaluate(self, W, H):
         if self.model._state["W"].device.type != "cuda":
             raise AssertionError("W left the card during the fit")
         self.calls += 1
+        self.stamps.append(time.perf_counter())
         return {"DCG@5": 0.0}
+
+    def walls(self, t0: float) -> list:
+        """Each epoch's wall seconds, from ``t0`` (the fit's start: the
+        first epoch's holds the once-per-fit prep) to its probe call."""
+        return list(np.diff([t0, *self.stamps]))
 
 
 def full_width(X, dev):
@@ -971,10 +1095,16 @@ def bpr_fit(X, dev, epochs: int, what: str, want_v, want: dict,
     batch 131,072) through the public ``fit``; its pipeline and launches
     must be ``want_v`` and ``want`` (launches per step, times the steps
     run); ``want_v`` None is the wide engine (K >= 128), which has no
-    pipeline number.  With ``reckon`` (bytes), peak device memory must stay
-    under it."""
+    pipeline number.  Its negatives must come from the native prep, or
+    with ``neg_pool`` from the numpy stream with the native rejection.
+    Prints per epoch the host prep and device seconds (each epoch's prep
+    runs beside the previous epoch's device work), and the fit's wall
+    time and end-to-end int/s (interactions over the wall time) beside
+    the device int/s.  With ``reckon`` (bytes), peak device memory must
+    stay under it."""
     import cymf_tpu_torch as ct
     from cymf_tpu_torch.ops import _kernels
+    from cymf_tpu_torch.ops.packed_epoch import prep_backend
 
     m = ct.BPR(num_components=K, learning_rate=0.001, optimizer="adam",
                weight_decay=0.01, batch_size=BATCH, device=dev, **kw)
@@ -987,11 +1117,23 @@ def bpr_fit(X, dev, epochs: int, what: str, want_v, want: dict,
     m.fit(X, num_epochs=epochs, valid_evaluator=probe, verbose=False)
     wall = time.perf_counter() - t0
     launches = dict(_kernels.launches)
+    walls = probe.walls(t0)
     for e, st in enumerate(m.epoch_times_):
         phase(what, f"epoch {e}: host prep {st['prep_s']:.3f} s, device "
               f"{st['device_s']:.3f} s, {N / st['device_s']:.4e} int/s "
-              f"device, {N / (st['prep_s'] + st['device_s']):.4e} int/s "
-              "prep+device")
+              f"device, wall {walls[e]:.3f} s")
+    want_prep = "numpy" if kw.get("neg_pool") else "native"
+    dev_s = sum(st["device_s"] for st in m.epoch_times_)
+    phase(what, f"prep {m.prep_backend_} (rejection "
+          f"{prep_backend()}); fit wall {wall:.3f} s for {epochs} epochs: "
+          f"{N * epochs / wall:.4e} int/s end to end, "
+          f"{N * epochs / dev_s:.4e} int/s device"
+          + (f"; epochs after the first {N / np.mean(walls[1:]):.4e} int/s "
+             "end to end" if epochs > 1 else ""))
+    if m.prep_backend_ != want_prep or prep_backend() != "native":
+        raise AssertionError(f"{what}: prep {m.prep_backend_}, rejection "
+                             f"{prep_backend()}, expected {want_prep} with "
+                             "the native rejection")
     want = {k: v * epochs * S for k, v in want.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     v = getattr(m, "packed_kernel_", None) if want_v else None
@@ -2272,11 +2414,17 @@ def main() -> int:
     path = _kernels.build(verbose=True)
     _kernels.lib()
     phase("build", f"{path.name} in {time.perf_counter() - t0:.1f} s")
+    from cymf_tpu_torch import native
+    t0 = time.perf_counter()
+    path = native.build()
+    native.lib()
+    phase("build", f"{path.name} in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     X = bench_matrix()
     phase("data", f"ML-20M-shaped matrix {X.shape}, {X.count_nonzero()} "
           f"interactions in {time.perf_counter() - t0:.1f} s")
+    prep_phase(X)
     results = check_kernels(X, dev)
     results.update(check_fused_kernels(X, dev))
     wide, ids = check_wide_kernels(X, dev)

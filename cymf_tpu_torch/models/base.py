@@ -13,6 +13,8 @@ tables are training state, not layers, so nothing here is an
 
 from __future__ import annotations
 
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -181,6 +183,84 @@ class MFTrainerBase:
         if self.valid_evaluator and self.early_stopping \
                 and stopper.best_snapshot is not None:
             restore_fn(stopper.best_snapshot)
+
+    # epoch e+1's host prep runs on a worker thread while epoch e runs;
+    # the tables are the same bits either way (a test turns it off)
+    _overlap_prep = True
+
+    def _run_device_epochs(self, num_epochs: int, verbose: bool, prep, run,
+                           publish) -> None:
+        """The fused engines' epoch loop: per epoch the host prep
+        ``prep(epoch)`` (a tuple of streams; ``prep`` None: the epoch has
+        none), then ``run(epoch, *streams)``, the uploads and steps, which
+        returns the epoch's loss, then ``publish()`` of the live tables;
+        validation, early stopping and the best-epoch restore as
+        :meth:`_run_epochs` runs them, ``last_loss`` from the last epoch.
+
+        Epoch e+1's prep runs on a worker thread while epoch e is queued
+        and runs on the device (the native prep releases the interpreter
+        lock; each epoch's streams depend on its seed and epoch alone).  A
+        fit that stops early drops the epoch prepared last.
+        ``epoch_times_`` holds per epoch the host seconds of its prep
+        (``prep_s``, where there is one) and the seconds of its device
+        work (``device_s``: between CUDA events around ``run`` on the
+        card, the host clock on the CPU)."""
+        dev = self.device
+        publish()
+        self.epoch_times_ = []
+        loss = None
+        ahead = {}
+        pool = ThreadPoolExecutor(max_workers=1) \
+            if prep is not None and self._overlap_prep else None
+
+        def timed_prep(epoch):
+            t0 = time.perf_counter()
+            streams = prep(epoch)
+            return streams, time.perf_counter() - t0
+
+        def epoch_fn(epoch):
+            nonlocal loss
+            times, streams = {}, ()
+            if prep is not None:
+                fut = ahead.pop(epoch, None)
+                streams, times["prep_s"] = fut.result() if fut is not None \
+                    else timed_prep(epoch)
+                if pool is not None and epoch + 1 < num_epochs:
+                    ahead[epoch + 1] = pool.submit(timed_prep, epoch + 1)
+            if dev.type == "cuda":
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record(torch.cuda.current_stream(dev))
+                loss = run(epoch, *streams)
+                ev[1].record(torch.cuda.current_stream(dev))
+                ev[1].synchronize()
+                times["device_s"] = ev[0].elapsed_time(ev[1]) / 1e3
+            else:
+                t0 = time.perf_counter()
+                loss = run(epoch, *streams)
+                times["device_s"] = time.perf_counter() - t0
+            self.epoch_times_.append(times)
+            publish()
+
+        def snapshot_fn():
+            return (self.W, self.H)
+
+        def restore_fn(snap):
+            self.W, self.H = snap
+
+        try:
+            self._run_epochs(num_epochs, epoch_fn, snapshot_fn, restore_fn,
+                             verbose)
+        finally:
+            if pool is not None:
+                # an epoch that early stopping dropped: wait for its prep,
+                # whose streams go unused
+                for fut in ahead.values():
+                    if not fut.cancel():
+                        fut.exception()
+                pool.shutdown()
+        if loss is not None:
+            self.last_loss = float(loss)
+        self._drop_device_state()
 
 
 def _model_to_arrays(model) -> dict:

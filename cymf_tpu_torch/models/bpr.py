@@ -11,9 +11,10 @@ gradient, no factor 2).
 
 Port of `cymf_tpu/models/bpr.py` on two engines:
 
-- ``engine="xla"``: its single-chip fused paths (numpy host prep):
-  synchronous minibatches and the sorted accumulations.  For K <= 127 the
-  packed path (``_fit_packed``, `ops/packed_epoch.py`): packed tables and
+- ``engine="xla"``: its single-chip fused paths (host prep, native by
+  default, numpy under ``CYMF_TPU_PREP=numpy``; see
+  ``packed_epoch.prep_backend``): synchronous minibatches and the sorted
+  accumulations.  For K <= 127 the packed path (``_fit_packed``, `ops/packed_epoch.py`): packed tables and
   the fused sample kernels.  The kernel pipeline is the JAX package's
   data-dependent choice (``packed_epoch.engine_version``, recorded in
   ``packed_kernel_``): v5 or v6 where every chunk of a step's user-sorted
@@ -34,8 +35,8 @@ replay the JAX package's numpy streams, so both packages train on
 identical inputs.
 
 Not ported yet (see ROADMAP.md, queue 1): the XLA batch engine
-(``packed="off"``), checkpoints, the native C++ prep, device-side prep and
-the multi-device engines.  Each raises ``NotImplementedError`` under
+(``packed="off"``), checkpoints, device-side prep and the multi-device
+engines.  Each raises ``NotImplementedError`` under
 ``engine="xla"``; ``engine="pallas"`` takes none of them, as in the JAX
 package.
 """
@@ -50,10 +51,10 @@ import torch
 from ..ops import packed as pk
 from ..ops import pallas_engine as pe
 from ..ops.fused_step import supports_v8
-from ..ops.packed_epoch import (make_packed_optimizer, packed_bpr_epoch,
-                                packed_bpr_pool_epoch, prep_epoch,
-                                prep_pool_epoch, prep_static,
-                                prep_static_pool, unpack_device)
+from ..ops.packed_epoch import (make_packed_optimizer, make_reject_filter,
+                                packed_bpr_epoch, packed_bpr_pool_epoch,
+                                prep_backend, prep_epoch, prep_pool_epoch,
+                                prep_static, prep_static_pool, unpack_device)
 from ..ops.wide_epoch import (pack_wide, prep_static_wide, wide_bpr_epoch,
                               wide_rows, wide_sorted_masks)
 from .base import MFTrainerBase, PersistenceMixin, as_csr
@@ -151,8 +152,9 @@ class BPR(MFTrainerBase, PersistenceMixin):
         ``num_threads`` is accepted and ignored.  ``seed`` drives the
         negative sampler (`bpr.pyx:148`).  After the fit,
         ``epoch_times_`` holds per epoch the device seconds (``device_s``:
-        the epoch's uploads and steps, synchronised) and, on the packed
-        and wide engines, the host-prep seconds (``prep_s``).  The
+        the epoch's uploads and steps) and, on the packed and wide
+        engines, the host-prep seconds (``prep_s``; each epoch's prep runs
+        beside the previous epoch's device work).  The
         sequential engine logs one entry per launch, with the epochs it ran
         (``epochs``): one entry for a fit that runs as one launch.
         """
@@ -189,7 +191,9 @@ class BPR(MFTrainerBase, PersistenceMixin):
         """Packed tables + fused kernels + sorted accumulations with
         host-side negative streams; the pipeline as ``prep_static`` (or,
         with ``neg_pool``, v8) picks it."""
-        self.prep_backend_ = "numpy"
+        # which stream the negatives come from (native mt19937_64 or numpy
+        # PCG64); raises if the native library cannot be built
+        self.prep_backend_ = prep_backend()
         dev = self.device
         U, I = X.shape
         K = self.num_components
@@ -209,6 +213,9 @@ class BPR(MFTrainerBase, PersistenceMixin):
                 u2, i2, K, rw, rh, wrows_w, wrows_h)
             wstart = bcs = bcn = np.zeros((u2.shape[0], 1), np.int32)
             kernel_v = 8
+            # pool prep draws from the numpy stream alone; the native
+            # library only tests membership, bit-identically
+            self.prep_backend_ = "numpy"
         else:
             winw, wstart, si, rowsi, wini, bcs, bcn, kernel_v = \
                 prep_static(u2, i2, K, rw, rh, wrows_w, wrows_h)
@@ -216,6 +223,8 @@ class BPR(MFTrainerBase, PersistenceMixin):
         self.packed_kernel_ = kernel_v
         coo = X.tocoo()
         pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+        # once per fit: the rejection filter of both prep streams
+        key_filter = make_reject_filter(pos_keys, U, I)
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -247,11 +256,14 @@ class BPR(MFTrainerBase, PersistenceMixin):
             rng = np.random.default_rng((seed, epoch))
             if kernel_v == 8:
                 pool2, _, mask, _ = prep_pool_epoch(
-                    rng, u2, pos_keys, U, I, self.neg_pool, r2=r2_fit)
+                    rng, u2, pos_keys, U, I, self.neg_pool, r2=r2_fit,
+                    key_filter=key_filter)
                 return pool2, mask
-            return prep_epoch(rng, u2, i2, pos_keys, U, I, K, rh, wrows_h)
+            return prep_epoch(rng, u2, i2, pos_keys, U, I, K, rh, wrows_h,
+                              native_seed=seed * 1_000_003 + epoch,
+                              key_filter=key_filter)
 
-        def run(*streams):
+        def run(epoch, *streams):
             if kernel_v == 8:
                 pool2, mask = streams
                 return packed_bpr_pool_epoch(
@@ -263,46 +275,11 @@ class BPR(MFTrainerBase, PersistenceMixin):
 
         self._run_device_epochs(num_epochs, verbose, prep, run, publish)
 
-    def _run_device_epochs(self, num_epochs, verbose, prep, run, publish):
-        """The fused engines' epoch loop: per epoch ``prep(epoch)`` on the
-        host (``prep_s``), then ``run(*prepared)``, the uploads and steps,
-        synchronised (``device_s``), then ``publish()`` of the live
-        tables; validation, early stopping and ``last_loss`` as the
-        trainer base runs them."""
-        dev = self.device
-        publish()
-        self.epoch_times_ = []
-        loss = None
-
-        def epoch_fn(epoch):
-            nonlocal loss
-            t0 = time.perf_counter()
-            streams = prep(epoch)
-            t1 = time.perf_counter()
-            loss = run(*streams)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            self.epoch_times_.append(
-                {"prep_s": t1 - t0, "device_s": time.perf_counter() - t1})
-            publish()
-
-        def snapshot_fn():
-            return (self.W, self.H)
-
-        def restore_fn(snap):
-            self.W, self.H = snap
-
-        self._run_epochs(num_epochs, epoch_fn, snapshot_fn, restore_fn,
-                         verbose)
-        if loss is not None:
-            self.last_loss = float(loss)
-        self._drop_device_state()
-
     def _fit_wide(self, X, u2, i2, num_epochs, verbose, seed):
         """Wide tables (K >= 128) + the count-lane sorted accumulations,
         as ``cymf_tpu.BPR._fit_wide``: 512-row windows on both sides, the
-        numpy prep stream seeded ``(seed, epoch)``."""
-        self.prep_backend_ = "numpy"
+        prep streams of the packed engine."""
+        self.prep_backend_ = prep_backend()
         dev = self.device
         U, I = X.shape
         K = self.num_components
@@ -314,6 +291,7 @@ class BPR(MFTrainerBase, PersistenceMixin):
                                                         wrows)
         coo = X.tocoo()
         pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+        key_filter = make_reject_filter(pos_keys, U, I)
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -334,11 +312,12 @@ class BPR(MFTrainerBase, PersistenceMixin):
         def prep(epoch):
             j2, mask, sj, rowsj, winj = prep_epoch(
                 np.random.default_rng((seed, epoch)), u2, i2, pos_keys, U,
-                I, K, rh, wrows)
+                I, K, rh, wrows, native_seed=seed * 1_000_003 + epoch,
+                key_filter=key_filter)
             return (j2, mask, sj, rowsj, winj,
                     *wide_sorted_masks(mask, si, sj))
 
-        def run(*streams):
+        def run(epoch, *streams):
             return wide_bpr_epoch(Wd, Hd, ow, oh, *static,
                                   *(put(a) for a in streams), N, **kw)
 

@@ -17,9 +17,10 @@ a logical item table, the GloVe sample phase with theta on the
 decoration lane and the windowed accumulations.  Stream prep runs on the
 tables' device by default (``CYMF_TPU_RELMF_PREP=device``: draws from a
 ``torch.Generator``, hash-set labels, sorts and windows on the card), or
-on the host (``CYMF_TPU_RELMF_PREP=host``: the JAX package's numpy
-stream, capped at :data:`HOST_PREP_MAX_CELLS` cells an epoch; device prep
-has no cap).
+on the host (``CYMF_TPU_RELMF_PREP=host``: the JAX package's native
+stream, or its numpy stream under ``CYMF_TPU_PREP=numpy``, capped at
+:data:`HOST_PREP_MAX_CELLS` cells an epoch, each epoch's prep beside the
+previous epoch's device work; device prep has no cap).
 
 ``engine="pallas"`` runs the sequential small-catalog engine
 (``_fit_pallas``, `ops/pallas_engine.py`): every epoch's ``U * I`` cells
@@ -47,7 +48,8 @@ import torch
 from ..ops import packed as pk
 from ..ops import pallas_engine as pe
 from ..ops.hashset import build_pair_hashset, to_device
-from ..ops.packed_epoch import make_packed_optimizer, unpack_device
+from ..ops.packed_epoch import (make_packed_optimizer, make_reject_filter,
+                                prep_backend, unpack_device)
 from ..ops.relmf_epoch import (epoch_generator, packed_relmf_epoch,
                                packed_relmf_epoch_device, prep_relmf_epoch,
                                supports_packed_relmf)
@@ -102,7 +104,8 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         """``"device"`` (default): draws, labels, sorts and windows run on
         the tables' device, no per-epoch host streams and no epoch-size
         cap.  ``"host"`` (``CYMF_TPU_RELMF_PREP=host``): the per-epoch
-        numpy prep of the JAX package."""
+        host prep of the JAX package, native or numpy
+        (``packed_epoch.prep_backend``)."""
         mode = os.environ.get("CYMF_TPU_RELMF_PREP", "device").lower()
         if mode not in ("device", "host"):
             raise ValueError("CYMF_TPU_RELMF_PREP must be device|host")
@@ -140,9 +143,10 @@ class RelMF(MFTrainerBase, PersistenceMixin):
 
         ``num_threads`` is accepted and ignored; ``seed`` drives the cell
         draws.  After the fit, ``epoch_times_`` holds per epoch the
-        device seconds (``device_s``: the epoch's uploads and steps,
-        synchronised) and, under host prep or ``engine="pallas"``, the
-        host prep seconds (``prep_s``)."""
+        device seconds (``device_s``: the epoch's uploads and steps) and,
+        under host prep or ``engine="pallas"``, the host prep seconds
+        (``prep_s``; host prep runs beside the previous epoch's device
+        work)."""
         if checkpoint_path is not None or resume:
             raise NotImplementedError(f"checkpoints {_LATER}")
         X = as_csr(X)
@@ -181,7 +185,7 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         rh = pk.logical_rows(I, multiple=wrows_h)
         prep_mode = self._packed_prep_mode()
         self.prep_backend_ = "device-torch" if prep_mode == "device" \
-            else "numpy"
+            else prep_backend()
         self.last_loss = None
         coo = X.tocoo()
         invp = np.zeros((rh, 1), np.float32)
@@ -204,55 +208,38 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         kw = dict(opt_name=self.optimizer, lr=self.learning_rate,
                   weight_decay=self.weight_decay, K=K, rw=rw, rh=rh,
                   wrows_w=wrows_w, wrows_h=wrows_h)
-        if prep_mode == "device":
-            hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
-        else:
-            pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
-            invp_d = put(invp)
 
         def publish():
             self._state = {"W": unpack_device(Wp, K), "H": Hp[:, :K],
                            "owp": ow, "ohp": oh}
 
-        publish()
-        self.epoch_times_ = []
-        loss = None
+        if prep_mode == "device":
+            hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
 
-        def epoch_fn(epoch):
-            nonlocal loss
-            t0 = time.perf_counter()
-            times = {}
-            if prep_mode == "device":
-                loss = packed_relmf_epoch_device(
+            def run(epoch):
+                return packed_relmf_epoch_device(
                     Wp, Hp, ow, oh, hs, epoch_generator(seed, epoch, dev), S,
                     n_valid, B=B, num_users=U, num_items=I, **kw)
-            else:
-                u2, i2, lab, winw, si, rowsi, wini = prep_relmf_epoch(
-                    seed, epoch, S, B, U, I, K, rw, rh, wrows_w, wrows_h,
-                    pos_keys)
-                t1 = time.perf_counter()
-                times["prep_s"], t0 = t1 - t0, t1
-                loss = packed_relmf_epoch(
-                    Wp, Hp, ow, oh, *(put(a) for a in (
-                        u2, i2, lab, si, rowsi, wini, winw)), invp_d,
-                    n_valid, **kw)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            times["device_s"] = time.perf_counter() - t0
-            self.epoch_times_.append(times)
-            publish()
 
-        def snapshot_fn():
-            return (self.W, self.H)
+            self._run_device_epochs(num_epochs, verbose, None, run, publish)
+            return
 
-        def restore_fn(snap):
-            self.W, self.H = snap
+        pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+        key_filter = make_reject_filter(pos_keys, U, I)
+        invp_d = put(invp)
 
-        self._run_epochs(num_epochs, epoch_fn, snapshot_fn, restore_fn,
-                         verbose)
-        if loss is not None:
-            self.last_loss = float(loss)
-        self._drop_device_state()
+        def prep(epoch):
+            return prep_relmf_epoch(seed, epoch, S, B, U, I, K, rw, rh,
+                                    wrows_w, wrows_h, pos_keys,
+                                    key_filter=key_filter)
+
+        def run(epoch, u2, i2, lab, winw, si, rowsi, wini):
+            return packed_relmf_epoch(
+                Wp, Hp, ow, oh, *(put(a) for a in (
+                    u2, i2, lab, si, rowsi, wini, winw)), invp_d, n_valid,
+                **kw)
+
+        self._run_device_epochs(num_epochs, verbose, prep, run, publish)
 
     def _fit_pallas(self, X, props, num_epochs, verbose, seed,
                     chunk: int = 4096, group: int = 8):

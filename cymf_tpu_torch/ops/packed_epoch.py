@@ -33,13 +33,15 @@ Weight decay is rebuilt per row as ``wd * n_r * T_r`` from the live-sample
 counts of the count channel, and a row is touched iff a live sample hit
 it: the count-based mask of the JAX package, never a value-based one.
 
-Host prep is the numpy branch of the JAX package, verbatim
-(:func:`prep_static`, :func:`prep_epoch` with the same
+Host prep is the JAX package's, both of its streams: the native C++
+OpenMP pipeline (:mod:`cymf_tpu_torch.native`, the mt19937_64 stream,
+:func:`prep_epoch` with ``native_seed``, rejection behind the one-bit
+filter of :func:`make_reject_filter`) by default, and the numpy branch
+verbatim (:func:`prep_static`, :func:`prep_epoch` with the same
 ``default_rng((seed, epoch))`` draws, :func:`prep_static_pool`,
-:func:`prep_pool_epoch`), so both packages train on the same streams and
-pick the same pipeline.  The device-side prep
-(``packed_bpr_epoch_device_j``) and the native C++ prep with its reject
-filter are not ported yet.
+:func:`prep_pool_epoch`) under ``CYMF_TPU_PREP=numpy``, so both packages
+train on the same streams and pick the same pipeline.  The device-side
+prep (``packed_bpr_epoch_device_j``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ import torch
 
 import os
 
+from .. import native
 from . import packed as pk
 from .fused_sample import (TILE as SAMPLE_TILE, WROWS_A, bpr_sample_phase,
                            bpr_sample_phase_v5, decorate)
@@ -335,9 +338,68 @@ def _packed_windows(u2, s: int, rw: int, wrows: int, tile: int):
     return win
 
 
-def _reject_mask(u2, j2, pos_keys, num_users: int, num_items: int):
+def prep_backend() -> str:
+    """Which epoch-prep stream :func:`prep_epoch` draws: ``"native"`` (the
+    C++ OpenMP pipeline, mt19937_64) or ``"numpy"`` (PCG64);
+    ``CYMF_TPU_PREP=numpy`` forces the numpy stream, as in the JAX
+    package.
+
+    Unlike the JAX package, which falls back to numpy when its extension
+    is absent, this raises ``RuntimeError`` with the compiler's output when
+    the native library cannot be built or loaded: a fit would otherwise
+    draw another stream than the one asked for, and run many times slower,
+    without a word.  ``CYMF_TPU_PREP=numpy`` is the one way to the numpy
+    stream."""
+    if os.environ.get("CYMF_TPU_PREP", "").lower() == "numpy":
+        return "numpy"
+    native.lib()
+    return "native"
+
+
+def make_reject_filter(pos_keys, num_users: int, num_items: int):
+    """One-per-fit rejection acceleration state for :func:`_reject_mask`
+    and the native :func:`prep_epoch`: ``(keys, filter_bits, indptr,
+    log2_bits)``, a one-bit hash filter over the sorted positive keys
+    (~16 bits a key) and the per-user indptr of the exact fallback.
+    ``None`` when there are no keys, or under ``CYMF_TPU_PREP=numpy``
+    (the numpy path then runs and the library need not build)."""
+    if len(pos_keys) == 0 or prep_backend() == "numpy":
+        return None
+    keys = np.ascontiguousarray(pos_keys, np.int64)
+    log2_bits = int(np.clip(int(np.ceil(np.log2(len(keys) * 16))), 10, 33))
+    filt = native.build_key_filter(keys, log2_bits)
+    return keys, filt, _user_indptr(keys, num_users, num_items), log2_bits
+
+
+def _user_indptr(keys, num_users: int, num_items: int) -> np.ndarray:
+    """Each user's range of the sorted keys ``u * num_items + i``: int64
+    ``[num_users + 1]``."""
+    return np.searchsorted(
+        keys, np.arange(num_users + 1, dtype=np.int64)
+        * num_items).astype(np.int64)
+
+
+def _reject_mask(u2, j2, pos_keys, num_users: int, num_items: int,
+                 key_filter=None):
     """``1`` (uint8) where the sample is in-data and ``(u, j)`` is not a
-    known positive (``pos_keys``: sorted ``u * num_items + i``)."""
+    known positive (``pos_keys``: sorted ``u * num_items + i``).  The
+    membership test runs in the native library unless
+    ``CYMF_TPU_PREP=numpy``: behind ``key_filter``'s filter when given,
+    else by per-user ranges of the keys; both equal the numpy path bit
+    for bit, which stays the only source of draws."""
+    if prep_backend() == "native":
+        u2c = np.ascontiguousarray(u2, np.int32)
+        j2c = np.ascontiguousarray(j2, np.int32)
+        if key_filter is not None:
+            keys, filt, indptr, log2_bits = key_filter
+            m = native.pool_reject_v3(u2c, j2c, keys, indptr, filt, u2c.size,
+                                      num_users, num_items, log2_bits)
+        else:
+            keys = np.ascontiguousarray(pos_keys, np.int64)
+            m = native.pool_reject_v2(
+                u2c, j2c, keys, _user_indptr(keys, num_users, num_items),
+                u2c.size, num_users, num_items)
+        return m.reshape(u2.shape).astype(np.uint8)
     u64 = u2.astype(np.int64)
     in_data = u64 < num_users
     keys = u64 * num_items + j2
@@ -476,11 +538,13 @@ def prep_static_pool(u2, i2, K: int, rw: int, rh: int, wrows_w: int,
 
 def prep_pool_epoch(rng: np.random.Generator, u2: np.ndarray,
                     pos_keys: np.ndarray, num_users: int, num_items: int,
-                    P: int, r2=None):
+                    P: int, r2=None, key_filter=None):
     """Per-epoch pool prep: P pool items per step (uniform, with
     replacement), per-sample pool slots, and the rejection mask — the
     pool analogue of :func:`prep_epoch`'s draws (`bpr.pyx:165-167`).
-    The numpy (PCG64) stream of the JAX package's ``prep_pool_epoch``.
+    The numpy (PCG64) stream of the JAX package's ``prep_pool_epoch``,
+    whatever the backend: the native library only tests membership
+    (:func:`_reject_mask`, behind ``key_filter``'s filter when given).
 
     ``r2`` (per-sample pool slots) may be drawn ONCE per fit and passed
     in: with a fresh uniform pool every epoch, ``j = pool_e[r]`` is
@@ -493,21 +557,46 @@ def prep_pool_epoch(rng: np.random.Generator, u2: np.ndarray,
     if r2 is None:
         r2 = rng.integers(0, P, (S, B), dtype=np.int32)
     j2 = pool2[np.arange(S)[:, None], r2]
-    mask = _reject_mask(u2, j2, pos_keys, num_users, num_items)
+    mask = _reject_mask(u2, j2, pos_keys, num_users, num_items,
+                        key_filter=key_filter)
     return pool2, r2.reshape(S, B // 128, 128), mask, j2
 
 
 def prep_epoch(rng: np.random.Generator, u2: np.ndarray, i2: np.ndarray,
                pos_keys: np.ndarray, num_users: int, num_items: int, K: int,
-               rh: int, wrows_h: int, tile: int = TILE):
+               rh: int, wrows_h: int, tile: int = TILE, native_seed=None,
+               key_filter=None):
     """Once per epoch: negative draws, rejection+padding mask, and the
     j-side sort permutation/rows/windows.  Mirrors `bpr.pyx:165-167`: one
     uniform draw per interaction, collisions with known positives masked
-    out.  The numpy (PCG64) stream of the JAX package's ``prep_epoch``
-    under ``CYMF_TPU_PREP=numpy``.
+    out.
+
+    With ``native_seed`` and the native backend (:func:`prep_backend`),
+    the whole pass runs in the native library (OpenMP over steps,
+    counting sorts; rejection behind ``key_filter``'s filter when given):
+    the JAX package's mt19937_64 stream for that seed, which also depends
+    on the C++ standard library's ``std::uniform_int_distribution``.
+    Otherwise ``rng`` draws the numpy (PCG64) stream of the JAX package's
+    ``prep_epoch`` under ``CYMF_TPU_PREP=numpy``.  Each stream is
+    deterministic in its seed.
 
     Returns ``(j2, mask uint8, sj, rowsj, winj)``."""
     S, B = u2.shape
+    if native_seed is not None and prep_backend() == "native":
+        u2 = np.ascontiguousarray(u2, np.int32)
+        # slots=1: the logical H layout's target row IS the item id
+        if key_filter is not None:
+            fkeys, filt, indptr, log2_bits = key_filter
+            j2, mask, sj, rowsj, winj = native.bpr_prep_epoch_v3(
+                u2, fkeys, indptr, filt, S, B, num_users, num_items, 1, rh,
+                wrows_h, tile, native_seed, log2_bits)
+        else:
+            j2, mask, sj, rowsj, winj = native.bpr_prep_epoch_v2(
+                u2, np.ascontiguousarray(pos_keys, np.int64), S, B, num_users, num_items, 1, rh, wrows_h,
+                tile, native_seed)
+        return (j2.reshape(S, B), mask.reshape(S, B).astype(np.uint8),
+                sj.reshape(S, B), rowsj.reshape(S, B // 128, 128),
+                winj.reshape(S, 2, rh // wrows_h))
     j2 = rng.integers(0, num_items, (S, B)).astype(np.int32)
     mask = _reject_mask(u2, j2, pos_keys, num_users, num_items)
     sj, rowsj, winj = _sorted_side(j2, rh, wrows_h, tile)

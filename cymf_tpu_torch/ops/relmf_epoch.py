@@ -19,9 +19,10 @@ gradient.  What differs from GloVe is in the step:
 Every epoch draws its whole cell stream.  Two sources feed the one step
 body, :func:`relmf_step`:
 
-* host prep (:func:`prep_relmf_epoch`): the JAX package's numpy branch,
-  verbatim, so both packages train on identical streams; ``1 / max(p, M)``
-  comes from a ``(rh, 1)`` column;
+* host prep (:func:`prep_relmf_epoch`): the JAX package's two host
+  streams, the native library's (mt19937_64, by default) and its numpy
+  branch verbatim (``CYMF_TPU_PREP=numpy``), so both packages train on
+  identical streams; ``1 / max(p, M)`` comes from a ``(rh, 1)`` column;
 * device prep (:func:`packed_relmf_epoch_device`): each step draws its
   cells from one explicit ``torch.Generator`` on the tables' device,
   labels them with the pair hash set, sorts them by user and builds both
@@ -43,8 +44,9 @@ from . import packed as pk
 from .fused_sample import decorate
 from .glove_epoch import decorate_x, glove_sample_phase
 from .hashset import PairHashSet, hashset_contains
+from .. import native
 from .packed_epoch import (TILE, _packed_windows, _pad_lanes, _reject_mask,
-                           _sorted_side, make_packed_optimizer)
+                           _sorted_side, make_packed_optimizer, prep_backend)
 from .sorted_accum import sorted_accum
 
 LANES = 128
@@ -59,15 +61,32 @@ def supports_packed_relmf(K: int) -> bool:
 def prep_relmf_epoch(seed, epoch, S: int, B: int, num_users: int,
                      num_items: int, K: int, rw: int, rh: int,
                      wrows_w: int, wrows_h: int, pos_keys: np.ndarray,
-                     tile: int = TILE):
+                     key_filter=None, tile: int = TILE):
     """Once per epoch, on the host: draw ``S*B`` uniform (u, i) cells (the
     reference samples positives and negatives, `relmf.pyx:143-148`),
     label them by membership in the sorted positive keys, sort each step
-    by user, and build both accumulation sides.  The numpy branch of the
-    JAX package (PCG64, ``default_rng((seed, epoch, 7))``), verbatim.
+    by user, and build both accumulation sides.
+
+    With ``key_filter`` (:func:`~.packed_epoch.make_reject_filter`) and
+    the native backend, the whole pass runs in the native library (OpenMP
+    over steps, counting sorts by the user's packed row, then by item):
+    the JAX package's mt19937_64 stream seeded ``seed * 1_000_003 + epoch
+    + 0x5e1f``.  Otherwise the numpy branch of the JAX package (PCG64,
+    ``default_rng((seed, epoch, 7))``), verbatim.
 
     Returns ``(u2, i2, lab, winw, si, rowsi, wini)``: every stream in
-    u-sorted per-step order, ``lab`` uint8."""
+    u-sorted per-step order (the native stream: sorted by packed row),
+    ``lab`` uint8."""
+    if key_filter is not None and prep_backend() == "native":
+        keys, filt, indptr, log2_bits = key_filter
+        nw, nh = rw // wrows_w, rh // wrows_h
+        u2, i2, lab, winw, si, rowsi, wini = native.relmf_prep_epoch(
+            keys, indptr, filt, S, B, num_users, num_items,
+            pk.num_slots(K), rw, rh, wrows_w, wrows_h, tile,
+            int(seed) * 1_000_003 + int(epoch) + 0x5e1f, log2_bits)
+        return (u2.reshape(S, B), i2.reshape(S, B), lab.reshape(S, B),
+                winw.reshape(S, 2, nw), si.reshape(S, B),
+                rowsi.reshape(S, B // 128, 128), wini.reshape(S, 2, nh))
     rng = np.random.default_rng((int(seed), int(epoch), 7))
     r = rng.integers(0, np.int64(num_users) * num_items, (S, B),
                      dtype=np.int64)
@@ -78,7 +97,8 @@ def prep_relmf_epoch(seed, epoch, S: int, B: int, num_users: int,
     i2 = np.take_along_axis(i2, order, axis=1)
     # label = membership in the positives: the complement of BPR's
     # rejection mask (every cell is in-data here)
-    lab = 1 - _reject_mask(u2, i2, pos_keys, num_users, num_items)
+    lab = 1 - _reject_mask(u2, i2, pos_keys, num_users, num_items,
+                           key_filter=key_filter)
     winw = _packed_windows(u2, pk.num_slots(K), rw, wrows_w, tile)
     si, rowsi, wini = _sorted_side(i2, rh, wrows_h, tile)
     return u2, i2, lab, winw, si, rowsi, wini

@@ -19,8 +19,10 @@ setup(
     description=("TPU-native matrix-factorization framework "
                  "(JAX/XLA/pjit/Pallas)"),
     packages=find_packages(exclude=("tests",)),
-    # the PyTorch port builds its CUDA kernels from these at first use
-    package_data={"cymf_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    # the PyTorch port builds its CUDA kernels and its native host prep
+    # from these at first use
+    package_data={"cymf_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                     "csrc/*.cpp"]},
     ext_modules=[
         Extension(
             "cymf_tpu.native._native",

@@ -63,6 +63,8 @@ def _one_torch_thread():
 
 @pytest.fixture
 def jax_host_numpy(monkeypatch):
+    # both packages on the numpy stream: the JAX side falls back to it
+    # where its extension is not built, and the port's default is native
     monkeypatch.setenv("CYMF_TPU_PREP", "numpy")
     monkeypatch.setenv("CYMF_TPU_RELMF_PREP", "host")
     with use_mesh(MeshContext.create(jax.devices()[:1])):
@@ -92,6 +94,7 @@ def _problem(seed=3):
 
 
 def test_prep_bit_equal(monkeypatch):
+    # the numpy branch on both sides (the port's default is native)
     monkeypatch.setenv("CYMF_TPU_PREP", "numpy")
     _, _, pos_keys, _, _, rw, rh = _problem()
     args = (7, 1, S, B, U, I, K, rw, rh, WROWS, WROWS, pos_keys)

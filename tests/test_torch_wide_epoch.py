@@ -50,6 +50,8 @@ def _one_torch_thread():
 
 @pytest.fixture(autouse=True)
 def _jax_numpy(monkeypatch):
+    # both packages on the numpy stream: the JAX side falls back to it
+    # where its extension is not built, and the port's default is native
     monkeypatch.setenv("CYMF_TPU_PREP", "numpy")
 
 
