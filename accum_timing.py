@@ -4,7 +4,7 @@ epochs of one checkout, timed on one CUDA card.
     python3 accum_timing.py [--repo DIR] [--profile] [--only PREFIXES]
 
 Runs the port in ``DIR`` (a checkout of the repository; this one by
-default) through this checkout's ``chip_smoke.py`` helpers, in five
+default) through this checkout's ``chip_smoke.py`` helpers, in six
 parts:
 
 1. ``sorted_accum`` (#2, and #2w with ``count_lanes``) at the main-path
@@ -50,16 +50,25 @@ parts:
    share of the RelMF steps after ``full`` and their device time by
    kernel (``chip_smoke.profile_relmf``).
 
+6. The row gather P3 (``probes.gather_rows``, sites named ``P3 ...``) at
+   ``chip_smoke.gather_sites``' eleven sites (the script's shapes, the
+   wide step's two gathers, the v4 step's five), each on a table of the
+   site's shape made from a seed on the card: the same bits as
+   ``gather_rows_plain``, then the kernel's and ``index_select``'s times
+   by call, in a loop and by device time, beside the bound
+   (``chip_smoke.gather_against_library``).
+
 ``--only '#5,#6,#7,bpr-v7'`` times only the sites whose names start with
 one of the prefixes given and runs only the phases named, in that order;
 ``bpr-v7`` is ``chip_smoke.py``'s phase of that name (``fit`` under
 ``CYMF_TPU_PACKED_KERNEL=7``) run for 2 epochs, the second one steady.
 To compare two checkouts (a ``git
 archive`` of the other unpacked under ``build/``), run them in turns in
-one command, A, B, B, A, and compare within it.  The call sites' inputs
-are built the first time (ML-20M shapes: ~1 min of host work) and kept in
-``build/`` under a hash of ``chip_smoke.py`` and this script, so that
-every run of the command times the same tensors.  Prints the card's name
+one command, A, B, B, A, and compare within it (``--only P3`` for the
+gather alone).  The call sites' inputs are built the first time (ML-20M
+shapes: ~1 min of host work; the P3 sites' ids apart, and only when
+asked for) and kept in ``build/`` under a hash of ``chip_smoke.py`` and
+this script, so that every run of the command times the same tensors.  Prints the card's name
 and power limit and, last, one JSON line of the call sites' times and
 the RelMF steps (before and after ``full``).  Imports nothing of JAX.
 """
@@ -172,12 +181,45 @@ def build_inputs(dev):
                 kw) for k, (args, kw) in sites.items()}
 
 
-def inputs_path() -> Path:
-    """The cached call sites, keyed by the helpers that build them."""
+def gather_inputs(dev):
+    """``{site: ((R, W, ids), {})}`` of P3's sites
+    (``chip_smoke.gather_sites``: the script's shapes, the wide step's
+    gathers at width 256 and the v4 step's five), the ids on the CPU; the
+    tables are made at run time (:func:`time_gather`)."""
+    import chip_smoke as cs
+    from cymf_tpu_torch.ops import fused_sample as fs
+
+    X = cs.bench_matrix()
+    t, rw, _ = cs.first_step(X, 20, dev)
+    _, Q, _ = fs.bpr_sample_phase_plain(t["Du"], t["Di"], t["Dj"], K=20,
+                                        wd=0.01)
+    v4 = cs.v4_gathers(t, Q, rw)
+    ids = cs.wide_step0(X, dev, Ks=(cs.WIDE_K,))["ids"]
+    return {f"P3 {what}": ((T.shape[0], T.shape[1], ix.cpu()), {})
+            for what, T, ix in cs.gather_sites(ids, v4, dev)}
+
+
+def time_gather(what, args) -> dict:
+    """One P3 site on a float32 table of its shape, made from a seed on
+    the card (a gather's time does not depend on the values):
+    ``chip_smoke.gather_against_library``, printed."""
+    import chip_smoke as cs
+
+    R, W, ix = args
+    gen = torch.Generator(ix.device).manual_seed(0)
+    T = torch.randn((R, W), generator=gen, device=ix.device)
+    res = cs.gather_against_library(T, ix, what[3:], REPS)
+    print(res.pop("line"), flush=True)
+    return res
+
+
+def inputs_path(kind: str = "accum") -> Path:
+    """The cached call sites (``kind`` ``accum`` or ``gather``), keyed by
+    the helpers that build them."""
     h = hashlib.sha256()
     for name in ("chip_smoke.py", "accum_timing.py"):
         h.update((ROOT / name).read_bytes())
-    return ROOT / "build" / f"accum_inputs_{h.hexdigest()[:16]}.pt"
+    return ROOT / "build" / f"{kind}_inputs_{h.hexdigest()[:16]}.pt"
 
 
 def time_dual(what, args, kw) -> dict:
@@ -304,9 +346,9 @@ def main() -> int:
                     help="also split each single-stream and fused site's "
                          "kernel calls by CUDA kernel with torch.profiler")
     ap.add_argument("--only", default="",
-                    help="comma-separated site prefixes (e.g. '#5,#6,#7') "
-                         "and phase names (relmf-ml20m, full, bpr-wide, "
-                         "bpr-v7): time only those, in that order")
+                    help="comma-separated site prefixes (e.g. '#5,#6,#7' "
+                         "or 'P3') and phase names (relmf-ml20m, full, "
+                         "bpr-wide, bpr-v7): time only those, in that order")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("accum_timing: no CUDA device", file=sys.stderr)
@@ -329,18 +371,28 @@ def main() -> int:
     print(f"package {Path(cymf_tpu_torch.__file__).parent}, library "
           f"{_kernels.build().name}", flush=True)
     _kernels.lib()
-    cache = inputs_path()
-    if not cache.exists():
-        cache.parent.mkdir(parents=True, exist_ok=True)
-        torch.save(build_inputs(dev), cache)
-    sites = torch.load(cache)
     only = tuple(p for p in opts.only.split(",") if p)
-    prefixes = tuple(p for p in only if p.startswith("#"))
+    prefixes = tuple(p for p in only if p.startswith(("#", "P3")))
+    sites = {}
+    for kind, build, wanted in (
+            ("accum", build_inputs, not only or any(
+                p.startswith("#") for p in prefixes)),
+            ("gather", gather_inputs, not only or any(
+                p.startswith("P3") for p in prefixes))):
+        cache = inputs_path(kind)
+        if wanted and not cache.exists():
+            cache.parent.mkdir(parents=True, exist_ok=True)
+            torch.save(build(dev), cache)
+        if wanted:
+            sites.update(torch.load(cache))
     out = {}
     for what, (args, kw) in sites.items():
         if only and not what.startswith(prefixes):
             continue
         args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+        if what.startswith("P3"):
+            out[what] = time_gather(what, args)
+            continue
         if what.split()[0] in _FUSED:
             out[what] = time_fused(what, args, kw, opts.profile)
             continue
@@ -355,7 +407,7 @@ def main() -> int:
             out[what]["split_ms"] = profile_site(what, args, kw)
     del sites, args
     cs = sys.modules["chip_smoke"]
-    phases = [p for p in only if not p.startswith("#")] if only else [
+    phases = [p for p in only if p not in prefixes] if only else [
         "relmf-ml20m", "full", "relmf-ml20m", "bpr-wide"]
     X = cs.bench_matrix() if phases else None
     st, relmf_ms = None, []

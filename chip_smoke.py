@@ -54,10 +54,14 @@ Phases, one line each; any failure raises and exits non-zero:
    calls; it is timed by call, in a loop and by device time a call, by
    CUDA kernel (``torch.profiler``), beside its bound;
    probes: P1 (``phase_v4r``) and P2 (``copy_phase``) at their scripts'
-   shapes (B = 131,072, K = 20) beside #1; P3 (``gather_rows``) at R =
-   27,136 and 131,072, width 128, random and sorted ids, and at the wide
-   step's gathers (W (138,752 x 256) by its sorted users, H (27,136 x
-   256) by its items), each beside ``index_select``;
+   shapes (B = 131,072, K = 20) beside #1; P3 (``gather_rows``) at eleven
+   sites: R = 27,136 and 131,072, width 128, random and sorted ids, the
+   wide step's gathers (W (138,752 x 256) by its sorted users, H (27,136
+   x 256) by its items) and the five gathers of the v4 step 0 (``Hp`` by
+   ``i`` and ``j``, ``Wp`` by the clamped ``phys_u``, ``Q`` by the
+   permutations ``si`` and ``sj``), each the same bits as plain and timed
+   beside ``index_select`` by call, in a loop and by device time, with its
+   bound (ids and distinct rows read once, the rows written);
 4. relmf-ml20m: 1,000 steps of the device-prep RelMF epoch at ML-20M
    shapes (a depth cut of the 28,259-step epoch); ms a step, cells/s,
    peak device memory against its reckoned bound;
@@ -129,7 +133,9 @@ its bound (the larger of bytes over 3.35 TB/s and float32 operations over
 67 TFLOP/s, counted on this run's inputs) and the time of the library call
 that computes the same function: ``index_add_`` for ``sorted_accum``,
 ``index_add_`` and ``bincount`` for ``sorted_accum_wide``,
-``index_select`` for ``gather_rows``, and for ``chol_inv_batched`` the two
+``index_select`` for ``gather_rows`` (which also carries ``loop_ms``,
+``device_ms`` and the library's ``library_loop_ms`` and
+``library_device_ms``), and for ``chol_inv_batched`` the two
 calls of its plain version, ``cholesky_ex`` and ``solve_triangular``
 (``library_call`` says so; no single PyTorch call computes both factors,
 nor any other kernel's function); the fused kernels #4-#7, the
@@ -277,7 +283,10 @@ def loop_ms(fn, reps: int = 20) -> float:
 def device_split(fn, reps: int = 20) -> dict:
     """Device time of ``fn()`` a call by CUDA kernel (memsets included),
     ``{name: ms}``, from ``torch.profiler`` over ``reps`` back-to-back
-    calls after a warm-up."""
+    calls after a warm-up.  Only the device's own events count: the
+    profiler also gives a PyTorch operator (``aten::index_select``) the
+    time of the kernels it launched, which would count them twice."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -289,6 +298,8 @@ def device_split(fn, reps: int = 20) -> dict:
         torch.cuda.synchronize()
     split = {}
     for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
             t = ev.self_cuda_time_total
@@ -407,6 +418,7 @@ def check_kernels(X, dev):
                         B * 128 * (2 * pk.num_slots(K) + 20)),
                 library_ms=None)
             msg += f"; {ms:.4f} ms vs plain {pms:.4f} ms"
+            gathers = v4_gathers(t, Q, rw)
         phase("kernels", msg)
         if K != 20:
             continue
@@ -421,7 +433,100 @@ def check_kernels(X, dev):
         results["sorted_accum_dual"] = check_dual(
             h_args, dict(r_pad=rh, neg_lanes=K, wrows=WROWS),
             f"ML-20M d={K} step 0, H side, wrows {WROWS}")
-    return results
+    return results, gathers
+
+
+def v4_gathers(t, Q, rw):
+    """The five row gathers of a v4 step (``ops/packed_epoch.py``) on
+    :func:`first_step`'s tensors and the step's ``Q``, ``[(what, table,
+    int32 ids)]``: ``Hp`` by ``i`` and by ``j``, ``Wp`` by the clamped
+    ``phys_u``, ``Q`` by the permutations ``si`` and ``sj``."""
+    return [(what, T, ix.to(torch.int32)) for what, T, ix in (
+        ("v4 step 0: Hp by i", t["Hp"], t["i"]),
+        ("v4 step 0: Hp by j", t["Hp"], t["j"]),
+        ("v4 step 0: Wp by clamped phys_u", t["Wp"],
+         t["phys"].clamp(max=rw - 1)),
+        ("v4 step 0: Q by si (a permutation)", Q, t["si"]),
+        ("v4 step 0: Q by sj (a permutation)", Q, t["sj"]))]
+
+
+def gather_sites(ids, v4, dev):
+    """P3's sites, ``[(what, table, int32 ids)]``: the script's shape and a
+    narrower table (R = 131,072 and 27,136, width 128, B = 131,072 random
+    ids and the same sorted), the wide step's gathers (``ids``: its user
+    and item ids and its W and H at width 256; W by the clamped users, as
+    ``wide_sample_phase`` reads it) and the v4 step's five
+    (:func:`v4_gathers`)."""
+    rng = np.random.default_rng(1)
+    sites = []
+    for R in (27136, 131072):
+        T = torch.from_numpy(rng.normal(size=(R, 128)).astype(
+            np.float32)).to(dev)
+        idx = rng.integers(0, R, BATCH).astype(np.int32)
+        for order, ix in (("random", idx), ("sorted", np.sort(idx))):
+            sites.append((f"R={R} w=128 {order} ids", T,
+                          torch.from_numpy(ix).to(dev)))
+    u, i, W, H = ids
+    sites += [("wide step 0: W by its sorted user ids", W,
+               u.clamp(max=W.shape[0] - 1).to(torch.int32)),
+              ("wide step 0: H by its item ids", H, i.to(torch.int32))]
+    return sites + list(v4)
+
+
+def same_bits(got, want) -> bool:
+    """True where two float32 tensors have one shape and the same bits."""
+    return got.shape == want.shape and torch.equal(got.view(torch.int32),
+                                                   want.view(torch.int32))
+
+
+def gather_bound(T, ix) -> dict:
+    """P3's bound: the ids and each distinct row read once, the ``B`` rows
+    written once."""
+    row = T.shape[1] * 4
+    return bound(ix.numel() * 4 + torch.unique(ix).numel() * row
+                 + ix.numel() * row, 0)
+
+
+def gather_against_library(T, ix, what, reps: int = 20) -> dict:
+    """P3 at one site: the kernel's bits against ``gather_rows_plain``'s
+    (raises on any difference), then the kernel's and ``index_select``'s
+    times, each by call (:func:`time_ms`), in a loop (:func:`loop_ms`) and
+    by device time a call (:func:`device_split`), the plain form's by call,
+    and the bound (:func:`gather_bound`); ``line`` says it all.  Uses only
+    what every version of the wrapper has, so that ``accum_timing.py``
+    times older checkouts with it."""
+    from cymf_tpu_torch.ops import probes as pr
+
+    got = pr.gather_rows(T, ix)
+    want = pr.gather_rows_plain(T, ix)
+    torch.cuda.synchronize()
+    if not same_bits(got, want):
+        raise AssertionError(f"gather_rows {what}: differs from plain")
+
+    def kernel():
+        return pr.gather_rows(T, ix)
+
+    def lib():
+        return torch.index_select(T, 0, ix)
+
+    res = dict(max_abs_err=0.0, ms=time_ms(kernel, reps),
+               loop_ms=loop_ms(kernel, reps),
+               device_ms=sum(device_split(kernel, reps).values()),
+               plain_ms=time_ms(lambda: pr.gather_rows_plain(T, ix), reps),
+               **gather_bound(T, ix), library_ms=time_ms(lib, reps),
+               library_loop_ms=loop_ms(lib, reps),
+               library_device_ms=sum(device_split(lib, reps).values()))
+    n = ix.numel()
+    res["line"] = (
+        f"P3 gather_rows {what} (B={n}, table {tuple(T.shape)}, "
+        f"{torch.unique(ix).numel()} distinct rows): the same bits as plain; "
+        f"kernel {res['ms']:.4f} ms a call, {res['loop_ms']:.4f} in a loop, "
+        f"device {res['device_ms']:.4f}; index_select {res['library_ms']:.4f}"
+        f" / {res['library_loop_ms']:.4f} / {res['library_device_ms']:.4f}; "
+        f"plain {res['plain_ms']:.4f}; bound {res['bound_ms']:.4f} ms, "
+        f"{100 * res['bound_ms'] / res['device_ms']:.1f}% of it by device "
+        f"time")
+    return res
 
 
 class env_set:
@@ -912,17 +1017,18 @@ def one_ulp(want):
     return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
 
 
-def probes(ids, dev):
+def probes(ids, v4, dev):
     """The probes P1-P3 (``csrc/probes.cu``) at their scripts' shapes, each
     against its plain form and timed beside what it measures: P1
     (``phase_v4r``) and P2 (``copy_phase``) beside #1 on the same tiles
     (P1's SW and Q within an ulp of #1's kernel, its loss 1e-5 relative; P2
-    exact); P3 (``gather_rows``) at R = 27,136 and 131,072, width 128, by
-    random and sorted ids, and at the wide step's gathers, W (rw, 256) by
-    the step's sorted user ids and H (rh, 256) by its item ids, exact and
-    beside ``index_select``.  The launches counted are the checked calls'
-    (the phase's own run), not the timing repetitions'.  Returns
-    ``(results, launches)``."""
+    exact); P3 (``gather_rows``) at the eleven sites of
+    :func:`gather_sites` (``v4``: :func:`v4_gathers`), each the same bits
+    as plain and timed beside ``index_select`` by call, in a loop and by
+    device time (:func:`gather_against_library`), and at the script's
+    shape at every ``rows_in_flight``.  The launches counted are the
+    checked calls' (the phase's own run: one a site), not the timing
+    repetitions'.  Returns ``(results, launches)``."""
     from cymf_tpu_torch.ops import _kernels
     from cymf_tpu_torch.ops import fused_sample as fs
     from cymf_tpu_torch.ops import packed as pk
@@ -934,21 +1040,8 @@ def probes(ids, dev):
     _kernels.reset_launches()
     SW, Q, loss = pr.phase_v4r(*tiles, K=K, wd=wd)
     cp = pr.copy_phase(*tiles)
-    gathers = []
-    rng = np.random.default_rng(1)
-    for R in (27136, 131072):
-        T = torch.from_numpy(rng.normal(size=(R, 128)).astype(
-            np.float32)).to(dev)
-        idx = rng.integers(0, R, B).astype(np.int32)
-        for order, ix in (("random", idx), ("sorted", np.sort(idx))):
-            ix = torch.from_numpy(ix).to(dev)
-            gathers.append((f"R={R} w=128 {order} ids", T, ix,
-                            pr.gather_rows(T, ix)))
-    u, i, W, H = ids
-    for what, T, ix in (("W (rw, 256) by the wide step's sorted user ids", W,
-                         u),
-                        ("H (rh, 256) by its item ids", H, i)):
-        gathers.append((what, T, ix, pr.gather_rows(T, ix)))
+    gathers = [(what, T, ix, pr.gather_rows(T, ix))
+               for what, T, ix in gather_sites(ids, v4, dev)]
     torch.cuda.synchronize()
     launches = dict(_kernels.launches)
 
@@ -991,31 +1084,30 @@ def probes(ids, dev):
           f"{results['copy_phase']['bound_ms']:.4f} ms")
 
     for what, T, ix, got in gathers:
-        close(got, pr.gather_rows_plain(T, ix), 0.0, 0.0,
-              f"gather_rows {what}")
-        ms = time_ms(lambda: pr.gather_rows(T, ix))
-        pms = time_ms(lambda: pr.gather_rows_plain(T, ix))
-        lms = time_ms(lambda: torch.index_select(T, 0, ix))
-        n = ix.shape[0]
-        b = bound(n * 4 + 2 * n * T.shape[1] * 4, 0)
-        phase("probes", f"P3 gather_rows {what} (B={n}, table "
-              f"{tuple(T.shape)}, rows in flight 8): exact; {ms:.4f} ms "
-              f"({n / ms / 1e3:.1f}M rows/s) vs index_select {lms:.4f} ms, "
-              f"plain {pms:.4f} ms, bound {b['bound_ms']:.4f} ms")
+        if not same_bits(got, pr.gather_rows_plain(T, ix)):
+            raise AssertionError(f"gather_rows {what}: the checked call "
+                                 "differs from plain")
+        res = gather_against_library(T, ix, what)
+        phase("probes", res.pop("line"))
         if what.startswith("R=131072 w=128 random"):
             # the script's own pallas_gather shape is the JSON entry's, and
-            # its sweep of rows in flight (the script's q)
-            results["gather_rows"] = dict(max_abs_err=0.0, ms=ms,
-                                          plain_ms=pms, **b, library_ms=lms)
+            # its sweep of the rows a warp keeps in flight (the script's q)
+            results["gather_rows"] = res
             sweep = []
             for q in pr.ROWS_IN_FLIGHT:
-                close(pr.gather_rows(T, ix, rows_in_flight=q),
-                      pr.gather_rows_plain(T, ix), 0.0, 0.0,
-                      f"gather_rows {what}, {q} rows in flight")
-                qms = time_ms(lambda: pr.gather_rows(T, ix, rows_in_flight=q))
-                sweep.append(f"{q}: {qms:.4f} ms")
-            phase("probes", f"P3 gather_rows {what}, exact at every count "
-                  f"of rows in flight a warp: {', '.join(sweep)}")
+                if not same_bits(pr.gather_rows(T, ix, rows_in_flight=q),
+                                 pr.gather_rows_plain(T, ix)):
+                    raise AssertionError(f"gather_rows {what}: differs from "
+                                         f"plain at rows_in_flight {q}")
+
+                def call():
+                    return pr.gather_rows(T, ix, rows_in_flight=q)
+
+                sweep.append(f"{q}: {time_ms(call):.4f} / "
+                             f"{loop_ms(call):.4f}")
+            phase("probes", f"P3 gather_rows {what}, the same bits at every "
+                  f"rows_in_flight, ms a call / in a loop: "
+                  f"{', '.join(sweep)}")
     return results, launches
 
 
@@ -2425,13 +2517,13 @@ def main() -> int:
     phase("data", f"ML-20M-shaped matrix {X.shape}, {X.count_nonzero()} "
           f"interactions in {time.perf_counter() - t0:.1f} s")
     prep_phase(X)
-    results = check_kernels(X, dev)
+    results, v4 = check_kernels(X, dev)
     results.update(check_fused_kernels(X, dev))
     wide, ids = check_wide_kernels(X, dev)
     results.update(wide)
-    probed, probe_launches = probes(ids, dev)
+    probed, probe_launches = probes(ids, v4, dev)
     results.update(probed)
-    del ids
+    del ids, v4
     results["chol_inv_batched"] = check_chol(X, dev)
     relmf = relmf_ml20m_state(X, dev)
     G = glove_matrix()

@@ -18,13 +18,16 @@
 //
 // P3 replaces scripts/roofline_gather.py::pallas_gather: out[k] =
 // T[idx[k]] for a (R, W) float32 table.  The TPU kernel issues one DMA a
-// row with q in flight on semaphores; here a warp copies rows with float4
-// loads, NR rows' loads in flight before their stores.  Ids outside
-// [0, R) read nothing and give zero rows.
+// row with q in flight on semaphores; here persistent warps keep a batch
+// of whole rows' float4 loads in flight before their stores (gather_kernel
+// below).  Ids outside [0, R) read nothing and give zero rows.  A form with
+// one TMA bulk copy a row into a shared-memory ring and one bulk store a
+// stage was measured beside it and lost or tied at every site (PERF.md's
+// findings): ~1,000 row copies an SM a call left it issue-bound.
 //
 // Bounds on the H100: memory, all three.  P1 and P2 read 3 and write 2
-// (B, 128) f32 tiles (~10 and ~1 flops an element); P3 reads B rows and
-// writes B rows.
+// (B, 128) f32 tiles (~10 and ~1 flops an element); P3 reads the ids and
+// each distinct row once and writes B rows.
 
 #include <cuda_runtime.h>
 
@@ -147,44 +150,92 @@ copy_phase_kernel(const float4* __restrict__ du, const float4* __restrict__ di,
   }
 }
 
+// P3: persistent warps walk batches of NR consecutive output rows (batch
+// b goes to global warp b mod the grid's warps).  Lane j < NR holds row
+// j's id, fetched one batch ahead; the warp loads every float4 of its NR
+// rows (C a lane a row; wider rows in further passes of 32 C float4)
+// through the non-coherent path before it stores any, and stores them
+// streaming (__stcs), so a warp keeps NR x C 16-byte loads a lane in
+// flight at any width.  NR x C <= 32 keeps the values in registers.
 constexpr int GATHER_THREADS = 256;
 
-template <int NR>
+template <int NR, int C>
 __global__ void __launch_bounds__(GATHER_THREADS)
 gather_kernel(const float4* __restrict__ table, const int* __restrict__ idx,
               float4* __restrict__ out, int B, int R, int w4) {
   const int lane = threadIdx.x & 31;
-  const int warp = (blockIdx.x * GATHER_THREADS + threadIdx.x) >> 5;
-  const int nwarps = (gridDim.x * GATHER_THREADS) >> 5;
-  for (int b0 = warp * NR; b0 < B; b0 += nwarps * NR) {
+  const long long gw =
+      (static_cast<long long>(blockIdx.x) * GATHER_THREADS + threadIdx.x) >>
+      5;
+  const long long nwarps =
+      (static_cast<long long>(gridDim.x) * GATHER_THREADS) >> 5;
+  const long long batches = (static_cast<long long>(B) + NR - 1) / NR;
+  auto batch_id = [&](long long b) {  // lane j: row j of batch b's id
+    const long long r = b * NR + lane;
+    return b < batches && lane < NR && r < B ? __ldg(idx + r) : -1;
+  };
+  int next = batch_id(gw);
+  for (long long b = gw; b < batches; b += nwarps) {
+    const int cur = next;
+    next = batch_id(b + nwarps);
+    const long long b0 = b * NR;
     int src[NR];
 #pragma unroll
     for (int j = 0; j < NR; ++j) {
-      const int r = b0 + j < B ? idx[b0 + j] : -1;
+      const int r = __shfl_sync(FULL_MASK, cur, j);
       src[j] = r >= 0 && r < R ? r : -1;
     }
-    for (int c = lane; c < w4; c += 32) {
-      float4 v[NR];
+    for (int c0 = 0; c0 < w4; c0 += 32 * C) {
+      float4 v[NR][C];
 #pragma unroll
       for (int j = 0; j < NR; ++j)
-        v[j] = src[j] >= 0 ? table[static_cast<size_t>(src[j]) * w4 + c]
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int col = c0 + c * 32 + lane;
+          v[j][c] = src[j] >= 0 && col < w4
+                        ? __ldg(table + static_cast<size_t>(src[j]) * w4 + col)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
 #pragma unroll
       for (int j = 0; j < NR; ++j)
-        if (b0 + j < B) out[static_cast<size_t>(b0 + j) * w4 + c] = v[j];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int col = c0 + c * 32 + lane;
+          if (b0 + j < B && col < w4)
+            __stcs(out + static_cast<size_t>(b0 + j) * w4 + col, v[j][c]);
+        }
     }
   }
 }
 
-template <int NR>
-void launch_gather(const float* table, const int* idx, float* out, int B,
-                   int R, int w4, cudaStream_t stream) {
-  const int rows_per_block = (GATHER_THREADS / 32) * NR;
-  const int blocks = (B + rows_per_block - 1) / rows_per_block;
-  if (blocks > 0)
-    gather_kernel<NR><<<blocks, GATHER_THREADS, 0, stream>>>(
-        reinterpret_cast<const float4*>(table), idx,
-        reinterpret_cast<float4*>(out), B, R, w4);
+// The instantiations: NR rows a batch (1-16) by C float4 a lane a row
+// (1-8), NR x C <= 32.  Returns the kernel, or nullptr for another pair.
+using GatherFn = void (*)(const float4*, const int*, float4*, int, int, int);
+
+template <int C>
+GatherFn gather_fn_c(int nr) {
+  switch (nr) {
+    case 1: return gather_kernel<1, C>;
+    case 2: return gather_kernel<2, C>;
+    case 4: return gather_kernel<4, C>;
+    case 8:
+      if constexpr (C <= 4) return gather_kernel<8, C>;
+      break;
+    case 16:
+      if constexpr (C <= 2) return gather_kernel<16, C>;
+      break;
+  }
+  return nullptr;
+}
+
+GatherFn gather_fn(int nr, int c) {
+  switch (c) {
+    case 1: return gather_fn_c<1>(nr);
+    case 2: return gather_fn_c<2>(nr);
+    case 4: return gather_fn_c<4>(nr);
+    case 8: return gather_fn_c<8>(nr);
+  }
+  return nullptr;
 }
 
 }  // namespace
@@ -221,17 +272,29 @@ extern "C" int cymf_copy_phase(const float* du, const float* di,
   return static_cast<int>(cudaGetLastError());
 }
 
+// P3's blocks an SM for `rows` rows a batch and `lane4` float4 a lane a
+// row (probes.gather_plan sizes the grid from it); negative: no such
+// kernel, or the CUDA error, negated.
+extern "C" int cymf_gather_rows_occupancy(int rows, int lane4) {
+  const GatherFn fn = gather_fn(rows, lane4);
+  if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fn, GATHER_THREADS, 0);
+  return err == cudaSuccess ? per_sm : -static_cast<int>(err);
+}
+
+// P3 with probes.gather_plan's launch: `rows` rows a warp's batch,
+// `lane4` float4 a lane a row, `blocks` blocks of GATHER_THREADS.
 extern "C" int cymf_gather_rows(const float* table, const int* idx,
-                                float* out, int B, int R, int width,
-                                int rows_in_flight, cudaStream_t stream) {
-  const int w4 = width / 4;
-  switch (rows_in_flight) {
-    case 1: launch_gather<1>(table, idx, out, B, R, w4, stream); break;
-    case 2: launch_gather<2>(table, idx, out, B, R, w4, stream); break;
-    case 4: launch_gather<4>(table, idx, out, B, R, w4, stream); break;
-    case 8: launch_gather<8>(table, idx, out, B, R, w4, stream); break;
-    case 16: launch_gather<16>(table, idx, out, B, R, w4, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                float* out, int B, int R, int width, int rows,
+                                int lane4, int blocks, cudaStream_t stream) {
+  const GatherFn fn = gather_fn(rows, lane4);
+  if (fn == nullptr || width < 4 || width % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B > 0 && blocks > 0)
+    fn<<<blocks, GATHER_THREADS, 0, stream>>>(
+        reinterpret_cast<const float4*>(table), idx,
+        reinterpret_cast<float4*>(out), B, R, width / 4);
   return static_cast<int>(cudaGetLastError());
 }

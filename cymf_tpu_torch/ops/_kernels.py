@@ -78,7 +78,8 @@ _SIGNATURES = {
     "cymf_phase_v4r_blocks": [_I],
     "cymf_phase_v4r": [_P] * 7 + [_I] * 4 + [_F, _P],
     "cymf_copy_phase": [_P] * 6 + [_L, _I, _P],
-    "cymf_gather_rows": [_P] * 3 + [_I] * 4 + [_P],
+    "cymf_gather_rows_occupancy": [_I, _I],
+    "cymf_gather_rows": [_P] * 3 + [_I] * 6 + [_P],
     "cymf_chol_inv_batched": [_P, _L, _L, _P, _P, _I, _I, _P],
     "cymf_seq_epoch_max_group": [],
     "cymf_seq_epoch_plan": [_I] * 3,

@@ -16,12 +16,14 @@ Ports of the three Pallas kernels that live in the JAX package's
 On a CUDA tensor each launches its hand-written kernel of
 ``csrc/probes.cu``; on a CPU tensor each runs its plain version.  Left
 behind: P3's DMA semaphores and ``q`` as a Mosaic DMA queue depth (the
-CUDA form keeps ``rows_in_flight``, rows whose loads a warp issues before
-their stores, as its own design choice), and the scripts' ``lax.scan``
+CUDA form keeps ``rows_in_flight``, the whole rows a warp loads before it
+stores them, as its own design choice), and the scripts' ``lax.scan``
 timing harnesses (``chip_smoke.py`` times the kernels with CUDA events).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -30,6 +32,9 @@ from . import packed as pk
 from .fused_sample import LANES, bpr_sample_phase_plain
 
 ROWS_IN_FLIGHT = (1, 2, 4, 8, 16)
+# P3's sizing (gather_plan): warps a block (csrc/probes.cu's
+# GATHER_THREADS / 32), and the float4 a lane holds of a batch at most
+GATHER_WARPS, MAX_LANE_FLOAT4 = 8, 32
 
 
 def _three_tiles(Du, Di, Dj, what: str) -> None:
@@ -103,17 +108,60 @@ def copy_phase(Du, Di, Dj):
     return SW, Q, lossb
 
 
+def gather_plan(B: int, W: int, sms: int, *, rows_in_flight: int = 8,
+                blocks_per_sm: int = 1) -> dict:
+    """P3's launch for ``B`` rows of width ``W`` (floats, a multiple of 4)
+    on ``sms`` SMs, ``blocks_per_sm`` blocks of ``GATHER_WARPS`` warps
+    resident on each (the kernel's occupancy): ``lane4``, the float4 a lane
+    holds of a row (the least power of two up to 8 whose 32 lanes cover
+    it; wider rows take ``passes`` passes), ``rows`` a warp's batch
+    (``rows_in_flight``, fewer where a lane would hold more than
+    ``MAX_LANE_FLOAT4`` float4), ``batches``, and ``blocks``, persistent:
+    no more than are resident, nor than the batches need."""
+    if W < 4 or W % 4:
+        raise ValueError(f"table width must be a multiple of 4, got {W}")
+    if rows_in_flight not in ROWS_IN_FLIGHT:
+        raise ValueError(f"rows_in_flight must be one of {ROWS_IN_FLIGHT}")
+    w4 = W // 4
+    lane4 = 1
+    while lane4 < 8 and 32 * lane4 < w4:
+        lane4 *= 2
+    rows = min(rows_in_flight, MAX_LANE_FLOAT4 // lane4)
+    batches = -(-B // rows)
+    blocks = min(-(-batches // GATHER_WARPS), max(blocks_per_sm, 1) * sms)
+    return dict(lane4=lane4, passes=-(-w4 // (32 * lane4)), rows=rows,
+                batches=batches, blocks=blocks)
+
+
+@functools.cache
+def _gather_blocks_per_sm(device_index: int, rows: int, lane4: int) -> int:
+    """The kernel's resident blocks an SM on the card ``device_index``
+    (the CUDA occupancy API), asked once a card and instantiation."""
+    with torch.cuda.device(device_index):
+        n = _kernels.lib().cymf_gather_rows_occupancy(rows, lane4)
+    if n < 0:
+        _kernels.check(-n, "gather_rows")
+    return n
+
+
 def gather_rows_plain(T, idx):
-    """Plain version of :func:`gather_rows`."""
-    return T[idx.long()]
+    """Plain version of :func:`gather_rows`; raises ``ValueError`` for an
+    id outside ``[0, R)``."""
+    ids = idx.long()
+    if ids.numel() and bool(((ids < 0) | (ids >= T.shape[0])).any()):
+        raise ValueError(f"gather_rows_plain: ids outside [0, {T.shape[0]})")
+    return T[ids]
 
 
 def gather_rows(T, idx, *, rows_in_flight: int = 8):
     """P3: ``out[k] = T[idx[k]]`` for a float32 ``(R, W)`` table (``W`` a
-    multiple of 4) and int32 ``(B,)`` ids in ``[0, R)``.  On the card a
-    warp copies ``rows_in_flight`` rows at a time (1, 2, 4, 8 or 16), its
-    loads issued before its stores; an id outside ``[0, R)`` reads nothing
-    and gives a zero row there, while the plain form raises."""
+    multiple of 4) and int32 ``(B,)`` ids in ``[0, R)``.  On the card
+    persistent warps walk batches of consecutive output rows, each loading
+    all of a batch's rows before it stores any.  ``rows_in_flight`` (1, 2,
+    4, 8 or 16) is that batch: the whole rows a warp keeps in flight,
+    fewer where a lane would hold more than 32 float4 of them
+    (:func:`gather_plan`).  An id outside ``[0, R)`` reads nothing and
+    gives a zero row there, while the plain form raises."""
     if T.dim() != 2 or idx.dim() != 1:
         raise ValueError("gather_rows takes a (R, W) table and (B,) ids")
     if rows_in_flight not in ROWS_IN_FLIGHT:
@@ -123,11 +171,14 @@ def gather_rows(T, idx, *, rows_in_flight: int = 8):
     dev = T.device
     _kernels.require(T, "T", torch.float32, dev, ndim=2)
     _kernels.require(idx, "idx", torch.int32, dev, ndim=1)
-    if T.shape[1] % 4:
-        raise ValueError(f"table width must be a multiple of 4, got "
-                         f"{T.shape[1]}")
-    out = torch.empty((idx.shape[0], T.shape[1]), dtype=torch.float32,
-                      device=dev)
-    _kernels.launch("gather_rows", dev, T, idx, out, idx.shape[0],
-                    T.shape[0], T.shape[1], int(rows_in_flight))
+    R, W = T.shape
+    B = idx.shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = gather_plan(B, W, sms, rows_in_flight=rows_in_flight)
+    per_sm = _gather_blocks_per_sm(dev.index, plan["rows"], plan["lane4"])
+    plan = gather_plan(B, W, sms, rows_in_flight=rows_in_flight,
+                       blocks_per_sm=per_sm)
+    out = torch.empty((B, W), dtype=torch.float32, device=dev)
+    _kernels.launch("gather_rows", dev, T, idx, out, B, R, W, plan["rows"],
+                    plan["lane4"], plan["blocks"])
     return out

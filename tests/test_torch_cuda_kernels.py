@@ -31,7 +31,8 @@ table, and block ranges that leave chunks without a home block, whose Q
 rows must be zero), v8 at P = 128 and 2048, into outputs left dirty, Aw
 and Q the same bits on two calls and, for v6 and v7, every Aw row that
 no kept sample lands on exactly zero;
-the probes P2 and P3 exact, P1's SW and
+the probes P2 and P3 exact (P3 to the bit, twice, and zero rows for
+ids outside the table), P1's SW and
 Q equal to #1's kernel and within #1's bounds of plain; the packed epochs of every pipeline on the card against the
 CPU, ``rtol 1e-4, atol 1e-5`` under sgd and adagrad and under adam the
 sequential epochs' drift class below; the batched
@@ -539,11 +540,21 @@ def test_copy_phase_kernel(dev, B):
         torch.testing.assert_close(g, w, rtol=0.0, atol=0.0)
 
 
+def _same_bits(got, want):
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 @pytest.mark.parametrize("q", [1, 8, 16])
 @pytest.mark.parametrize("R,W,B,sort", [(27136, 128, 4096, False),
                                         (1000, 256, 777, True),
                                         (50, 4, 1, False),
-                                        (300, 384, 0, False)])
+                                        (300, 384, 0, False),
+                                        (131072, 128, 131072, False),
+                                        (27136, 256, 131072, False),
+                                        (4096, 384, 131072, True),
+                                        (3000, 128, 4099, False),
+                                        (1, 256, 1001, False)])
 def test_gather_rows_kernel(dev, q, R, W, B, sort):
     rng = np.random.default_rng(R + W + B)
     T = torch.from_numpy(rng.normal(size=(R, W)).astype(np.float32)).to(dev)
@@ -552,8 +563,45 @@ def test_gather_rows_kernel(dev, q, R, W, B, sort):
     _kernels.reset_launches()
     got = probes.gather_rows(T, idx, rows_in_flight=q)
     assert dict(_kernels.launches) == {"gather_rows": 1}
-    torch.testing.assert_close(got, probes.gather_rows_plain(T, idx),
-                               rtol=0.0, atol=0.0)
+    _same_bits(got, probes.gather_rows_plain(T, idx))
+    _same_bits(probes.gather_rows(T, idx, rows_in_flight=q), got)
+
+
+@pytest.mark.parametrize("W", [128, 256])
+def test_gather_rows_kernel_long_repeats(dev, W):
+    """Sorted ids in runs of up to 5,000 of one row (the W side's repeats,
+    drawn long), a B that no stage's rows divide."""
+    rng = np.random.default_rng(W)
+    R = 600
+    T = torch.from_numpy(rng.normal(size=(R, W)).astype(np.float32)).to(dev)
+    idx = np.repeat(np.sort(rng.choice(R, 40, replace=False)),
+                    rng.integers(1, 5000, 40)).astype(np.int32)
+    idx = torch.from_numpy(idx).to(dev)
+    got = probes.gather_rows(T, idx)
+    _same_bits(got, probes.gather_rows_plain(T, idx))
+    _same_bits(probes.gather_rows(T, idx), got)
+
+
+@pytest.mark.parametrize("W", [4, 128, 384])
+def test_gather_rows_kernel_zero_rows_outside(dev, W):
+    """Ids outside ``[0, R)`` give zero rows on the card (the plain form
+    raises on them); every other row is the plain form's."""
+    rng = np.random.default_rng(W + 1)
+    R, B = 500, 3001
+    T = torch.from_numpy(rng.normal(size=(R, W)).astype(np.float32)).to(dev)
+    idx = rng.integers(0, R, B).astype(np.int32)
+    bad = rng.choice(B, 300, replace=False)
+    idx[bad] = rng.choice(np.array([-1, R, 2**31 - 1, -2**31], np.int64),
+                          300).astype(np.int32)
+    idx = torch.from_numpy(idx).to(dev)
+    with pytest.raises(ValueError, match="outside"):
+        probes.gather_rows_plain(T, idx)
+    got = probes.gather_rows(T, idx)
+    out = torch.zeros(B, dtype=torch.bool, device=dev)
+    out[torch.from_numpy(bad).to(dev)] = True
+    assert not got[out].any()
+    assert not torch.signbit(got[out]).any()
+    _same_bits(got[~out], probes.gather_rows_plain(T, idx[~out]))
 
 
 def test_probes_raise_on_what_kernels_do_not_take(dev):

@@ -9,7 +9,11 @@ import, and take no ``interpret`` argument, so this file loads them with
 CPU each port runs its plain form.  Tolerances: P2 and P3 exact (copies
 and one float32 add or subtract an element); P1's SW and Q ``rtol 1e-5,
 atol 1e-6`` and its loss ``1e-5`` relative, #1's parity bounds
-(``tests/test_torch_fused_sample.py``).
+(``tests/test_torch_fused_sample.py``).  P3's plain form raises on ids
+outside the table, and its launch plan (``probes.gather_plan``) is held
+to a lane's register budget, to float4 that cover the row, and, through
+a model of the kernel's batch walk, to writing every output row exactly
+once.
 """
 
 import importlib.util
@@ -122,3 +126,64 @@ def test_probe_wrappers_raise_on_what_they_do_not_take():
         probes.gather_rows(x, idx, rows_in_flight=3)
     with pytest.raises(ValueError, match="table"):
         probes.gather_rows(x[0], idx)
+
+
+@pytest.mark.parametrize("bad", [-1, 3, 2**31 - 1])
+def test_gather_rows_plain_raises_outside_the_table(bad):
+    T = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    idx = torch.tensor([0, bad, 2], dtype=torch.int32)
+    with pytest.raises(ValueError, match="outside"):
+        probes.gather_rows_plain(T, idx)
+    with pytest.raises(ValueError, match="outside"):
+        probes.gather_rows(T, idx)          # the CPU runs plain
+    ok = torch.tensor([2, 0], dtype=torch.int32)
+    np.testing.assert_array_equal(probes.gather_rows(T, ok).numpy(),
+                                  T.numpy()[[2, 0]])
+
+
+def _batch_walk(plan, B):
+    """How often each output row is written, as ``gather_kernel`` walks
+    its batches: global warp ``w`` takes batches ``w, w + warps, ...``,
+    each ``rows`` rows, the last one cut at ``B``."""
+    rows = np.zeros(B, dtype=np.int64)
+    warps = plan["blocks"] * probes.GATHER_WARPS
+    for w in range(warps):
+        for b in range(w, plan["batches"], warps):
+            rows[b * plan["rows"]:min((b + 1) * plan["rows"], B)] += 1
+    return rows
+
+
+@pytest.mark.parametrize("W", [4, 128, 256, 384, 1024])
+@pytest.mark.parametrize("B", [0, 1, 31, 777, 4099, 131072])
+def test_gather_plan_sizes_the_launch(W, B):
+    sms = 132
+    w4 = W // 4
+    for q in probes.ROWS_IN_FLIGHT:
+        for per_sm in (1, 3, 8):
+            plan = probes.gather_plan(B, W, sms, rows_in_flight=q,
+                                      blocks_per_sm=per_sm)
+            # a lane's values stay in registers; its float4 cover the row
+            assert plan["rows"] * plan["lane4"] <= probes.MAX_LANE_FLOAT4
+            assert plan["lane4"] in (1, 2, 4, 8)
+            assert plan["rows"] in probes.ROWS_IN_FLIGHT
+            assert plan["rows"] <= q
+            assert plan["rows"] == q or plan["rows"] * plan["lane4"] == 32
+            span = 32 * plan["lane4"]
+            assert (plan["passes"] - 1) * span < w4 <= plan["passes"] * span
+            assert plan["passes"] == 1 or plan["lane4"] == 8
+            assert plan["batches"] == -(-B // plan["rows"])
+            assert (plan["blocks"] == 0) == (B == 0)
+            assert plan["blocks"] <= per_sm * sms
+            # no block without a batch to take
+            assert (plan["blocks"] - 1) * probes.GATHER_WARPS \
+                < max(plan["batches"], 1)
+            np.testing.assert_array_equal(_batch_walk(plan, B), np.ones(B))
+
+
+def test_gather_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="multiple of 4"):
+        probes.gather_plan(8, 6, 132)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        probes.gather_plan(8, 0, 132)
+    with pytest.raises(ValueError, match="rows_in_flight"):
+        probes.gather_plan(8, 128, 132, rows_in_flight=3)
