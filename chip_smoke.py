@@ -70,7 +70,10 @@ Phases, one line each; any failure raises and exits non-zero:
    through pipeline v5, each of its kernels once a step;
 6. full width: 3 epochs of BPR at ML-20M shapes through the public
    ``fit``; the sparse streams must keep pipeline v4, every BPR kernel
-   run once per step;
+   run once per step; then bpr-xla, the portable batch engine
+   (``BPR(packed="off")``) at the same shapes: 3 dense Adam epochs, the
+   epochs after the first printed beside ``full``'s v4 epochs, and 1
+   sparse epoch;
 7. the other BPR pipelines, each at full width (d=20) through its main
    path: bpr-ml1m, 3 epochs of ``fit`` on the ml-1m data (v5: #4 and both
    accumulations once a step, #1 never); bpr-v6, 3 sgd epochs of
@@ -99,6 +102,20 @@ Phases, one line each; any failure raises and exits non-zero:
 12. glove-full: 3 epochs of GloVe d=50 on the ``glove_packed`` stream
     through the public ``fit``; the same launch counts, and the
     constant-one columns must stay exactly one;
+12a. the batch engines at their JAX bench modes' shapes, each fit through
+    the public ``fit`` with every launch count 0 (the engines are
+    PyTorch ops and run none of the port's kernels), the engine it took
+    asserted, the card's name and power limit and the device rate of each
+    epoch printed: relmf-xla, ``RelMF(packed="off")`` at ml-1m shapes
+    (171 steps of 131,072 cells, 3 epochs), then a non-binary ``X`` and
+    ``num_components=128`` at the quickstart's size (the batch engine
+    under ``"auto"``); glove-xla, ``GloVe(packed="off")`` d=50 on the
+    ``glove_packed`` stream (3 epochs, constant columns exactly one) and
+    ``bias_mode="kfold"`` at the same size (1 epoch); batch-quickstart,
+    ``BPR`` and ``RelMF`` with ``packed="off"`` on the quickstart data
+    must beat an untrained model's test DCG@5 by 0.1, and under
+    ``"auto"`` a BPR and a GloVe fit of 4,095 samples must take the batch
+    engine and of 4,096 the packed one;
 13. kernels, the sequential engine (``engine="pallas"``): each of its
     three kernels against its plain version on the first 2 chunks (8,192
     samples) of its first launch in a full-width fit: BPR and RelMF d=20
@@ -149,8 +166,10 @@ block's shared memory with ``placement_0_ms`` beside it; and, last, the
 device JSON line.
 ``--profile`` adds a ``torch.profiler`` split of one WMF d=256 epoch,
 written to ``chiprun_out/wmf_profile.txt``, and of 50 device-prep RelMF
-steps at ML-20M shapes with the card's idle share, written to
-``chiprun_out/relmf_profile.txt``.  Imports nothing of JAX.
+steps at ML-20M shapes and 20 dense Adam steps of the BPR batch engine
+at ML-20M shapes, each with the card's idle share, written to
+``chiprun_out/relmf_profile.txt`` and ``bpr_batch_profile.txt``.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -237,6 +256,10 @@ ML1M_U, ML1M_I, POOL_P, V6_LR = 6040, 3706, 1024, 0.05
 # the wide engine (K >= 128): BASELINE config 5's BPR at d=256 on ML-20M,
 # 512-row windows on both sides as BPR._fit_wide sets them
 WIDE_K, WIDE_WROWS, WIDE_EPOCHS = 256, 512, 2
+# each full-width BPR fit's epoch_times_ and epoch walls, by phase name
+FIT_EPOCHS: dict = {}
+# the batch engines' quickstart: each side of the 4096-sample routing rule
+ROUTE_N = 4096
 # the H100 SXM's published peaks: HBM3 bytes/s
 # and float32 operations/s outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
@@ -1210,6 +1233,7 @@ def bpr_fit(X, dev, epochs: int, what: str, want_v, want: dict,
     wall = time.perf_counter() - t0
     launches = dict(_kernels.launches)
     walls = probe.walls(t0)
+    FIT_EPOCHS[what] = (m.epoch_times_, walls)
     for e, st in enumerate(m.epoch_times_):
         phase(what, f"epoch {e}: host prep {st['prep_s']:.3f} s, device "
               f"{st['device_s']:.3f} s, {N / st['device_s']:.4e} int/s "
@@ -2030,6 +2054,217 @@ def glove_full(G, dev):
         raise AssertionError("non-finite loss or embeddings")
 
 
+def batch_epochs(what, m, probe, t0, n, unit):
+    """Print a batch-engine fit's epochs (device seconds by CUDA events,
+    ``n`` samples over them, each epoch's wall from ``probe``) and return
+    the device seconds."""
+    walls = probe.walls(t0) if probe is not None else [np.nan] * len(
+        m.epoch_times_)
+    secs = [st["device_s"] if isinstance(st, dict) else st
+            for st in m.epoch_times_]
+    for e, sec in enumerate(secs):
+        phase(what, f"epoch {e}: device {sec:.4f} s, {n / sec:.4e} {unit} "
+              f"device, wall {walls[e]:.4f} s")
+    return secs
+
+
+def check_batch_fit(what, m, launches, engine_ok, X_shape=None):
+    """The batch engine ran, launched none of the kernels, and left finite
+    tables (of ``X_shape``'s rows) and loss."""
+    if not engine_ok:
+        raise AssertionError(f"{what}: the fit did not take the batch engine")
+    if launches:
+        raise AssertionError(f"{what}: the batch engine launched {launches}")
+    if not (np.isfinite(m.last_loss) and np.isfinite(m.W).all()):
+        raise AssertionError(f"{what}: non-finite loss or tables")
+    if X_shape is not None and (m.W.shape[0], m.H.shape[0]) != X_shape:
+        raise AssertionError(f"{what}: tables of the wrong shape")
+
+
+def bpr_xla(X, dev, smi):
+    """bpr-xla: ``BPR(packed="off")`` through the public ``fit`` at ML-20M
+    shapes (d=20, batch 131,072, Adam lr 0.001, wd 0.01): 3 epochs in
+    dense mode, the epochs after the first beside ``full``'s v4 epochs of
+    this run, then 1 epoch in sparse mode.  The batch engine runs no
+    kernel of the port's: every launch count must stay 0."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.ops import _kernels
+
+    N = X.count_nonzero()
+    S = -(-N // BATCH)
+    for mode, epochs in (("dense", EPOCHS), ("sparse", 1)):
+        what = f"bpr-xla {mode}"
+        m = ct.BPR(num_components=20, learning_rate=0.001, optimizer="adam",
+                   weight_decay=0.01, batch_size=BATCH, update_mode=mode,
+                   packed="off", device=dev)
+        probe = _DeviceProbe(m)
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        m.fit(X, num_epochs=epochs, valid_evaluator=probe, verbose=False)
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.launches)
+        secs = batch_epochs(what, m, probe, t0, N, "int/s")
+        phase(what, f"{smi}; engine {m.engine_}, update mode "
+              f"{m.update_mode_}, S={S}; fit wall {wall:.3f} s for {epochs} "
+              f"epochs ({N * epochs / wall:.4e} int/s end to end); last loss "
+              f"{m.last_loss:.6f}; launches {launches}")
+        check_batch_fit(what, m, launches, m.engine_ == "batch"
+                        and m.update_mode_ == mode, X.shape)
+        if probe.calls != epochs:
+            raise AssertionError(f"{what}: the fit left the card")
+        if mode == "dense":
+            ms_step = 1e3 * float(np.mean(secs[1:])) / S
+            v4, v4_walls = FIT_EPOCHS["full"]
+            phase(what, "epochs after the first, device s: batch "
+                  f"{[round(x, 4) for x in secs[1:]]} against v4 "
+                  f"{[round(st['device_s'], 4) for st in v4[1:]]}; wall s: "
+                  f"batch {[round(float(x), 4) for x in probe.walls(t0)[1:]]}"
+                  f" against v4 {[round(float(x), 4) for x in v4_walls[1:]]}"
+                  f"; {ms_step:.3f} ms a step")
+    return ms_step
+
+
+def relmf_xla(dev, smi):
+    """relmf-xla: ``RelMF(packed="off")`` at the JAX ``relmf`` bench
+    mode's shapes (ml-1m 6040 x 3706, density 0.04, batch 131,072: 171
+    steps, 22.4M cells an epoch), 3 epochs; then at the quickstart's size
+    the two fits only the batch engine takes under ``"auto"``: a
+    non-binary ``X`` and ``num_components=128``."""
+    from scipy import sparse
+
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.dataset import SyntheticImplicitDataset
+    from cymf_tpu_torch.ops import _kernels
+
+    d = SyntheticImplicitDataset(num_user=ML1M_U, num_item=ML1M_I, rank=8,
+                                 density=0.04, seed=0)
+    m = ct.RelMF(num_components=RELMF_K, batch_size=BATCH, packed="off",
+                 device=dev)
+    probe = _DeviceProbe(m)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    m.fit(d.train, num_epochs=RELMF_EPOCHS, valid_evaluator=probe)
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    S = -(-ML1M_U * ML1M_I // BATCH)
+    batch_epochs("relmf-xla", m, probe, t0, m._samples_per_epoch, "cells/s")
+    phase("relmf-xla", f"{smi}; packed engine {m.packed_engine_}, update "
+          f"mode {m.update_mode_}, S={S}; fit wall {wall:.3f} s; last loss "
+          f"{m.last_loss:.6f}; launches {launches}")
+    check_batch_fit("relmf-xla", m, launches, m.packed_engine_ is False,
+                    (ML1M_U, ML1M_I))
+    if m._samples_per_epoch != S * BATCH or probe.calls != RELMF_EPOCHS:
+        raise AssertionError("relmf-xla: wrong epoch size or left the card")
+    q = quickstart_data()
+    Xn = sparse.csr_matrix(q.train).astype(np.float64)
+    Xn.data[:] = np.random.default_rng(0).integers(1, 5, Xn.nnz)
+    for what, K, Xq in (("non-binary X", RELMF_K, Xn),
+                        ("num_components=128", 128, q.train)):
+        m = ct.RelMF(num_components=K, learning_rate=0.01, batch_size=8192,
+                     device=dev)
+        _kernels.reset_launches()
+        m.fit(Xq, num_epochs=2)
+        launches = dict(_kernels.launches)
+        phase("relmf-xla", f"{what} under packed='auto': packed engine "
+              f"{m.packed_engine_}, last loss {m.last_loss:.6f}, epochs "
+              f"{[round(st['device_s'], 4) for st in m.epoch_times_]} s")
+        check_batch_fit(f"relmf-xla {what}", m, launches,
+                        m.packed_engine_ is False)
+
+
+def glove_xla(G, dev, smi):
+    """glove-xla: ``GloVe(packed="off")`` d=50 on the ``glove_packed``
+    stream (50,000 words), fused biases, 3 epochs, the constant-one
+    columns exactly one; then ``bias_mode="kfold"`` (which only the batch
+    engine runs) at the same size for 1 epoch."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.ops import _kernels
+
+    S = -(-G.nnz // BATCH)
+    for what, kw, epochs in (("glove-xla", dict(packed="off"), GLOVE_EPOCHS),
+                             ("glove-xla kfold", dict(bias_mode="kfold"), 1)):
+        np.random.seed(0)
+        m = ct.GloVe(GLOVE_K, batch_size=BATCH, device=dev, **kw)
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        m.fit(G, num_epochs=epochs)
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.launches)
+        batch_epochs(what, m, None, t0, G.nnz, "triples/s")
+        ones = all(bool((c == 1).all()) for c in m.constant_columns_)
+        phase(what, f"{smi}; packed engine {m.packed_engine_}, update mode "
+              f"{m.update_mode_}, {G.nnz} triples, S={S}; once-per-fit prep "
+              f"{m.prep_s_:.3f} s, fit wall {wall:.3f} s; last loss "
+              f"{m.last_loss:.6f}; constant columns exactly one: {ones}; "
+              f"launches {launches}")
+        check_batch_fit(what, m, launches, m.packed_engine_ is False)
+        if not ones:
+            raise AssertionError(f"{what}: a constant-one column moved")
+
+
+def route_matrices(n: int):
+    """An interaction matrix and a co-occurrence matrix of ``n`` distinct
+    cells in 350 x 350, for the routing rule's two sides."""
+    from scipy import sparse
+    rng = np.random.default_rng(0)
+    cells = rng.choice(350 * 350, n, replace=False)
+    rows, cols = cells // 350, cells % 350
+    X = sparse.csr_matrix((np.ones(n), (rows, cols)), shape=(350, 350))
+    C = sparse.csr_matrix((rng.integers(1, 30, n).astype(np.float64),
+                           (rows, cols)), shape=(350, 350))
+    return X, C
+
+
+def batch_quickstart(dev, smi):
+    """batch-quickstart: ``BPR(packed="off")`` and ``RelMF(packed="off")``
+    on the quickstart data must beat an untrained model's test DCG@5 by
+    0.1; then under ``packed="auto"`` a BPR and a GloVe fit of
+    ``ROUTE_N - 1`` samples take the batch engine and of ``ROUTE_N`` the
+    packed one."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.ops import _kernels
+
+    d = quickstart_data()
+    valid = ct.AoaEvaluator(d.valid, d.train, metrics=["DCG"], k=5,
+                            device=dev)
+    test = ct.AoaEvaluator(d.test, d.train, k=5, device=dev)
+    fits = (("BPR", ct.BPR, dict(learning_rate=0.01, weight_decay=0.01),
+             dict(num_epochs=30, valid_evaluator=valid, early_stopping=True,
+                  verbose=False)),
+            ("RelMF", ct.RelMF, dict(learning_rate=0.01, weight_decay=1e-4,
+                                     batch_size=8192),
+             dict(num_epochs=20)))
+    for name, cls, kw, fit_kw in fits:
+        m0 = cls(num_components=20, packed="off", device=dev, **kw)
+        m0.fit(d.train, num_epochs=0)
+        base = test.evaluate(m0.W, m0.H)["DCG@5"]
+        m = cls(num_components=20, packed="off", device=dev, **kw)
+        _kernels.reset_launches()
+        m.fit(d.train, **fit_kw)
+        launches = dict(_kernels.launches)
+        res = test.evaluate(m.W, m.H)
+        engine = getattr(m, "engine_", None) or (
+            "packed" if m.packed_engine_ else "batch")
+        phase("batch-quickstart", f"{name}: test {res}; untrained DCG@5 "
+              f"{base:.4f}; {len(m.epoch_times_)} epochs, engine {engine}, "
+              f"last loss {m.last_loss:.6f}; launches {launches}")
+        check_batch_fit(f"batch-quickstart {name}", m, launches,
+                        engine == "batch")
+        if not res["DCG@5"] >= base + 0.1:
+            raise AssertionError(f"the {name} batch quickstart did not learn")
+    for n, want in ((ROUTE_N - 1, "batch"), (ROUTE_N, "packed")):
+        X, C = route_matrices(n)
+        m = ct.BPR(8, device=dev)
+        m.fit(X, num_epochs=1, verbose=False)
+        g = ct.GloVe(8, device=dev)
+        g.fit(C, num_epochs=1)
+        got = (m.engine_, "packed" if g.packed_engine_ else "batch")
+        phase("batch-quickstart", f"{smi}; {n} samples under packed='auto': "
+              f"BPR {got[0]}, GloVe {got[1]} (want {want})")
+        if got != (want, want):
+            raise AssertionError(f"routing at {n} samples: {got}")
+
+
 def ml100k_matrix():
     """55,296 distinct interactions (the JAX ``bpr_pallas`` bench's N) in
     a 943 x 1682 matrix, drawn without replacement from
@@ -2399,7 +2634,7 @@ def profile_wmf(X, dev):
             continue
         busy += max(t1 - max(t0, last), 0)
         last = max(last, t1)
-        if "chol_inv" in name:
+        if "chol_regs_kernel" in name:      # csrc/chol_inv.cu
             label = "Cholesky kernel"
         else:
             label = "other (Gramian, inverse, scatter, copies)"
@@ -2432,20 +2667,13 @@ def profile_wmf(X, dev):
         raise AssertionError("the profile shows no Cholesky kernel")
 
 
-def profile_relmf(st, dev, ms_step: float, steps: int = 50):
-    """``--profile``: device time by kernel of ``steps`` device-prep RelMF
-    steps at ML-20M shapes, and the card's busy share of a step against
-    the unprofiled ``ms_step`` of phase 4."""
+def profile_steps(run, steps: int, title: str, ms_step: float,
+                  fname: str) -> None:
+    """``--profile``: device time by kernel of ``run()`` (``steps``
+    steps, after a warm-up call), and the card's busy share of a step
+    against the unprofiled ``ms_step``; written to ``chiprun_out/fname``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from cymf_tpu_torch.ops import relmf_epoch as tre
-
-    def run():
-        tre.packed_relmf_epoch_device(
-            st["Wp"], st["Hp"], st["ow"], st["oh"], st["hs"],
-            tre.epoch_generator(7, 0, dev), steps, 1.0, **st["kw"])
-        torch.cuda.synchronize(dev)
 
     run()                                          # warm-up
     with profile(activities=[ProfilerActivity.CPU,
@@ -2464,22 +2692,70 @@ def profile_relmf(st, dev, ms_step: float, steps: int = 50):
         last = max(last, t1)
         by_name[name[:70]] += (t1 - t0) / 1e3
     busy_step = busy / 1e3 / steps
-    lines = [f"{steps} device-prep RelMF steps at ML-20M shapes, "
-             f"{torch.cuda.get_device_name(0)}: card busy {busy_step:.3f} "
-             f"ms a step (kernel and copy intervals merged) against "
-             f"{ms_step:.3f} ms a step unprofiled: idle share "
-             f"{100 * max(1 - busy_step / ms_step, 0):.1f}%"]
+    lines = [f"{title}, {torch.cuda.get_device_name(0)}: card busy "
+             f"{busy_step:.3f} ms a step (kernel and copy intervals merged) "
+             f"against {ms_step:.3f} ms a step unprofiled: idle share "
+             f"{100 * max(1 - busy_step / ms_step, 0):.1f}%; "
+             f"{len(spans) / steps:.0f} device events a step"]
     total = sum(by_name.values())
     for name, ms in by_name.most_common(12):
         lines.append(f"  {name}: {ms / steps:.4f} ms a step "
                      f"({100 * ms / total:.1f}%)")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "relmf_profile.txt").write_text(
+    (out / fname).write_text(
         "\n".join(lines) + "\n\n" + prof.key_averages().table(
             sort_by="self_cuda_time_total", row_limit=30))
     for line in lines:
         phase("profile", line)
+
+
+def profile_relmf(st, dev, ms_step: float, steps: int = 50):
+    """``--profile``: ``steps`` device-prep RelMF steps at ML-20M shapes
+    against the unprofiled ``ms_step`` of phase 4."""
+    from cymf_tpu_torch.ops import relmf_epoch as tre
+
+    def run():
+        tre.packed_relmf_epoch_device(
+            st["Wp"], st["Hp"], st["ow"], st["oh"], st["hs"],
+            tre.epoch_generator(7, 0, dev), steps, 1.0, **st["kw"])
+        torch.cuda.synchronize(dev)
+
+    profile_steps(run, steps, f"{steps} device-prep RelMF steps at ML-20M "
+                  "shapes", ms_step, "relmf_profile.txt")
+
+
+def profile_batch_bpr(X, dev, ms_step: float, steps: int = 20):
+    """``--profile``: the first ``steps`` steps of the BPR batch engine's
+    dense Adam epoch at ML-20M shapes (d=20, batch 131,072) against the
+    unprofiled ``ms_step`` of the bpr-xla phase."""
+    from cymf_tpu_torch.models import bpr as mb
+    from cymf_tpu_torch.ops.hashset import build_pair_hashset, to_device
+    from cymf_tpu_torch.optim import make_optimizer
+
+    u2, i2 = mb.sorted_batches(*mb.shuffled_interactions(X), BATCH,
+                               multiple=1)
+    coo = X.tocoo()
+    hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
+    rng = np.random.default_rng(0)
+    W = torch.tensor(rng.uniform(-0.005, 0.005, (U, 20)), dtype=torch.float32,
+                     device=dev)
+    H = torch.tensor(rng.uniform(-0.005, 0.005, (I, 20)), dtype=torch.float32,
+                     device=dev)
+    opt = make_optimizer("adam", 0.001)
+    ow, oh = opt.init(W), opt.init(H)
+    u_d = torch.from_numpy(u2[:steps]).to(dev)
+    i_d = torch.from_numpy(i2[:steps]).to(dev)
+
+    def run():
+        mb._bpr_epoch(W, H, ow, oh, u_d, i_d, hs, steps * BATCH,
+                      mb.epoch_generator(0, 0, dev), optimizer=opt,
+                      weight_decay=0.01, num_users=U, num_items=I,
+                      update_mode="dense")
+        torch.cuda.synchronize(dev)
+
+    profile_steps(run, steps, f"{steps} dense Adam steps of the BPR batch "
+                  "engine at ML-20M shapes", ms_step, "bpr_batch_profile.txt")
 
 
 def main() -> int:
@@ -2534,6 +2810,9 @@ def main() -> int:
     del relmf
     quickstart(dev)
     launches = full_width(X, dev)
+    ms_step = bpr_xla(X, dev, smi)
+    if "--profile" in sys.argv[1:]:
+        profile_batch_bpr(X, dev, ms_step)
     launches.update(pipeline_fits(X, dev))
     launches.update(bpr_wide(X, dev))
     wide_quickstart(dev)
@@ -2542,6 +2821,9 @@ def main() -> int:
     relmf_quickstart(dev)
     launches["glove_sample_phase"] = relmf_full(dev)["glove_sample_phase"]
     glove_full(G, dev)
+    relmf_xla(dev, smi)
+    glove_xla(G, dev, smi)
+    batch_quickstart(dev, smi)
     if "--profile" in sys.argv[1:]:
         profile_wmf(X, dev)
     del X, G

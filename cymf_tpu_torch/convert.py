@@ -3,7 +3,8 @@
 :func:`packed_state_from_jax` turns the packed engine's arrays (fetched to
 numpy, e.g. with ``jax.device_get``) into the port's tensors, so a step
 can continue from the JAX engine's exact state, :func:`wide_state_from_jax`
-does the same for the wide BPR engine's, and
+does the same for the wide BPR engine's,
+:func:`batch_state_from_jax` for the batch engines' (``packed="off"``), and
 :func:`pallas_state_from_jax` does the same for a fused table of the
 sequential engine (``engine="pallas"``).  :func:`from_arrays`
 (and :func:`bpr_from_arrays` for BPR) builds a model that warm-starts from
@@ -52,6 +53,22 @@ def wide_state_from_jax(Wd, Hd, ow, oh, device):
     as :func:`~cymf_tpu_torch.ops.wide_epoch.wide_bpr_epoch` takes them.
     The wide counterpart of :func:`packed_state_from_jax`."""
     return packed_state_from_jax(Wd, Hd, ow, oh, device)
+
+
+def batch_state_from_jax(W, H, ow, oh, device):
+    """``(W, H, ow, oh)`` as tensors on ``device``: the batch engine's
+    logical user and item tables and their optimizer-state dicts of the
+    same shapes (``{}`` for sgd, ``{"accum"}`` for adagrad, ``{"m", "v"}``
+    for adam), as the ``_bpr_epoch``/``_relmf_epoch`` of
+    :mod:`cymf_tpu_torch.models` and :mod:`cymf_tpu_torch.optim` take
+    them.  The batch counterpart of :func:`wide_state_from_jax`."""
+    for table, state in ((W, ow), (H, oh)):
+        for k, v in state.items():
+            if np.shape(v) != np.shape(table):
+                raise ValueError(f"optimizer leaf {k!r} has shape "
+                                 f"{np.shape(v)}, its table "
+                                 f"{np.shape(table)}")
+    return packed_state_from_jax(W, H, ow, oh, device)
 
 
 def pallas_state_from_jax(Wp, K: int, optimizer: str, device

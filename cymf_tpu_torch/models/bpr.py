@@ -11,10 +11,11 @@ gradient, no factor 2).
 
 Port of `cymf_tpu/models/bpr.py` on two engines:
 
-- ``engine="xla"``: its single-chip fused paths (host prep, native by
-  default, numpy under ``CYMF_TPU_PREP=numpy``; see
-  ``packed_epoch.prep_backend``): synchronous minibatches and the sorted
-  accumulations.  For K <= 127 the packed path (``_fit_packed``, `ops/packed_epoch.py`): packed tables and
+- ``engine="xla"``: its single-device paths, synchronous minibatches.
+  The fused ones (host prep, native by default, numpy under
+  ``CYMF_TPU_PREP=numpy``; see ``packed_epoch.prep_backend``) run the
+  sorted accumulations.  For K <= 127 the packed path (``_fit_packed``,
+  `ops/packed_epoch.py`): packed tables and
   the fused sample kernels.  The kernel pipeline is the JAX package's
   data-dependent choice (``packed_epoch.engine_version``, recorded in
   ``packed_kernel_``): v5 or v6 where every chunk of a step's user-sorted
@@ -24,19 +25,31 @@ Port of `cymf_tpu/models/bpr.py` on two engines:
   ``CYMF_TPU_PACKED_KERNEL=7`` forces it.  ``neg_pool=P`` takes the
   shared-negative-pool pipeline v8.  For K >= 128 the wide path
   (``_fit_wide``, `ops/wide_epoch.py`): ``(rows, Kp)`` tables, the
-  sample math in torch and the count-lane accumulations;
+  sample math in torch and the count-lane accumulations.  The portable
+  batch engine (``_fit_batch``, :func:`_bpr_epoch`, ``packed="off"``):
+  logical tables, negatives drawn on the tables' device and rejected by
+  the pair hash set inside the step, and the row updates of
+  :mod:`cymf_tpu_torch.optim`, dense or sparse (:func:`choose_update_mode`);
 - ``engine="pallas"``: the sequential small-catalog engine
   (``_fit_pallas``, `ops/pallas_engine.py`): per-sample updates in groups
   of 8, one kernel launch an epoch, or one for the whole fit when no
   validator watches the epochs.
 
-Initialization, the shuffle, the batch sort and the negative streams
-replay the JAX package's numpy streams, so both packages train on
-identical inputs.
+``packed="auto"`` follows the JAX rule with the card in the TPU's place
+(:meth:`BPR._fused_engine`): on a CUDA device a fused engine takes a fit
+of at least 4096 interactions, a smaller fit the batch engine.  The one
+deliberate difference: on the CPU ``"auto"`` takes the fused engine at
+any size (its plain forms are what the CPU tests hold against the card's
+kernels), where the JAX package would take the batch engine.
 
-Not ported yet (see ROADMAP.md, queue 1): the XLA batch engine
-(``packed="off"``), checkpoints, device-side prep and the multi-device
-engines.  Each raises ``NotImplementedError`` under
+Initialization, the shuffle and the batch sort replay the JAX package's
+numpy streams, and the fused engines' negative streams too, so both
+packages train on identical inputs.  The batch engine draws its negatives
+from a ``torch.Generator`` a fit and epoch (:func:`_draw_negatives`), a
+stream the JAX package's threefry draws differ from.
+
+Not ported yet (see ROADMAP.md, queue 1): checkpoints, device-side prep
+and the multi-device engines.  Each raises ``NotImplementedError`` under
 ``engine="xla"``; ``engine="pallas"`` takes none of them, as in the JAX
 package.
 """
@@ -51,12 +64,15 @@ import torch
 from ..ops import packed as pk
 from ..ops import pallas_engine as pe
 from ..ops.fused_step import supports_v8
+from ..ops.hashset import build_pair_hashset, hashset_contains, to_device
 from ..ops.packed_epoch import (make_packed_optimizer, make_reject_filter,
                                 packed_bpr_epoch, packed_bpr_pool_epoch,
                                 prep_backend, prep_epoch, prep_pool_epoch,
                                 prep_static, prep_static_pool, unpack_device)
+from ..ops.relmf_epoch import epoch_generator
 from ..ops.wide_epoch import (pack_wide, prep_static_wide, wide_bpr_epoch,
                               wide_rows, wide_sorted_masks)
+from ..optim import make_optimizer
 from .base import MFTrainerBase, PersistenceMixin, as_csr
 
 PAD_USER = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
@@ -74,15 +90,16 @@ def shuffled_interactions(X):
     return users[order].astype(np.int32), positives[order].astype(np.int32)
 
 
-def sorted_batches(users, positives, batch_size: int):
-    """The packed engine's minibatches of the shuffled interactions
+def sorted_batches(users, positives, batch_size: int, multiple: int = 1024):
+    """The minibatches of the shuffled interactions
     (:func:`shuffled_interactions`): ``(u2, i2)``, int32 ``[S, B]``,
-    padded with ``PAD_USER`` to ``S x B`` with ``B`` rounded up to 1024,
+    padded with ``PAD_USER`` to ``S x B`` with ``B`` rounded up to a
+    ``multiple`` (1024 for the fused engines, 1 for the batch engine),
     each step sorted by user (order within a synchronous batch is
     semantically irrelevant; the W-side accumulation needs it)."""
     N = len(users)
     B = min(int(batch_size), max(N, 1))
-    B = -(-B // 1024) * 1024
+    B = -(-B // multiple) * multiple
     S = max(1, -(-N // B))
     pad = S * B - N
     if pad:
@@ -93,6 +110,74 @@ def sorted_batches(users, positives, batch_size: int):
     order = np.argsort(u2, axis=1, kind="stable")
     return (np.take_along_axis(u2, order, axis=1),
             np.take_along_axis(i2, order, axis=1))
+
+
+def choose_update_mode(mode: str, batch_rows: int, table_rows: int) -> str:
+    """'auto' resolves to dense when the batch covers enough of the table
+    that a full-table pass is cheaper than sorted row-scatters."""
+    if mode != "auto":
+        return mode
+    return "dense" if batch_rows * 16 >= table_rows else "sparse"
+
+
+def _draw_negatives(gen: torch.Generator, B: int, num_items: int,
+                    device) -> torch.Tensor:
+    """One step's ``B`` uniform negatives over ``[0, num_items)``, int32 on
+    ``device``, from ``gen``: the batch engine's only draw."""
+    return torch.randint(0, num_items, (B,), generator=gen, device=device,
+                         dtype=torch.int32)
+
+
+def _bpr_epoch(W, H, opt_w, opt_h, u_steps, i_steps, hs, n_valid, gen, *,
+               optimizer, weight_decay: float, num_users: int,
+               num_items: int, update_mode: str = "dense") -> torch.Tensor:
+    """One epoch of the batch engine over ``S`` minibatch steps
+    (``u_steps``, ``i_steps``: int32 ``[S, B]`` on the tables' device),
+    as ``cymf_tpu.models.bpr._bpr_epoch``.  Each step draws its negatives
+    from ``gen`` (:func:`_draw_negatives`), masks padding users
+    (``PAD_USER``) and negatives the pair hash set ``hs`` holds, and
+    applies one synchronous update per table.  Updates ``W``, ``H`` and
+    the optimizer states IN PLACE; returns the mean loss (0-d tensor,
+    ``sum / max(n_valid, 1)``).
+
+    ``update_mode``: "dense" scatters the per-sample gradients into a
+    table-shaped buffer and makes one masked full-table pass; "sparse"
+    sort-dedups and updates the touched rows only.  Both make one step a
+    touched row with its summed gradient.
+    """
+    S, B = u_steps.shape
+    dev = W.device
+    nw = W.shape[0]
+    loss_acc = torch.zeros((), dtype=W.dtype, device=dev)
+    for t in range(S):
+        u, i = u_steps[t], i_steps[t]
+        j = _draw_negatives(gen, B, num_items, dev)
+        # padding samples carry PAD_USER: the gather clamps, every scatter
+        # drops them (optim), and the mask zeroes their gradients
+        mask = (u < num_users) & ~hashset_contains(hs, u, j)
+        mf = mask.to(W.dtype)[:, None]
+        wu = W.index_select(0, u.clamp(max=nw - 1))
+        hi, hj = H.index_select(0, i), H.index_select(0, j)
+        x = torch.sum(wu * (hi - hj), dim=1, keepdim=True)
+        sig = torch.sigmoid(-x)  # 1/(1+e^x), cf. model.pyx:78
+        # gradients per model.pyx:81-83 (decay inside the gradient)
+        g_wu = -(sig * (hi - hj) - weight_decay * wu) * mf
+        g_hi = -(sig * wu - weight_decay * hi) * mf
+        g_hj = -(-sig * wu - weight_decay * hj) * mf
+        l2 = (torch.sum(torch.square(wu), dim=1)
+              + torch.sum(torch.square(hi), dim=1)
+              + torch.sum(torch.square(hj), dim=1))
+        loss = (-torch.nn.functional.logsigmoid(x[:, 0])
+                + weight_decay * l2) * mf[:, 0]
+        if update_mode == "dense":
+            optimizer.update_dense(W, opt_w, [(u, g_wu)])
+            optimizer.update_dense(H, opt_h, [(i, g_hi), (j, g_hj)])
+        else:
+            optimizer.update_rows(W, opt_w, u, g_wu)
+            optimizer.update_rows(H, opt_h, torch.cat([i, j]),
+                                  torch.cat([g_hi, g_hj]))
+        loss_acc += torch.sum(loss)
+    return loss_acc / max(int(n_valid), 1)
 
 
 class BPR(MFTrainerBase, PersistenceMixin):
@@ -106,10 +191,12 @@ class BPR(MFTrainerBase, PersistenceMixin):
                  engine: str = "xla", packed: str = "auto",
                  neg_pool: int = 0, device=None):
         """Arguments as ``cymf_tpu.BPR``.  Under ``engine="xla"``,
-        ``packed="auto"`` and ``"on"`` both run the fused engines, packed
-        for K <= 127 and wide for K >= 128, the only XLA engines ported so
-        far; ``update_mode`` is validated and, as in the JAX package's
-        fused and sequential engines, has no effect.
+        ``packed="on"`` runs the fused engines, packed for K <= 127 and
+        wide for K >= 128, ``packed="off"`` the batch engine, and
+        ``packed="auto"`` picks as :meth:`_fused_engine` says.
+        ``update_mode`` picks the batch engine's update (dense, sparse, or
+        by :func:`choose_update_mode`); as in the JAX package's fused and
+        sequential engines, it has no effect on them.
         ``neg_pool=P`` (a multiple of 128 in [128, 2048]) draws each
         step's negatives from a pool of P items (pipeline v8)."""
         super().__init__(num_components, device=device)
@@ -137,9 +224,21 @@ class BPR(MFTrainerBase, PersistenceMixin):
             raise ValueError("neg_pool requires the packed engine")
         if self.optimizer not in ("sgd", "adagrad", "adam"):
             raise Exception(f"{self.optimizer} is invalid.")
-        # the sequential engine takes none of these, as in the JAX package
-        if engine == "xla" and packed == "off":
-            raise NotImplementedError(f"packed='off' {_LATER}")
+
+    def _fused_engine(self, device_type: str, n_samples: int) -> str:
+        """The engine of an ``engine="xla"`` fit: ``"packed"`` (K <= 127),
+        ``"wide"`` (K >= 128) or ``"batch"``.  ``packed="on"`` forces the
+        fused one and ``"off"`` the batch engine; under ``"auto"`` a CUDA
+        device takes the fused one at 4096 interactions or more (the JAX
+        rule, `cymf_tpu/models/bpr.py:353-358`, with the card in the TPU's
+        place), and the CPU takes it at any size."""
+        kind = "packed" if pk.packable(self.num_components) else "wide"
+        if self.packed == "off":
+            return "batch"
+        if self.packed == "on" or device_type != "cuda" \
+                or n_samples >= 4096:
+            return kind
+        return "batch"
 
     @torch.no_grad()
     def fit(self, X, num_epochs: int = 10, num_threads: int = 1,
@@ -174,18 +273,63 @@ class BPR(MFTrainerBase, PersistenceMixin):
         users, positives = shuffled_interactions(X)
         self._samples_per_epoch = len(users)
         if self.engine == "pallas":
+            self.engine_ = "pallas"
             self._fit_pallas(X, users, positives, num_epochs, verbose, seed)
             return
-        u2, i2 = sorted_batches(users, positives, self.batch_size)
-        if pk.packable(self.num_components):
-            self._fit_packed(X, u2, i2, num_epochs, verbose, seed)
-            return
-        if self.neg_pool:
+        self.engine_ = self._fused_engine(self.device.type, len(users))
+        if self.neg_pool and self.engine_ != "packed":
             raise ValueError(
                 "neg_pool requires the packed engine (K <= 127 and a "
                 "single-device TPU run, or packed='on'); this fit "
-                "selected 'wide'")
+                f"selected {self.engine_!r}")
+        if self.engine_ == "batch":
+            u2, i2 = sorted_batches(users, positives, self.batch_size,
+                                    multiple=1)
+            self._fit_batch(X, u2, i2, num_epochs, verbose, seed)
+            return
+        u2, i2 = sorted_batches(users, positives, self.batch_size)
+        if self.engine_ == "packed":
+            self._fit_packed(X, u2, i2, num_epochs, verbose, seed)
+            return
         self._fit_wide(X, u2, i2, num_epochs, verbose, seed)
+
+    def _fit_batch(self, X, u2, i2, num_epochs, verbose, seed):
+        """The portable batch engine (:func:`_bpr_epoch`), as the
+        single-device branch of ``cymf_tpu.BPR.fit``: logical tables, the
+        pair hash set on the device, ``mode`` from ``3 * B`` rows against
+        the tables', one ``torch.Generator`` an epoch
+        (``ops/relmf_epoch.py::epoch_generator``)."""
+        dev = self.device
+        U, I = X.shape
+        B = u2.shape[1]
+        N = self._samples_per_epoch
+        self.last_loss = None
+        coo = X.tocoo()
+        hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        # copies: the host tables must not see the in-place updates
+        W = torch.tensor(self.W, dtype=torch.float32, device=dev)
+        H = torch.tensor(self.H, dtype=torch.float32, device=dev)
+        self.update_mode_ = choose_update_mode(self.update_mode, 3 * B,
+                                               U + I)
+        opt = make_optimizer(self.optimizer, self.learning_rate)
+        ow, oh = opt.init(W), opt.init(H)
+        u_d, i_d = put(u2), put(i2)
+
+        def publish():
+            self._state = {"W": W, "H": H, "ow": ow, "oh": oh}
+
+        def run(epoch):
+            return _bpr_epoch(
+                W, H, ow, oh, u_d, i_d, hs, N,
+                epoch_generator(seed, epoch, dev), optimizer=opt,
+                weight_decay=self.weight_decay, num_users=U, num_items=I,
+                update_mode=self.update_mode_)
+
+        self._run_device_epochs(num_epochs, verbose, None, run, publish)
 
     def _fit_packed(self, X, u2, i2, num_epochs, verbose, seed):
         """Packed tables + fused kernels + sorted accumulations with

@@ -11,25 +11,37 @@ trained with AdaGrad (accumulators initialized to ones) over two
 embedding tables and two bias vectors; the final embedding is the average
 ``(W_central + W_context) / 2`` (`glove.pyx:112`).
 
-Port of `cymf_tpu/models/glove.py` on its single-device packed engine
-(``_fit_packed_glove``, `ops/glove_epoch.py`) in the fused-bias mode: the
-biases ride as augmented table columns ``[w | b_c | 1] . [h | 1 | b_x]``,
-one AdaGrad update per sample.  Initialization, the shuffle, the padding
+Port of `cymf_tpu/models/glove.py` on two single-device ``engine="xla"``
+engines.  The packed engine (``_fit_packed_glove``, `ops/glove_epoch.py`)
+runs the fused-bias mode: the biases ride as augmented table columns
+``[w | b_c | 1] . [h | 1 | b_x]``, one AdaGrad update per sample.  The
+portable batch engine (``_fit_batch``, :func:`_glove_epoch`) runs both
+bias modes on logical tables through :mod:`cymf_tpu_torch.optim`, dense
+or sparse: the fused one (the constant columns masked out of the
+gradient), and the reference-exact ``bias_mode="kfold"``, separate
+``(V, 1)`` bias columns with K AdaGrad steps a sample in closed form
+(:func:`_bias_kfold_update`).  Initialization, the shuffle, the padding
 and the per-step sort replay the JAX package's numpy streams, so both
 packages train on identical inputs under the same ``np.random.seed``.
+
+``packed="auto"`` follows the JAX rule with the card in the TPU's place
+(:meth:`GloVe._packed_engine`): on a CUDA device the packed engine takes
+a fused-bias fit of at least 4096 triples with ``num_components <= 124``,
+every other fit the batch engine.  The one deliberate difference: on the
+CPU ``"auto"`` takes the packed engine at any size (its plain forms are
+what the CPU tests hold against the card's kernels), where the JAX
+package would take the batch engine.
 
 ``engine="pallas"`` runs the sequential small-catalog engine
 (``_fit_pallas``, `ops/pallas_engine.py`) on the same augmented tables:
 per-sample AdaGrad updates in groups of 8 over the shuffled stream, one
 kernel launch an epoch; ``last_loss`` is then the epoch's loss sum, as in
-the JAX package.
+the JAX package.  It implements the fused bias mode only, as in the JAX
+package.
 
-Not ported yet (ROADMAP.md, queue 1): the in-jit engine
-(``packed="off"`` and ``num_components > 124`` under ``engine="xla"``),
-the reference-exact ``bias_mode="kfold"`` (which ``engine="pallas"``
-refuses in the JAX package too), checkpoints, ``read_text`` and the
-co-occurrence builders.  Each option raises ``NotImplementedError``.  The
-port trains on one device; the JAX package's sharded packed engine has no
+Not ported yet (ROADMAP.md, queue 1): checkpoints, ``read_text`` and the
+co-occurrence builders; checkpoints raise ``NotImplementedError``.  The
+port trains on one device; the JAX package's sharded engines have no
 counterpart yet.
 """
 
@@ -48,9 +60,94 @@ from ..ops import pallas_engine as pe
 from ..ops.glove_epoch import (augment_tables, packed_glove_epoch,
                                prep_glove_static, supports_packed_glove)
 from ..ops.packed_epoch import PackedAdaGrad
+from ..ops.segment import dedup_rows
+from ..optim import AdaGrad, masked_addend, set_rows
+from .bpr import choose_update_mode
 
 _LATER = "is not ported to cymf_tpu_torch yet (ROADMAP.md, queue 1)"
 PAD_CENTRAL = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
+
+
+def _bias_kfold_update(bias, accum, rows, grads, lr: float, k_steps: int,
+                       presorted: bool = False) -> None:
+    """K consecutive AdaGrad steps with a constant gradient, in closed
+    form, on the ``(V, 1)`` columns ``bias`` and ``accum`` IN PLACE: the
+    reference emits a sample's bias gradient once per latent dimension
+    (`model.pyx:195-204`), so ``delta = -lr * g * sum_{t=1..K}
+    rsqrt(a0 + t g^2)`` and ``accum += K g^2`` for each distinct row's
+    summed gradient ``g``.  Rows at or past ``V`` are dropped."""
+    drop = bias.shape[0]
+    rows, g = dedup_rows(rows, grads[:, None], drop, presorted=presorted)
+    keep = rows < drop
+    tgt = rows.clamp(max=drop - 1)
+    a0 = accum.index_select(0, tgt)                      # (B, 1)
+    t = torch.arange(1, k_steps + 1, dtype=bias.dtype, device=bias.device)
+    denom = torch.sqrt(a0 + t[None, :] * torch.square(g))
+    delta = -lr * g[:, :1] * torch.sum(1.0 / denom, dim=1, keepdim=True)
+    set_rows(accum, tgt, a0 + k_steps * torch.square(g[:, :1]), keep)
+    bias.index_add_(0, tgt, masked_addend(delta, keep))
+
+
+def _glove_epoch(Wc, Wx, bc, bx, ow, oh, abc, abx, c_steps, x_steps,
+                 n_steps_counts, n_valid, *, optimizer, x_max: float,
+                 alpha: float, learning_rate: float, num_components: int,
+                 num_central: int, update_mode: str = "dense",
+                 bias_mode: str = "fused") -> torch.Tensor:
+    """One epoch of the batch engine over ``S`` steps of central ids,
+    context ids and counts (``[S, B]`` on the tables' device, each step
+    sorted by central id, padding central ids ``2**31 - 1`` last), as
+    ``cymf_tpu.models.glove._glove_epoch``.  ``bias_mode``:
+
+    * "fused": ``Wc``/``Wx`` are the ``[V, K + 2]`` augmented tables and
+      the bias gradient flows through the same AdaGrad update as the
+      embeddings (one update a sample); the constant-one columns are
+      masked out of the gradient, so they stay exactly one.  ``bc``,
+      ``bx``, ``abc`` and ``abx`` are unused.
+    * "kfold": ``Wc``/``Wx`` are ``[V, K]``, the biases ``(V, 1)`` columns
+      with their AdaGrad accumulators ``abc``/``abx``, updated by
+      :func:`_bias_kfold_update`.
+
+    Updates tables and states IN PLACE; returns the mean loss (0-d
+    tensor, ``sum / max(n_valid, 1)``).
+    """
+    S, B = c_steps.shape
+    K = num_components
+    nc = Wc.shape[0]
+    col = torch.arange(Wc.shape[1], device=Wc.device)
+    loss_acc = torch.zeros((), dtype=Wc.dtype, device=Wc.device)
+    for t in range(S):
+        c, x, cnt = c_steps[t], x_steps[t], n_steps_counts[t]
+        # padding triples carry an out-of-range central id: the gathers
+        # clamp it, every scatter drops it, the mask zeroes its gradient
+        mf = (c < num_central).to(Wc.dtype)
+        cc = c.clamp(max=nc - 1)
+        wc, hx = Wc.index_select(0, cc), Wx.index_select(0, x)
+        f = torch.clamp(torch.pow(cnt / x_max, alpha), max=1.0)
+        if bias_mode == "fused":
+            diff = torch.sum(wc * hx, dim=1) - torch.log(cnt)
+        else:
+            diff = (torch.sum(wc * hx, dim=1) + bc.index_select(0, cc)[:, 0]
+                    + bx.index_select(0, x)[:, 0] - torch.log(cnt))
+        loss = 0.5 * f * torch.square(diff) * mf
+        fd = (f * diff * mf)[:, None]
+        g_c = fd * hx
+        g_x = fd * wc
+        if bias_mode == "fused":
+            # the constant-1 columns must stay constant
+            g_c = g_c * (col != K + 1)
+            g_x = g_x * (col != K)
+        if update_mode == "dense":
+            optimizer.update_dense(Wc, ow, [(c, g_c)])
+            optimizer.update_dense(Wx, oh, [(x, g_x)])
+        else:
+            optimizer.update_rows(Wc, ow, c, g_c)
+            optimizer.update_rows(Wx, oh, x, g_x)
+        if bias_mode == "kfold":
+            _bias_kfold_update(bc, abc, c, fd[:, 0], learning_rate, K,
+                               presorted=True)
+            _bias_kfold_update(bx, abx, x, fd[:, 0], learning_rate, K)
+        loss_acc += torch.sum(loss)
+    return loss_acc / max(int(n_valid), 1)
 
 
 class GloVe:
@@ -64,9 +161,10 @@ class GloVe:
                  bias_mode: str = "fused", engine: str = "xla",
                  packed: str = "auto", device=None):
         """Arguments as ``cymf_tpu.GloVe``.  Under ``engine="xla"``,
-        ``packed="auto"`` and ``"on"`` both run the packed engine, the only
-        XLA engine ported; ``update_mode`` is validated and has no effect on
-        either engine."""
+        ``packed="on"`` runs the packed engine, ``"off"`` the batch
+        engine, and ``"auto"`` picks as :meth:`_packed_engine` says.
+        ``update_mode`` picks the batch engine's update; it has no effect
+        on the packed and sequential engines."""
         self.num_components = int(num_components)
         self.learning_rate = float(learning_rate)
         self.alpha = float(alpha)
@@ -88,15 +186,32 @@ class GloVe:
             raise NotImplementedError(
                 "engine='pallas' implements bias_mode='fused' only (as in "
                 "the JAX package)")
-        if bias_mode == "kfold":
-            raise NotImplementedError(f"bias_mode='kfold' {_LATER}")
-        if engine == "xla" and packed == "off":
-            raise NotImplementedError(f"packed='off' (the in-jit engine) "
-                                      f"{_LATER}")
         self.device = torch.device(device) if device is not None \
             else config.default_device()
         self.W = None
         self.bias = None
+
+    def _packed_engine(self, device_type: str, n_samples: int) -> bool:
+        """True if the packed engine takes an ``engine="xla"`` fit of
+        ``n_samples`` triples: ``packed="on"`` forces it (and raises
+        ``ValueError`` for ``bias_mode="kfold"`` or ``num_components >
+        124``, which it cannot run), ``"off"`` never takes it; under
+        ``"auto"`` a fused-bias fit with ``num_components <= 124`` takes
+        it on a CUDA device at 4096 triples or more (the JAX rule,
+        `cymf_tpu/models/glove.py:225-237`, with the card in the TPU's
+        place) and on the CPU at any size."""
+        if self.packed == "off":
+            return False
+        if self.bias_mode != "fused" \
+                or not supports_packed_glove(self.num_components):
+            if self.packed == "on":
+                raise ValueError(
+                    "packed='on' requires bias_mode='fused' and "
+                    "num_components <= 124 (the augmented payload K+2 plus "
+                    "two decoration lanes must lane-pack)")
+            return False
+        return self.packed == "on" or device_type != "cuda" \
+            or n_samples >= 4096
 
     def fit(self, X, num_epochs: int, num_threads: int = 1,
             verbose: bool = False, checkpoint_path=None,
@@ -114,18 +229,6 @@ class GloVe:
         if checkpoint_path is not None or resume:
             raise NotImplementedError(f"checkpoints {_LATER}")
         K = self.num_components
-        if self.engine == "xla" and not supports_packed_glove(K):
-            # as in the JAX package: "on" rejects the width, "auto" would
-            # take the in-jit engine
-            if self.packed == "on":
-                raise ValueError(
-                    "packed='on' requires num_components <= 124 (the "
-                    "augmented payload K+2 plus two decoration lanes must "
-                    "lane-pack)")
-            raise NotImplementedError(
-                f"num_components > 124 needs the in-jit engine, which "
-                f"{_LATER}")
-
         t0 = time.perf_counter()
         V1, V2 = X.shape
         # init per glove.pyx:91-94 (no seed: the ambient numpy state)
@@ -143,8 +246,10 @@ class GloVe:
         counts = coo.data.astype(np.float64)[order]
 
         N = len(central)
+        use_packed = self.engine == "xla" and self._packed_engine(
+            self.device.type, N)
         B = min(self.batch_size, max(N, 1))
-        if self.engine == "xla":
+        if use_packed:
             B = -(-B // 1024) * 1024
         S = max(1, -(-N // B))
         pad = S * B - N
@@ -166,9 +271,53 @@ class GloVe:
         c2 = np.take_along_axis(c2, order, axis=1)
         x2 = np.take_along_axis(x2, order, axis=1)
         n2 = np.take_along_axis(n2, order, axis=1)
-        self._fit_packed_glove(c2, x2, n2, W_central, central_bias,
-                               W_context, context_bias, N, num_epochs,
-                               verbose, V1, V2, t0)
+        fit = self._fit_packed_glove if use_packed else self._fit_batch
+        fit(c2, x2, n2, W_central, central_bias, W_context, context_bias, N,
+            num_epochs, verbose, V1, V2, t0)
+
+    def _fit_batch(self, c2, x2, n2, W_central, central_bias, W_context,
+                   context_bias, N, num_epochs, verbose, V1, V2, t0):
+        """The portable batch engine (:func:`_glove_epoch`), as the
+        single-device branch of ``cymf_tpu.GloVe.fit``: augmented tables
+        (fused) or logical tables with ``(V, 1)`` bias columns (kfold),
+        AdaGrad accumulators at ones, ``mode`` from ``2 * B`` rows against
+        the tables'."""
+        dev = self.device
+        K = self.num_components
+        S, B = c2.shape
+        self.packed_engine_ = False
+
+        def table(T):
+            T = np.asarray(T)
+            if T.ndim == 1:
+                T = T[:, None]  # column layout: row-addressed bias updates
+            return torch.tensor(T, dtype=torch.float32, device=dev)
+
+        if self.bias_mode == "fused":
+            Wc, Wx = (table(T) for T in augment_tables(
+                W_central, central_bias, W_context, context_bias))
+            bc, bx = table(np.zeros(1)), table(np.zeros(1))  # unused
+        else:
+            Wc, Wx = table(W_central), table(W_context)
+            bc, bx = table(central_bias), table(context_bias)
+        opt = AdaGrad(self.learning_rate)
+        ow, oh = opt.init(Wc), opt.init(Wx)
+        # accumulators start at ones (optimizer.pyx:96-99)
+        abc, abx = torch.ones_like(bc), torch.ones_like(bx)
+        steps = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (c2, x2, n2.astype(np.float32))]
+        self.update_mode_ = choose_update_mode(self.update_mode, 2 * B,
+                                               V1 + V2)
+        self._run_epochs(num_epochs, verbose, t0, lambda: _glove_epoch(
+            Wc, Wx, bc, bx, ow, oh, abc, abx, *steps, N, optimizer=opt,
+            x_max=self.x_max, alpha=self.alpha,
+            learning_rate=self.learning_rate, num_components=K,
+            num_central=V1, update_mode=self.update_mode_,
+            bias_mode=self.bias_mode))
+        Wc, Wx, bc, bx = (T.cpu().numpy() for T in (Wc, Wx, bc, bx))
+        if self.bias_mode == "kfold":  # the augmented layout, for outputs
+            Wc, Wx = augment_tables(Wc, bc[:, 0], Wx, bx[:, 0])
+        self._set_outputs(Wc, Wx, K)
 
     def _fit_packed_glove(self, c2, x2, n2, W_central, central_bias,
                           W_context, context_bias, N, num_epochs, verbose,
@@ -199,24 +348,9 @@ class GloVe:
         oc, ox = opt.init(Zc), opt.init(Zx)
         dev_streams = [put(a) for a in (c2, x2, m2, f2, l2, sx, rowsx, winx,
                                         winw)]
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        self.prep_s_ = time.perf_counter() - t0
-        self.epoch_times_ = []
-        loss = None
-        for it in range(num_epochs):
-            t1 = time.perf_counter()
-            loss = packed_glove_epoch(
-                Zc, Zx, oc, ox, *dev_streams, N, lr=self.learning_rate, K=K,
-                rw=rw, rh=rh, wrows_w=wrows_w, wrows_h=wrows_h)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            self.epoch_times_.append(time.perf_counter() - t1)
-            if verbose:
-                print(f"ITER={it + 1:{len(str(num_epochs))}}, "
-                      f"LOSS: {float(loss):.4f}", flush=True)
-
-        self.last_loss = float(loss) if loss is not None else None
+        self._run_epochs(num_epochs, verbose, t0, lambda: packed_glove_epoch(
+            Zc, Zx, oc, ox, *dev_streams, N, lr=self.learning_rate, K=K,
+            rw=rw, rh=rh, wrows_w=wrows_w, wrows_h=wrows_h))
         Zc_log = pk.unpack_array(Zc.cpu().numpy(), V1, Kp)
         Zx_log = Zx[:V2, :Kp].cpu().numpy()
         self._set_outputs(Zc_log, Zx_log, K)
@@ -257,6 +391,20 @@ class GloVe:
         streams = [put(np.where(keep, central, 0), np.int32),
                    put(context, np.int32), put(f, np.float32),
                    put(logcnt, np.float32), put(keep, np.int32)]
+        self._run_epochs(num_epochs, verbose, t0, lambda: (
+            pe.glove_pallas_epoch(Zc, Zx, *streams, lr=self.learning_rate,
+                                  k_dim=K, group=group)[2]))
+        self.packed_engine_ = False
+        Zc_log = Zc[:V1, :K + 2].cpu().numpy()
+        Zx_log = Zx[:V2, :K + 2].cpu().numpy()
+        self._set_outputs(Zc_log, Zx_log, K)
+
+    def _run_epochs(self, num_epochs, verbose, t0, run):
+        """Every engine's epoch loop: ``prep_s_`` (the host work since
+        ``t0``, the card synchronised), then ``num_epochs`` calls of
+        ``run()`` (an epoch; it returns the loss), each timed into
+        ``epoch_times_``; ``last_loss`` from the last."""
+        dev = self.device
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.prep_s_ = time.perf_counter() - t0
@@ -264,21 +412,14 @@ class GloVe:
         loss = None
         for it in range(num_epochs):
             t1 = time.perf_counter()
-            loss = pe.glove_pallas_epoch(Zc, Zx, *streams,
-                                         lr=self.learning_rate, k_dim=K,
-                                         group=group)[2]
+            loss = run()
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             self.epoch_times_.append(time.perf_counter() - t1)
             if verbose:
                 print(f"ITER={it + 1:{len(str(num_epochs))}}, "
                       f"LOSS: {float(loss):.4f}", flush=True)
-
-        self.packed_engine_ = False
         self.last_loss = float(loss) if loss is not None else None
-        Zc_log = Zc[:V1, :K + 2].cpu().numpy()
-        Zx_log = Zx[:V2, :K + 2].cpu().numpy()
-        self._set_outputs(Zc_log, Zx_log, K)
 
     def _set_outputs(self, Zc_log, Zx_log, K):
         """The learned tables from the augmented ones (``[rows, K + 2]``)."""

@@ -28,12 +28,22 @@ drawn on the host from ``default_rng(seed)`` as the JAX package draws
 them, labels from X's values (a non-binary X is taken), and per-sample
 updates in groups of 8, one kernel launch an epoch.
 
-One deliberate difference: ``packed="auto"`` picks the packed engine on
-any device, since it is the port's only XLA engine; the JAX package picks
-it on a TPU only.  Not ported yet (ROADMAP.md, queue 1): the in-jit engine
-(``packed="off"`` under ``engine="xla"``, and what only it takes there: a
-non-binary ``X``, ``num_components > 126``, host-prep epochs above the
-cap), checkpoints and the multi-device engines.  Each raises
+The portable batch engine (``_fit_batch``, :func:`_relmf_epoch`) takes
+``packed="off"`` and, under ``"auto"``, what the packed engine cannot: a
+non-binary ``X`` (labels from ``ops/segment.py::csr_lookup``),
+``num_components > 126``, and host-prep epochs above the cap.  Each step
+draws ``B`` cells on the tables' device from one ``torch.Generator`` an
+epoch (:func:`_draw_cells`, the draws of ``ops/relmf_epoch.py::
+draw_cells``) and makes one synchronous update per table through
+:mod:`cymf_tpu_torch.optim`, dense or sparse.  Left behind: the JAX
+package's chunking of an epoch into scans of at most 2048 steps from a
+traced ``step0``, a relay workaround (ROADMAP.md, "Leave behind").
+
+One deliberate difference: the JAX package takes the packed engine on a
+TPU only; the port under ``"auto"`` takes it wherever it fits, on the card
+as on the TPU, and on the CPU too, whose plain forms the CPU tests hold
+against the card's kernels.  Not ported yet (ROADMAP.md, queue 1):
+checkpoints and the multi-device engines; each raises
 ``NotImplementedError``.
 """
 
@@ -47,18 +57,77 @@ import torch
 
 from ..ops import packed as pk
 from ..ops import pallas_engine as pe
-from ..ops.hashset import build_pair_hashset, to_device
+from ..ops.hashset import build_pair_hashset, hashset_contains, to_device
 from ..ops.packed_epoch import (make_packed_optimizer, make_reject_filter,
                                 prep_backend, unpack_device)
 from ..ops.relmf_epoch import (epoch_generator, packed_relmf_epoch,
                                packed_relmf_epoch_device, prep_relmf_epoch,
                                supports_packed_relmf)
+from ..ops.segment import csr_lookup
+from ..optim import make_optimizer
 from .base import MFTrainerBase, PersistenceMixin, as_csr
+from .bpr import choose_update_mode
 
 _LATER = "is not ported to cymf_tpu_torch yet (ROADMAP.md, queue 1)"
 # host prep holds an epoch's cells as int64 draws and int32 streams: cap
 # it at the JAX package's default of 2^27 cells (about 3 GiB of prep)
 HOST_PREP_MAX_CELLS = 1 << 27
+
+
+def _draw_cells(gen: torch.Generator, B: int, num_users: int,
+                num_items: int, device):
+    """One step's ``B`` cells on ``device`` from ``gen``: int32 users, then
+    items, each uniform (the draws of ``ops/relmf_epoch.py::draw_cells``):
+    the batch engine's only draw."""
+    u = torch.randint(0, num_users, (B,), generator=gen, device=device,
+                      dtype=torch.int32)
+    i = torch.randint(0, num_items, (B,), generator=gen, device=device,
+                      dtype=torch.int32)
+    return u, i
+
+
+def _relmf_epoch(W, H, opt_w, opt_h, label_src, props, gen, *, optimizer,
+                 weight_decay: float, clip_value: float, num_users: int,
+                 num_items: int, num_steps: int, batch_size: int,
+                 update_mode: str = "dense", binary_labels: bool = False
+                 ) -> torch.Tensor:
+    """One epoch of the batch engine, ``num_steps`` steps of
+    ``batch_size`` drawn cells, as ``cymf_tpu.models.relmf._relmf_epoch``
+    (one whole epoch, no chunks).  ``label_src`` is the pair hash set
+    (``binary_labels``) or ``(indptr, indices, data)`` of ``X``'s CSR;
+    ``props`` the ``(I, 1)`` propensity column.  Updates ``W``, ``H`` and
+    the optimizer states IN PLACE; returns the SUM of the per-sample
+    losses (callers normalize over the epoch)."""
+    dev = W.device
+    loss_acc = torch.zeros((), dtype=W.dtype, device=dev)
+    for _ in range(num_steps):
+        u, i = _draw_cells(gen, batch_size, num_users, num_items, dev)
+        if binary_labels:
+            r = hashset_contains(label_src, u, i).to(W.dtype)
+        else:
+            r = csr_lookup(*label_src, u, i)[1]
+        p = props.index_select(0, i)[:, 0]
+        w = r / torch.clamp(p, min=clip_value)
+        wu, hi = W.index_select(0, u), H.index_select(0, i)
+        s = torch.sum(wu * hi, dim=1, keepdim=True)
+        wcol = w[:, None]
+        # gradients per model.pyx:130-139 (decay ADDED, reference sign quirk)
+        g_w = -(wcol * (1.0 - s) * hi + (1.0 - wcol) * (0.0 - s) * hi) \
+            + weight_decay * wu
+        g_h = -(wcol * (1.0 - s) * wu + (1.0 - wcol) * (0.0 - s) * wu) \
+            + weight_decay * hi
+        l2 = (torch.sum(torch.square(wu), dim=1)
+              + torch.sum(torch.square(hi), dim=1))
+        loss = (w * torch.square(1.0 - s[:, 0])
+                + (1.0 - w) * torch.square(s[:, 0]) + weight_decay * l2)
+        if update_mode == "dense":
+            optimizer.update_dense(W, opt_w, [(u, g_w)])
+            optimizer.update_dense(H, opt_h, [(i, g_h)])
+        else:
+            optimizer.update_rows(W, opt_w, u, g_w)
+            optimizer.update_rows(H, opt_h, i, g_h)
+        loss_acc += torch.sum(loss)
+    return loss_acc
 
 
 class RelMF(MFTrainerBase, PersistenceMixin):
@@ -72,9 +141,11 @@ class RelMF(MFTrainerBase, PersistenceMixin):
                  update_mode: str = "auto", engine: str = "xla",
                  packed: str = "auto", device=None):
         """Arguments as ``cymf_tpu.RelMF``.  Under ``engine="xla"``,
-        ``packed="auto"`` and ``"on"`` both run the packed engine;
-        ``update_mode`` is validated and, as in the JAX package's packed
-        and sequential engines, has no effect."""
+        ``packed="on"`` runs the packed engine, ``"off"`` the batch
+        engine, and ``"auto"`` the packed engine where it fits
+        (:meth:`_packed_engine`).  ``update_mode`` picks the batch
+        engine's update; as in the JAX package's packed and sequential
+        engines, it has no effect on them."""
         super().__init__(num_components, device=device)
         if engine not in ("xla", "pallas"):
             raise ValueError("engine must be 'xla' or 'pallas'")
@@ -95,9 +166,6 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         if packed == "on" and engine != "xla":
             raise ValueError("packed='on' requires engine='xla' "
                              f"(got engine={engine!r})")
-        if engine == "xla" and packed == "off":
-            raise NotImplementedError(f"packed='off' (the in-jit engine) "
-                                      f"{_LATER}")
 
     @staticmethod
     def _packed_prep_mode() -> str:
@@ -112,12 +180,15 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         return mode
 
     def _packed_engine(self, binary: bool, cells: int) -> bool:
-        """True if the packed engine takes this fit: a binarized matrix, a
-        packable payload and, under host prep, at most
-        :data:`HOST_PREP_MAX_CELLS` cells an epoch (device prep has no
-        cap).  Otherwise ``packed="on"`` raises ``ValueError`` as the JAX
-        package does, and ``"auto"`` raises ``NotImplementedError``: the
-        JAX package would take its in-jit engine, not ported yet."""
+        """True if the packed engine takes this fit: not ``packed="off"``,
+        a binarized matrix, a packable payload and, under host prep, at
+        most :data:`HOST_PREP_MAX_CELLS` cells an epoch (device prep has
+        no cap).  Where it does not fit, ``packed="on"`` raises
+        ``ValueError`` as the JAX package does, and ``"auto"`` takes the
+        batch engine (`cymf_tpu/models/relmf.py:208-209`, whose TPU the
+        card and, deliberately, the CPU stand in for)."""
+        if self.packed == "off":
+            return False
         capped = (self._packed_prep_mode() == "host"
                   and cells > HOST_PREP_MAX_CELLS)
         if binary and supports_packed_relmf(self.num_components) \
@@ -129,10 +200,7 @@ class RelMF(MFTrainerBase, PersistenceMixin):
                 "<= 126, and (with CYMF_TPU_RELMF_PREP=host) at most "
                 f"{HOST_PREP_MAX_CELLS} cells an epoch (got {cells}; device "
                 "prep has no cap)")
-        raise NotImplementedError(
-            "a non-binary matrix, num_components > 126 or a host-prep epoch "
-            f"above {HOST_PREP_MAX_CELLS} cells (device prep has no cap) "
-            f"needs the in-jit engine, which {_LATER}")
+        return False
 
     @torch.no_grad()
     def fit(self, X, num_epochs: int = 10, num_threads: int = 1,
@@ -171,8 +239,59 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         B = -(-self.batch_size // 1024) * 1024
         S = max(1, -(-(U * I) // B))      # N = U*I samples per epoch
         self.packed_engine_ = self._packed_engine(binary, S * B)
+        if not self.packed_engine_:
+            self._fit_batch(X, props, binary, num_epochs, verbose, seed)
+            return
         self._samples_per_epoch = S * B
         self._fit_packed_relmf(X, props, B, S, num_epochs, verbose, seed)
+
+    def _fit_batch(self, X, props, binary, num_epochs, verbose, seed):
+        """The portable batch engine (:func:`_relmf_epoch`), as the
+        single-device branch of ``cymf_tpu.RelMF.fit``: ``B = batch_size``,
+        ``ceil(U * I / B)`` steps an epoch, labels from the pair hash set
+        (binary ``X``) or ``X``'s CSR, ``mode`` from ``2 * B`` rows against
+        the tables', one ``torch.Generator`` an epoch."""
+        dev = self.device
+        U, I = X.shape
+        B = self.batch_size
+        num_steps = max(1, -(-(U * I) // B))  # N = U*I samples an epoch
+        self._samples_per_epoch = num_steps * B
+        self.last_loss = None
+
+        def put(a, dtype=None):
+            return torch.as_tensor(np.ascontiguousarray(a),
+                                   dtype=dtype).to(dev)
+
+        if binary:
+            coo = X.tocoo()
+            label_src = to_device(build_pair_hashset(coo.row, coo.col), dev)
+        else:
+            label_src = (put(X.indptr, torch.int64),
+                         put(X.indices, torch.int32),
+                         put(X.data, torch.float32))
+        props_d = put(props[:, None], torch.float32)
+        # copies: the host tables must not see the in-place updates
+        W = torch.tensor(self.W, dtype=torch.float32, device=dev)
+        H = torch.tensor(self.H, dtype=torch.float32, device=dev)
+        self.update_mode_ = choose_update_mode(self.update_mode, 2 * B,
+                                               U + I)
+        opt = make_optimizer(self.optimizer, self.learning_rate)
+        ow, oh = opt.init(W), opt.init(H)
+        total = float(num_steps * B)  # a float: U * I may pass int32
+
+        def publish():
+            self._state = {"W": W, "H": H, "ow": ow, "oh": oh}
+
+        def run(epoch):
+            return _relmf_epoch(
+                W, H, ow, oh, label_src, props_d,
+                epoch_generator(seed, epoch, dev), optimizer=opt,
+                weight_decay=self.weight_decay, clip_value=self.clip_value,
+                num_users=U, num_items=I, num_steps=num_steps, batch_size=B,
+                update_mode=self.update_mode_,
+                binary_labels=binary) / total
+
+        self._run_device_epochs(num_epochs, verbose, None, run, publish)
 
     def _fit_packed_relmf(self, X, props, B, S, num_epochs, verbose, seed):
         """Packed fused engine (`ops/relmf_epoch.py`) with device or host

@@ -208,7 +208,6 @@ def test_warm_start_continues(data):
     (dict(neg_pool=256, packed="off"), ValueError),
     (dict(optimizer="rmsprop"), Exception),
     (dict(engine="pallas"), ValueError),          # past the engine's gate
-    (dict(packed="off"), NotImplementedError),
     (dict(neg_pool=256, num_components=31), ValueError),   # s (K + 1) = 128
     (dict(num_components=128, neg_pool=256), ValueError),  # wide K
 ])
@@ -217,6 +216,17 @@ def test_invalid_arguments(kwargs, exc):
     with pytest.raises(exc):
         ct.BPR(device="cpu", **kwargs).fit(_ml20m_sized(), num_epochs=1,
                                            verbose=False)
+
+
+def test_packed_off_fits_on_the_batch_engine():
+    """``packed="off"`` on the ML-20M-sized catalog trains on the batch
+    engine, whose sparse updates ``auto`` picks for a batch this small
+    against its tables."""
+    X = _ml20m_sized()
+    m = ct.BPR(packed="off", device="cpu")
+    m.fit(X, num_epochs=1, verbose=False)
+    assert m.engine_ == "batch" and m.update_mode_ == "sparse"
+    assert m.W.shape == (150000, 20) and np.isfinite(m.last_loss)
 
 
 def _ml20m_sized():

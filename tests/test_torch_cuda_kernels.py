@@ -1629,3 +1629,129 @@ def test_seq_refused_placement_raises(dev, model):
         with pytest.raises(RuntimeError, match=name):
             fn(*(x.clone() for x in t), *streams, _placement=p, **kw)
         assert not _kernels.launches
+
+
+def _feed_draws(monkeypatch, module, name, draws):
+    """Replace ``module.name`` (a batch engine's one draw function) with
+    one that hands out ``draws`` (numpy, or tuples of them) in order, on
+    the device it is asked for."""
+    it = iter(draws)
+
+    def draw(gen, B, *args):
+        d, dev = next(it), args[-1]
+        if isinstance(d, tuple):
+            return tuple(torch.from_numpy(a).to(dev) for a in d)
+        return torch.from_numpy(d).to(dev)
+
+    monkeypatch.setattr(module, name, draw)
+
+
+@pytest.mark.parametrize("case", ["bpr-sgd-dense", "bpr-adagrad-sparse",
+                                  "bpr-adam-dense", "relmf-sgd-dense",
+                                  "relmf-adagrad-sparse", "glove-fused-dense",
+                                  "glove-kfold-sparse"])
+def test_batch_epochs_on_card_match_cpu(dev, monkeypatch, case):
+    """One epoch of each batch engine (``packed="off"``) on the card and on
+    the CPU from the same state with the same draws: sgd and adagrad
+    ``rtol 1e-5, atol 1e-6`` (``index_add_`` sums by atomics on the card);
+    adam at least 99% of elements within ``rtol 1e-4, atol 1e-5`` and every
+    one within ``3 lr``, the CPU tests' bounds against JAX."""
+    from scipy import sparse
+
+    from cymf_tpu_torch.models import bpr as mb
+    from cymf_tpu_torch.models import glove as mg
+    from cymf_tpu_torch.models import relmf as mr
+    from cymf_tpu_torch.ops.hashset import build_pair_hashset, to_device
+    from cymf_tpu_torch.optim import AdaGrad, make_optimizer
+
+    model, opt_name, mode = case.split("-")
+    rng = np.random.default_rng(0)
+    X = sparse.random(500, 300, density=0.05, random_state=1, format="csr")
+    X.data[:] = 1.0
+    U, I = X.shape
+    lr = 0.01 if opt_name == "adam" else 0.05
+    out = {}
+    if model == "bpr":
+        u2, i2 = mb.sorted_batches(*mb.shuffled_interactions(X), 1000,
+                                   multiple=1)
+        S, B = u2.shape
+        draws = [rng.integers(0, I, B).astype(np.int32) for _ in range(S)]
+    elif model == "relmf":
+        S, B = 6, 4096
+        props = rng.uniform(0.05, 1.0, (I, 1)).astype(np.float32)
+        draws = [(rng.integers(0, U, B).astype(np.int32),
+                  rng.integers(0, I, B).astype(np.int32)) for _ in range(S)]
+    else:
+        S, B, K = 4, 1000, 10
+        c2 = np.sort(rng.integers(0, U, (S, B)), axis=1).astype(np.int32)
+        c2[-1, -100:] = 2**31 - 1
+        x2 = rng.integers(0, I, (S, B)).astype(np.int32)
+        n2 = rng.integers(1, 40, (S, B)).astype(np.float32)
+        Kw = K + 2 if opt_name == "fused" else K
+        init = [rng.uniform(-0.05, 0.05, (n, w)).astype(np.float32)
+                for n, w in ((U, Kw), (I, Kw), (U, 1), (I, 1))]
+    W0 = rng.uniform(-0.1, 0.1, (U, 12)).astype(np.float32)
+    H0 = rng.uniform(-0.1, 0.1, (I, 12)).astype(np.float32)
+    for d in ("cpu", dev):
+        if model == "glove":
+            opt = AdaGrad(lr)
+            st = [torch.tensor(a, device=d) for a in init]     # copies
+            st += [opt.init(st[0]), opt.init(st[1]),
+                   torch.ones_like(st[2]), torch.ones_like(st[3])]
+            loss = mg._glove_epoch(
+                *st, *(torch.from_numpy(a).to(d) for a in (c2, x2, n2)),
+                int((c2 < U).sum()), optimizer=opt, x_max=10.0, alpha=0.75,
+                learning_rate=lr, num_components=K, num_central=U,
+                update_mode=mode, bias_mode=opt_name)
+            out[str(d)] = ([t.cpu().numpy() for t in st[:4]], float(loss))
+            continue
+        opt = make_optimizer(opt_name, lr)
+        W, H = torch.tensor(W0, device=d), torch.tensor(H0, device=d)
+        ow, oh = opt.init(W), opt.init(H)
+        coo = X.tocoo()
+        hs = to_device(build_pair_hashset(coo.row, coo.col), d)
+        if model == "bpr":
+            _feed_draws(monkeypatch, mb, "_draw_negatives", draws)
+            loss = mb._bpr_epoch(
+                W, H, ow, oh, torch.from_numpy(u2).to(d),
+                torch.from_numpy(i2).to(d), hs, X.nnz, None, optimizer=opt,
+                weight_decay=0.01, num_users=U, num_items=I,
+                update_mode=mode)
+        else:
+            _feed_draws(monkeypatch, mr, "_draw_cells", draws)
+            loss = mr._relmf_epoch(
+                W, H, ow, oh, hs, torch.from_numpy(props).to(d), None,
+                optimizer=opt, weight_decay=0.01, clip_value=0.1,
+                num_users=U, num_items=I, num_steps=S, batch_size=B,
+                update_mode=mode, binary_labels=True)
+        out[str(d)] = ([W.cpu().numpy(), H.cpu().numpy()], float(loss))
+    (tc, lc), (tg, lg) = out["cpu"], out[str(dev)]
+    for got, want in zip(tg, tc):
+        if opt_name == "adam":
+            ok = np.isclose(got, want, rtol=1e-4, atol=1e-5)
+            assert ok.mean() >= 0.99 and np.abs(got - want).max() <= 3 * lr
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+
+
+def test_batch_routing_on_card(dev):
+    """Under ``packed="auto"`` on the card, BPR and GloVe take their fused
+    engine at 4096 samples and the batch engine at 4095."""
+    from scipy import sparse
+
+    import cymf_tpu_torch as ct
+    rng = np.random.default_rng(0)
+    cells = rng.choice(350 * 350, 4096, replace=False)
+    for n, want in ((4095, "batch"), (4096, "packed")):
+        rows, cols = cells[:n] // 350, cells[:n] % 350
+        X = sparse.csr_matrix((np.ones(n), (rows, cols)), shape=(350, 350))
+        m = ct.BPR(8, device=dev)
+        m.fit(X, num_epochs=1, verbose=False)
+        assert m.engine_ == want and np.isfinite(m.last_loss)
+        G = sparse.csr_matrix((rng.integers(1, 30, n).astype(float),
+                               (rows, cols)), shape=(350, 350))
+        g = ct.GloVe(8, device=dev)
+        g.fit(G, num_epochs=1)
+        assert g.packed_engine_ is (want == "packed")
+        assert np.isfinite(g.last_loss)

@@ -163,13 +163,24 @@ def test_save_word2vec_format_matches_jax(tmp_path):
     (dict(bias_mode="magic"), ValueError),
     (dict(engine="cuda"), ValueError),
     (dict(packed="maybe"), ValueError),
-    (dict(bias_mode="kfold"), NotImplementedError),
     (dict(engine="pallas", bias_mode="kfold"), NotImplementedError),
-    (dict(packed="off"), NotImplementedError),
 ])
 def test_invalid_arguments(kwargs, exc):
     with pytest.raises(exc):
         ct.GloVe(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(bias_mode="kfold"),
+                                    dict(packed="off"),
+                                    dict(num_components=125)])
+def test_batch_engine_takes_what_packed_cannot(kwargs):
+    """kfold, ``packed="off"`` and K = 125 fit on the batch engine."""
+    kw = dict(num_components=3, device="cpu")
+    kw.update(kwargs)
+    m = ct.GloVe(**kw)
+    m.fit(_toy_cooc(V=10), num_epochs=2)
+    assert m.packed_engine_ is False and np.isfinite(m.last_loss)
+    assert m.W.shape == (10, kw["num_components"])
 
 
 def test_fit_gates():
@@ -181,7 +192,8 @@ def test_fit_gates():
     with pytest.raises(ValueError, match="124"):
         ct.GloVe(num_components=125, packed="on", device="cpu").fit(
             X, num_epochs=1)
-    with pytest.raises(NotImplementedError, match="in-jit"):
-        ct.GloVe(num_components=125, device="cpu").fit(X, num_epochs=1)
+    with pytest.raises(ValueError, match="bias_mode='fused'"):
+        ct.GloVe(bias_mode="kfold", packed="on", device="cpu").fit(
+            X, num_epochs=1)
     with pytest.raises(NotImplementedError, match="checkpoints"):
         ct.GloVe(device="cpu").fit(X, num_epochs=1, checkpoint_path="g.npz")

@@ -297,7 +297,6 @@ def test_warm_start_and_from_arrays(data):
     (dict(packed="on", engine="pallas"), ValueError),
     (dict(optimizer="rmsprop"), Exception),
     (dict(engine="pallas"), ValueError),          # past the engine's gate
-    (dict(packed="off"), NotImplementedError),
 ])
 def test_invalid_arguments(kwargs, exc):
     """Each raises when built or, on an ML-20M-sized catalog, when fit."""
@@ -315,12 +314,14 @@ def test_fit_gates(monkeypatch):
     X.data[:] = 1.0
     Xn = X.copy()
     Xn.data[:] = 3.0                                 # not binarized
-    with pytest.raises(NotImplementedError, match="in-jit"):
-        ct.RelMF(8, device="cpu").fit(Xn, num_epochs=1)
+    for m, Xf in ((ct.RelMF(8, device="cpu"), Xn),          # non-binary
+                  (ct.RelMF(127, device="cpu"), X),
+                  (ct.RelMF(8, packed="off", device="cpu"), X)):
+        m.fit(Xf, num_epochs=1)                      # the batch engine
+        assert m.packed_engine_ is False and np.isfinite(m.last_loss)
+        assert m._samples_per_epoch == -(-40 * 30 // 8192) * 8192
     with pytest.raises(ValueError, match="binarized"):
         ct.RelMF(8, packed="on", device="cpu").fit(Xn, num_epochs=1)
-    with pytest.raises(NotImplementedError, match="in-jit"):
-        ct.RelMF(127, device="cpu").fit(X, num_epochs=1)
     with pytest.raises(NotImplementedError, match="checkpoints"):
         ct.RelMF(8, device="cpu").fit(X, checkpoint_path="m.npz")
     with pytest.raises(ValueError):
@@ -335,8 +336,7 @@ def test_fit_gates(monkeypatch):
     assert m._packed_engine(True, cap) is True
     with pytest.raises(ValueError, match=f"at most {cap} cells"):
         m._packed_engine(True, cap + 1)
-    with pytest.raises(NotImplementedError, match="in-jit"):
-        ct.RelMF(8, device="cpu")._packed_engine(True, cap + 1)
+    assert ct.RelMF(8, device="cpu")._packed_engine(True, cap + 1) is False
     monkeypatch.setenv("CYMF_TPU_RELMF_PREP", "fast")
     with pytest.raises(ValueError, match="device|host"):
         m._packed_engine(True, 10)
