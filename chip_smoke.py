@@ -140,7 +140,24 @@ Phases, one line each; any failure raises and exits non-zero:
     GloVe 3 epochs once an epoch; GloVe's constant-one columns must stay
     exactly one; BPR's epochs/s, on the device alone (``bench.py``'s
     measure) and over the fit's wall time, are printed beside
-    ``bench.py``'s CPU reference (98.46 epochs/s on 8 threads).
+    ``bench.py``'s CPU reference (98.46 epochs/s on 8 threads);
+16. recommend: ``cymf_tpu_torch.recommend`` at ``bench.py``'s recommend
+    shapes (every ML-20M user's top 10 over 26,744 items, d=20, the train
+    matrix excluded): device ms a call (CUDA events), the card's busy ms
+    (``torch.profiler``), wall ms and users/s by each, over 3 warm calls;
+    512 users spread over every chunk must equal a plain per-user
+    reference (the full score row, its exclusions, a stable sort by
+    score and item id), no excluded item may come back and scores must
+    not increase; a tie case (integer factors, users with fewer than k
+    finite scores) must give the plain reference's items;
+17. checkpoint: fits resumed from their mid-fit checkpoint against
+    uninterrupted ones (``rtol 1e-4, atol 1e-4``) on the quickstart's
+    data for BPR (packed v4, wide, batch), RelMF (packed with device
+    prep, batch), GloVe (packed, batch, kfold; a 256-word stream), WMF and
+    ExpoMF; a packed BPR checkpoint resumed on the batch engine; 2 epochs
+    of BPR v4 at ML-20M with a checkpoint each epoch beside the same fit
+    without: each save's blocking ms, the file's MB and each epoch's
+    wall.  Neither phase adds a kernel to the line below.
 
 Then it prints the kernels' JSON line (all seventeen), with each kernel's
 launches on its main path (a probe's: those of the probes phase), the
@@ -175,6 +192,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import statistics
@@ -263,6 +281,8 @@ ROUTE_N = 4096
 # the H100 SXM's published peaks: HBM3 bytes/s
 # and float32 operations/s outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# the checkpoint phase's files, removed after it
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 
 
 def phase(name: str, msg: str) -> None:
@@ -2667,15 +2687,14 @@ def profile_wmf(X, dev):
         raise AssertionError("the profile shows no Cholesky kernel")
 
 
-def profile_steps(run, steps: int, title: str, ms_step: float,
-                  fname: str) -> None:
-    """``--profile``: device time by kernel of ``run()`` (``steps``
-    steps, after a warm-up call), and the card's busy share of a step
-    against the unprofiled ``ms_step``; written to ``chiprun_out/fname``."""
+def device_busy(run):
+    """``(busy_ms, spans, prof)``: the card's busy time during ``run()``,
+    its kernel and copy intervals from ``torch.profiler`` merged where
+    they overlap, the intervals ``(start_us, end_us, name)`` and the
+    profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run()                                          # warm-up
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
@@ -2686,12 +2705,23 @@ def profile_steps(run, steps: int, title: str, ms_step: float,
     if not spans:
         raise AssertionError("the profile holds no device time")
     busy, last = 0.0, -np.inf
-    by_name = collections.Counter()
-    for t0, t1, name in spans:
+    for t0, t1, _ in spans:
         busy += max(t1 - max(t0, last), 0)
         last = max(last, t1)
+    return busy / 1e3, spans, prof
+
+
+def profile_steps(run, steps: int, title: str, ms_step: float,
+                  fname: str) -> None:
+    """``--profile``: device time by kernel of ``run()`` (``steps``
+    steps, after a warm-up call), and the card's busy share of a step
+    against the unprofiled ``ms_step``; written to ``chiprun_out/fname``."""
+    run()                                          # warm-up
+    busy, spans, prof = device_busy(run)
+    by_name = collections.Counter()
+    for t0, t1, name in spans:
         by_name[name[:70]] += (t1 - t0) / 1e3
-    busy_step = busy / 1e3 / steps
+    busy_step = busy / steps
     lines = [f"{title}, {torch.cuda.get_device_name(0)}: card busy "
              f"{busy_step:.3f} ms a step (kernel and copy intervals merged) "
              f"against {ms_step:.3f} ms a step unprofiled: idle share "
@@ -2756,6 +2786,267 @@ def profile_batch_bpr(X, dev, ms_step: float, steps: int = 20):
 
     profile_steps(run, steps, f"{steps} dense Adam steps of the BPR batch "
                   "engine at ML-20M shapes", ms_step, "bpr_batch_profile.txt")
+
+
+def _plain_topk(rows, k):
+    """The plain reference of ``recommend`` for each row of ``rows`` (the
+    full score row with its exclusions at ``-inf``, numpy): a stable
+    sort by (score descending, item id ascending), its first ``k``."""
+    ids = np.arange(rows.shape[1])
+    return np.stack([np.lexsort((ids, -r))[:k] for r in rows])
+
+
+def _excluded(X, users, I):
+    """``X``'s rows ``users`` as a dense boolean ``(len(users), I)``."""
+    return X[users].toarray().astype(bool) if X is not None \
+        else np.zeros((len(users), I), bool)
+
+
+def recommend_phase(X, dev, smi):
+    """Phase 16, recommend: ``cymf_tpu_torch.recommend`` at ``bench.py``'s
+    recommend shapes (ML-20M: every user's top 10 over 26,744 items, d=20,
+    normal factors from ``default_rng(0)``, the train matrix's 20M
+    interactions excluded), a warm-up call and 3 timed ones: device ms a
+    call between CUDA events, the card's busy ms from ``torch.profiler``
+    (kernel and copy intervals merged) and its split by kernel, wall ms,
+    and users/s by each.
+    512 users spread over every chunk must equal the plain reference on
+    the same float32 rows (the chunk's product recomputed), no excluded
+    item may come back, and scores must not increase along a row and
+    agree with float64 products to rtol 1e-5.  Then a tie case: integer
+    factors in [-2, 2] over the same catalog for 4,100 users (two
+    chunks), user 0 with I - k + 3 exclusions and user 4,099 with all but
+    k - 1 items excluded, its sampled users' items equal to the plain
+    reference's on exact float64 scores."""
+    import cymf_tpu_torch as ct
+
+    k, chunk = 10, 4096
+    rng = np.random.default_rng(0)
+    W = rng.normal(size=(U, 20)).astype(np.float32)
+    H = rng.normal(size=(I, 20)).astype(np.float32)
+
+    def call():
+        return ct.recommend(W, H, k=k, exclude=X, user_chunk=chunk,
+                            device=dev)
+
+    call()
+    dev_ms, wall_ms = [], []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        a.record()
+        scores, items = call()
+        b.record()
+        b.synchronize()
+        wall_ms.append(1e3 * (time.perf_counter() - t0))
+        dev_ms.append(a.elapsed_time(b))
+    busy, spans, _ = device_busy(call)
+    split = collections.Counter()
+    for t0, t1, name in spans:
+        split[name[:60]] += (t1 - t0) / 1e3
+    d_ms, w_ms = statistics.median(dev_ms), statistics.median(wall_ms)
+    floor = bound(2 * U * I * 4 + X.nnz * 8 + U * k * 8, 2 * U * I * 20)
+    phase("recommend", f"{smi}; ({U} x {I}, d=20, k={k}, {X.nnz} "
+          f"exclusions, chunks of {chunk}): device {d_ms:.2f} ms a call "
+          f"between CUDA events, busy {busy:.2f} ms (profiler), wall "
+          f"{w_ms:.2f} ms (calls {', '.join(f'{t:.2f}' for t in wall_ms)})"
+          f"; {U / busy * 1e3:.4e} users/s by busy time, "
+          f"{U / d_ms * 1e3:.4e} by events, {U / w_ms * 1e3:.4e} end to "
+          f"end; the {'host' if busy < 0.5 * w_ms else 'card'} sets the "
+          f"pace; scores written once and read once would take "
+          f"{floor['bound_ms']:.2f} ms ({floor['bound_by']})")
+    phase("recommend", "device time by kernel: " + "; ".join(
+        f"{name} {ms:.2f} ms" for name, ms in split.most_common(6)))
+
+    users = np.unique(np.linspace(0, U - 1, 512).astype(np.int64))
+    Wd = torch.from_numpy(W).to(dev)
+    Hd = torch.from_numpy(H).to(dev)
+    rows = np.empty((len(users), I), np.float32)
+    for c in np.unique(users // chunk):
+        at = np.nonzero(users // chunk == c)[0]
+        full = Wd[c * chunk:(c + 1) * chunk] @ Hd.T    # the call's product
+        rows[at] = full[torch.from_numpy(users[at] - c * chunk).to(dev)
+                        ].cpu().numpy()
+    excl = _excluded(X, users, I)
+    rows[excl] = -np.inf
+    want = _plain_topk(rows, k)
+    got = items[users]
+    s64 = np.take_along_axis(W[users].astype(np.float64)
+                             @ H.T.astype(np.float64), got, 1)
+    if not np.array_equal(got, want):
+        bad = int((got != want).any(1).sum())
+        raise AssertionError(f"recommend: {bad} of {len(users)} sampled "
+                             "users differ from the plain reference")
+    if np.take_along_axis(excl, got, 1).any():
+        raise AssertionError("recommend returned an excluded item")
+    if (np.diff(scores, axis=1) > 0).any() or not np.isfinite(scores).all():
+        raise AssertionError("recommend's scores increase along a row")
+    close(torch.from_numpy(scores[users]), torch.from_numpy(s64), 1e-5, 1e-5,
+          "recommend scores against float64")
+
+    from scipy import sparse
+    Ut = 4100
+    Wt = rng.integers(-2, 3, (Ut, 20)).astype(np.float32)
+    Ht = rng.integers(-2, 3, (I, 20)).astype(np.float32)
+    Xt = sparse.lil_matrix(X[:Ut])
+    Xt[0, :I - k + 3] = 1
+    Xt[Ut - 1, :] = 0
+    Xt[Ut - 1, k - 1:] = 1
+    Xt = Xt.tocsr()
+    t0 = time.perf_counter()
+    st, it = ct.recommend(Wt, Ht, k=k, exclude=Xt, device=dev)
+    tie_ms = 1e3 * (time.perf_counter() - t0)
+    users = np.unique(np.r_[0, Ut - 1, np.linspace(0, Ut - 1, 256)
+                            .astype(np.int64)])
+    rows = Wt[users].astype(np.float64) @ Ht.T.astype(np.float64)
+    rows[_excluded(Xt, users, I)] = -np.inf
+    want = _plain_topk(rows, k)
+    ties = int(sum((r[w] == r[w[-1]]).sum() > 1 for r, w in zip(rows, want)))
+    phase("recommend", f"tie case ({Ut} x {I}, integer factors): "
+          f"{len(users)} users checked, {ties} with ties in their top {k}, "
+          f"user 0 {int(np.isfinite(rows[0]).sum())} finite scores, user "
+          f"{Ut - 1} {int(np.isfinite(rows[-1]).sum())}; {tie_ms:.1f} ms "
+          "wall")
+    if not np.array_equal(it[users], want):
+        raise AssertionError("recommend's tie case differs from the plain "
+                             "reference")
+    if not np.array_equal(st[users], np.take_along_axis(rows, want, 1)):
+        raise AssertionError("recommend's tie-case scores are off")
+
+
+def _resume_pair(name, make, X, dev, epochs=6, **fit):
+    """``make()`` fitted ``epochs`` epochs against ``epochs // 2`` with a
+    checkpoint and the rest resumed from it; their tables must agree
+    within the JAX package's resume tolerance (rtol 1e-4, atol 1e-4).
+    Returns the error and the resumed model."""
+    path = str(CKPT_DIR / f"{name}.npz")
+
+    def run(n, **ck):
+        np.random.seed(99)              # GloVe's init reads this stream
+        m = make()
+        m.fit(X, num_epochs=n, verbose=False, **fit, **ck)
+        return m
+
+    m1 = run(epochs)
+    run(epochs // 2, checkpoint_path=path)
+    m3 = run(epochs, checkpoint_path=path, resume=True)
+    if len(m3.checkpoint_s_) != epochs - epochs // 2:
+        raise AssertionError(f"{name}: the resumed fit ran "
+                             f"{len(m3.checkpoint_s_)} epochs")
+    err = 0.0
+    names = ("W_central", "W_context", "bias", "context_bias") \
+        if hasattr(m1, "W_central") else ("W", "H")
+    for attr in names:
+        err = max(err, close(torch.from_numpy(np.asarray(getattr(m3, attr))),
+                             torch.from_numpy(np.asarray(getattr(m1, attr))),
+                             1e-4, 1e-4, f"{name} {attr} resumed")[0])
+    return err, m3
+
+
+def checkpoint_phase(X, dev, smi):
+    """Phase 17, checkpoint: on the quickstart's data (GloVe on a
+    256-word stream), a fit of 6 epochs against 3 with a checkpoint and 3
+    resumed, tables within rtol 1e-4, atol 1e-4, for BPR (packed v4,
+    wide, batch), RelMF (packed with device prep, batch), GloVe (packed,
+    batch, kfold), WMF and ExpoMF; a packed BPR checkpoint resumed on the
+    batch engine (the tables as saved, then a further epoch); then 2
+    epochs of BPR v4 at ML-20M shapes with ``checkpoint_every=1`` beside
+    the same fit without checkpoints: each save's blocking ms, the file's
+    MB, each epoch's wall and the saved tables against the fit's."""
+    import shutil
+
+    import cymf_tpu_torch as ct
+
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    d = quickstart_data().train
+    G = glove_matrix(GLOVE_TINY_V, GLOVE_TINY_NNZ)
+    bpr = dict(num_components=20, learning_rate=0.01, device=dev)
+    relmf = dict(num_components=20, learning_rate=0.01, weight_decay=1e-4,
+                 device=dev)
+    glove = dict(num_components=20, learning_rate=0.05, device=dev)
+    # name, model, data, environment, attribute, its expected value
+    cases = [
+        ("bpr-v4", lambda: ct.BPR(**bpr), d, forced_kernel("4"),
+         "packed_kernel_", 4),
+        ("bpr-wide", lambda: ct.BPR(**dict(bpr, num_components=128)), d,
+         None, "engine_", "wide"),
+        ("bpr-batch", lambda: ct.BPR(packed="off", **bpr), d, None,
+         "engine_", "batch"),
+        ("relmf", lambda: ct.RelMF(**relmf), d, None, "prep_backend_",
+         "device-torch"),
+        ("relmf-batch", lambda: ct.RelMF(packed="off", **relmf), d, None,
+         "packed_engine_", False),
+        ("glove", lambda: ct.GloVe(**glove), G, None, "packed_engine_",
+         True),
+        ("glove-batch", lambda: ct.GloVe(packed="off", **glove), G, None,
+         "packed_engine_", False),
+        ("glove-kfold", lambda: ct.GloVe(bias_mode="kfold", **glove), G,
+         None, "packed_engine_", False),
+        ("wmf", lambda: ct.WMF(num_components=20, device=dev), d, None,
+         "device", dev),
+        ("expomf", lambda: ct.ExpoMF(num_components=20, device=dev), d,
+         None, "device", dev),
+    ]
+    for name, make, data, env, attr, want in cases:
+        t0 = time.perf_counter()
+        with env or contextlib.nullcontext():
+            err, m = _resume_pair(name, make, data, dev)
+        if getattr(m, attr) != want:
+            raise AssertionError(f"{name}: {attr} {getattr(m, attr)}, "
+                                 f"expected {want}")
+        saves = ", ".join(f"{1e3 * t:.2f}" for t in m.checkpoint_s_)
+        phase("checkpoint", f"{name} ({attr} {want}): resumed 3 of 6 "
+              f"epochs, max abs error {err:.3e} against the uninterrupted "
+              f"fit (rtol 1e-4, atol 1e-4); saves {saves} ms blocking; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    path = str(CKPT_DIR / "cross.npz")
+    with forced_kernel("4"):
+        m1 = ct.BPR(**bpr)
+        m1.fit(d, num_epochs=2, verbose=False, checkpoint_path=path)
+    m2 = ct.BPR(packed="off", **bpr)
+    m2.fit(d, num_epochs=2, verbose=False, checkpoint_path=path, resume=True)
+    err = max(close(torch.from_numpy(m2.W), torch.from_numpy(m1.W), 1e-5,
+                    1e-6, "packed -> batch W")[0],
+              close(torch.from_numpy(m2.H), torch.from_numpy(m1.H), 1e-5,
+                    1e-6, "packed -> batch H")[0])
+    m3 = ct.BPR(packed="off", **bpr)
+    m3.fit(d, num_epochs=3, verbose=False, checkpoint_path=path, resume=True)
+    if m2.checkpoint_s_ or len(m3.checkpoint_s_) != 1 \
+            or m3.engine_ != "batch" or not np.isfinite(m3.W).all() \
+            or np.allclose(m3.W, m1.W):
+        raise AssertionError("packed -> batch: the further epoch")
+    phase("checkpoint", f"packed v4 -> batch: the saved tables within "
+          f"{err:.3e}; a further batch epoch trained (last loss "
+          f"{m3.last_loss:.6f})")
+
+    walls = {}
+    for ck in (False, True):
+        m = ct.BPR(num_components=20, learning_rate=0.001, optimizer="adam",
+                   weight_decay=0.01, batch_size=BATCH, device=dev)
+        probe = _DeviceProbe(m)
+        path = str(CKPT_DIR / "ml20m.npz") if ck else None
+        t0 = time.perf_counter()
+        m.fit(X, num_epochs=2, valid_evaluator=probe, verbose=False,
+              checkpoint_path=path)
+        walls[ck] = probe.walls(t0)
+        if m.packed_kernel_ != 4:
+            raise AssertionError("the ML-20M fit left pipeline v4")
+    mb = os.path.getsize(path) / 1e6
+    with np.load(path) as z:
+        saved_w, epoch = z["W"][:U], int(z["__epoch__"])
+    if epoch != 1 or not np.array_equal(saved_w, m.W):
+        raise AssertionError("the ML-20M checkpoint is not the fit's state")
+    saves = ", ".join(f"{1e3 * t:.1f}" for t in m.checkpoint_s_)
+    on, off = (", ".join(f"{t:.3f}" for t in walls[ck])
+               for ck in (True, False))
+    phase("checkpoint", f"{smi}; BPR v4 at ML-20M ({U} x {I}, d=20, Adam, "
+          f"batch {BATCH}), 2 epochs: saves {saves} ms blocking, file "
+          f"{mb:.1f} MB; epoch walls {on} s with a checkpoint each epoch, "
+          f"{off} s without (the first epoch holds the once-per-fit prep)")
+    shutil.rmtree(CKPT_DIR)
 
 
 def main() -> int:
@@ -2841,6 +3132,12 @@ def main() -> int:
     pallas_quickstart(dev)
     launches.update(pallas_full(X100k, G5k, dev))
     launches.update(probe_launches)
+    del X100k, G5k
+
+    X = bench_matrix()
+    recommend_phase(X, dev, smi)
+    checkpoint_phase(X, dev, smi)
+    del X
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

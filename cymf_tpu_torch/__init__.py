@@ -3,15 +3,17 @@ to one NVIDIA H100, with its TPU kernels written by hand for Hopper.
 
 Ported so far: BPR on its packed, wide, batch and sequential engines,
 the ALS trainers WMF and ExpoMF, RelMF and GloVe on their packed, batch
-and sequential engines, the row-sparse optimizers (``optim``) and
-sampled-negative evaluation; see README.md ("PyTorch / H100 port") for
-what each covers.
+and sequential engines, checkpoints and resume on every engine but the
+sequential one, the row-sparse optimizers (``optim``), sampled-negative
+evaluation, the ranking metrics and full-catalog ``recommend``; see
+README.md ("PyTorch / H100 port") for what each covers.
 This package imports ``torch`` and never ``jax``.
 """
 
 from .models import BPR, WMF, ExpoMF, GloVe, RelMF
 from .evaluation.evaluator import (AoaEvaluator, AverageOverAllEvaluator,
                                    Evaluator, UnbiasedEvaluator)
+from .evaluation.recommend import recommend
 from . import evaluation as evaluator  # cymf exposes `cymf.evaluator.*`
 from . import dataset
 from . import optim
@@ -19,4 +21,4 @@ from . import optim
 __version__ = "0.1.0"
 __all__ = ["BPR", "WMF", "ExpoMF", "RelMF", "GloVe", "Evaluator", "AverageOverAllEvaluator",
            "AoaEvaluator", "UnbiasedEvaluator", "dataset", "evaluator",
-           "optim"]
+           "optim", "recommend"]

@@ -151,23 +151,39 @@ class MFTrainerBase:
             self.H = uniform_init((num_rows_h, K), K)
 
     def _run_epochs(self, num_epochs: int, epoch_fn, snapshot_fn, restore_fn,
-                    verbose: bool):
-        """Run ``epoch_fn(epoch)`` with validation and early stopping.
+                    verbose: bool, checkpoint_path: Optional[str] = None,
+                    checkpoint_every: int = 1, start_epoch: int = 0):
+        """Run ``epoch_fn(epoch)`` for epochs ``start_epoch`` to
+        ``num_epochs - 1`` with validation and early stopping.
 
         Mirrors the loop at `bpr.pyx:160-190`: per-epoch validation via
         ``valid_evaluator.evaluate(W, H)["DCG@5"]``, stop after >10
         consecutive non-improving epochs, restore the best weights at the
         end.  ``verbose`` prints one progress line per epoch.
+
+        When ``checkpoint_path`` is set, ``self._state`` is written after
+        every epoch ``e`` with ``(e + 1) % checkpoint_every == 0``
+        (atomic npz, ``cymf_tpu_torch.utils.checkpoint``): the copy to the
+        host blocks the loop, the disk write runs on a thread and is
+        flushed before this returns.  ``checkpoint_s_`` holds each save's
+        blocking seconds.
         """
+        from ..utils.checkpoint import AsyncCheckpointer
         from ..utils.profiling import Throughput
         stopper = EarlyStopper(self.early_stopping)
+        ckpt = AsyncCheckpointer() if checkpoint_path else None
+        self.checkpoint_s_ = []
         valid_dcg = None
         thr = Throughput()
         samples_per_epoch = getattr(self, "_samples_per_epoch", 0)
         thr.tick(0)
-        for epoch in range(num_epochs):
+        for epoch in range(start_epoch, num_epochs):
             epoch_fn(epoch)
             thr.tick(samples_per_epoch)
+            if ckpt and (epoch + 1) % checkpoint_every == 0:
+                t0 = time.perf_counter()
+                ckpt.save(checkpoint_path, self._state, epoch)
+                self.checkpoint_s_.append(time.perf_counter() - t0)
             if self.valid_evaluator:
                 valid_dcg = self.valid_evaluator.evaluate(
                     self.W, self.H)["DCG@5"]
@@ -180,6 +196,8 @@ class MFTrainerBase:
                          if self.valid_evaluator else "")
                       + (f", {thr.format()}" if samples_per_epoch
                          and thr.rate else ""), flush=True)
+        if ckpt:
+            ckpt.wait()
         if self.valid_evaluator and self.early_stopping \
                 and stopper.best_snapshot is not None:
             restore_fn(stopper.best_snapshot)
@@ -189,7 +207,9 @@ class MFTrainerBase:
     _overlap_prep = True
 
     def _run_device_epochs(self, num_epochs: int, verbose: bool, prep, run,
-                           publish) -> None:
+                           publish, checkpoint_path: Optional[str] = None,
+                           checkpoint_every: int = 1,
+                           start_epoch: int = 0) -> None:
         """The fused engines' epoch loop: per epoch the host prep
         ``prep(epoch)`` (a tuple of streams; ``prep`` None: the epoch has
         none), then ``run(epoch, *streams)``, the uploads and steps, which
@@ -200,8 +220,11 @@ class MFTrainerBase:
         Epoch e+1's prep runs on a worker thread while epoch e is queued
         and runs on the device (the native prep releases the interpreter
         lock; each epoch's streams depend on its seed and epoch alone).  A
-        fit that stops early drops the epoch prepared last.
-        ``epoch_times_`` holds per epoch the host seconds of its prep
+        fit that stops early drops the epoch prepared last.  A resumed fit
+        (``start_epoch`` > 0) runs and prepares its epochs from
+        ``start_epoch`` on; the checkpoint arguments go to
+        :meth:`_run_epochs`.  ``epoch_times_`` holds per epoch that ran
+        the host seconds of its prep
         (``prep_s``, where there is one) and the seconds of its device
         work (``device_s``: between CUDA events around ``run`` on the
         card, the host clock on the CPU)."""
@@ -249,7 +272,8 @@ class MFTrainerBase:
 
         try:
             self._run_epochs(num_epochs, epoch_fn, snapshot_fn, restore_fn,
-                             verbose)
+                             verbose, checkpoint_path, checkpoint_every,
+                             start_epoch)
         finally:
             if pool is not None:
                 # an epoch that early stopping dropped: wait for its prep,

@@ -48,14 +48,21 @@ packages train on identical inputs.  The batch engine draws its negatives
 from a ``torch.Generator`` a fit and epoch (:func:`_draw_negatives`), a
 stream the JAX package's threefry draws differ from.
 
-Not ported yet (see ROADMAP.md, queue 1): checkpoints, device-side prep
-and the multi-device engines.  Each raises ``NotImplementedError`` under
-``engine="xla"``; ``engine="pallas"`` takes none of them, as in the JAX
-package.
+``fit(checkpoint_path=p)`` writes each engine's state in the JAX
+package's schema (``{"W", "H", "ow", "oh"}`` batch, ``{"W", "H", "owp",
+"ohp"}`` packed, ``{"W", "H", "oww", "ohw"}`` wide) and ``resume=True``
+continues from it: any engine from any engine's checkpoint, of either
+package, at any row padding (:func:`_packed_resume_state`,
+:func:`_batch_resume_state`, :func:`_wide_resume_state`).  The sequential
+engine refuses checkpoints, as in the JAX package.
+
+Not ported yet (see ROADMAP.md, queue 1): device-side prep and the
+multi-device engines.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -77,7 +84,175 @@ from .base import MFTrainerBase, PersistenceMixin, as_csr
 
 PAD_USER = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
 
-_LATER = "is not ported to cymf_tpu_torch yet (ROADMAP.md, queue 1)"
+
+def _load_ckpt_raw(path):
+    """Engine-agnostic checkpoint read: raw flat leaf dict + epoch.
+
+    BPR's engines store state under different schemas (logical tables +
+    ``ow``/``oh`` optimizer leaves for the batch engine, packed-layout
+    ``owp``/``ohp`` for the packed one, lane-padded ``oww``/``ohw`` for
+    the wide one) and each may resume a checkpoint another wrote, so
+    resume starts from the raw dict and converts
+    (`utils/checkpoint.py` loads the same-schema case elsewhere)."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    epoch = int(flat.pop("__epoch__", -1))
+    for k in list(flat):
+        if k.startswith("__meta__/"):
+            flat.pop(k)
+    return flat, epoch
+
+
+def _resume_point(checkpoint_path, resume: bool):
+    """``(flat, start_epoch)``: the raw leaves of the checkpoint a fit
+    resumes from (:func:`_load_ckpt_raw`) and the epoch after the saved
+    one, or ``(None, 0)`` when the fit starts afresh (``resume`` off, or
+    no file at ``checkpoint_path`` yet)."""
+    if resume and checkpoint_path is not None \
+            and os.path.exists(checkpoint_path):
+        flat, last_epoch = _load_ckpt_raw(checkpoint_path)
+        return flat, last_epoch + 1
+    return None, 0
+
+
+def _put(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+
+def _restore_opt_state(flat, native_prefix, other_prefix, template,
+                       convert, paymask, repad=None):
+    """Rebuild one table's optimizer-state dict from checkpoint leaves,
+    as tensors on the template's device.
+
+    Leaves under ``native_prefix`` (this engine's own layout) load
+    verbatim when shapes match; on a row-padding mismatch (a checkpoint
+    written under another device count) they run through ``repad``
+    (same-layout slice + re-pad, the conversion the tables themselves
+    get) and splice into ``template`` where ``paymask`` is True.  Leaves
+    under ``other_prefix`` run through ``convert`` (the cross-engine
+    layout transform) with the same splice: positions outside the
+    payload keep their initializer values (e.g. AdaGrad's ones on packed
+    count/dead lanes).
+    """
+    out = {}
+    for sub, tleaf in template.items():
+        t = tleaf.cpu().numpy()
+        nk, ok = f"{native_prefix}/{sub}", f"{other_prefix}/{sub}"
+        if nk in flat:
+            arr = np.asarray(flat[nk])
+            if arr.shape != t.shape:
+                # repad only heals ROW-count mismatches (same layout,
+                # different device padding); any trailing-dim difference
+                # is a genuinely different layout/version
+                if repad is None or arr.ndim != t.ndim \
+                        or arr.shape[1:] != t.shape[1:]:
+                    raise ValueError(
+                        f"checkpoint leaf {nk!r} has shape {arr.shape}, "
+                        f"expected {t.shape} — written by an "
+                        "incompatible layout/version")
+                arr = np.where(paymask, repad(arr), t)
+        elif ok in flat:
+            arr = np.where(paymask, convert(np.asarray(flat[ok])), t)
+        else:
+            raise KeyError(
+                f"checkpoint has neither {nk!r} nor {ok!r} — not a BPR "
+                "checkpoint for this optimizer")
+        out[sub] = _put(arr, tleaf.device)
+    return out
+
+
+def _packed_resume_state(flat, U, I, K, mult_w, wrows_h, ow, oh, device):
+    """Rebuild the packed engine's state from a raw checkpoint dict (any
+    engine's schema, see :func:`_load_ckpt_raw`) under W row padding
+    ``mult_w`` and H row padding ``wrows_h``, on ``device``.  Returns
+    ``(Wp, Hp, ow, oh)``."""
+    # tables: every engine schema stores logical rows
+    Wp = _put(pk.pack_array(np.asarray(flat["W"])[:U], K, multiple=mult_w),
+              device)
+    Hp = _put(pk.pack_logical(np.asarray(flat["H"])[:I], K,
+                              multiple=wrows_h), device)
+
+    def pack_w(a):  # logical (>=U, K) -> packed (rw, 128)
+        return pk.pack_array(a[:U], K, multiple=mult_w)
+
+    def pack_h(a):  # logical (>=I, K) -> logical-layout (rh, 128)
+        return pk.pack_logical(a[:I], K, multiple=wrows_h)
+
+    mpay_w = pk.pack_array(np.ones((U, K), np.float32), K,
+                           multiple=mult_w) > 0
+    mpay_h = pk.pack_logical(np.ones((I, K), np.float32), K,
+                             multiple=wrows_h) > 0
+    s_k = pk.num_slots(K)
+
+    def repad_wp(a):  # packed layout under a different row pad
+        return pk.pack_array(a[:, :s_k * K].reshape(-1, K)[:U], K,
+                             multiple=mult_w)
+
+    def repad_hp(a):  # logical layout under a different row pad
+        return pk.pack_logical(a[:I, :K], K, multiple=wrows_h)
+
+    ow = _restore_opt_state(flat, "owp", "ow", ow, pack_w, mpay_w,
+                            repad=repad_wp)
+    oh = _restore_opt_state(flat, "ohp", "oh", oh, pack_h, mpay_h,
+                            repad=repad_hp)
+    return Wp, Hp, ow, oh
+
+
+def _wide_to_logical(flat, U, I, K):
+    """Add the batch engine's logical ``ow/*``/``oh/*`` leaves for a wide
+    engine's checkpoint (``oww``/``ohw``: logical rows, lane-padded
+    columns), so the logical-to-layout converters read it too."""
+    for pre, n_rows in (("oww", U), ("ohw", I)):
+        for k in [k for k in flat if k.startswith(pre + "/")]:
+            dst = ("ow/" if pre == "oww" else "oh/") + k.split("/", 1)[1]
+            if dst not in flat:
+                flat[dst] = np.asarray(flat[k])[:n_rows, :K]
+
+
+def _batch_resume_state(flat, U, I, K, ow, oh, device):
+    """Rebuild the batch engine's logical state ``(W, H, ow, oh)`` on
+    ``device`` from a raw checkpoint dict of any engine (batch, packed,
+    wide), at any row padding."""
+    W = _put(np.asarray(flat["W"])[:U], device)
+    H = _put(np.asarray(flat["H"])[:I], device)
+    s = pk.num_slots(K)
+
+    def unpack_w(a):  # packed (rw, 128) -> logical (U, K)
+        return a[:, :s * K].reshape(-1, K)[:U]
+
+    def unpack_h(a):  # logical-layout (rh, 128) -> (I, K)
+        return a[:I, :K]
+
+    _wide_to_logical(flat, U, I, K)
+    ow = _restore_opt_state(flat, "ow", "owp", ow, unpack_w, True,
+                            repad=lambda a: a[:U])
+    oh = _restore_opt_state(flat, "oh", "ohp", oh, unpack_h, True,
+                            repad=lambda a: a[:I])
+    return W, H, ow, oh
+
+
+def _wide_resume_state(flat, U, I, K, wrows, ow, oh, device):
+    """Rebuild the wide engine's state ``(Wd, Hd, ow, oh)`` (``(rows,
+    Kp)`` tables, ``wrows``-row padding) on ``device`` from a raw
+    checkpoint dict of the wide or the batch engine."""
+    Wd = _put(pack_wide(np.asarray(flat["W"])[:U], K, multiple=wrows),
+              device)
+    Hd = _put(pack_wide(np.asarray(flat["H"])[:I], K, multiple=wrows),
+              device)
+
+    def cvt_w(a):  # logical leaf (>=U, K) -> wide layout
+        return pack_wide(a[:U], K, multiple=wrows)
+
+    def cvt_h(a):
+        return pack_wide(a[:I], K, multiple=wrows)
+
+    mpay_w = pack_wide(np.ones((U, K), np.float32), K, multiple=wrows) > 0
+    mpay_h = pack_wide(np.ones((I, K), np.float32), K, multiple=wrows) > 0
+    ow = _restore_opt_state(flat, "oww", "ow", ow, cvt_w, mpay_w,
+                            repad=cvt_w)
+    oh = _restore_opt_state(flat, "ohw", "oh", oh, cvt_h, mpay_h,
+                            repad=cvt_h)
+    return Wd, Hd, ow, oh
 
 
 def shuffled_interactions(X):
@@ -257,8 +432,6 @@ class BPR(MFTrainerBase, PersistenceMixin):
         sequential engine logs one entry per launch, with the epochs it ran
         (``epochs``): one entry for a fit that runs as one launch.
         """
-        if checkpoint_path is not None or resume:
-            raise NotImplementedError(f"checkpoints {_LATER}")
         X = as_csr(X)
         self.valid_evaluator = valid_evaluator
         self.valid_dcg = -np.inf
@@ -273,6 +446,9 @@ class BPR(MFTrainerBase, PersistenceMixin):
         users, positives = shuffled_interactions(X)
         self._samples_per_epoch = len(users)
         if self.engine == "pallas":
+            if checkpoint_path is not None:
+                raise NotImplementedError(
+                    "checkpointing is only supported with engine='xla'")
             self.engine_ = "pallas"
             self._fit_pallas(X, users, positives, num_epochs, verbose, seed)
             return
@@ -282,18 +458,20 @@ class BPR(MFTrainerBase, PersistenceMixin):
                 "neg_pool requires the packed engine (K <= 127 and a "
                 "single-device TPU run, or packed='on'); this fit "
                 f"selected {self.engine_!r}")
+        ckpt = (checkpoint_path, checkpoint_every, resume)
         if self.engine_ == "batch":
             u2, i2 = sorted_batches(users, positives, self.batch_size,
                                     multiple=1)
-            self._fit_batch(X, u2, i2, num_epochs, verbose, seed)
+            self._fit_batch(X, u2, i2, num_epochs, verbose, seed, *ckpt)
             return
         u2, i2 = sorted_batches(users, positives, self.batch_size)
         if self.engine_ == "packed":
-            self._fit_packed(X, u2, i2, num_epochs, verbose, seed)
+            self._fit_packed(X, u2, i2, num_epochs, verbose, seed, *ckpt)
             return
-        self._fit_wide(X, u2, i2, num_epochs, verbose, seed)
+        self._fit_wide(X, u2, i2, num_epochs, verbose, seed, *ckpt)
 
-    def _fit_batch(self, X, u2, i2, num_epochs, verbose, seed):
+    def _fit_batch(self, X, u2, i2, num_epochs, verbose, seed,
+                   checkpoint_path, checkpoint_every, resume):
         """The portable batch engine (:func:`_bpr_epoch`), as the
         single-device branch of ``cymf_tpu.BPR.fit``: logical tables, the
         pair hash set on the device, ``mode`` from ``3 * B`` rows against
@@ -317,6 +495,11 @@ class BPR(MFTrainerBase, PersistenceMixin):
                                                U + I)
         opt = make_optimizer(self.optimizer, self.learning_rate)
         ow, oh = opt.init(W), opt.init(H)
+        flat, start_epoch = _resume_point(checkpoint_path, resume)
+        if flat is not None:
+            W, H, ow, oh = _batch_resume_state(flat, U, I,
+                                               self.num_components, ow, oh,
+                                               dev)
         u_d, i_d = put(u2), put(i2)
 
         def publish():
@@ -329,9 +512,12 @@ class BPR(MFTrainerBase, PersistenceMixin):
                 weight_decay=self.weight_decay, num_users=U, num_items=I,
                 update_mode=self.update_mode_)
 
-        self._run_device_epochs(num_epochs, verbose, None, run, publish)
+        self._run_device_epochs(num_epochs, verbose, None, run, publish,
+                                checkpoint_path, checkpoint_every,
+                                start_epoch)
 
-    def _fit_packed(self, X, u2, i2, num_epochs, verbose, seed):
+    def _fit_packed(self, X, u2, i2, num_epochs, verbose, seed,
+                    checkpoint_path, checkpoint_every, resume):
         """Packed tables + fused kernels + sorted accumulations with
         host-side negative streams; the pipeline as ``prep_static`` (or,
         with ``neg_pool``, v8) picks it."""
@@ -377,6 +563,10 @@ class BPR(MFTrainerBase, PersistenceMixin):
         Hp = put(pk.pack_logical(self.H, K, multiple=wrows_h))
         opt = make_packed_optimizer(self.optimizer, self.learning_rate)
         ow, oh = opt.init(Wp), opt.init(Hp)
+        flat, start_epoch = _resume_point(checkpoint_path, resume)
+        if flat is not None:
+            Wp, Hp, ow, oh = _packed_resume_state(flat, U, I, K, wrows_w,
+                                                  wrows_h, ow, oh, dev)
         static = [put(a) for a in (u2, i2, si, rowsi, wini)]
         winw_d = put(winw)
         blocks = [put(a) for a in (wstart, bcs, bcn)]
@@ -417,9 +607,12 @@ class BPR(MFTrainerBase, PersistenceMixin):
                 Wp, Hp, ow, oh, *static, *(put(a) for a in streams), winw_d,
                 *blocks, N, kernel_v=kernel_v, **kw)
 
-        self._run_device_epochs(num_epochs, verbose, prep, run, publish)
+        self._run_device_epochs(num_epochs, verbose, prep, run, publish,
+                                checkpoint_path, checkpoint_every,
+                                start_epoch)
 
-    def _fit_wide(self, X, u2, i2, num_epochs, verbose, seed):
+    def _fit_wide(self, X, u2, i2, num_epochs, verbose, seed,
+                  checkpoint_path, checkpoint_every, resume):
         """Wide tables (K >= 128) + the count-lane sorted accumulations,
         as ``cymf_tpu.BPR._fit_wide``: 512-row windows on both sides, the
         prep streams of the packed engine."""
@@ -444,6 +637,10 @@ class BPR(MFTrainerBase, PersistenceMixin):
         Hd = put(pack_wide(self.H, K, multiple=wrows))
         opt = make_packed_optimizer(self.optimizer, self.learning_rate)
         ow, oh = opt.init(Wd), opt.init(Hd)
+        flat, start_epoch = _resume_point(checkpoint_path, resume)
+        if flat is not None:
+            Wd, Hd, ow, oh = _wide_resume_state(flat, U, I, K, wrows, ow, oh,
+                                                dev)
         static = [put(a) for a in (u2, i2, rowsu, winw, si, rowsi, wini)]
         kw = dict(opt_name=self.optimizer, lr=self.learning_rate,
                   weight_decay=self.weight_decay, K=K, rw=rw, rh=rh,
@@ -465,7 +662,9 @@ class BPR(MFTrainerBase, PersistenceMixin):
             return wide_bpr_epoch(Wd, Hd, ow, oh, *static,
                                   *(put(a) for a in streams), N, **kw)
 
-        self._run_device_epochs(num_epochs, verbose, prep, run, publish)
+        self._run_device_epochs(num_epochs, verbose, prep, run, publish,
+                                checkpoint_path, checkpoint_every,
+                                start_epoch)
 
     def _fit_pallas(self, X, users, positives, num_epochs, verbose, seed,
                     chunk: int = 4096, group: int = 8):

@@ -23,8 +23,9 @@ The Gaussian prefactor defaults to the paper's ``sqrt(lam_y / (2 pi))``;
 the reference's ``sqrt(lam_y / 2.0*M_PI)`` is ``sqrt(lam_y pi / 2)`` by
 precedence (pass ``prefactor=`` to replicate it).
 
-Not ported yet (ROADMAP.md, queue 1): checkpoints and resume, and the
-multi-device branch.  Each raises ``NotImplementedError``.
+``fit(checkpoint_path=p)`` saves ``{"W", "H", "mu"}``, the JAX
+package's schema, and ``resume=True`` continues from it.  Not ported yet
+(ROADMAP.md, queue 1): the multi-device branch.
 """
 
 from __future__ import annotations
@@ -38,9 +39,8 @@ import torch
 from .. import config
 from ..ops.als import (build_chunks, gather_rows, get_solver,
                        place_device_chunks, resolve_chol_solver)
+from ..utils.checkpoint import resume_state
 from .base import MFTrainerBase, PersistenceMixin, as_csr
-
-_LATER = "is not ported to cymf_tpu_torch yet (ROADMAP.md, queue 1)"
 # elements of (Y (x) Y) formed at once in the weighted Gramian (1 GiB)
 _GRAM_ELEMS = 1 << 28
 
@@ -133,9 +133,8 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
             verbose: bool = True, checkpoint_path=None,
             checkpoint_every: int = 1, resume: bool = False):
         """Train; signature parity with `expomf.pyx`.  ``num_threads`` is
-        accepted and ignored."""
-        if checkpoint_path is not None or resume:
-            raise NotImplementedError(f"checkpoints {_LATER}")
+        accepted and ignored.  ``checkpoint_path``, ``checkpoint_every``
+        and ``resume`` as ``BPR.fit``."""
         X = as_csr(X)
         self.valid_evaluator = valid_evaluator
         self.valid_dcg = -np.inf
@@ -162,19 +161,21 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
         def put(a):
             return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
-        self._state = {"W": put(self.W), "H": put(self.H)}
-        mu = torch.full((I,), 0.01, dtype=dtype, device=dev)  # expomf.pyx:111
+        self._state, start_epoch = resume_state(
+            checkpoint_path, resume,
+            {"W": put(self.W), "H": put(self.H),
+             "mu": torch.full((I,), 0.01, dtype=dtype,
+                              device=dev)})                # expomf.pyx:111
         ridge = (self.weight_decay / self.lam_y) * torch.eye(
             K, dtype=dtype, device=dev)                    # expomf.pyx:171
         lam_y, prefactor = self.lam_y, self.prefactor
         a1 = a2 = 1.0  # Beta(1, 1) prior (expomf.pyx:113-114,142)
 
         def epoch_fn(epoch):
-            nonlocal mu
             st = self._state
             # epoch-start copies: the sweeps update the tables in place
             W0, H0 = st["W"].clone(), st["H"].clone()
-            mu_term = (1.0 - mu) / mu                             # [I]
+            mu_term = (1.0 - st["mu"]) / st["mu"]                 # [I]
 
             # user sweep (Y = H0) and the column sums of the exposure
             colsum = torch.zeros((I,), dtype=dtype, device=dev)
@@ -194,7 +195,7 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
                                     ridge, prefactor, solver=solver_r)
                 st["H"].index_copy_(0, ch.rows, x)
 
-            mu = (a1 + colsum - 1.0) / (a1 + a2 + U - 2.0)
+            st["mu"] = (a1 + colsum - 1.0) / (a1 + a2 + U - 2.0)
 
         def snapshot_fn():
             return (self.W, self.H)
@@ -202,7 +203,10 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
         def restore_fn(snap):
             self.W, self.H = snap
 
+        state = self._state  # a best-epoch restore drops self._state
         self._run_epochs(num_epochs, epoch_fn, snapshot_fn, restore_fn,
-                         verbose)
-        self.mu = mu.cpu().numpy()    # the last epoch's, as in the JAX package
+                         verbose, checkpoint_path, checkpoint_every,
+                         start_epoch)
+        # the last epoch's, as in the JAX package
+        self.mu = state["mu"].cpu().numpy()
         self._drop_device_state()

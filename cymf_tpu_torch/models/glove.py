@@ -39,10 +39,16 @@ kernel launch an epoch; ``last_loss`` is then the epoch's loss sum, as in
 the JAX package.  It implements the fused bias mode only, as in the JAX
 package.
 
-Not ported yet (ROADMAP.md, queue 1): checkpoints, ``read_text`` and the
-co-occurrence builders; checkpoints raise ``NotImplementedError``.  The
-port trains on one device; the JAX package's sharded engines have no
-counterpart yet.
+Checkpoints hold the JAX package's schema, ``{"Wc", "Wx", "bc", "bx",
+"ow", "oh", "abc", "abx"}`` at logical shapes (the packed engine writes
+its tables unpacked, the fused mode's unused bias leaves as ``(1, 1)``
+placeholders), so the packed and the fused batch engine resume each
+other's, of either package; the sequential engine refuses them, as in
+the JAX package.
+
+Not ported yet (ROADMAP.md, queue 1): ``read_text`` and the
+co-occurrence builders.  The port trains on one device; the JAX
+package's sharded engines have no counterpart yet.
 """
 
 from __future__ import annotations
@@ -62,9 +68,8 @@ from ..ops.glove_epoch import (augment_tables, packed_glove_epoch,
 from ..ops.packed_epoch import PackedAdaGrad
 from ..ops.segment import dedup_rows
 from ..optim import AdaGrad, masked_addend, set_rows
+from ..utils.checkpoint import AsyncCheckpointer, resume_state
 from .bpr import choose_update_mode
-
-_LATER = "is not ported to cymf_tpu_torch yet (ROADMAP.md, queue 1)"
 PAD_CENTRAL = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
 
 
@@ -221,13 +226,14 @@ class GloVe:
         ``epoch_times_`` holds each epoch's synchronised device seconds;
         the once-per-fit host prep is ``prep_s_``.  ``constant_columns_``
         holds the augmented tables' constant-one columns, for checking
-        that they stayed one."""
+        that they stayed one.  ``checkpoint_path`` persists the tables
+        and AdaGrad accumulators every ``checkpoint_every`` epochs;
+        ``resume=True`` continues from there (``engine="pallas"``
+        refuses checkpoints)."""
         if X is None:
             raise ValueError()
         if not sparse.issparse(X):
             raise TypeError("X must be a type of scipy.sparse.*_matrix.")
-        if checkpoint_path is not None or resume:
-            raise NotImplementedError(f"checkpoints {_LATER}")
         K = self.num_components
         t0 = time.perf_counter()
         V1, V2 = X.shape
@@ -258,6 +264,9 @@ class GloVe:
             context = np.concatenate([context, np.zeros(pad, np.int32)])
             counts = np.concatenate([counts, np.ones(pad)])
         if self.engine == "pallas":
+            if checkpoint_path is not None:
+                raise NotImplementedError(
+                    "checkpointing is only supported with engine='xla'")
             self._fit_pallas(W_central, central_bias, W_context,
                              context_bias, central, context, counts, N,
                              num_epochs, verbose, V1, V2, t0)
@@ -273,10 +282,12 @@ class GloVe:
         n2 = np.take_along_axis(n2, order, axis=1)
         fit = self._fit_packed_glove if use_packed else self._fit_batch
         fit(c2, x2, n2, W_central, central_bias, W_context, context_bias, N,
-            num_epochs, verbose, V1, V2, t0)
+            num_epochs, verbose, V1, V2, t0, checkpoint_path,
+            checkpoint_every, resume)
 
     def _fit_batch(self, c2, x2, n2, W_central, central_bias, W_context,
-                   context_bias, N, num_epochs, verbose, V1, V2, t0):
+                   context_bias, N, num_epochs, verbose, V1, V2, t0,
+                   checkpoint_path, checkpoint_every, resume):
         """The portable batch engine (:func:`_glove_epoch`), as the
         single-device branch of ``cymf_tpu.GloVe.fit``: augmented tables
         (fused) or logical tables with ``(V, 1)`` bias columns (kfold),
@@ -304,6 +315,14 @@ class GloVe:
         ow, oh = opt.init(Wc), opt.init(Wx)
         # accumulators start at ones (optimizer.pyx:96-99)
         abc, abx = torch.ones_like(bc), torch.ones_like(bx)
+
+        def state():
+            return {"Wc": Wc, "Wx": Wx, "bc": bc, "bx": bx, "ow": ow,
+                    "oh": oh, "abc": abc, "abx": abx}
+
+        st, start_epoch = resume_state(checkpoint_path, resume, state())
+        Wc, Wx, bc, bx, ow, oh, abc, abx = (st[k] for k in (
+            "Wc", "Wx", "bc", "bx", "ow", "oh", "abc", "abx"))
         steps = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                  for a in (c2, x2, n2.astype(np.float32))]
         self.update_mode_ = choose_update_mode(self.update_mode, 2 * B,
@@ -313,7 +332,8 @@ class GloVe:
             x_max=self.x_max, alpha=self.alpha,
             learning_rate=self.learning_rate, num_components=K,
             num_central=V1, update_mode=self.update_mode_,
-            bias_mode=self.bias_mode))
+            bias_mode=self.bias_mode), state, checkpoint_path,
+            checkpoint_every, start_epoch)
         Wc, Wx, bc, bx = (T.cpu().numpy() for T in (Wc, Wx, bc, bx))
         if self.bias_mode == "kfold":  # the augmented layout, for outputs
             Wc, Wx = augment_tables(Wc, bc[:, 0], Wx, bx[:, 0])
@@ -321,7 +341,8 @@ class GloVe:
 
     def _fit_packed_glove(self, c2, x2, n2, W_central, central_bias,
                           W_context, context_bias, N, num_epochs, verbose,
-                          V1, V2, t0):
+                          V1, V2, t0, checkpoint_path, checkpoint_every,
+                          resume):
         """Packed fused engine (`ops/glove_epoch.py`): every stream is
         static per fit, so the prep runs once and each epoch replays it."""
         dev = self.device
@@ -346,11 +367,43 @@ class GloVe:
                                  multiple=wrows_h))
         opt = PackedAdaGrad(self.learning_rate)
         oc, ox = opt.init(Zc), opt.init(Zx)
+
+        def fused_state():
+            # the fused batch engine's schema at logical shapes, so each
+            # engine resumes the other's; bc/bx/abc/abx are the fused
+            # mode's unused placeholders
+            return {"Wc": pk.unpack_array(Zc.cpu().numpy(), V1, Kp),
+                    "Wx": Zx[:V2, :Kp].cpu().numpy(),
+                    "bc": np.zeros((1, 1), np.float32),
+                    "bx": np.zeros((1, 1), np.float32),
+                    "ow": {"accum": pk.unpack_array(
+                        oc["accum"].cpu().numpy(), V1, Kp)},
+                    "oh": {"accum": ox["accum"][:V2, :Kp].cpu().numpy()},
+                    "abc": np.ones((1, 1), np.float32),
+                    "abx": np.ones((1, 1), np.float32)}
+
+        st, start_epoch = resume_state(checkpoint_path, resume,
+                                       fused_state())
+        if start_epoch:
+            ones_w = pk.pack_array(np.ones((V1, Kp), np.float32), Kp,
+                                   multiple=wrows_w) > 0
+            ones_h = pk.pack_logical(np.ones((V2, Kp), np.float32), Kp,
+                                     multiple=wrows_h) > 0
+            Zc = put(pk.pack_array(st["Wc"], Kp, multiple=wrows_w))
+            Zx = put(pk.pack_logical(st["Wx"], Kp, multiple=wrows_h))
+            # off-payload accumulator lanes must be ONES (the
+            # initializer): a zero accumulator with a zero gradient is
+            # 0 * rsqrt(0) = NaN on lanes the kernels never read
+            oc = {"accum": put(np.where(ones_w, pk.pack_array(
+                st["ow"]["accum"], Kp, multiple=wrows_w), 1.0))}
+            ox = {"accum": put(np.where(ones_h, pk.pack_logical(
+                st["oh"]["accum"], Kp, multiple=wrows_h), 1.0))}
         dev_streams = [put(a) for a in (c2, x2, m2, f2, l2, sx, rowsx, winx,
                                         winw)]
         self._run_epochs(num_epochs, verbose, t0, lambda: packed_glove_epoch(
             Zc, Zx, oc, ox, *dev_streams, N, lr=self.learning_rate, K=K,
-            rw=rw, rh=rh, wrows_w=wrows_w, wrows_h=wrows_h))
+            rw=rw, rh=rh, wrows_w=wrows_w, wrows_h=wrows_h), fused_state,
+            checkpoint_path, checkpoint_every, start_epoch)
         Zc_log = pk.unpack_array(Zc.cpu().numpy(), V1, Kp)
         Zx_log = Zx[:V2, :Kp].cpu().numpy()
         self._set_outputs(Zc_log, Zx_log, K)
@@ -399,18 +452,26 @@ class GloVe:
         Zx_log = Zx[:V2, :K + 2].cpu().numpy()
         self._set_outputs(Zc_log, Zx_log, K)
 
-    def _run_epochs(self, num_epochs, verbose, t0, run):
+    def _run_epochs(self, num_epochs, verbose, t0, run, state_fn=None,
+                    checkpoint_path=None, checkpoint_every=1,
+                    start_epoch=0):
         """Every engine's epoch loop: ``prep_s_`` (the host work since
-        ``t0``, the card synchronised), then ``num_epochs`` calls of
-        ``run()`` (an epoch; it returns the loss), each timed into
-        ``epoch_times_``; ``last_loss`` from the last."""
+        ``t0``, the card synchronised), then a call of ``run()`` (an
+        epoch; it returns the loss) for each epoch from ``start_epoch``
+        to ``num_epochs - 1``, each timed into ``epoch_times_``;
+        ``last_loss`` from the last.  With ``checkpoint_path``,
+        ``state_fn()`` is saved after every ``checkpoint_every``-th epoch
+        (the copy to the host blocks, ``checkpoint_s_``; the write runs on
+        a thread and is flushed before this returns)."""
         dev = self.device
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.prep_s_ = time.perf_counter() - t0
         self.epoch_times_ = []
+        self.checkpoint_s_ = []
+        ckpt = AsyncCheckpointer() if checkpoint_path else None
         loss = None
-        for it in range(num_epochs):
+        for it in range(start_epoch, num_epochs):
             t1 = time.perf_counter()
             loss = run()
             if dev.type == "cuda":
@@ -419,6 +480,12 @@ class GloVe:
             if verbose:
                 print(f"ITER={it + 1:{len(str(num_epochs))}}, "
                       f"LOSS: {float(loss):.4f}", flush=True)
+            if ckpt and (it + 1) % checkpoint_every == 0:
+                t1 = time.perf_counter()
+                ckpt.save(checkpoint_path, state_fn(), it)
+                self.checkpoint_s_.append(time.perf_counter() - t1)
+        if ckpt:
+            ckpt.wait()
         self.last_loss = float(loss) if loss is not None else None
 
     def _set_outputs(self, Zc_log, Zx_log, K):

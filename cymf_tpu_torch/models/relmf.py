@@ -42,9 +42,13 @@ traced ``step0``, a relay workaround (ROADMAP.md, "Leave behind").
 One deliberate difference: the JAX package takes the packed engine on a
 TPU only; the port under ``"auto"`` takes it wherever it fits, on the card
 as on the TPU, and on the CPU too, whose plain forms the CPU tests hold
-against the card's kernels.  Not ported yet (ROADMAP.md, queue 1):
-checkpoints and the multi-device engines; each raises
-``NotImplementedError``.
+against the card's kernels.
+
+Checkpoints hold the JAX package's schemas (``{"W", "H", "ow", "oh"}``
+batch, ``{"W", "H", "owp", "ohp"}`` packed) and either engine resumes
+either's, of either package (BPR's converters, `models/bpr.py`); the
+sequential engine refuses them, as in the JAX package.  Not ported yet
+(ROADMAP.md, queue 1): the multi-device engines.
 """
 
 from __future__ import annotations
@@ -66,9 +70,9 @@ from ..ops.relmf_epoch import (epoch_generator, packed_relmf_epoch,
 from ..ops.segment import csr_lookup
 from ..optim import make_optimizer
 from .base import MFTrainerBase, PersistenceMixin, as_csr
-from .bpr import choose_update_mode
+from .bpr import (_batch_resume_state, _packed_resume_state, _resume_point,
+                  choose_update_mode)
 
-_LATER = "is not ported to cymf_tpu_torch yet (ROADMAP.md, queue 1)"
 # host prep holds an epoch's cells as int64 draws and int32 streams: cap
 # it at the JAX package's default of 2^27 cells (about 3 GiB of prep)
 HOST_PREP_MAX_CELLS = 1 << 27
@@ -214,9 +218,8 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         device seconds (``device_s``: the epoch's uploads and steps) and,
         under host prep or ``engine="pallas"``, the host prep seconds
         (``prep_s``; host prep runs beside the previous epoch's device
-        work)."""
-        if checkpoint_path is not None or resume:
-            raise NotImplementedError(f"checkpoints {_LATER}")
+        work).  ``checkpoint_path``, ``checkpoint_every`` and ``resume``
+        as ``BPR.fit``; ``engine="pallas"`` refuses checkpoints."""
         X = as_csr(X)
         self.valid_evaluator = valid_evaluator
         self.valid_dcg = -np.inf
@@ -231,6 +234,9 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         col_mean = np.asarray(X.mean(axis=0)).flatten()
         props = np.maximum(col_mean / col_mean.max(), 1e-5) ** 0.5
         if self.engine == "pallas":
+            if checkpoint_path is not None:
+                raise NotImplementedError(
+                    "checkpointing is only supported with engine='xla'")
             self._samples_per_epoch = U * I
             self._fit_pallas(X, props, num_epochs, verbose, seed)
             return
@@ -239,13 +245,17 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         B = -(-self.batch_size // 1024) * 1024
         S = max(1, -(-(U * I) // B))      # N = U*I samples per epoch
         self.packed_engine_ = self._packed_engine(binary, S * B)
+        ckpt = (checkpoint_path, checkpoint_every, resume)
         if not self.packed_engine_:
-            self._fit_batch(X, props, binary, num_epochs, verbose, seed)
+            self._fit_batch(X, props, binary, num_epochs, verbose, seed,
+                            *ckpt)
             return
         self._samples_per_epoch = S * B
-        self._fit_packed_relmf(X, props, B, S, num_epochs, verbose, seed)
+        self._fit_packed_relmf(X, props, B, S, num_epochs, verbose, seed,
+                               *ckpt)
 
-    def _fit_batch(self, X, props, binary, num_epochs, verbose, seed):
+    def _fit_batch(self, X, props, binary, num_epochs, verbose, seed,
+                   checkpoint_path, checkpoint_every, resume):
         """The portable batch engine (:func:`_relmf_epoch`), as the
         single-device branch of ``cymf_tpu.RelMF.fit``: ``B = batch_size``,
         ``ceil(U * I / B)`` steps an epoch, labels from the pair hash set
@@ -277,6 +287,11 @@ class RelMF(MFTrainerBase, PersistenceMixin):
                                                U + I)
         opt = make_optimizer(self.optimizer, self.learning_rate)
         ow, oh = opt.init(W), opt.init(H)
+        flat, start_epoch = _resume_point(checkpoint_path, resume)
+        if flat is not None:
+            W, H, ow, oh = _batch_resume_state(flat, U, I,
+                                               self.num_components, ow, oh,
+                                               dev)
         total = float(num_steps * B)  # a float: U * I may pass int32
 
         def publish():
@@ -291,9 +306,12 @@ class RelMF(MFTrainerBase, PersistenceMixin):
                 update_mode=self.update_mode_,
                 binary_labels=binary) / total
 
-        self._run_device_epochs(num_epochs, verbose, None, run, publish)
+        self._run_device_epochs(num_epochs, verbose, None, run, publish,
+                                checkpoint_path, checkpoint_every,
+                                start_epoch)
 
-    def _fit_packed_relmf(self, X, props, B, S, num_epochs, verbose, seed):
+    def _fit_packed_relmf(self, X, props, B, S, num_epochs, verbose, seed,
+                          checkpoint_path, checkpoint_every, resume):
         """Packed fused engine (`ops/relmf_epoch.py`) with device or host
         stream prep."""
         dev = self.device
@@ -315,13 +333,18 @@ class RelMF(MFTrainerBase, PersistenceMixin):
 
         Wp = put(pk.pack_array(self.W, K, multiple=wrows_w))
         Hp = put(pk.pack_logical(self.H, K, multiple=wrows_h))
+        opt = make_packed_optimizer(self.optimizer, self.learning_rate)
+        ow, oh = opt.init(Wp), opt.init(Hp)
+        flat, start_epoch = _resume_point(checkpoint_path, resume)
+        if flat is not None:
+            # the checkpoint holds Hp[:, :K]: lane K comes back zero
+            Wp, Hp, ow, oh = _packed_resume_state(flat, U, I, K, wrows_w,
+                                                  wrows_h, ow, oh, dev)
         if prep_mode == "device":
             # device prep reads 1/max(p_i, M) from lane K of Hp (the item
             # gather brings it along); gradients are payload-masked, so
             # every optimizer pass leaves it as it is
             Hp[:, K] = put(invp[:, 0])
-        opt = make_packed_optimizer(self.optimizer, self.learning_rate)
-        ow, oh = opt.init(Wp), opt.init(Hp)
         # a float: ML-20M's 3.7e9 cells an epoch overflow int32
         n_valid = float(S) * B
         kw = dict(opt_name=self.optimizer, lr=self.learning_rate,
@@ -340,7 +363,9 @@ class RelMF(MFTrainerBase, PersistenceMixin):
                     Wp, Hp, ow, oh, hs, epoch_generator(seed, epoch, dev), S,
                     n_valid, B=B, num_users=U, num_items=I, **kw)
 
-            self._run_device_epochs(num_epochs, verbose, None, run, publish)
+            self._run_device_epochs(num_epochs, verbose, None, run, publish,
+                                    checkpoint_path, checkpoint_every,
+                                    start_epoch)
             return
 
         pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
@@ -358,7 +383,9 @@ class RelMF(MFTrainerBase, PersistenceMixin):
                     u2, i2, lab, si, rowsi, wini, winw)), invp_d, n_valid,
                 **kw)
 
-        self._run_device_epochs(num_epochs, verbose, prep, run, publish)
+        self._run_device_epochs(num_epochs, verbose, prep, run, publish,
+                                checkpoint_path, checkpoint_every,
+                                start_epoch)
 
     def _fit_pallas(self, X, props, num_epochs, verbose, seed,
                     chunk: int = 4096, group: int = 8):

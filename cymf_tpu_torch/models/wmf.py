@@ -16,8 +16,9 @@ batched Cholesky (LU optional, as the reference's ``dgesv``).  At
 ``K >= 128`` on CUDA the Cholesky is the blocked form whose diagonal
 blocks run the hand-written kernel of ``csrc/chol_inv.cu``.
 
-Not ported yet (ROADMAP.md, queue 1): checkpoints and resume, and the
-multi-device branch.  Each raises ``NotImplementedError``.
+``fit(checkpoint_path=p)`` saves ``{"W", "H"}``, the JAX package's
+schema, and ``resume=True`` continues from it.  Not ported yet
+(ROADMAP.md, queue 1): the multi-device branch.
 """
 
 from __future__ import annotations
@@ -33,9 +34,8 @@ from .. import config
 from ..ops.als import (AlsChunk, build_chunks, place_device_chunks,
                        resolve_chol_solver, wmf_chunk_solve,
                        wmf_chunk_solve_woodbury)
+from ..utils.checkpoint import resume_state
 from .base import MFTrainerBase, PersistenceMixin, as_csr
-
-_LATER = "is not ported to cymf_tpu_torch yet (ROADMAP.md, queue 1)"
 
 
 def woodbury_max_p(num_components: int, weight: float, weight_decay: float,
@@ -94,9 +94,9 @@ class WMF(MFTrainerBase, PersistenceMixin):
         After the fit: ``woodbury_max_p_`` (the routing cap),
         ``epoch_times_`` (seconds per epoch, synchronised) and
         ``chunks_`` (host ``build_s`` seconds, and per side ``"W"``/``"H"``
-        the number of ``standard`` and ``woodbury`` chunks)."""
-        if checkpoint_path is not None or resume:
-            raise NotImplementedError(f"checkpoints {_LATER}")
+        the number of ``standard`` and ``woodbury`` chunks).
+        ``checkpoint_path``, ``checkpoint_every`` and ``resume`` as
+        ``BPR.fit``."""
         X = as_csr(X)
         self.valid_evaluator = valid_evaluator
         self.valid_dcg = -np.inf
@@ -131,7 +131,8 @@ class WMF(MFTrainerBase, PersistenceMixin):
         def put(a):
             return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
-        self._state = {"W": put(self.W), "H": put(self.H)}
+        self._state, start_epoch = resume_state(
+            checkpoint_path, resume, {"W": put(self.W), "H": put(self.H)})
         eye = torch.eye(K, dtype=config.param_dtype(), device=dev)
         wd, weight = self.weight_decay, self.weight
 
@@ -169,5 +170,6 @@ class WMF(MFTrainerBase, PersistenceMixin):
             self.W, self.H = snap
 
         self._run_epochs(num_epochs, epoch_fn, snapshot_fn, restore_fn,
-                         verbose)
+                         verbose, checkpoint_path, checkpoint_every,
+                         start_epoch)
         self._drop_device_state()

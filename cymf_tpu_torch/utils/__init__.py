@@ -1,3 +1,3 @@
-from .profiling import Throughput, annotate
+from .profiling import Throughput, annotate, trace
 
-__all__ = ["Throughput", "annotate"]
+__all__ = ["Throughput", "annotate", "trace"]

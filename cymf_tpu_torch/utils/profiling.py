@@ -1,15 +1,45 @@
 """Throughput and trace instrumentation (`cymf_tpu/utils/profiling.py`).
 
-:class:`Throughput` and :func:`annotate` are ported; ``trace`` comes with
-the ``torch.profiler`` work.
+* :func:`trace` wraps a block in a ``torch.profiler`` trace, written as a
+  Chrome trace (view in ``chrome://tracing``, Perfetto or TensorBoard);
+* :func:`annotate` names a region inside it;
+* :class:`Throughput` tracks samples/sec with a monotonic clock, used by
+  the trainers to report interactions/sec.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import socket
 import time
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str) -> Iterator[None]:
+    """``with trace("/tmp/torch-trace"): model.fit(...)``: profiles the
+    block's host operators and, where a card is visible, its CUDA kernels
+    and copies, and on exit (an exception included) writes the Chrome
+    trace ``<host>.<pid>.<ns>.pt.trace.json`` into ``logdir``.
+    :func:`annotate` regions appear in it by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            logdir, f"{socket.gethostname()}.{os.getpid()}."
+            f"{time.time_ns()}.pt.trace.json"))
 
 
 def annotate(name: str):

@@ -255,8 +255,9 @@ def test_invalid_fit_arguments(data):
         m.fit("not a matrix")
     with pytest.raises(ValueError):
         m.fit(data.train, early_stopping=True)
-    with pytest.raises(NotImplementedError):
-        m.fit(data.train, checkpoint_path="model.npz")
+    with pytest.raises(NotImplementedError, match="engine='xla'"):
+        ct.BPR(8, engine="pallas", device="cpu").fit(
+            data.train, checkpoint_path="model.npz")
     with pytest.raises(Exception, match="invalid"):
         make_packed_optimizer("lbfgs", 0.1)
 

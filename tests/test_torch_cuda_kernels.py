@@ -1755,3 +1755,50 @@ def test_batch_routing_on_card(dev):
         g.fit(G, num_epochs=1)
         assert g.packed_engine_ is (want == "packed")
         assert np.isfinite(g.last_loss)
+
+
+def test_resumed_packed_bpr_fit_on_card(dev, tmp_path):
+    """A packed BPR fit on the card (pipeline v5, its kernels) resumed
+    from its epoch-3 checkpoint equals the uninterrupted 6-epoch fit
+    within ``tests/test_checkpoint.py``'s ``rtol 1e-4, atol 1e-4``."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.dataset import SyntheticImplicitDataset
+    X = SyntheticImplicitDataset(num_user=600, num_item=300, rank=6,
+                                 density=0.08, seed=7).train
+    kw = dict(num_components=20, learning_rate=0.01, device=dev)
+    p = str(tmp_path / "bpr.npz")
+    m1 = ct.BPR(**kw)
+    m1.fit(X, num_epochs=6, verbose=False)
+    ct.BPR(**kw).fit(X, num_epochs=3, verbose=False, checkpoint_path=p)
+    m3 = ct.BPR(**kw)
+    _kernels.reset_launches()
+    m3.fit(X, num_epochs=6, verbose=False, checkpoint_path=p, resume=True)
+    assert m3.packed_kernel_ == 5 and len(m3.checkpoint_s_) == 3
+    assert _kernels.launches["bpr_sample_phase_v5"] == \
+        3 * -(-X.nnz // 1024)
+    np.testing.assert_allclose(m3.W, m1.W, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(m3.H, m1.H, rtol=1e-4, atol=1e-4)
+
+
+def test_recommend_on_card_matches_cpu(dev):
+    """``recommend`` on the card gives the CPU's items and scores on a
+    tie-free input whose scores are exact in float32 on either device
+    (integer products of multiples of 32, plus the item id in a column of
+    its own: ``1024 m + i``), and an excluded item never comes back."""
+    from scipy import sparse
+
+    import cymf_tpu_torch as ct
+    rng = np.random.default_rng(0)
+    U, I = 700, 900
+    W = np.ones((U, 20), np.float32)
+    H = np.arange(I, dtype=np.float32)[:, None].repeat(20, 1)
+    W[:, :19] = 32 * rng.integers(-8, 9, (U, 19))
+    H[:, :19] = 32 * rng.integers(-8, 9, (I, 19))
+    X = sparse.random(U, I, density=0.05, random_state=0, format="csr")
+    sg, ig = ct.recommend(W, H, k=10, exclude=X, user_chunk=256, device=dev)
+    sc, ic = ct.recommend(W, H, k=10, exclude=X, user_chunk=256,
+                          device="cpu")
+    np.testing.assert_array_equal(ig, ic)
+    np.testing.assert_array_equal(sg, sc)
+    for u in range(0, U, 37):
+        assert not set(ig[u].tolist()) & set(X[u].indices.tolist())

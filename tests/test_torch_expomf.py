@@ -19,6 +19,7 @@ import cymf_tpu
 import cymf_tpu_torch as ct
 from cymf_tpu.parallel import MeshContext, use_mesh
 from cymf_tpu_torch.dataset import SyntheticImplicitDataset
+from cymf_tpu_torch.utils.checkpoint import save_checkpoint
 
 TOL = dict(rtol=2e-3, atol=2e-4)
 
@@ -83,7 +84,7 @@ def test_learns_and_early_stopping_restores_best(data):
         test.evaluate(m0.W, m0.H)["DCG@5"] + 0.05
 
 
-def test_invalid_arguments(data):
+def test_invalid_arguments(data, tmp_path):
     with pytest.raises(ValueError):
         ct.ExpoMF(solver="qr")
     m = ct.ExpoMF(8, device="cpu")
@@ -91,5 +92,9 @@ def test_invalid_arguments(data):
         m.fit("not a matrix")
     with pytest.raises(ValueError):
         m.fit(data.train, early_stopping=True)
-    with pytest.raises(NotImplementedError):
-        m.fit(data.train, resume=True)
+    # a checkpoint of another schema (WMF's, without mu) is refused
+    p = str(tmp_path / "wmf.npz")
+    U, I = data.train.shape
+    save_checkpoint(p, {"W": np.zeros((U, 8)), "H": np.zeros((I, 8))}, 0)
+    with pytest.raises(KeyError, match="mu"):
+        m.fit(data.train, checkpoint_path=p, resume=True)

@@ -195,5 +195,6 @@ def test_fit_gates():
     with pytest.raises(ValueError, match="bias_mode='fused'"):
         ct.GloVe(bias_mode="kfold", packed="on", device="cpu").fit(
             X, num_epochs=1)
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        ct.GloVe(device="cpu").fit(X, num_epochs=1, checkpoint_path="g.npz")
+    with pytest.raises(NotImplementedError, match="checkpointing"):
+        ct.GloVe(engine="pallas", device="cpu").fit(
+            X, num_epochs=1, checkpoint_path="g.npz")

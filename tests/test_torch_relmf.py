@@ -322,8 +322,9 @@ def test_fit_gates(monkeypatch):
         assert m._samples_per_epoch == -(-40 * 30 // 8192) * 8192
     with pytest.raises(ValueError, match="binarized"):
         ct.RelMF(8, packed="on", device="cpu").fit(Xn, num_epochs=1)
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        ct.RelMF(8, device="cpu").fit(X, checkpoint_path="m.npz")
+    with pytest.raises(NotImplementedError, match="checkpointing"):
+        ct.RelMF(8, engine="pallas", device="cpu").fit(
+            X, checkpoint_path="m.npz")
     with pytest.raises(ValueError):
         ct.RelMF(8, device="cpu").fit(X, early_stopping=True)
     with pytest.raises(ValueError):

@@ -17,6 +17,7 @@ import cymf_tpu_torch as ct
 from cymf_tpu.parallel import MeshContext, use_mesh
 from cymf_tpu_torch.convert import from_arrays
 from cymf_tpu_torch.dataset import SyntheticImplicitDataset
+from cymf_tpu_torch.utils.checkpoint import save_checkpoint
 
 TOL = dict(rtol=2e-3, atol=2e-4)
 
@@ -111,7 +112,7 @@ def test_woodbury_max_p_matches_jax(one_device, env, kw):
     assert mt.woodbury_max_p_ == mj.woodbury_max_p_
 
 
-def test_invalid_arguments(data, one_device):
+def test_invalid_arguments(data, one_device, tmp_path):
     with pytest.raises(ValueError):
         ct.WMF(solver="qr")
     m = ct.WMF(8, device="cpu")
@@ -119,8 +120,12 @@ def test_invalid_arguments(data, one_device):
         m.fit(None)
     with pytest.raises(ValueError):
         m.fit(data.train, early_stopping=True)
-    with pytest.raises(NotImplementedError):
-        m.fit(data.train, checkpoint_path="model.npz")
+    # a checkpoint of another width is refused
+    p = str(tmp_path / "k4.npz")
+    U, I = data.train.shape
+    save_checkpoint(p, {"W": np.zeros((U, 4)), "H": np.zeros((I, 4))}, 0)
+    with pytest.raises(ValueError, match="shape"):
+        m.fit(data.train, checkpoint_path=p, resume=True)
     one_device.setenv("CYMF_TPU_ALS_WOODBURY", "maybe")
     with pytest.raises(ValueError, match="WOODBURY"):
         m.fit(data.train, num_epochs=1, verbose=False)
