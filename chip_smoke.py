@@ -74,6 +74,15 @@ Phases, one line each; any failure raises and exits non-zero:
    (``BPR(packed="off")``) at the same shapes: 3 dense Adam epochs, the
    epochs after the first printed beside ``full``'s v4 epochs, and 1
    sparse epoch;
+6a. bpr-device-prep: the ``full`` model (3 epochs) under
+   ``CYMF_TPU_BPR_PREP=device``: prep ``device-torch``, pipeline v4, each
+   of #1-#3 once a step (3 x 151 launches); each epoch's device seconds
+   and wall beside ``full``'s native host-prep epochs of this run, the
+   fit's end-to-end int/s; step 0's three kernels against plain on its
+   device-drawn negatives, and the step's device prep timed (by call, in a
+   loop, by device time); at the quickstart's size two fits with one seed
+   equal to the bit, test DCG@5 at least 0.8x host prep's, and a resumed
+   fit equal to the uninterrupted one;
 7. the other BPR pipelines, each at full width (d=20) through its main
    path: bpr-ml1m, 3 epochs of ``fit`` on the ml-1m data (v5: #4 and both
    accumulations once a step, #1 never); bpr-v6, 3 sgd epochs of
@@ -157,10 +166,20 @@ Phases, one line each; any failure raises and exits non-zero:
     ExpoMF; a packed BPR checkpoint resumed on the batch engine; 2 epochs
     of BPR v4 at ML-20M with a checkpoint each epoch beside the same fit
     without: each save's blocking ms, the file's MB and each epoch's
-    wall.  Neither phase adds a kernel to the line below.
+    wall.  Neither phase adds a kernel to the line below;
+18. datasets: the file-backed loaders in a temporary ``CYMF_TPU_CACHE``
+    on files written from a seed (nothing is downloaded): MovieLens
+    ``u.data`` at ml-100k's published size (943 x 1,682, 100,000 ratings)
+    and ``ratings.dat`` at ml-1m's (6,040 x 3,706, 1,000,209), each load
+    timed, no pandas or sklearn imported; BPR on the loaded ml-100k with
+    validation and early stopping must beat an untrained model's test
+    DCG@5 by 0.05; ``read_text`` on a 2M-token corpus (Zipf over 50,000
+    words), timed, then 3 epochs of GloVe d=50 on its matrix on the card
+    and ``save_word2vec_format``.
 
 Then it prints the kernels' JSON line (all seventeen), with each kernel's
-launches on its main path (a probe's: those of the probes phase), the
+launches on its main path (a probe's: those of the probes phase),
+``phase_launches`` its launches in ``bpr-device-prep`` and ``datasets``, the
 accumulations' loop times (``loop_ms``, and ``library_loop_ms`` for the
 single stream's library calls), the dual's device time (``device_ms``),
 its bound (the larger of bytes over 3.35 TB/s and float32 operations over
@@ -323,12 +342,13 @@ def loop_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_split(fn, reps: int = 20) -> dict:
+def device_split(fn, reps: int = 20, counts: dict | None = None) -> dict:
     """Device time of ``fn()`` a call by CUDA kernel (memsets included),
     ``{name: ms}``, from ``torch.profiler`` over ``reps`` back-to-back
     calls after a warm-up.  Only the device's own events count: the
     profiler also gives a PyTorch operator (``aten::index_select``) the
-    time of the kernels it launched, which would count them twice."""
+    time of the kernels it launched, which would count them twice.  With
+    ``counts``, each kernel's launches a call go there too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -348,6 +368,8 @@ def device_split(fn, reps: int = 20) -> dict:
             t = ev.self_cuda_time_total
         if t > 0:
             split[ev.key[:60]] = t / 1e3 / reps
+            if counts is not None:
+                counts[ev.key[:60]] = ev.count / reps
     return split
 
 
@@ -3049,6 +3071,350 @@ def checkpoint_phase(X, dev, smi):
     shutil.rmtree(CKPT_DIR)
 
 
+# ---------------------------------------------------------------------------
+# device-prep BPR (CYMF_TPU_BPR_PREP=device)
+# ---------------------------------------------------------------------------
+
+def device_prep_step(X, dev):
+    """bpr-device-prep's kernel check: step 0 of the device-prep epoch at
+    ML-20M shapes (the ``full`` model's streams, d=20), its negatives drawn
+    from the fit's generator for seed 1234, epoch 0, masked by the pair
+    hash set and sorted on the card; the three kernels' outputs against
+    their plain forms on the same inputs, at ``check_kernels``'s
+    tolerances (the sample kernel rtol 1e-5, atol 1e-6; the accumulations
+    within 1e-5 of their max).  Also times the step's device-side prep
+    (draw, mask, sort, windows) by call, in a loop and by device time
+    (``torch.profiler``).  Returns the kernels' max abs errors."""
+    from cymf_tpu_torch.models.bpr import (shuffled_interactions,
+                                           sorted_batches)
+    from cymf_tpu_torch.ops import fused_sample as fs
+    from cymf_tpu_torch.ops import packed as pk
+    from cymf_tpu_torch.ops import sorted_accum as sa
+    from cymf_tpu_torch.ops.hashset import build_pair_hashset, to_device
+    from cymf_tpu_torch.ops.packed_epoch import (draw_negatives,
+                                                 live_negatives,
+                                                 prep_static)
+    from cymf_tpu_torch.ops.relmf_epoch import (_sorted_side_device,
+                                                epoch_generator)
+
+    K = 20
+    u2, i2 = sorted_batches(*shuffled_interactions(X), BATCH)
+    u2, i2 = u2[:1], i2[:1]
+    rw = pk.packed_rows(U, K, multiple=WROWS)
+    rh = pk.logical_rows(I, multiple=WROWS)
+    winw, _, si, rowsi, wini, *_ = prep_static(u2, i2, K, rw, rh, WROWS,
+                                               WROWS)
+    coo = X.tocoo()
+    hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    u, i = put(u2[0]), put(i2[0])
+    rng = np.random.default_rng(0)
+    Wp = put(pk.pack_array(rng.uniform(-0.1, 0.1, (U, K)) / K, K, WROWS)
+             .astype(np.float32))
+    Hp = put(pk.pack_logical(rng.uniform(-0.1, 0.1, (I, K)) / K, K, WROWS)
+             .astype(np.float32))
+
+    def prep():
+        j = draw_negatives(epoch_generator(1234, 0, dev), BATCH, I)
+        mf = live_negatives(hs, u, j, U).to(torch.float32)
+        return (j, mf, *_sorted_side_device(j, rh, WROWS))
+
+    j, mf, sj, rowsj, wjs, wjc = prep()
+    prep_ms, prep_loop = time_ms(prep), loop_ms(prep)
+    counts = {}
+    split = device_split(prep, counts=counts)
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:4]
+    s = pk.num_slots(K)
+    phys = u // s
+    Du = fs.decorate(Wp.index_select(0, phys.clamp(max=rw - 1)), u % s, mf,
+                     K)
+    args = (Du, Hp.index_select(0, i), Hp.index_select(0, j))
+    SW, Q, loss = fs.bpr_sample_phase(*args, K=K, wd=0.01)
+    SWp, Qp, lossp = fs.bpr_sample_phase_plain(*args, K=K, wd=0.01)
+    torch.cuda.synchronize()
+    errs = {"SW": close(SW, SWp, 1e-5, 1e-6, "device prep SW")[0],
+            "Q": close(Q, Qp, 1e-5, 1e-6, "device prep Q")[0]}
+    close(loss, lossp, 1e-5, 0.0, "device prep loss")
+    w_args = (phys, SW, put(winw[0, 0]), put(winw[0, 1]))
+    h_args = (put(rowsi[0]), Q.index_select(0, put(si[0])), put(wini[0, 0]),
+              put(wini[0, 1]), rowsj, Q.index_select(0, sj), wjs, wjc)
+    for name, fn, plain, a, kw in (
+            ("sorted_accum", sa.sorted_accum, sa.sorted_accum_plain,
+             w_args, dict(r_pad=rw, wrows=WROWS)),
+            ("sorted_accum_dual", sa.sorted_accum_dual,
+             sa.sorted_accum_dual_plain, h_args,
+             dict(r_pad=rh, neg_lanes=K, wrows=WROWS))):
+        got, want = fn(*a, **kw), plain(*a, **kw)
+        torch.cuda.synchronize()
+        limit = 1e-5 * float(want.abs().max())
+        errs[name] = close(got, want, 0.0, limit, f"device prep {name}")[0]
+    live = float(mf.mean())
+    phase("bpr-device-prep", f"step 0 at ML-20M (B={BATCH}, d={K}), "
+          f"negatives from the fit's generator: {live:.4%} live; "
+          "bpr_sample_phase, sorted_accum and sorted_accum_dual against "
+          "plain, max abs " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                        errs.items())
+          + f"; the step's device prep (draw, hash-set mask, sort, "
+          f"windows) {prep_ms:.4f} ms a call, {prep_loop:.4f} in a loop, "
+          f"device {sum(split.values()):.4f} ms in {sum(counts.values()):g}"
+          f" launches of {len(split)} CUDA kernels (the largest: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in top) + ")")
+    return errs
+
+
+def bpr_device_prep(X, dev, smi):
+    """bpr-device-prep: the ``full`` phase's model (d=20, Adam lr 0.001,
+    wd 0.01, batch 131,072, EPOCHS epochs) under
+    ``CYMF_TPU_BPR_PREP=device``: pipeline v4, prep ``device-torch``, and
+    each of #1-#3 once a step.  Prints each epoch's device seconds and
+    wall beside ``full``'s native host-prep epochs of this run, the fit's
+    end-to-end int/s; then the kernel check of :func:`device_prep_step`
+    and, at the quickstart's size, two fits with one seed equal to the
+    bit, test DCG@5 at least 0.8x host prep's, and a resumed fit equal to
+    the uninterrupted one.  Returns the kernels' launches."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.ops import _kernels
+
+    m = ct.BPR(num_components=20, learning_rate=0.001, optimizer="adam",
+               weight_decay=0.01, batch_size=BATCH, device=dev)
+    probe = _DeviceProbe(m)
+    N = X.count_nonzero()
+    S = -(-N // BATCH)
+    with env_set("CYMF_TPU_BPR_PREP", "device"):
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        m.fit(X, num_epochs=EPOCHS, valid_evaluator=probe, verbose=False)
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.launches)
+    walls = probe.walls(t0)
+    host_times, host_walls = FIT_EPOCHS["full"]
+    for e, st in enumerate(m.epoch_times_):
+        h = host_times[e]
+        phase("bpr-device-prep", f"{smi}; epoch {e}: device "
+              f"{st['device_s']:.4f} s ({N / st['device_s']:.4e} int/s), "
+              f"wall {walls[e]:.4f} s; full (native host prep) in this "
+              f"run: prep {h['prep_s']:.4f} s, device {h['device_s']:.4f} "
+              f"s, wall {host_walls[e]:.4f} s")
+    dev_s = sum(st["device_s"] for st in m.epoch_times_)
+    phase("bpr-device-prep", f"prep {m.prep_backend_}, pipeline "
+          f"v{m.packed_kernel_}; fit wall {wall:.3f} s for {EPOCHS} epochs:"
+          f" {N * EPOCHS / wall:.4e} int/s end to end, "
+          f"{N * EPOCHS / dev_s:.4e} int/s device; epochs after the first "
+          f"{N / np.mean(walls[1:]):.4e} int/s end to end (full: "
+          f"{N / np.mean(host_walls[1:]):.4e}); last loss "
+          f"{m.last_loss:.6f}; launches {launches}")
+    want = dict.fromkeys(BPR_KERNELS, EPOCHS * S)
+    if m.prep_backend_ != "device-torch" or m.packed_kernel_ != 4 \
+            or launches != want:
+        raise AssertionError(f"bpr-device-prep: prep {m.prep_backend_}, "
+                             f"v{m.packed_kernel_}, launches {launches}, "
+                             f"expected device-torch, v4, {want}")
+    if probe.calls != EPOCHS or not (np.isfinite(m.last_loss)
+                                     and np.isfinite(m.W).all()
+                                     and np.isfinite(m.H).all()):
+        raise AssertionError("bpr-device-prep: epochs missed or "
+                             "non-finite tables")
+    device_prep_step(X, dev)
+    device_prep_quickstart(dev)
+    return launches
+
+
+def device_prep_quickstart(dev):
+    """bpr-device-prep at the quickstart's size (600 x 300, d=20, lr
+    0.01, 20 epochs, seed 3): two device-prep fits equal to the bit, test
+    DCG@5 at least 0.8x a host-prep fit's, and 3 epochs with a checkpoint
+    then 3 resumed equal to 6 uninterrupted."""
+    import cymf_tpu_torch as ct
+
+    d = quickstart_data()
+    test = ct.AoaEvaluator(d.test, d.train, k=5, device=dev)
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    p = str(CKPT_DIR / "device_prep.npz")
+
+    def fit(prep, epochs=20, **ck):
+        m = ct.BPR(num_components=20, learning_rate=0.01, device=dev)
+        with env_set("CYMF_TPU_BPR_PREP", prep):
+            m.fit(d.train, num_epochs=epochs, verbose=False, seed=3, **ck)
+        return m
+
+    host, a, b = fit("host"), fit("device"), fit("device")
+    same = np.array_equal(a.W, b.W) and np.array_equal(a.H, b.H)
+    dcg_host = test.evaluate(host.W, host.H)["DCG@5"]
+    dcg_dev = test.evaluate(a.W, a.H)["DCG@5"]
+    full = fit("device", 6)
+    fit("device", 3, checkpoint_path=p)
+    resumed = fit("device", 6, checkpoint_path=p, resume=True)
+    err = max(float(np.abs(resumed.W - full.W).max()),
+              float(np.abs(resumed.H - full.H).max()))
+    os.remove(p)
+    phase("bpr-device-prep", f"quickstart: test DCG@5 {dcg_dev:.4f} "
+          f"(device prep, v{a.packed_kernel_}) against {dcg_host:.4f} "
+          f"(host prep, v{host.packed_kernel_}); two fits with one seed "
+          f"equal to the bit: {same}; resumed against uninterrupted max abs "
+          f"{err:.3e}")
+    if not same or err != 0.0:
+        raise AssertionError("bpr-device-prep: device-prep fits not "
+                             "reproducible or resume differs")
+    if not dcg_dev >= 0.8 * dcg_host:
+        raise AssertionError("bpr-device-prep: device prep under 0.8x "
+                             "host prep's test DCG@5")
+
+
+# ---------------------------------------------------------------------------
+# the file-backed datasets
+# ---------------------------------------------------------------------------
+
+# ml-100k's and ml-1m's published sizes: users, items, ratings
+ML_FILES = {"ml-100k": (943, 1682, 100_000), "ml-1m": (6040, 3706,
+                                                       1_000_209)}
+TEXT_TOKENS, TEXT_VOCAB = 2_000_000, 50_000
+DATA_DIR = ROOT / "build" / "chip_smoke_datasets"
+
+
+def write_movielens(root: Path, name: str, seed: int = 0) -> None:
+    """A file of ``name``'s published size in its format (``u.data``
+    tab-separated, ``ratings.dat`` with ``::``): distinct (user, item)
+    pairs drawn without replacement in proportion to a power-law user
+    activity and item popularity, ratings 1-5 from a planted rank-8 taste
+    plus noise, so that a model can learn the kept (>= 4) ratings."""
+    n_u, n_i, n = ML_FILES[name]
+    rng = np.random.default_rng(seed)
+    wu = rng.permutation(np.arange(1, n_u + 1) ** -0.5)
+    wi = rng.permutation(np.arange(1, n_i + 1) ** -0.8)
+    # Gumbel top-n: n distinct cells drawn in proportion to wu x wi
+    keys = np.log(wu)[:, None] + np.log(wi)[None, :]
+    keys += rng.gumbel(size=keys.shape)
+    cells = np.argpartition(keys.ravel(), -n)[-n:]
+    del keys
+    uu, ii = cells // n_i, cells % n_i
+    fu = rng.normal(size=(n_u, 8)).astype(np.float32)
+    fi = rng.normal(size=(n_i, 8)).astype(np.float32)
+    z = np.einsum("nk,nk->n", fu[uu], fi[ii]) / np.sqrt(8)
+    r = np.clip(np.rint(3.6 + 1.1 * z + 0.5 * rng.normal(size=n)), 1, 5)
+    ts = rng.integers(874_724_710, 1_046_454_590, n)
+    sep, fname = ("\t", "u.data") if name == "ml-100k" else ("::",
+                                                              "ratings.dat")
+    d = root / name
+    d.mkdir(parents=True)
+    (d / fname).write_text("\n".join(
+        f"{a}{sep}{b}{sep}{c}{sep}{e}" for a, b, c, e in
+        zip((uu + 1).tolist(), (ii + 1).tolist(), r.astype(int).tolist(),
+            ts.tolist())) + "\n")
+
+
+def write_corpus(path: Path, seed: int = 0) -> None:
+    """TEXT_TOKENS tokens, Zipf (exponent 1) over TEXT_VOCAB words, in
+    lines of 1,000."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, TEXT_VOCAB + 1)
+    words = np.array([f"w{k}" for k in range(TEXT_VOCAB)])
+    toks = words[rng.choice(TEXT_VOCAB, TEXT_TOKENS, p=p / p.sum())]
+    path.write_text("\n".join(" ".join(toks[a:a + 1000].tolist())
+                              for a in range(0, TEXT_TOKENS, 1000)))
+
+
+def datasets_phase(dev, smi):
+    """datasets: the file-backed loaders in a temporary ``CYMF_TPU_CACHE``
+    on files written from a seed (nothing is downloaded): MovieLens
+    ml-100k and ml-1m at their published sizes, each load timed, neither
+    pandas nor sklearn imported; a BPR fit on the loaded ml-100k with
+    validation and early stopping must beat an untrained model's test
+    DCG@5 by 0.05; ``read_text`` on a 2M-token corpus, timed, then 3
+    epochs of GloVe d=50 on its matrix on the card (#8 and both
+    accumulations once a step) and ``save_word2vec_format``.  Returns the
+    launches of both fits."""
+    import shutil
+
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.dataset import MovieLens, read_text
+    from cymf_tpu_torch.ops import _kernels
+
+    if DATA_DIR.exists():
+        shutil.rmtree(DATA_DIR)
+    launches = collections.Counter()
+    with env_set("CYMF_TPU_CACHE", str(DATA_DIR)):
+        loaded = {}
+        for name in ML_FILES:
+            t0 = time.perf_counter()
+            write_movielens(DATA_DIR, name)
+            t1 = time.perf_counter()
+            loaded[name] = ds = MovieLens(name)
+            t2 = time.perf_counter()
+            phase("datasets", f"{name}: file written in {t1 - t0:.2f} s, "
+                  f"loaded in {t2 - t1:.3f} s: {ds.num_user} x "
+                  f"{ds.num_item}, train/valid/test {ds.train_size}/"
+                  f"{ds.valid_size}/{ds.test_size}")
+            if (ds.num_user, ds.num_item) != ML_FILES[name][:2]:
+                raise AssertionError(f"datasets: {name} has "
+                                     f"{ds.num_user} x {ds.num_item}")
+        stack = sorted({m.split(".")[0] for m in sys.modules}
+                       & {"pandas", "sklearn"})
+        if stack:
+            raise AssertionError(f"datasets: the loaders imported {stack}")
+
+        d = loaded["ml-100k"]
+        valid = ct.AoaEvaluator(d.valid, d.train, metrics=["DCG"], k=5,
+                                device=dev)
+        test = ct.AoaEvaluator(d.test, d.train, k=5, device=dev)
+        kw = dict(num_components=20, learning_rate=0.01, device=dev)
+        m0 = ct.BPR(**kw)
+        m0.fit(d.train, num_epochs=0, verbose=False)
+        base = test.evaluate(m0.W, m0.H)["DCG@5"]
+        m = ct.BPR(**kw)
+        _kernels.reset_launches()
+        m.fit(d.train, num_epochs=30, valid_evaluator=valid,
+              early_stopping=True, verbose=False)
+        launches.update(_kernels.launches)
+        res = test.evaluate(m.W, m.H)
+        phase("datasets", f"BPR on ml-100k: test {res}; untrained DCG@5 "
+              f"{base:.4f}; best valid DCG@5 {m.valid_dcg:.4f}; pipeline "
+              f"v{m.packed_kernel_}, prep {m.prep_backend_}; "
+              f"{len(m.epoch_times_)} epochs; launches "
+              f"{dict(_kernels.launches)}")
+        if not res["DCG@5"] >= base + 0.05:
+            raise AssertionError("datasets: BPR did not learn ml-100k")
+
+        corpus = DATA_DIR / "corpus.txt"
+        t0 = time.perf_counter()
+        write_corpus(corpus)
+        t1 = time.perf_counter()
+        G, i2w = read_text(str(corpus), min_count=5, window_size=10)
+        t2 = time.perf_counter()
+        phase("datasets", f"read_text: {TEXT_TOKENS} tokens over "
+              f"{TEXT_VOCAB} words (written in {t1 - t0:.2f} s) in "
+              f"{t2 - t1:.3f} s: vocabulary {len(i2w)}, nnz {G.nnz}")
+        np.random.seed(0)
+        g = ct.GloVe(GLOVE_K, batch_size=BATCH, device=dev)
+        _kernels.reset_launches()
+        g.fit(G, num_epochs=GLOVE_EPOCHS)
+        glove = dict(_kernels.launches)
+        launches.update(glove)
+        out = DATA_DIR / "vectors.txt"
+        g.save_word2vec_format(str(out), i2w)
+        with out.open() as f:
+            head = f.readline().split()
+            first = f.readline().split()
+        S = -(-G.nnz // BATCH)
+        phase("datasets", f"{smi}; GloVe d={GLOVE_K} on it: "
+              f"{GLOVE_EPOCHS} epochs of S={S}, "
+              + ", ".join(f"{t:.4f}" for t in g.epoch_times_)
+              + f" s; last loss {g.last_loss:.6f}; launches {glove}; "
+              f"word2vec file {out.stat().st_size / 2**20:.1f} MB, header "
+              f"{head}")
+        if glove != {"glove_sample_phase": GLOVE_EPOCHS * S,
+                     "sorted_accum": 2 * GLOVE_EPOCHS * S}:
+            raise AssertionError(f"datasets: GloVe launches {glove}")
+        if head != [str(len(i2w)), str(GLOVE_K)] or first[0] != i2w[0] \
+                or len(first) != GLOVE_K + 1 or not np.isfinite(
+                    g.last_loss) or not np.isfinite(g.W).all():
+            raise AssertionError("datasets: bad GloVe fit or word2vec file")
+    shutil.rmtree(DATA_DIR)
+    return dict(launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3101,6 +3467,7 @@ def main() -> int:
     del relmf
     quickstart(dev)
     launches = full_width(X, dev)
+    slice_launches = {"bpr-device-prep": bpr_device_prep(X, dev, smi)}
     ms_step = bpr_xla(X, dev, smi)
     if "--profile" in sys.argv[1:]:
         profile_batch_bpr(X, dev, ms_step)
@@ -3138,10 +3505,13 @@ def main() -> int:
     recommend_phase(X, dev, smi)
     checkpoint_phase(X, dev, smi)
     del X
+    slice_launches["datasets"] = datasets_phase(dev, smi)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **results[name]}
+         "launches": launches[name], **results[name],
+         "phase_launches": {k: v[name] for k, v in slice_launches.items()
+                            if name in v}}
         for name, (src, rep) in KERNELS.items()]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

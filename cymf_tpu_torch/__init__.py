@@ -1,13 +1,16 @@
 """cymf-tpu on PyTorch and CUDA: the port of the JAX package ``cymf_tpu``
 to one NVIDIA H100, with its TPU kernels written by hand for Hopper.
 
-Ported so far: BPR on its packed, wide, batch and sequential engines,
-the ALS trainers WMF and ExpoMF, RelMF and GloVe on their packed, batch
-and sequential engines, checkpoints and resume on every engine but the
-sequential one, the row-sparse optimizers (``optim``), sampled-negative
-evaluation, the ranking metrics and full-catalog ``recommend``; see
-README.md ("PyTorch / H100 port") for what each covers.
-This package imports ``torch`` and never ``jax``.
+Ported so far: BPR on its packed (with host or device prep), wide, batch
+and sequential engines, the ALS trainers WMF and ExpoMF, RelMF and GloVe
+on their packed, batch and sequential engines, checkpoints and resume on
+every engine but the sequential one, the row-sparse optimizers
+(``optim``), sampled-negative evaluation, the ranking metrics,
+full-catalog ``recommend``, and the dataset loaders (MovieLens,
+YahooMusic, Text8, ``read_text``); see README.md ("PyTorch / H100 port")
+for what each covers.  Not ported yet: the multi-device paths.
+This package imports ``torch`` and never ``jax``; pandas only where a
+loader returns a frame.
 """
 
 from .models import BPR, WMF, ExpoMF, GloVe, RelMF

@@ -3,29 +3,19 @@
 The same generators as `cymf_tpu/dataset/synthetic.py`, without
 scikit-learn: the train/valid/test split replays
 ``sklearn.model_selection.train_test_split(idx, test_size=0.1,
-random_state=12345)`` with numpy, so both packages split the same
+random_state=12345)`` with numpy (:func:`~.implicit.holdout_split`, the
+file-backed loaders' split too), so both packages split the same
 interactions the same way.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Tuple
 
 import numpy as np
 from scipy import sparse
 
-from .implicit import ImplicitFeedbackDataset
-
-
-def _split(idx: np.ndarray, test_size: float = 0.1, seed: int = 12345):
-    """``(train, test)`` exactly as scikit-learn's ``train_test_split``
-    draws them: one ``RandomState(seed)`` permutation, the first
-    ``ceil(test_size * n)`` positions are the test part."""
-    n = len(idx)
-    n_test = math.ceil(test_size * n)
-    p = np.random.RandomState(seed).permutation(n)
-    return idx[p[n_test:]], idx[p[:n_test]]
+from .implicit import ImplicitFeedbackDataset, holdout_split
 
 
 def synthetic_interactions(num_user: int, num_item: int, rank: int = 8,
@@ -60,8 +50,8 @@ class SyntheticImplicitDataset(ImplicitFeedbackDataset):
         X = synthetic_interactions(num_user, num_item, rank, density, seed)
         coo = X.tocoo()
         idx = np.arange(coo.nnz)
-        tr, te = _split(idx)
-        tr, va = _split(tr)
+        tr, te = holdout_split(idx)
+        tr, va = holdout_split(tr)
 
         def to_lil(sel):
             m = sparse.coo_matrix(

@@ -56,8 +56,14 @@ package, at any row padding (:func:`_packed_resume_state`,
 :func:`_batch_resume_state`, :func:`_wide_resume_state`).  The sequential
 engine refuses checkpoints, as in the JAX package.
 
-Not ported yet (see ROADMAP.md, queue 1): device-side prep and the
-multi-device engines.
+``CYMF_TPU_BPR_PREP=device`` (read by the packed engine alone, as in the
+JAX package) prepares the negative side on the card
+(:func:`~cymf_tpu_torch.ops.packed_epoch.packed_bpr_epoch_device`):
+pipeline v4, draws from a ``torch.Generator`` a fit and epoch, a stream
+the JAX package's threefry draws differ from (``prep_backend_ ==
+"device-torch"``).
+
+Not ported yet (see ROADMAP.md, queue 1): the multi-device engines.
 """
 
 from __future__ import annotations
@@ -71,11 +77,13 @@ import torch
 from ..ops import packed as pk
 from ..ops import pallas_engine as pe
 from ..ops.fused_step import supports_v8
-from ..ops.hashset import build_pair_hashset, hashset_contains, to_device
-from ..ops.packed_epoch import (make_packed_optimizer, make_reject_filter,
-                                packed_bpr_epoch, packed_bpr_pool_epoch,
-                                prep_backend, prep_epoch, prep_pool_epoch,
-                                prep_static, prep_static_pool, unpack_device)
+from ..ops.hashset import build_pair_hashset, to_device
+from ..ops.packed_epoch import (live_negatives, make_packed_optimizer,
+                                make_reject_filter, packed_bpr_epoch,
+                                packed_bpr_epoch_device,
+                                packed_bpr_pool_epoch, prep_backend,
+                                prep_epoch, prep_pool_epoch, prep_static,
+                                prep_static_pool, unpack_device)
 from ..ops.relmf_epoch import epoch_generator
 from ..ops.wide_epoch import (pack_wide, prep_static_wide, wide_bpr_epoch,
                               wide_rows, wide_sorted_masks)
@@ -329,8 +337,7 @@ def _bpr_epoch(W, H, opt_w, opt_h, u_steps, i_steps, hs, n_valid, gen, *,
         j = _draw_negatives(gen, B, num_items, dev)
         # padding samples carry PAD_USER: the gather clamps, every scatter
         # drops them (optim), and the mask zeroes their gradients
-        mask = (u < num_users) & ~hashset_contains(hs, u, j)
-        mf = mask.to(W.dtype)[:, None]
+        mf = live_negatives(hs, u, j, num_users).to(W.dtype)[:, None]
         wu = W.index_select(0, u.clamp(max=nw - 1))
         hi, hj = H.index_select(0, i), H.index_select(0, j)
         x = torch.sum(wu * (hi - hj), dim=1, keepdim=True)
@@ -520,10 +527,23 @@ class BPR(MFTrainerBase, PersistenceMixin):
                     checkpoint_path, checkpoint_every, resume):
         """Packed tables + fused kernels + sorted accumulations with
         host-side negative streams; the pipeline as ``prep_static`` (or,
-        with ``neg_pool``, v8) picks it."""
+        with ``neg_pool``, v8) picks it.  Under ``CYMF_TPU_BPR_PREP=device``
+        the negative side is drawn, rejected and sorted on the device
+        (pipeline v4, no host work an epoch)."""
+        prep_env = os.environ.get("CYMF_TPU_BPR_PREP", "host")
+        if prep_env not in ("host", "device"):
+            raise ValueError("CYMF_TPU_BPR_PREP must be host|device")
+        if prep_env == "device" and self.neg_pool:
+            raise ValueError(
+                "CYMF_TPU_BPR_PREP=device conflicts with neg_pool (the "
+                "pool engine's shared draws are host-prepared); unset "
+                "one of them")
+        device_prep = prep_env == "device"
         # which stream the negatives come from (native mt19937_64 or numpy
-        # PCG64); raises if the native library cannot be built
-        self.prep_backend_ = prep_backend()
+        # PCG64, or the device's generator); host prep raises if the
+        # native library cannot be built
+        self.prep_backend_ = "device-torch" if device_prep \
+            else prep_backend()
         dev = self.device
         U, I = X.shape
         K = self.num_components
@@ -549,12 +569,19 @@ class BPR(MFTrainerBase, PersistenceMixin):
         else:
             winw, wstart, si, rowsi, wini, bcs, bcn, kernel_v = \
                 prep_static(u2, i2, K, rw, rh, wrows_w, wrows_h)
+        if device_prep:
+            # the device epoch runs the span-independent v4 (v5/v6 need
+            # host-computed expansion starts)
+            kernel_v = 4
         # which pipeline runs (8/6/5/4, data-dependent; 7 when forced)
         self.packed_kernel_ = kernel_v
         coo = X.tocoo()
-        pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
-        # once per fit: the rejection filter of both prep streams
-        key_filter = make_reject_filter(pos_keys, U, I)
+        if device_prep:
+            hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
+        else:
+            pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+            # once per fit: the rejection filter of both prep streams
+            key_filter = make_reject_filter(pos_keys, U, I)
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -597,6 +624,12 @@ class BPR(MFTrainerBase, PersistenceMixin):
                               native_seed=seed * 1_000_003 + epoch,
                               key_filter=key_filter)
 
+        def run_device(epoch):
+            return packed_bpr_epoch_device(
+                Wp, Hp, ow, oh, *static, winw_d, hs,
+                epoch_generator(seed, epoch, dev), N, num_users=U,
+                num_items=I, **kw)
+
         def run(epoch, *streams):
             if kernel_v == 8:
                 pool2, mask = streams
@@ -607,9 +640,10 @@ class BPR(MFTrainerBase, PersistenceMixin):
                 Wp, Hp, ow, oh, *static, *(put(a) for a in streams), winw_d,
                 *blocks, N, kernel_v=kernel_v, **kw)
 
-        self._run_device_epochs(num_epochs, verbose, prep, run, publish,
-                                checkpoint_path, checkpoint_every,
-                                start_epoch)
+        self._run_device_epochs(
+            num_epochs, verbose, None if device_prep else prep,
+            run_device if device_prep else run, publish, checkpoint_path,
+            checkpoint_every, start_epoch)
 
     def _fit_wide(self, X, u2, i2, num_epochs, verbose, seed,
                   checkpoint_path, checkpoint_every, resume):

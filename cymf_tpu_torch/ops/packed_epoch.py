@@ -40,8 +40,11 @@ filter of :func:`make_reject_filter`) by default, and the numpy branch
 verbatim (:func:`prep_static`, :func:`prep_epoch` with the same
 ``default_rng((seed, epoch))`` draws, :func:`prep_static_pool`,
 :func:`prep_pool_epoch`) under ``CYMF_TPU_PREP=numpy``, so both packages
-train on the same streams and pick the same pipeline.  The device-side
-prep (``packed_bpr_epoch_device_j``) is not ported yet.
+train on the same streams and pick the same pipeline.
+
+Device prep (:func:`packed_bpr_epoch_device`, ``CYMF_TPU_BPR_PREP=device``)
+draws, rejects, sorts and windows each step's negatives on the tables'
+device and runs the v4 step body (:func:`bpr_v4_step`) that host prep runs.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from .fused_step import (CROWS, LOSS_LANE, bpr_block_step_v6,
                          bpr_pool_step_v8, bpr_range_step_v7, prep_blocks,
                          supports_v6, supports_v7)
 from .sorted_accum import sorted_accum, sorted_accum_dual, window_ranges
+from .hashset import PairHashSet, hashset_contains
 
 # window-range alignment tile of the JAX package's default
 # (CYMF_TPU_ACCUM_TILE); the CUDA kernels do not need it, but the host
@@ -204,9 +208,25 @@ def packed_bpr_epoch(Wp, Hp, ow, oh, u_steps, i_steps, si_steps,
     loss = torch.zeros((), dtype=torch.float32, device=Wp.device)
     for t in range(u_steps.shape[0]):
         u, mf = u_steps[t], mask_steps[t].to(torch.float32)
+        if kernel_v not in (5, 6, 7):
+            loss += bpr_v4_step(
+                Wp, Hp, ow, oh, opt, u, i_steps[t], si_steps[t],
+                rowsi_steps[t], wini[t, 0], wini[t, 1], j_steps[t], mf,
+                sj_steps[t], rowsj_steps[t], winj[t, 0], winj[t, 1],
+                winw[t, 0], winw[t, 1], weight_decay=wd, K=K, rw=rw, rh=rh,
+                wrows_w=wrows_w, wrows_h=wrows_h)
+            continue
         phys_u, slot_u = u // s, u % s
         Di = Hp.index_select(0, i_steps[t])
-        if kernel_v in (5, 6):
+        if kernel_v == 7:
+            Du = decorate(Wp.index_select(0, phys_u.clamp(max=rw - 1)),
+                          slot_u, mf, K)
+            Aw, Q = bpr_range_step_v7(phys_u, Du, Di,
+                                      Hp.index_select(0, j_steps[t]),
+                                      winw[t, 0], winw[t, 1], rw=rw,
+                                      wrows=wrows_w, **kw)
+            loss += Aw[:, LOSS_LANE].sum()
+        else:
             # the W rows are read in the kernel; the mask and slot ride on
             # the j rows' count lanes
             Dj = decorate(Hp.index_select(0, j_steps[t]), slot_u, mf, K)
@@ -219,33 +239,116 @@ def packed_bpr_epoch(Wp, Hp, ow, oh, u_steps, i_steps, si_steps,
                 SW, Q, loss_t = bpr_sample_phase_v5(
                     Wp, wstart_steps[t], phys_u, Di, Dj, **kw)
                 loss += loss_t
-        else:
-            # clamp only the gather index: padding sentinels stay >= rw so
-            # the accumulation drops them, and the kernel mask-zeroes their
-            # values
-            Du = decorate(Wp.index_select(0, phys_u.clamp(max=rw - 1)),
-                          slot_u, mf, K)
-            Dj = Hp.index_select(0, j_steps[t])
-            if kernel_v == 7:
-                Aw, Q = bpr_range_step_v7(phys_u, Du, Di, Dj, winw[t, 0],
-                                          winw[t, 1], rw=rw, wrows=wrows_w,
-                                          **kw)
-                loss += Aw[:, LOSS_LANE].sum()
-            else:
-                SW, Q, loss_t = bpr_sample_phase(Du, Di, Dj, **kw)
-                loss += loss_t
-        if kernel_v not in (6, 7):
-            Aw = sorted_accum(phys_u, SW, winw[t, 0], winw[t, 1], r_pad=rw,
-                              wrows=wrows_w)
+                Aw = sorted_accum(phys_u, SW, winw[t, 0], winw[t, 1],
+                                  r_pad=rw, wrows=wrows_w)
         _update_w(opt, Wp, ow, Aw, K, wd)
+        _update_h_dual(opt, Hp, oh, Q, si_steps[t], rowsi_steps[t],
+                       wini[t, 0], wini[t, 1], sj_steps[t], rowsj_steps[t],
+                       winj[t, 0], winj[t, 1], K=K, wd=wd, rh=rh,
+                       wrows_h=wrows_h)
+    return loss / max(int(n_valid), 1)
 
-        # logical H: one dual-stream accumulation yields Aj - Ai on the
-        # payload lanes with the live counts summed at lane K
-        D = sorted_accum_dual(
-            rowsi_steps[t], Q.index_select(0, si_steps[t]), wini[t, 0],
-            wini[t, 1], rowsj_steps[t], Q.index_select(0, sj_steps[t]),
-            winj[t, 0], winj[t, 1], r_pad=rh, neg_lanes=K, wrows=wrows_h)
-        _update_h(opt, Hp, oh, D, K, wd)
+
+def _update_h_dual(opt, Hp, oh, Q, si, rowsi, wi_starts, wi_counts, sj,
+                   rowsj, wj_starts, wj_counts, *, K: int, wd: float,
+                   rh: int, wrows_h: int) -> None:
+    """The logical H table's step: one dual-stream accumulation of ``Q``
+    by both item sorts yields ``Aj - Ai`` on the payload lanes with the
+    live counts summed at lane ``K``, then the optimizer pass."""
+    D = sorted_accum_dual(
+        rowsi, Q.index_select(0, si), wi_starts, wi_counts, rowsj,
+        Q.index_select(0, sj), wj_starts, wj_counts, r_pad=rh, neg_lanes=K,
+        wrows=wrows_h)
+    _update_h(opt, Hp, oh, D, K, wd)
+
+
+def bpr_v4_step(Wp, Hp, ow, oh, opt, u, i, si, rowsi, wi_starts, wi_counts,
+                j, mf, sj, rowsj, wj_starts, wj_counts, ww_starts, ww_counts,
+                *, weight_decay: float, K: int, rw: int, rh: int,
+                wrows_w: int, wrows_h: int) -> torch.Tensor:
+    """One v4 step over ``B`` user-sorted samples; updates ``Wp``, ``Hp``
+    and their optimizer states IN PLACE and returns the step's loss sum
+    (0-d tensor).  Host and device prep both run this body.
+
+    ``u``/``i``/``j`` are int32 (B,) users (ascending; padding
+    ``PAD_USER``), positives and negatives, ``mf`` the float32 live mask,
+    ``si``/``rowsi``/``wi_*`` and ``sj``/``rowsj``/``wj_*`` each item
+    side's sort permutation, sorted rows (any shape with ``B`` elements)
+    and windows, ``ww_*`` the W side's windows over ``u // s``: the W-row
+    gather and its decoration, the fused sample kernel
+    (:func:`~.fused_sample.bpr_sample_phase`), the W accumulation and
+    optimizer pass, then the dual H accumulation and its pass."""
+    wd = float(weight_decay)
+    s = pk.num_slots(K)
+    phys_u = u // s
+    # clamp only the gather index: padding sentinels stay >= rw so the
+    # accumulation drops them, and the kernel mask-zeroes their values
+    Du = decorate(Wp.index_select(0, phys_u.clamp(max=rw - 1)), u % s, mf,
+                  K)
+    SW, Q, loss = bpr_sample_phase(Du, Hp.index_select(0, i),
+                                   Hp.index_select(0, j), K=K, wd=wd)
+    Aw = sorted_accum(phys_u, SW, ww_starts, ww_counts, r_pad=rw,
+                      wrows=wrows_w)
+    _update_w(opt, Wp, ow, Aw, K, wd)
+    _update_h_dual(opt, Hp, oh, Q, si, rowsi, wi_starts, wi_counts, sj,
+                   rowsj, wj_starts, wj_counts, K=K, wd=wd, rh=rh,
+                   wrows_h=wrows_h)
+    return loss
+
+
+def draw_negatives(gen: torch.Generator, B: int,
+                   num_items: int) -> torch.Tensor:
+    """One device-prep step's ``B`` uniform negatives over ``[0,
+    num_items)``, int32 on ``gen``'s device: :func:`packed_bpr_epoch_device`'s
+    only draw."""
+    return torch.randint(0, num_items, (B,), generator=gen,
+                         device=gen.device, dtype=torch.int32)
+
+
+def live_negatives(hs: PairHashSet, u: torch.Tensor, j: torch.Tensor,
+                   num_users: int) -> torch.Tensor:
+    """bool (B,): the sample is in data (``u < num_users``, padding users
+    are not) and its negative ``j`` is not a positive of ``u`` (the pair
+    hash set ``hs`` does not hold ``(u, j)``): the device form of
+    :func:`_reject_mask`."""
+    return (u < num_users) & ~hashset_contains(hs, u, j)
+
+
+@torch.no_grad()
+def packed_bpr_epoch_device(Wp, Hp, ow, oh, u_steps, i_steps, si_steps,
+                            rowsi_steps, wini, winw, hs: PairHashSet, gen,
+                            n_valid: int, *, opt_name: str, lr: float,
+                            weight_decay: float, K: int, rw: int, rh: int,
+                            num_users: int, num_items: int,
+                            wrows_w: int = 256,
+                            wrows_h: int = 256) -> torch.Tensor:
+    """The v4 epoch with the negative side prepared on the tables' device
+    (``CYMF_TPU_BPR_PREP=device``; the JAX package's
+    ``packed_bpr_epoch_device_j``).  Each step draws its negatives from
+    ``gen`` (:func:`draw_negatives`), masks padding users and the pairs the
+    hash set ``hs`` holds (:func:`live_negatives`; tensors on the device,
+    :func:`~.hashset.to_device`), sorts them and builds their windows
+    (:func:`~.relmf_epoch._sorted_side_device`), then runs
+    :func:`bpr_v4_step`.  The u/i streams and their sort sides are static
+    for the fit (:func:`prep_static`), so an epoch does no host work and
+    no upload, and the step makes no host sync.  The JAX package's
+    2048-step spans (a relay workaround) are left out: one loop runs the
+    epoch.  Updates IN PLACE; returns the mean loss."""
+    from .relmf_epoch import _sorted_side_device
+
+    opt = make_packed_optimizer(opt_name, lr)
+    loss = torch.zeros((), dtype=torch.float32, device=Wp.device)
+    B = u_steps.shape[1]
+    for t in range(u_steps.shape[0]):
+        u = u_steps[t]
+        j = draw_negatives(gen, B, num_items)
+        mf = live_negatives(hs, u, j, num_users).to(torch.float32)
+        sj, rowsj, wj_starts, wj_counts = _sorted_side_device(j, rh, wrows_h)
+        loss += bpr_v4_step(
+            Wp, Hp, ow, oh, opt, u, i_steps[t], si_steps[t], rowsi_steps[t],
+            wini[t, 0], wini[t, 1], j, mf, sj, rowsj, wj_starts, wj_counts,
+            winw[t, 0], winw[t, 1], weight_decay=weight_decay, K=K, rw=rw,
+            rh=rh, wrows_w=wrows_w, wrows_h=wrows_h)
     return loss / max(int(n_valid), 1)
 
 

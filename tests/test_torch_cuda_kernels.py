@@ -1164,6 +1164,52 @@ def test_bpr_fit_on_card_matches_cpu(dev):
     np.testing.assert_allclose(lg, lc, rtol=1e-5)
 
 
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad"])
+def test_device_prep_epoch_on_card_matches_cpu(dev, monkeypatch, optimizer):
+    """The device-prep epoch (``CYMF_TPU_BPR_PREP=device``) on the card and
+    on the CPU (plain versions) from the same state, its draw fed the same
+    negatives: the hash-set mask, the sort and windows on each device and
+    #1-#3 once a step on the card, equal to summation order."""
+    from cymf_tpu_torch.ops import packed_epoch as tpe
+    from cymf_tpu_torch.ops.hashset import build_pair_hashset, to_device
+    rng = np.random.default_rng(7)
+    U, I, K, S, B, wrows, lr = 3000, 700, 20, 3, 8192, 256, 0.05
+    u2 = np.sort(rng.integers(0, U, (S, B)).astype(np.int32), axis=1)
+    u2[-1, -500:] = PAD_USER
+    i2 = rng.integers(0, I, (S, B)).astype(np.int32)
+    j2 = rng.integers(0, I, (S, B)).astype(np.int32)
+    rw = pk.packed_rows(U, K, multiple=wrows)
+    rh = pk.logical_rows(I, multiple=wrows)
+    live = u2 < U
+    winw, _, si, rowsi, wini, *_ = tpe.prep_static(u2, i2, K, rw, rh, wrows,
+                                                   wrows)
+    hs = build_pair_hashset(u2[live], i2[live])
+    W0 = pk.pack_array(rng.normal(size=(U, K)) * 0.1, K, multiple=wrows)
+    H0 = pk.pack_logical(rng.normal(size=(I, K)) * 0.1, K, multiple=wrows)
+    out = {}
+    for d in ("cpu", dev):
+        draws = iter(_on(d, *j2))
+        monkeypatch.setattr(tpe, "draw_negatives",
+                            lambda gen, B, n: next(draws))
+        opt = tpe.make_packed_optimizer(optimizer, lr)
+        Wp, Hp = _on(d, W0, H0)
+        ow, oh = opt.init(Wp), opt.init(Hp)
+        _kernels.reset_launches()
+        loss = tpe.packed_bpr_epoch_device(
+            Wp, Hp, ow, oh, *_on(d, u2, i2, si, rowsi, wini, winw),
+            to_device(hs, d), torch.Generator(device=d), int(live.sum()),
+            opt_name=optimizer, lr=lr, weight_decay=0.01, K=K, rw=rw, rh=rh,
+            num_users=U, num_items=I, wrows_w=wrows, wrows_h=wrows)
+        out[str(d)] = (Wp.cpu(), Hp.cpu(), float(loss),
+                       dict(_kernels.launches))
+    (Wc, Hc, lc, nc), (Wg, Hg, lg, ng) = out["cpu"], out[str(dev)]
+    assert nc == {} and ng == {"bpr_sample_phase": S, "sorted_accum": S,
+                               "sorted_accum_dual": S}
+    _close_seq(Wg, Wc, optimizer, lr)
+    _close_seq(Hg, Hc, optimizer, lr)
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+
+
 @pytest.mark.parametrize("K,optimizer", [(160, "sgd"), (160, "adagrad"),
                                          (128, "adam")])
 def test_wide_bpr_fit_on_card_matches_cpu(dev, K, optimizer):
