@@ -175,11 +175,39 @@ Phases, one line each; any failure raises and exits non-zero:
     validation and early stopping must beat an untrained model's test
     DCG@5 by 0.05; ``read_text`` on a 2M-token corpus (Zipf over 50,000
     words), timed, then 3 epochs of GloVe d=50 on its matrix on the card
-    and ``save_word2vec_format``.
+    and ``save_word2vec_format``;
+19. mesh: the sharded BPR paths of ``cymf_tpu_torch.parallel``, each rank
+    a process of this script (``--mesh-rank``; the kernels are built
+    above, once, before the ranks start), every group joined within
+    ``MESH_TIMEOUT_S``, a rank that fails or hangs failing the phase.
+    First the single-device results the ranks are held to: ``BPR.fit`` at
+    ML-20M (d=20, batch 131,072, Adam, 2 epochs; d=256, 1 epoch), the
+    evaluator on all-tie scores (``H = 0``: the metrics do not depend on
+    which negatives a rank draws) and ``recommend``'s top 10 (train
+    excluded).  Then one rank a card over NCCL (``torch.cuda.device_count()``
+    ranks): ``sharded_packed_bpr_epoch`` (one epoch, d=20),
+    ``sharded_wide_bpr_epoch`` (d=256, a third of the epoch's steps) and
+    ``sharded_bpr_epoch`` (a third) on this rank's ``prep_shard_*``
+    streams, each against the single-device epoch on the same draws (this
+    rank's W rows and the whole H within ``mesh_close``: ``rtol 2e-3, atol
+    2e-5`` for at least 99% of the elements and every element within 3
+    lr; the loss within ``rtol 1e-5``), then the evaluator (``rtol 1e-6``) and
+    ``recommend`` (the same items) under the mesh.  Then two ranks on card
+    0 over gloo: which collectives gloo takes on CUDA tensors (a check
+    whose collective it refuses is named and left to the CPU tests), the
+    two public fits against the single-device ones (this rank's W rows
+    and H), 20 steps of the batch epoch's row exchange, the evaluator and
+    ``recommend``.  Each rank prints, beside the card's name and power
+    limit, its backend and world size, the first collective's time (the
+    communicator's set-up), each epoch's wall and device seconds, the
+    bytes all-reduced a step and an all-reduce's ms a step by CUDA events
+    (and by the host clock), and its launches; the ranks' launches are
+    summed, and each of #1-#3, #2w and #3w must show some.
 
 Then it prints the kernels' JSON line (all seventeen), with each kernel's
 launches on its main path (a probe's: those of the probes phase),
-``phase_launches`` its launches in ``bpr-device-prep`` and ``datasets``, the
+``phase_launches`` its launches in ``bpr-device-prep``, ``datasets`` and
+``mesh`` (summed over the ranks), the
 accumulations' loop times (``loop_ms``, and ``library_loop_ms`` for the
 single stream's library calls), the dual's device time (``device_ms``),
 its bound (the larger of bytes over 3.35 TB/s and float32 operations over
@@ -302,6 +330,11 @@ ROUTE_N = 4096
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # the checkpoint phase's files, removed after it
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+# the mesh phase: its ranks' files (removed after it), a group's join
+# limit, the fits' seed, and the kernels its sharded paths must launch
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+MESH_TIMEOUT_S, MESH_SEED, MESH_GLOO_BATCH_STEPS = 300, 7, 20
+MESH_KERNELS = (*BPR_KERNELS, *WIDE_KERNELS)
 
 
 def phase(name: str, msg: str) -> None:
@@ -3415,10 +3448,599 @@ def datasets_phase(dev, smi):
     return dict(launches)
 
 
+def mesh_close(got, want, lr: float, what: str) -> float:
+    """The multi-device tolerance under Adam, the JAX package's 1-against-8
+    device one with its first-touch allowance: raises unless both are
+    finite, at most 1% of the elements lie outside ``rtol 2e-3, atol
+    2e-5`` and every element is within ``3 lr``; returns the max abs
+    error."""
+    got, want = got.double(), want.double()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    err = (got - want).abs()
+    off = float((err > 2e-5 + 2e-3 * want.abs()).double().mean())
+    worst = float(err.max())
+    if off > 0.01 or worst > 3 * lr:
+        raise AssertionError(f"{what}: {off:.4%} of the elements outside "
+                             f"rtol 2e-3, atol 2e-5; max abs {worst:.3e} "
+                             f"against 3 lr = {3 * lr:.3e}")
+    return worst
+
+
+def loss_close(got: float, want: float, what: str) -> None:
+    if not (np.isfinite(got) and abs(got - want) <= 1e-5 * abs(want)):
+        raise AssertionError(f"{what}: loss {got!r} against {want!r} "
+                             "(rtol 1e-5)")
+
+
+def allreduce_ms(mesh, shape, reps: int = 20) -> tuple:
+    """One all-reduce of a float32 ``shape`` tensor over the mesh: ms by
+    CUDA events (mean of ``reps`` back-to-back calls) and by the host
+    clock (the same loop, ending in a synchronize)."""
+    t = torch.zeros(shape, dtype=torch.float32, device=mesh.device)
+    mesh.all_reduce(t)
+    torch.cuda.synchronize(mesh.device)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(reps):
+        mesh.all_reduce(t)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps, 1e3 * (time.perf_counter() - t0) / reps
+
+
+def mesh_timed(fn):
+    """``fn()``'s result, wall s (host clock to a synchronize) and device
+    s (CUDA events around it)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, time.perf_counter() - t0, a.elapsed_time(b) / 1e3
+
+
+def mesh_init(K: int):
+    """The fits' initial tables at width K (the trainers' init)."""
+    from cymf_tpu_torch.models.base import uniform_init
+    return uniform_init((U, K), K, seed=4321), uniform_init((I, K), K)
+
+
+def mesh_sorted(X, multiple: int = 1024):
+    from cymf_tpu_torch.models.bpr import shuffled_interactions, sorted_batches
+    np.random.seed(MESH_SEED)
+    users, positives = shuffled_interactions(X)
+    return sorted_batches(users, positives, BATCH, multiple=multiple)
+
+
+def mesh_line(tag, smi, what, wall, dev_s, nbytes, ar, launches):
+    phase(tag, f"{smi}; {what}: epoch wall {wall:.4f} s, device "
+          f"{dev_s:.4f} s; all-reduced {nbytes / 1e6:.3f} MB a step, "
+          f"{ar[0]:.4f} ms a step by CUDA events ({ar[1]:.4f} by the host "
+          f"clock); launches {launches}")
+
+
+def mesh_packed(X, mesh, tag, smi, pos_keys, key_filter) -> dict:
+    """NCCL check 1: ``sharded_packed_bpr_epoch`` on this rank's
+    ``prep_shard_*`` streams against ``packed_bpr_epoch`` (v4) on the same
+    draws, one Adam epoch at ML-20M (d=20, batch 131,072); this rank's W
+    rows and the whole H within ``mesh_close``, the loss within rtol 1e-5."""
+    from cymf_tpu_torch.ops import _kernels
+    from cymf_tpu_torch.ops import packed as pk
+    from cymf_tpu_torch.ops.packed_epoch import (
+        make_packed_optimizer, packed_bpr_epoch, prep_epoch,
+        prep_shard_epoch, prep_shard_static, prep_static)
+    from cymf_tpu_torch.parallel.shard_step import sharded_packed_bpr_epoch
+
+    n, p, dev = mesh.num_devices, mesh.rank, mesh.device
+    K, lr = 20, 0.001
+    u2, i2 = mesh_sorted(X)
+    N = X.count_nonzero()
+    rw = pk.packed_rows(U, K, multiple=WROWS * n)
+    rh = pk.logical_rows(I, multiple=WROWS)
+    rw_l = rw // n
+    j2, mask, sj, rowsj, winj = prep_epoch(
+        np.random.default_rng((MESH_SEED, 0)), u2, i2, pos_keys, U, I, K,
+        rh, WROWS, native_seed=MESH_SEED * 1_000_003, key_filter=key_filter)
+    winw, wstart, si, rowsi, wini, cs, cn, _ = prep_static(
+        u2, i2, K, rw, rh, WROWS, WROWS)
+    (u_l, i_l, winw_l, si_l, rowsi_l, wini_l, starts, counts,
+     Bd) = prep_shard_static(u2, i2, K, rw, rh, WROWS, WROWS, n, shard=p)
+    ep = prep_shard_epoch(j2, mask, starts, counts, Bd, rh, WROWS, n,
+                          shard=p)
+    W0, H0 = mesh_init(K)
+    Wf = pk.pack_array(W0, K, multiple=WROWS * n)
+    Hf = pk.pack_logical(H0, K, multiple=WROWS)
+    kw = dict(opt_name="adam", lr=lr, weight_decay=0.01, K=K, rw=rw, rh=rh,
+              wrows_w=WROWS, wrows_h=WROWS)
+    opt = make_packed_optimizer("adam", lr)
+
+    def put(a):  # a copy: the epochs update their tables in place
+        return torch.tensor(a, device=dev)
+
+    Wr, Hr = put(Wf), put(Hf)
+    owr, ohr = opt.init(Wr), opt.init(Hr)
+    loss_ref = float(packed_bpr_epoch(
+        Wr, Hr, owr, ohr, *(put(a) for a in (
+            u2, i2, si, rowsi, wini, j2, mask, sj, rowsj, winj, winw,
+            wstart, cs, cn)), N, kernel_v=4, **kw))
+    Wp, Hp = mesh.put_table(Wf), put(Hf)
+    ow, oh = opt.init(Wp), opt.init(Hp)
+    streams = [put(a[0]) for a in (u_l, i_l, si_l, rowsi_l, wini_l, *ep,
+                                   winw_l)]
+    _kernels.reset_launches()
+    loss, wall, dev_s = mesh_timed(lambda: float(sharded_packed_bpr_epoch(
+        mesh, Wp, Hp, ow, oh, *streams, N, **kw)))
+    launches = dict(_kernels.launches)
+    pay = pk.num_slots(K) * K
+    ew = mesh_close(Wp[:, :pay], Wr[p * rw_l:(p + 1) * rw_l, :pay], lr,
+                    f"{tag} packed W")
+    eh = mesh_close(Hp[:, :K], Hr[:, :K], lr, f"{tag} packed H")
+    loss_close(loss, loss_ref, f"{tag} packed")
+    mesh_line(tag, smi, f"packed epoch (d={K}, {u2.shape[0]} steps, Bd={Bd}"
+              f" of B={BATCH})", wall, dev_s, rh * 128 * 4,
+              allreduce_ms(mesh, (rh, 128)), launches)
+    phase(tag, f"packed: this rank's W rows max abs err {ew:.3e}, H "
+          f"{eh:.3e}, loss {loss:.7f} against {loss_ref:.7f}")
+    want = u2.shape[0]
+    if any(launches.get(k) != want for k in BPR_KERNELS):
+        raise AssertionError(f"{tag} packed: launches {launches}, expected "
+                             f"{want} of each v4 kernel")
+    return launches
+
+
+def mesh_wide(X, mesh, tag, smi, pos_keys, key_filter) -> dict:
+    """NCCL check 2: ``sharded_wide_bpr_epoch`` against ``wide_bpr_epoch``
+    on the same draws at d=256 over the first third of the epoch's
+    steps."""
+    from cymf_tpu_torch.ops import _kernels
+    from cymf_tpu_torch.ops.packed_epoch import (make_packed_optimizer,
+                                                 prep_epoch,
+                                                 prep_shard_epoch)
+    from cymf_tpu_torch.ops.wide_epoch import (
+        pack_wide, prep_shard_static_wide, prep_static_wide, wide_bpr_epoch,
+        wide_rows, wide_shard_masks, wide_sorted_masks)
+    from cymf_tpu_torch.parallel.shard_step import sharded_wide_bpr_epoch
+
+    n, p, dev = mesh.num_devices, mesh.rank, mesh.device
+    K, lr = WIDE_K, 0.001
+    u2, i2 = mesh_sorted(X)
+    S3 = u2.shape[0] // 3
+    u2, i2 = u2[:S3], i2[:S3]
+    N3 = S3 * BATCH
+    rw, rh = wide_rows(U, WIDE_WROWS * n), wide_rows(I, WIDE_WROWS)
+    rw_l = rw // n
+    j2, mask, sj, rowsj, winj = prep_epoch(
+        np.random.default_rng((MESH_SEED, 0)), u2, i2, pos_keys, U, I, K,
+        rh, WIDE_WROWS, native_seed=MESH_SEED * 1_000_003,
+        key_filter=key_filter)
+    rowsu, winw, si, rowsi, wini = prep_static_wide(u2, i2, rw, rh,
+                                                    WIDE_WROWS)
+    mi, mj = wide_sorted_masks(mask, si, sj)
+    (u_l, rowsu_l, winw_l, i_l, si_l, rowsi_l, wini_l, starts, counts,
+     Bd) = prep_shard_static_wide(u2, i2, rw, rh, WIDE_WROWS, n, shard=p)
+    j_l, mf_l, sj_l, rowsj_l, winj_l = prep_shard_epoch(
+        j2, mask, starts, counts, Bd, rh, WIDE_WROWS, n, shard=p)
+    mi_l, mj_l = wide_shard_masks(mf_l, si_l, sj_l)
+    W0, H0 = mesh_init(K)
+    Wf = pack_wide(W0, K, multiple=WIDE_WROWS * n)
+    Hf = pack_wide(H0, K, multiple=WIDE_WROWS)
+    kw = dict(opt_name="adam", lr=lr, weight_decay=0.01, K=K, rw=rw, rh=rh,
+              wrows=WIDE_WROWS)
+    opt = make_packed_optimizer("adam", lr)
+
+    def put(a):  # a copy: the epochs update their tables in place
+        return torch.tensor(a, device=dev)
+
+    Wr, Hr = put(Wf), put(Hf)
+    owr, ohr = opt.init(Wr), opt.init(Hr)
+    loss_ref = float(wide_bpr_epoch(
+        Wr, Hr, owr, ohr, *(put(a) for a in (
+            u2, i2, rowsu, winw, si, rowsi, wini, j2, mask, sj, rowsj, winj,
+            mi, mj)), N3, **kw))
+    Wd, Hd = mesh.put_table(Wf), put(Hf)
+    ow, oh = opt.init(Wd), opt.init(Hd)
+    streams = [put(a[0]) for a in (u_l, i_l, rowsu_l, winw_l, si_l,
+                                   rowsi_l, wini_l, j_l, mf_l, sj_l,
+                                   rowsj_l, winj_l, mi_l, mj_l)]
+    _kernels.reset_launches()
+    loss, wall, dev_s = mesh_timed(lambda: float(sharded_wide_bpr_epoch(
+        mesh, Wd, Hd, ow, oh, *streams, N3, **kw)))
+    launches = dict(_kernels.launches)
+    ew = mesh_close(Wd[:, :K], Wr[p * rw_l:(p + 1) * rw_l, :K], lr,
+                    f"{tag} wide W")
+    eh = mesh_close(Hd[:, :K], Hr[:, :K], lr, f"{tag} wide H")
+    loss_close(loss, loss_ref, f"{tag} wide")
+    Kp = Wd.shape[1]
+    mesh_line(tag, smi, f"wide epoch (d={K}, {S3} of {3 * S3}+ steps, "
+              f"Bd={Bd})", wall, dev_s, rh * (Kp + 128) * 4,
+              allreduce_ms(mesh, (rh, Kp + 128)), launches)
+    phase(tag, f"wide: this rank's W rows max abs err {ew:.3e}, H {eh:.3e},"
+          f" loss {loss:.7f} against {loss_ref:.7f}")
+    if any(launches.get(k) != S3 for k in WIDE_KERNELS):
+        raise AssertionError(f"{tag} wide: launches {launches}, expected "
+                             f"{S3} of each count-lane accumulation")
+    return launches
+
+
+def mesh_batch(X, mesh, tag, smi, steps: int) -> None:
+    """``sharded_bpr_epoch`` against the batch engine's ``_bpr_epoch``
+    (dense Adam) on the same ``torch.Generator`` stream over the epoch's
+    first ``steps`` steps: this rank's rows of W and H within ``mesh_close``,
+    the loss within rtol 1e-5."""
+    from cymf_tpu_torch.ops.hashset import build_pair_hashset, to_device
+    from cymf_tpu_torch.models.bpr import _bpr_epoch, _draw_negatives
+    from cymf_tpu_torch.ops import _kernels
+    from cymf_tpu_torch.ops.relmf_epoch import epoch_generator
+    from cymf_tpu_torch.optim import make_optimizer
+    from cymf_tpu_torch.parallel.shard_step import sharded_bpr_epoch
+
+    n, p, dev = mesh.num_devices, mesh.rank, mesh.device
+    K, lr = 20, 0.001
+    u2, i2 = mesh_sorted(X, multiple=n)
+    u2, i2 = u2[:steps], i2[:steps]
+    steps, B = u2.shape
+    Bn = B // n
+    N3 = steps * B
+    coo = X.tocoo()
+    hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
+    W0, H0 = mesh_init(K)
+    opt = make_optimizer("adam", lr)
+    kw = dict(optimizer=opt, weight_decay=0.01, num_users=U, num_items=I)
+
+    def put(a):  # a copy: the epochs update their tables in place
+        return torch.tensor(a, device=dev)
+
+    W, H = put(W0.astype(np.float32)), put(H0.astype(np.float32))
+    ow, oh = opt.init(W), opt.init(H)
+    loss_ref = float(_bpr_epoch(W, H, ow, oh, put(u2), put(i2), hs, N3,
+                                epoch_generator(MESH_SEED, 0, dev),
+                                update_mode="dense", **kw))
+    Wf = np.zeros((mesh.pad_rows(U), K), np.float32)
+    Hf = np.zeros((mesh.pad_rows(I), K), np.float32)
+    Wf[:U], Hf[:I] = W0, H0
+    Ws, Hs = mesh.put_table(Wf), mesh.put_table(Hf)
+    ows, ohs = opt.init(Ws), opt.init(Hs)
+    u_l, i_l = put(u2[:, p * Bn:(p + 1) * Bn]), put(i2[:, p * Bn:(p + 1) * Bn])
+    _kernels.reset_launches()
+    loss, wall, dev_s = mesh_timed(lambda: float(sharded_bpr_epoch(
+        mesh, Ws, Hs, ows, ohs, u_l, i_l, hs, N3,
+        epoch_generator(MESH_SEED, 0, dev), draw=_draw_negatives, **kw)))
+    launches = dict(_kernels.launches)
+    ru, ri = Ws.shape[0], Hs.shape[0]
+    ew = mesh_close(Ws[:max(min(U - p * ru, ru), 0)], W[p * ru:(p + 1) * ru],
+                    lr, f"{tag} batch W")
+    eh = mesh_close(Hs[:max(min(I - p * ri, ri), 0)], H[p * ri:(p + 1) * ri],
+                    lr, f"{tag} batch H")
+    loss_close(loss, loss_ref, f"{tag} batch")
+    phase(tag, f"{smi}; batch epoch (d={K}, {steps} steps of {Bn} samples a "
+          f"rank): wall {wall:.4f} s, device {dev_s:.4f} s; exchanged "
+          f"{(3 * B * 4 + 2 * 3 * B * K * 4) / 1e6:.3f} MB a step (indices "
+          f"and rows gathered, rows reduce-scattered); this rank's W rows max "
+          f"abs err {ew:.3e}, H rows {eh:.3e}, loss {loss:.7f} against "
+          f"{loss_ref:.7f}; launches {launches}")
+    if launches:
+        raise AssertionError(f"{tag} batch: the batch engine launched "
+                             f"{launches}")
+
+
+def mesh_eval_recommend(X, mesh, tag, smi, ref) -> None:
+    """The evaluator (all ties: ``H = 0``, so the metrics do not depend on
+    the ranks' draws) and ``recommend`` (k = 10, ``X`` excluded) under the
+    mesh against the single-device results ``ref`` (``mesh_ref``)."""
+    import cymf_tpu_torch as ct
+    W, H = mesh_eval_tables()
+    ev = ct.Evaluator(X, k=[1, 5], device=mesh.device)
+    res, wall, dev_s = mesh_timed(
+        lambda: ev.evaluate(W, np.zeros_like(H), seed=MESH_SEED))
+    for k, v in res.items():
+        want = float(ref[f"eval_{k}"])
+        if not abs(v - want) <= 1e-6 * abs(want) + 1e-7:
+            raise AssertionError(f"{tag} evaluator {k}: {v!r} against the "
+                                 f"single device's {want!r}")
+    phase(tag, f"{smi}; evaluator at ML-20M (all ties, {U} users): wall "
+          f"{wall:.3f} s, device {dev_s:.3f} s; {res} equal to one device's "
+          "within rtol 1e-6")
+    (scores, items), wall, dev_s = mesh_timed(
+        lambda: ct.recommend(W, H, k=10, exclude=X, device=mesh.device))
+    if not np.array_equal(items, ref["rec_items"]):
+        raise AssertionError(f"{tag} recommend: items differ from one "
+                             "device's")
+    err = float(np.abs(scores - ref["rec_scores"]).max())
+    if not err <= 1e-5 * float(np.abs(ref["rec_scores"]).max()):
+        raise AssertionError(f"{tag} recommend: scores off by {err:.3e}")
+    phase(tag, f"{smi}; recommend at ML-20M (k=10, train excluded): wall "
+          f"{wall:.3f} s, device {dev_s:.3f} s; items equal to one device's,"
+          f" scores within {err:.3e}")
+
+
+def u2_steps(X) -> int:
+    return -(-X.count_nonzero() // BATCH)
+
+
+def mesh_eval_tables():
+    rng = np.random.default_rng(MESH_SEED)
+    return (rng.standard_normal((U, 20)).astype(np.float32),
+            rng.standard_normal((I, 20)).astype(np.float32))
+
+
+def mesh_fit(X, dev, K: int, epochs: int, probe: bool = False):
+    """The public fit of the mesh phase: d=K, Adam lr 0.001, wd 0.01,
+    batch 131,072, the native prep, seed ``MESH_SEED``."""
+    import cymf_tpu_torch as ct
+    m = ct.BPR(num_components=K, learning_rate=0.001, optimizer="adam",
+               weight_decay=0.01, batch_size=BATCH, device=dev)
+    pr = _DeviceProbe(m) if probe else None
+    t0 = time.perf_counter()
+    m.fit(X, num_epochs=epochs, valid_evaluator=pr, verbose=False,
+          seed=MESH_SEED)
+    return m, pr, t0
+
+
+def mesh_ref(X, dev, path: Path) -> None:
+    """The single-device results the gloo ranks are held to: the packed
+    fit (d=20, 2 epochs) and the wide fit (d=256, 1 epoch), the
+    evaluator's metrics and ``recommend``'s top 10."""
+    import cymf_tpu_torch as ct
+    out = {}
+    for what, K, epochs in (("packed", 20, 2), ("wide", WIDE_K, 1)):
+        m, _, _ = mesh_fit(X, dev, K, epochs)
+        out[f"{what}_W"], out[f"{what}_H"] = m.W, m.H
+        out[f"{what}_loss"] = np.float64(m.last_loss)
+    W, H = mesh_eval_tables()
+    ev = ct.Evaluator(X, k=[1, 5], device=dev)
+    for k, v in ev.evaluate(W, np.zeros_like(H), seed=MESH_SEED).items():
+        out[f"eval_{k}"] = np.float64(v)
+    out["rec_scores"], out["rec_items"] = ct.recommend(W, H, k=10,
+                                                       exclude=X, device=dev)
+    np.savez(path, **out)
+
+
+def mesh_probe(mesh) -> dict:
+    """Which of the collectives the sharded paths make take CUDA tensors
+    in this group: ``{name: "ok" or the error}``.  Every rank makes the
+    same calls on the same shapes, so a refusal, which gloo raises before
+    it communicates, comes on every rank alike."""
+    import torch.distributed as dist
+    dev, g, n = mesh.device, mesh.group, mesh.num_devices
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(
+            torch.ones(4, device=dev), group=g),
+        "all_reduce_max_int64": lambda: dist.all_reduce(
+            torch.ones(2, dtype=torch.int64, device=dev),
+            op=dist.ReduceOp.MAX, group=g),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty(4, device=dev) for _ in range(n)],
+            torch.ones(4, device=dev), group=g),
+        "reduce_scatter": lambda: dist.reduce_scatter(
+            torch.empty(4, device=dev),
+            [torch.ones(4, device=dev) for _ in range(n)], group=g),
+        "broadcast": lambda: dist.broadcast(
+            torch.ones(1, dtype=torch.float64, device=dev), 0, group=g),
+        "barrier": lambda: dist.barrier(group=g),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize(dev)
+            out[name] = "ok"
+        except (RuntimeError, ValueError) as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+# the collectives each gloo check makes on CUDA tensors
+MESH_NEEDS = {
+    "fit": ("all_reduce", "all_reduce_max_int64", "all_gather", "broadcast"),
+    "batch": ("all_reduce", "all_gather", "reduce_scatter"),
+    "evaluator": ("all_reduce",),
+    "recommend": ("all_gather",),
+}
+
+
+def mesh_gloo(X, mesh, tag, smi, d: Path) -> dict:
+    """Two ranks on one card over gloo: the public fits at ML-20M (packed
+    d=20, 2 epochs; wide d=256, 1 epoch) against the single-device fits of
+    the same seed (``mesh_ref``): this rank's W rows and the whole H
+    within ``mesh_close``, the loss within rtol 1e-5; then the batch epoch's
+    row exchange (``mesh_batch``), the evaluator and ``recommend``.  A check whose collective gloo refuses on CUDA tensors
+    (``mesh_probe``) is named and left to the CPU tests."""
+    from cymf_tpu_torch.ops import _kernels
+    from cymf_tpu_torch.ops import packed as pk
+    from cymf_tpu_torch.ops.wide_epoch import wide_rows
+
+    ref = np.load(d / "ref.npz")
+    n, p = mesh.num_devices, mesh.rank
+    probe = mesh_probe(mesh)
+    phase(tag, f"gloo collectives on CUDA tensors: {probe}")
+    refused = {what: [c for c in need if probe[c] != "ok"]
+               for what, need in MESH_NEEDS.items()}
+    launches = collections.Counter()
+    if refused["fit"]:
+        phase(tag, f"the packed and wide fits are left to the CPU tests: "
+              f"gloo refused {refused['fit']} on CUDA tensors")
+    else:
+        for what, K, epochs in (("packed", 20, 2), ("wide", WIDE_K, 1)):
+            _kernels.reset_launches()
+            m, pr, t0 = mesh_fit(X, mesh.device, K, epochs, probe=True)
+            launches.update(_kernels.launches)
+            if what == "packed":
+                rw = pk.packed_rows(U, K, multiple=WROWS * n)
+                per = rw // n * pk.num_slots(K)
+                rh, width = pk.logical_rows(I, multiple=WROWS), 128
+            else:
+                rw = wide_rows(U, WIDE_WROWS * n)
+                per = rw // n
+                rh, width = wide_rows(I, WIDE_WROWS), K + 128
+            lo, hi = min(p * per, U), min((p + 1) * per, U)
+            ew = mesh_close(torch.from_numpy(m.W[lo:hi]),
+                            torch.from_numpy(ref[f"{what}_W"][lo:hi]),
+                            0.001, f"{tag} {what} fit W")
+            eh = mesh_close(torch.from_numpy(m.H),
+                            torch.from_numpy(ref[f"{what}_H"]), 0.001,
+                            f"{tag} {what} fit H")
+            loss_close(m.last_loss, float(ref[f"{what}_loss"]),
+                       f"{tag} {what} fit")
+            ar = allreduce_ms(mesh, (rh, width))
+            for e, (st, wall) in enumerate(zip(m.epoch_times_,
+                                               pr.walls(t0))):
+                mesh_line(tag, smi, f"{what} fit (d={K}) epoch {e}: host "
+                          f"prep {st['prep_s']:.3f} s", wall,
+                          st["device_s"], rh * width * 4, ar,
+                          dict(_kernels.launches))
+            phase(tag, f"{what} fit: prep {m.prep_backend_}, this rank's "
+                  f"W rows [{lo}, {hi}) max abs err {ew:.3e}, H {eh:.3e}, "
+                  f"loss {m.last_loss:.7f} against "
+                  f"{float(ref[f'{what}_loss']):.7f}")
+    if refused["batch"]:
+        phase(tag, f"the batch epoch is left to the CPU tests: gloo refused "
+              f"{refused['batch']} on CUDA tensors")
+    else:
+        mesh_batch(X, mesh, tag, smi, steps=MESH_GLOO_BATCH_STEPS)
+    if refused["evaluator"] or refused["recommend"]:
+        phase(tag, f"the evaluator and recommend are left to the CPU tests: "
+              f"gloo refused {refused['evaluator'] + refused['recommend']}")
+    else:
+        mesh_eval_recommend(X, mesh, tag, smi, ref)
+    return {"launches": dict(launches), "refused": refused}
+
+
+def mesh_direct(X, mesh, tag, smi, d: Path) -> dict:
+    """One rank a card over NCCL: the three sharded epochs called directly
+    against their single-device forms, then the evaluator and
+    ``recommend`` under the mesh against one device's."""
+    from cymf_tpu_torch.ops.packed_epoch import make_reject_filter
+
+    coo = X.tocoo()
+    pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+    key_filter = make_reject_filter(pos_keys, U, I)
+    launches = collections.Counter(mesh_packed(X, mesh, tag, smi, pos_keys,
+                                               key_filter))
+    launches.update(mesh_wide(X, mesh, tag, smi, pos_keys, key_filter))
+    mesh_batch(X, mesh, tag, smi, steps=u2_steps(X) // 3)
+    mesh_eval_recommend(X, mesh, tag, smi, np.load(d / "ref.npz"))
+    return {"launches": dict(launches)}
+
+
+def mesh_rank(argv) -> int:
+    """One rank of the mesh phase (``chip_smoke.py --mesh-rank RANK WORLD
+    BACKEND DIR``): joins the group through a file store in ``DIR``, runs
+    its checks and writes its launch counts to ``DIR``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from cymf_tpu_torch.parallel import MeshContext, use_mesh
+
+    rank, world, backend, d = int(argv[0]), int(argv[1]), argv[2], \
+        Path(argv[3])
+    dev = torch.device("cuda", rank % torch.cuda.device_count()) \
+        if backend == "nccl" else torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = (d / "smi.txt").read_text().strip()
+    dist.init_process_group(
+        backend, init_method=f"file://{d / f'store_{backend}'}", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = MeshContext.create(device=dev)
+        tag = f"mesh {backend} {rank}/{world}"
+        # the first collective sets the communicator up: time it apart
+        t0 = time.perf_counter()
+        mesh.barrier()
+        phase(tag, f"{smi}; backend {dist.get_backend(mesh.group)}, world "
+              f"size {mesh.num_devices}, rank {mesh.rank} on {dev}; first "
+              f"collective (the communicator's set-up) "
+              f"{time.perf_counter() - t0:.3f} s")
+        X = bench_matrix()
+        with use_mesh(mesh):
+            out = (mesh_direct if backend == "nccl" else mesh_gloo)(
+                X, mesh, tag, smi, d)
+        (d / f"{backend}_{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_group(world: int, backend: str, d: Path) -> list:
+    """Runs ``world`` ranks of ``backend`` as processes, joined within
+    ``MESH_TIMEOUT_S`` (a rank that hangs is killed with the others);
+    prints their output; raises unless every rank exits 0.  Returns each
+    rank's results."""
+    for old in d.glob(f"*{backend}*"):
+        old.unlink()
+    logs = [d / f"log_{backend}_{r}.txt" for r in range(world)]
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                 str(r), str(world), backend, str(d)], cwd=ROOT, stdout=f,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.poll() is None]
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for log in logs:
+        print(log.read_text(), end="", flush=True)
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if hung or failed:
+        raise AssertionError(f"mesh {backend}: ranks {hung} hung past "
+                             f"{MESH_TIMEOUT_S} s, ranks {failed} failed")
+    return [json.loads((d / f"{backend}_{r}.json").read_text())
+            for r in range(world)]
+
+
+def mesh_phase(X, dev, smi) -> dict:
+    """Phase 19, mesh: the sharded BPR paths (``cymf_tpu_torch.parallel``)
+    at world size ``torch.cuda.device_count()`` over NCCL, then at two
+    ranks on card 0 over gloo; returns the ranks' summed launches."""
+    import shutil
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    (MESH_DIR / "smi.txt").write_text(smi)
+    t0 = time.perf_counter()
+    mesh_ref(X, dev, MESH_DIR / "ref.npz")
+    phase("mesh", f"single-device references in {time.perf_counter() - t0:.1f}"
+          " s")
+    launches = collections.Counter()
+    n = torch.cuda.device_count()
+    for world, backend in ((n, "nccl"), (2, "gloo")):
+        t0 = time.perf_counter()
+        ranks = mesh_group(world, backend, MESH_DIR)
+        for out in ranks:
+            launches.update(out["launches"])
+        phase("mesh", f"{backend}, {world} ranks: {time.perf_counter() - t0:.1f}"
+              f" s; launches summed over the ranks "
+              f"{dict(sorted(launches.items()))}")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    missing = [k for k in MESH_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"mesh: no launch of {missing}")
+    return dict(launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(sys.argv[2:])
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3504,8 +4126,9 @@ def main() -> int:
     X = bench_matrix()
     recommend_phase(X, dev, smi)
     checkpoint_phase(X, dev, smi)
-    del X
     slice_launches["datasets"] = datasets_phase(dev, smi)
+    slice_launches["mesh"] = mesh_phase(X, dev, smi)
+    del X
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,13 +1,16 @@
 """Sampled-negative ranking evaluator.
 
-Port of `cymf_tpu/evaluation/evaluator.py` for one device, with the
-behaviour of `cymf/evaluator.pyx`:
+Port of `cymf_tpu/evaluation/evaluator.py`, with the behaviour of
+`cymf/evaluator.pyx`:
 
 * candidates per user = all test positives (label 1) + ``num_negatives``
   uniform negatives rejection-sampled against train+test positives
   (`evaluator.pyx:95-111`), exactly that many per user;
 * scores = ``H[items] @ W[user]``, one ``(C, L, K) x (C, K)`` contraction
-  per user chunk, ranked with ``torch.topk`` (invalid slots at ``-inf``);
+  per user chunk, ranked by (score descending, candidate index
+  ascending), as ``jax.lax.top_k`` ranks (``recommend._stable_topk``;
+  invalid slots at ``-inf``): equal scores put the positives, which come
+  first in a user's candidate list, ahead of the negatives;
 * metrics are averaged over **all** users, users without test positives
   contributing 0 (`evaluator.pyx:91-92`);
 * IPS propensities = per-item mean of the test matrix, clipped at 1e-4
@@ -20,6 +23,15 @@ different stream from the JAX package's threefry draws, so the two
 evaluators agree statistically, not bitwise.  Fed the same negatives,
 :func:`_chunk_metric_sums` agrees with the JAX scorer to float32
 round-off.
+
+Under a mesh of more than one rank (``cymf_tpu_torch.parallel``) the
+evaluation is sharded as the JAX package's ``_sharded_group_eval``: each
+chunk's users split over the ranks (the chunk padded to a multiple of the
+world size with dummy users that add 0), ``W``, ``H`` and the hash set whole
+on every rank, and one all-reduce of the metric sums a call.  Each rank
+seeds its negative generator from the seed and its rank (as the JAX form
+folds in the axis index), so the draws are statistically equal to one
+device's, not bitwise.
 """
 
 from __future__ import annotations
@@ -31,8 +43,10 @@ import torch
 from scipy import sparse
 
 from .. import config
+from ..parallel.mesh import current_mesh
 from ..ops.hashset import build_pair_hashset, hashset_contains, to_device
 from . import metrics as M
+from .recommend import _stable_topk
 
 _TOPK_METRIC_FNS = {
     ("DCG", False): M.dcg_topk_batch,
@@ -112,7 +126,7 @@ def _chunk_metric_sums(W, H, user_ids, pos_pad, pos_valid, neg_items,
     scores = torch.where(valid, scores,
                          torch.full_like(scores, -torch.inf))
     kmax = min(max(max(ks), 1), int(cand.shape[-1]))
-    top_idx = torch.topk(scores, kmax, dim=-1).indices
+    top_idx = _stable_topk(scores, kmax)[1]
     labels_top = torch.gather(labels, -1, top_idx)
     # order-invariant denominators over the FULL candidate list
     total_pos = torch.sum(pos_valid, dim=-1).to(W.dtype)
@@ -167,6 +181,7 @@ class Evaluator:
         self.k = k
         self.num_negatives = int(num_negatives)
         self.unbiased = bool(unbiased)
+        self._device_arg = device
         self.device = torch.device(device) if device is not None \
             else config.default_device()
 
@@ -218,14 +233,24 @@ class Evaluator:
             chunks.append((uids, pos_pad, pos_valid))
         return chunks
 
-    def _to_device(self):
-        """Device-resident evaluation state: the chunks as tensors, the
-        rejection hash set and the propensities."""
-        if self._device_state is None:
+    def _to_device(self, mesh):
+        """Device-resident evaluation state for ``mesh``: this rank's rows
+        of each chunk as tensors (the chunk padded to a multiple of the
+        world size), the rejection hash set and the propensities."""
+        if self._device_state is None or self._device_state["mesh"] != mesh:
             dev = self.device
+            n, p = mesh.num_devices, mesh.rank
             up = self.user_positives.tocoo()
+
+            def rows(a):  # this rank's rows of a chunk padded to n * c
+                c = -(-a.shape[0] // n)
+                a = np.pad(a, [(0, n * c - a.shape[0])]
+                           + [(0, 0)] * (a.ndim - 1))
+                return torch.from_numpy(a[p * c:(p + 1) * c]).to(dev)
+
             self._device_state = dict(
-                chunks=[tuple(torch.from_numpy(a).to(dev) for a in ch)
+                mesh=mesh,
+                chunks=[tuple(rows(a) for a in ch)
                         for ch in self._user_chunks],
                 hs=to_device(build_pair_hashset(up.row, up.col), dev),
                 props=torch.as_tensor(self.propensity_scores,
@@ -239,12 +264,15 @@ class Evaluator:
               else tuple(int(k) for k in self.k))
         metric_names = tuple(self.metrics)
         U, I = self.X.shape
-        dev = self.device
+        mesh = current_mesh()
+        dev = self.device = mesh.resolve_device(self._device_arg)
         Wd = torch.as_tensor(W, dtype=config.param_dtype()).to(dev)
         Hd = torch.as_tensor(H, dtype=config.param_dtype()).to(dev)
-        st = self._to_device()
+        st = self._to_device(mesh)
         gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
+        # one device: the seed; a rank of a mesh: the seed and the rank
+        gen.manual_seed(int(seed) if mesh.num_devices == 1
+                        else int(seed) * 1_000_003 + mesh.rank + 1)
         total = None
         for uids, pos_pad, pos_valid in st["chunks"]:
             neg, neg_valid = draw_negatives(uids, st["hs"], gen, I,
@@ -254,7 +282,7 @@ class Evaluator:
                 st["props"], ks=ks, metric_names=metric_names,
                 unbiased=self.unbiased)
             total = part if total is None else total + part
-        sums = total.to("cpu", torch.float64).numpy()
+        sums = mesh.all_reduce(total).to("cpu", torch.float64).numpy()
 
         buff = {}
         for mi, name in enumerate(metric_names):

@@ -1,5 +1,5 @@
 """Full-catalog top-k recommender.  Port of
-`cymf_tpu/evaluation/recommend.py`, its single-device path.
+`cymf_tpu/evaluation/recommend.py`.
 
 Per chunk of users: one ``(users_chunk x K) @ (K x items)`` product in
 full float32, the user's excluded (train) items set to ``-inf``, and a
@@ -13,9 +13,15 @@ over its whole row by the same key.
 The exclusion CSR is uploaded once a call and each chunk's ``(row, col)``
 pairs are cut from it on the device.  (The JAX form pads each chunk's
 exclusions on the host to a power of two, which bounds XLA's compiled
-shapes; eager PyTorch has no compiled shapes to bound.)  The JAX
-package's sharded path over a device mesh has no counterpart yet
-(ROADMAP.md, queue 1).
+shapes; eager PyTorch has no compiled shapes to bound.)
+
+Under a mesh of more than one rank (``cymf_tpu_torch.parallel``) the
+catalog is row-sharded, as the JAX package's ``_topk_sharded``: each rank
+scores its item shard ``(C, K) @ (K, I/n)`` (pad rows and excluded items at
+``-inf``), takes a local top-k by the same rule, and the ranks'
+``(C, k)`` candidates are all-gathered and merged by (score descending, id
+ascending), so the items equal the single-device ones, ties included.
+Every rank gets the whole result.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 from scipy import sparse
 
 from .. import config
+from ..parallel.mesh import current_mesh
 
 _LOW32 = (1 << 32) - 1
 
@@ -77,21 +84,29 @@ def recommend(W, H, k: int = 10, exclude=None, user_chunk: int = 4096,
         interactions to exclude from recommendations.
       user_chunk: users scored per product.
       device: where to score; by default
-        :func:`cymf_tpu_torch.config.default_device`, the card.
+        :func:`cymf_tpu_torch.config.default_device`, the card; under a
+        mesh of more than one rank, the rank's device (another raises
+        ``ValueError``).
 
     Returns:
       (scores float32[U, k], items int32[U, k]) sorted by score descending,
-      equal scores by ascending item id.
+      equal scores by ascending item id.  Under a mesh, a collective: every
+      rank calls it with the same arguments and gets the whole result.
     """
-    dev = torch.device(device) if device is not None \
-        else config.default_device()
+    mesh = current_mesh()
+    n = mesh.num_devices
+    dev = mesh.resolve_device(device)
     dtype = config.param_dtype()
     Wd = torch.as_tensor(W, dtype=dtype).to(dev)
-    Hd = torch.as_tensor(H, dtype=dtype).to(dev)
+    Ht = torch.as_tensor(H, dtype=dtype)
     U = Wd.shape[0]
-    I = Hd.shape[0]
+    I = Ht.shape[0]
     if k > I:
         raise ValueError(f"k={k} exceeds catalog size {I}")
+    # this rank's item rows [lo, lo + ipd) of the catalog padded to n
+    ipd = mesh.pad_rows(I) // n
+    lo = mesh.rank * ipd
+    Hd = Ht[lo:lo + ipd].to(dev)
 
     if exclude is not None:
         X = sparse.csr_matrix(exclude)
@@ -105,15 +120,28 @@ def recommend(W, H, k: int = 10, exclude=None, user_chunk: int = 4096,
     for start in range(0, U, user_chunk):
         end = min(start + user_chunk, U)
         scores = Wd[start:end] @ Hd.T
+        if scores.shape[1] < ipd:  # the last shard's pad rows
+            scores = torch.nn.functional.pad(
+                scores, (0, ipd - scores.shape[1]), value=-torch.inf)
         if exclude is not None:
-            lo, hi = int(indptr[start]), int(indptr[end])
+            a, b = int(indptr[start]), int(indptr[end])
             rows = torch.repeat_interleave(
                 torch.arange(end - start, device=dev),
                 indptr_d[start + 1:end + 1] - indptr_d[start:end],
-                output_size=hi - lo)
-            scores.index_put_((rows, indices_d[lo:hi].long()),
+                output_size=b - a)
+            cols = indices_d[a:b].long()
+            if n > 1:  # this shard's columns of the exclusions
+                cols = cols - lo
+                mine = (cols >= 0) & (cols < ipd)
+                rows, cols = rows[mine], cols[mine]
+            scores.index_put_((rows, cols),
                               torch.tensor(-torch.inf, device=dev))
-        vals, idx = _topk_chunk(scores, int(k))
+        vals, idx = _topk_chunk(scores, min(int(k), ipd))
+        if n > 1:
+            # merge the ranks' candidates by (score desc, global id asc)
+            vals, idx = _stable_topk(
+                mesh.all_gather(vals.T.contiguous()).T.contiguous(), int(k),
+                mesh.all_gather((idx + lo).T.contiguous()).T.contiguous())
         out_scores[start:end] = vals.cpu().numpy()
         out_items[start:end] = idx.to(torch.int32).cpu().numpy()
     return out_scores, out_items

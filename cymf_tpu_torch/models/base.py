@@ -9,6 +9,16 @@ early_stopping, verbose)`` trains, the learned factors are numpy
 live tables are tensors on the model's device in ``self._state``.  The
 tables are training state, not layers, so nothing here is an
 ``nn.Module``.
+
+Under a mesh of more than one rank (``cymf_tpu_torch.parallel``), every
+rank runs the same ``fit``; a sharded engine keeps only this rank's rows
+of a table, and reading ``model.W`` / ``model.H`` during the fit gathers
+them (``parallel.mesh.fetch_to_host``): a collective, which every rank
+must make together.  The end of ``fit`` gathers once, on every rank, and
+the tables are host-local after it.  A checkpoint is written by rank 0
+from the gathered state while the others wait at a barrier, and a resume
+reads the file on every rank; the early-stopping decision follows rank
+0's validation score.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import torch
 from scipy import sparse
 
 from .. import config
+from ..parallel.mesh import MeshContext, current_mesh, fetch_to_host
 
 
 def as_csr(X) -> sparse.csr_matrix:
@@ -83,6 +94,16 @@ class EarlyStopper:
         return False
 
 
+def require_one_device(what: str) -> None:
+    """Raise ``NotImplementedError`` under a mesh of more than one rank:
+    ``what`` has no sharded form in the port yet (ROADMAP.md, queue 1)."""
+    n = current_mesh().num_devices
+    if n > 1:
+        raise NotImplementedError(
+            f"{what} on a mesh of {n} ranks is not ported yet; fit it in a "
+            "world of one")
+
+
 def _to_host(t: torch.Tensor, n: int) -> np.ndarray:
     """First ``n`` rows of a device table as a host copy that later
     in-place updates of the table cannot reach."""
@@ -94,11 +115,17 @@ class MFTrainerBase:
 
     ``model.W`` / ``model.H`` are numpy copies of the learned factors
     (`bpr.pyx:46-47`); during ``fit`` they are read from the device
-    tables on access.
+    tables on access (gathered from the ranks where an engine shards
+    them: see the module docstring).
     """
+
+    # the keys of ``_state`` whose tensors are this rank's row shard of a
+    # table (set by a sharded engine; read back through fetch_to_host)
+    _sharded_keys: frozenset = frozenset()
 
     def __init__(self, num_components: int, device=None):
         self.num_components = int(num_components)
+        self._device_arg = device
         self.device = torch.device(device) if device is not None \
             else config.default_device()
         self._W_host: Optional[np.ndarray] = None
@@ -110,10 +137,17 @@ class MFTrainerBase:
         self.valid_dcg = -np.inf
         self.early_stopping = False
 
+    def _fetch(self, key: str, n: int) -> np.ndarray:
+        """First ``n`` rows of the live table ``_state[key]`` on the host:
+        gathered from the ranks if it is sharded (a collective)."""
+        if key in self._sharded_keys:
+            return fetch_to_host(self._state[key], self.mesh)[:n]
+        return _to_host(self._state[key], n)
+
     @property
     def W(self):
         if self._state is not None:
-            return _to_host(self._state["W"], self._num_users)
+            return self._fetch("W", self._num_users)
         return self._W_host
 
     @W.setter
@@ -124,7 +158,7 @@ class MFTrainerBase:
     @property
     def H(self):
         if self._state is not None:
-            return _to_host(self._state["H"], self._num_items)
+            return self._fetch("H", self._num_items)
         return self._H_host
 
     @H.setter
@@ -137,9 +171,47 @@ class MFTrainerBase:
         fit, or when a table is set by hand: both host copies are kept
         first so the untouched table survives)."""
         if self._state is not None:
-            self._W_host = _to_host(self._state["W"], self._num_users)
-            self._H_host = _to_host(self._state["H"], self._num_items)
+            self._W_host = self._fetch("W", self._num_users)
+            self._H_host = self._fetch("H", self._num_items)
             self._state = None
+            self._sharded_keys = frozenset()
+
+    # -- mesh ---------------------------------------------------------------
+    @property
+    def mesh(self) -> MeshContext:
+        return current_mesh()
+
+    def _mesh_device(self) -> MeshContext:
+        """The fit's mesh; sets ``device`` to where the fit runs
+        (:meth:`MeshContext.resolve_device`: under more than one rank, the
+        rank's device)."""
+        mesh = self.mesh
+        self.device = mesh.resolve_device(self._device_arg)
+        return mesh
+
+    def _pad_table(self, T: np.ndarray) -> torch.Tensor:
+        """Pad rows to a mesh-divisible count; this rank's row shard."""
+        mesh = self.mesh
+        n = T.shape[0]
+        n_pad = mesh.pad_rows(n)
+        if n_pad != n:
+            T = np.concatenate(
+                [T, np.zeros((n_pad - n,) + T.shape[1:], T.dtype)], axis=0)
+        return mesh.put_table(T)
+
+    def _checkpoint_state(self):
+        """The state a checkpoint holds: ``_state``, with each sharded
+        leaf gathered from the ranks (a collective)."""
+        if not self._sharded_keys:
+            return self._state
+
+        def gather(v):
+            if isinstance(v, dict):
+                return {k: gather(x) for k, x in v.items()}
+            return fetch_to_host(v, self.mesh)
+
+        return {k: gather(v) if k in self._sharded_keys else v
+                for k, v in self._state.items()}
 
     def _ensure_tables(self, num_rows_w: int, num_rows_h: int) -> None:
         """Lazy init W,H ~ U(-0.1, 0.1)/K with np.random.seed(4321) before W
@@ -170,6 +242,7 @@ class MFTrainerBase:
         """
         from ..utils.checkpoint import AsyncCheckpointer
         from ..utils.profiling import Throughput
+        mesh = self.mesh
         stopper = EarlyStopper(self.early_stopping)
         ckpt = AsyncCheckpointer() if checkpoint_path else None
         self.checkpoint_s_ = []
@@ -182,11 +255,14 @@ class MFTrainerBase:
             thr.tick(samples_per_epoch)
             if ckpt and (epoch + 1) % checkpoint_every == 0:
                 t0 = time.perf_counter()
-                ckpt.save(checkpoint_path, self._state, epoch)
+                state = self._checkpoint_state()
+                if mesh.rank == 0:
+                    ckpt.save(checkpoint_path, state, epoch)
                 self.checkpoint_s_.append(time.perf_counter() - t0)
             if self.valid_evaluator:
-                valid_dcg = self.valid_evaluator.evaluate(
-                    self.W, self.H)["DCG@5"]
+                # rank 0's score decides, so every rank stops together
+                valid_dcg = mesh.broadcast_float(self.valid_evaluator.evaluate(
+                    self.W, self.H)["DCG@5"])
                 if stopper.update(valid_dcg, snapshot_fn):
                     break
                 self.valid_dcg = stopper.best_dcg
@@ -198,6 +274,8 @@ class MFTrainerBase:
                          and thr.rate else ""), flush=True)
         if ckpt:
             ckpt.wait()
+            # the file is whole before any rank returns (or resumes)
+            mesh.barrier()
         if self.valid_evaluator and self.early_stopping \
                 and stopper.best_snapshot is not None:
             restore_fn(stopper.best_snapshot)

@@ -63,13 +63,26 @@ pipeline v4, draws from a ``torch.Generator`` a fit and epoch, a stream
 the JAX package's threefry draws differ from (``prep_backend_ ==
 "device-torch"``).
 
-Not ported yet (see ROADMAP.md, queue 1): the multi-device engines.
+Under a mesh of more than one rank (``cymf_tpu_torch.parallel``: one
+process per device, every rank running the same ``fit``), the fit routes
+as the JAX package's does on a multi-device mesh: the packed engine to
+``_fit_packed_sharded`` (row-sharded packed W, replicated H, one
+all-reduce of the item-side sums a step,
+``parallel/shard_step.py::sharded_packed_bpr_epoch``; pipeline v4, or with
+``neg_pool`` a warning and the single-device pool engine on every rank),
+the wide engine to ``_fit_wide_sharded`` and the batch engine to
+``_fit_batch_sharded`` (both tables row-sharded, the O(batch) row
+exchange, dense updates).  Every rank draws the whole epoch's negatives
+(the 1-device stream) and takes its shard's slice, so the fit equals the
+1-device fit up to float summation order.  ``model.W`` is then a
+collective during the fit (``models/base.py``).
 """
 
 from __future__ import annotations
 
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -82,12 +95,17 @@ from ..ops.packed_epoch import (live_negatives, make_packed_optimizer,
                                 make_reject_filter, packed_bpr_epoch,
                                 packed_bpr_epoch_device,
                                 packed_bpr_pool_epoch, prep_backend,
-                                prep_epoch, prep_pool_epoch, prep_static,
-                                prep_static_pool, unpack_device)
+                                prep_epoch, prep_pool_epoch,
+                                prep_shard_epoch, prep_shard_static,
+                                prep_static, prep_static_pool, unpack_device)
 from ..ops.relmf_epoch import epoch_generator
-from ..ops.wide_epoch import (pack_wide, prep_static_wide, wide_bpr_epoch,
-                              wide_rows, wide_sorted_masks)
+from ..ops.wide_epoch import (pack_wide, prep_shard_static_wide,
+                              prep_static_wide, wide_bpr_epoch, wide_rows,
+                              wide_shard_masks, wide_sorted_masks)
 from ..optim import make_optimizer
+from ..parallel.shard_step import (sharded_bpr_epoch,
+                                   sharded_packed_bpr_epoch,
+                                   sharded_wide_bpr_epoch)
 from .base import MFTrainerBase, PersistenceMixin, as_csr
 
 PAD_USER = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
@@ -239,28 +257,38 @@ def _batch_resume_state(flat, U, I, K, ow, oh, device):
     return W, H, ow, oh
 
 
-def _wide_resume_state(flat, U, I, K, wrows, ow, oh, device):
+def _wide_resume_state(flat, U, I, K, mult_w, wrows, ow, oh, device):
     """Rebuild the wide engine's state ``(Wd, Hd, ow, oh)`` (``(rows,
-    Kp)`` tables, ``wrows``-row padding) on ``device`` from a raw
-    checkpoint dict of the wide or the batch engine."""
-    Wd = _put(pack_wide(np.asarray(flat["W"])[:U], K, multiple=wrows),
+    Kp)`` tables: W rows padded to ``mult_w``, H rows to ``wrows``) on
+    ``device`` from a raw checkpoint dict of the wide or the batch
+    engine."""
+    Wd = _put(pack_wide(np.asarray(flat["W"])[:U], K, multiple=mult_w),
               device)
     Hd = _put(pack_wide(np.asarray(flat["H"])[:I], K, multiple=wrows),
               device)
 
     def cvt_w(a):  # logical leaf (>=U, K) -> wide layout
-        return pack_wide(a[:U], K, multiple=wrows)
+        return pack_wide(a[:U], K, multiple=mult_w)
 
     def cvt_h(a):
         return pack_wide(a[:I], K, multiple=wrows)
 
-    mpay_w = pack_wide(np.ones((U, K), np.float32), K, multiple=wrows) > 0
+    mpay_w = pack_wide(np.ones((U, K), np.float32), K, multiple=mult_w) > 0
     mpay_h = pack_wide(np.ones((I, K), np.float32), K, multiple=wrows) > 0
     ow = _restore_opt_state(flat, "oww", "ow", ow, cvt_w, mpay_w,
                             repad=cvt_w)
     oh = _restore_opt_state(flat, "ohw", "oh", oh, cvt_h, mpay_h,
                             repad=cvt_h)
     return Wd, Hd, ow, oh
+
+
+def _cap_prep_threads(mesh) -> None:
+    """Cap the native prep's OpenMP threads at (cores / ranks on this
+    host), so that the ranks of one host do not oversubscribe it."""
+    if prep_backend() == "native":
+        from .. import native
+        native.set_num_threads(min(native.num_threads(), max(
+            1, (os.cpu_count() or 1) // mesh.local_ranks)))
 
 
 def shuffled_interactions(X):
@@ -447,6 +475,7 @@ class BPR(MFTrainerBase, PersistenceMixin):
             raise ValueError()
 
         U, I = X.shape
+        n = self._mesh_device().num_devices
         self._num_users, self._num_items = U, I
         self._ensure_tables(U, I)
 
@@ -467,15 +496,243 @@ class BPR(MFTrainerBase, PersistenceMixin):
                 f"selected {self.engine_!r}")
         ckpt = (checkpoint_path, checkpoint_every, resume)
         if self.engine_ == "batch":
+            if n > 1:
+                # the batch split evenly over the ranks (mesh.pad_rows)
+                u2, i2 = sorted_batches(
+                    users, positives, min(self.batch_size,
+                                          max(len(users), n)), multiple=n)
+                self._fit_batch_sharded(X, u2, i2, num_epochs, verbose,
+                                        seed, *ckpt)
+                return
             u2, i2 = sorted_batches(users, positives, self.batch_size,
                                     multiple=1)
             self._fit_batch(X, u2, i2, num_epochs, verbose, seed, *ckpt)
             return
         u2, i2 = sorted_batches(users, positives, self.batch_size)
         if self.engine_ == "packed":
+            if n > 1 and not self.neg_pool:
+                self._fit_packed_sharded(X, u2, i2, num_epochs, verbose,
+                                         seed, *ckpt)
+                return
+            if n > 1:
+                warnings.warn(
+                    "neg_pool is a single-chip structure: the "
+                    f"{n}-rank mesh is ignored and every rank runs the pool "
+                    "engine on its own device", stacklevel=2)
             self._fit_packed(X, u2, i2, num_epochs, verbose, seed, *ckpt)
             return
+        if n > 1:
+            self._fit_wide_sharded(X, u2, i2, num_epochs, verbose, seed,
+                                   *ckpt)
+            return
         self._fit_wide(X, u2, i2, num_epochs, verbose, seed, *ckpt)
+
+    def _fit_batch_sharded(self, X, u2, i2, num_epochs, verbose, seed,
+                           checkpoint_path, checkpoint_every, resume):
+        """The batch engine on a mesh (:func:`~cymf_tpu_torch.parallel.
+        shard_step.sharded_bpr_epoch`), as the mesh branch of
+        ``cymf_tpu.BPR.fit``: W and H row-sharded over the ranks (padded by
+        ``mesh.pad_rows``), each step's sorted batch split into one slice
+        a rank, the pair hash set on every rank, dense masked updates."""
+        mesh = self.mesh
+        n, p = mesh.num_devices, mesh.rank
+        if self.update_mode == "sparse":
+            warnings.warn(
+                "update_mode='sparse' applies to the single-device path "
+                "only; the sharded epoch uses dense masked updates (each "
+                "rank's update buffer is its table shard, already "
+                "O(rows/ranks) memory)", stacklevel=3)
+        self.update_mode_ = "dense"
+        dev = self.device
+        U, I = X.shape
+        K = self.num_components
+        Bn = u2.shape[1] // n
+        N = self._samples_per_epoch
+        self.last_loss = None
+        coo = X.tocoo()
+        hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
+        opt = make_optimizer(self.optimizer, self.learning_rate)
+        W_, H_ = self.W, self.H
+        # the padded optimizer state on the host (pad rows keep their
+        # init), then this rank's rows of it
+        owf = opt.init(torch.zeros((mesh.pad_rows(U), K)))
+        ohf = opt.init(torch.zeros((mesh.pad_rows(I), K)))
+        flat, start_epoch = _resume_point(checkpoint_path, resume)
+        mesh.agree(start_epoch, "the checkpoint's epoch")
+        if flat is not None:
+            W_, H_, ow_, oh_ = _batch_resume_state(
+                flat, U, I, K, opt.init(torch.zeros((U, K))),
+                opt.init(torch.zeros((I, K))), "cpu")
+            W_, H_ = W_.numpy(), H_.numpy()
+            for k in owf:
+                owf[k][:U] = ow_[k]
+            for k in ohf:
+                ohf[k][:I] = oh_[k]
+        W, H = self._pad_table(W_), self._pad_table(H_)
+        ow = {k: mesh.put_table(v) for k, v in owf.items()}
+        oh = {k: mesh.put_table(v) for k, v in ohf.items()}
+        u_d = torch.from_numpy(np.ascontiguousarray(
+            u2[:, p * Bn:(p + 1) * Bn])).to(dev)
+        i_d = torch.from_numpy(np.ascontiguousarray(
+            i2[:, p * Bn:(p + 1) * Bn])).to(dev)
+
+        def publish():
+            self._state = {"W": W, "H": H, "ow": ow, "oh": oh}
+            self._sharded_keys = frozenset(self._state)
+
+        def run(epoch):
+            return sharded_bpr_epoch(
+                mesh, W, H, ow, oh, u_d, i_d, hs, N,
+                epoch_generator(seed, epoch, dev), optimizer=opt,
+                weight_decay=self.weight_decay, num_users=U, num_items=I,
+                draw=_draw_negatives)
+
+        self._run_device_epochs(num_epochs, verbose, None, run, publish,
+                                checkpoint_path, checkpoint_every,
+                                start_epoch)
+
+    def _fit_packed_sharded(self, X, u2, i2, num_epochs, verbose, seed,
+                            checkpoint_path, checkpoint_every, resume):
+        """The packed engine on a mesh, as ``cymf_tpu.BPR.
+        _fit_packed_sharded``: this rank's row shard of the packed W (rows
+        padded to ``256 * n``, so a shard is whole windows), the whole
+        logical H, the rank's contiguous slice of every step
+        (``prep_shard_static``), the whole epoch's negatives drawn on
+        every rank and sliced (``prep_shard_epoch``), pipeline v4 with one
+        all-reduce of the item-side sums a step
+        (:func:`~cymf_tpu_torch.parallel.shard_step.sharded_packed_bpr_epoch`)."""
+        mesh = self.mesh
+        n, p = mesh.num_devices, mesh.rank
+        self.prep_backend_ = prep_backend()
+        _cap_prep_threads(mesh)
+        dev = self.device
+        U, I = X.shape
+        K = self.num_components
+        N = self._samples_per_epoch
+        self.last_loss = None
+        wrows_w, wrows_h = 256, 256
+        rw = pk.packed_rows(U, K, multiple=wrows_w * n)
+        rh = pk.logical_rows(I, multiple=wrows_h)
+        # the sharded engine runs the span-independent v4 pipeline
+        self.packed_kernel_ = 4
+        (u_loc, i_loc, winw, si, rowsi, wini, starts, counts, Bd) = \
+            prep_shard_static(u2, i2, K, rw, rh, wrows_w, wrows_h, n,
+                              shard=p)
+        coo = X.tocoo()
+        pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+        key_filter = make_reject_filter(pos_keys, U, I)
+        opt = make_packed_optimizer(self.optimizer, self.learning_rate)
+        Wf = _put(pk.pack_array(self.W, K, multiple=wrows_w * n), "cpu")
+        Hp = _put(pk.pack_logical(self.H, K, multiple=wrows_h), dev)
+        owf, oh = opt.init(Wf), opt.init(Hp)
+        flat, start_epoch = _resume_point(checkpoint_path, resume)
+        mesh.agree(start_epoch, "the checkpoint's epoch")
+        if flat is not None:
+            Wf, Hp, owf, oh = _packed_resume_state(
+                flat, U, I, K, wrows_w * n, wrows_h, owf, oh, "cpu")
+            Hp = Hp.to(dev)
+        Wp = mesh.put_table(Wf)
+        ow = {k: mesh.put_table(v) for k, v in owf.items()}
+
+        def put(a):  # this rank's streams, the shard axis dropped
+            return torch.from_numpy(np.ascontiguousarray(a[0])).to(dev)
+
+        static = [put(a) for a in (u_loc, i_loc, si, rowsi, wini)]
+        winw_d = put(winw)
+        kw = dict(opt_name=self.optimizer, lr=self.learning_rate,
+                  weight_decay=self.weight_decay, K=K, rw=rw, rh=rh,
+                  wrows_w=wrows_w, wrows_h=wrows_h)
+
+        def publish():
+            self._state = {"W": unpack_device(Wp, K), "H": Hp[:, :K],
+                           "owp": ow, "ohp": oh}
+            self._sharded_keys = frozenset({"W", "owp"})
+
+        def prep(epoch):
+            j2, mask, _, _, _ = prep_epoch(
+                np.random.default_rng((seed, epoch)), u2, i2, pos_keys, U,
+                I, K, rh, wrows_h, native_seed=seed * 1_000_003 + epoch,
+                key_filter=key_filter, sides=False)
+            return prep_shard_epoch(j2, mask, starts, counts, Bd, rh,
+                                    wrows_h, n, shard=p)
+
+        def run(epoch, *streams):
+            return sharded_packed_bpr_epoch(
+                mesh, Wp, Hp, ow, oh, *static, *(put(a) for a in streams),
+                winw_d, N, **kw)
+
+        self._run_device_epochs(num_epochs, verbose, prep, run, publish,
+                                checkpoint_path, checkpoint_every,
+                                start_epoch)
+
+    def _fit_wide_sharded(self, X, u2, i2, num_epochs, verbose, seed,
+                          checkpoint_path, checkpoint_every, resume):
+        """The wide engine (K >= 128) on a mesh, as ``cymf_tpu.BPR.
+        _fit_wide_sharded``: this rank's row shard of the wide W (rows
+        padded to ``512 * n``), the whole wide H, the rank's slice of
+        every step, one all-reduce of ``(rh, Kp + 128)`` a step
+        (:func:`~cymf_tpu_torch.parallel.shard_step.sharded_wide_bpr_epoch`)."""
+        mesh = self.mesh
+        n, p = mesh.num_devices, mesh.rank
+        self.prep_backend_ = prep_backend()
+        _cap_prep_threads(mesh)
+        dev = self.device
+        U, I = X.shape
+        K = self.num_components
+        N = self._samples_per_epoch
+        self.last_loss = None
+        wrows = 512
+        rw, rh = wide_rows(U, wrows * n), wide_rows(I, wrows)
+        (u_loc, rowsu, winw, i_loc, si, rowsi, wini, starts, counts,
+         Bd) = prep_shard_static_wide(u2, i2, rw, rh, wrows, n, shard=p)
+        coo = X.tocoo()
+        pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+        key_filter = make_reject_filter(pos_keys, U, I)
+        opt = make_packed_optimizer(self.optimizer, self.learning_rate)
+        Wf = _put(pack_wide(self.W, K, multiple=wrows * n), "cpu")
+        Hd = _put(pack_wide(self.H, K, multiple=wrows), dev)
+        owf, oh = opt.init(Wf), opt.init(Hd)
+        flat, start_epoch = _resume_point(checkpoint_path, resume)
+        mesh.agree(start_epoch, "the checkpoint's epoch")
+        if flat is not None:
+            Wf, Hd, owf, oh = _wide_resume_state(
+                flat, U, I, K, wrows * n, wrows, owf, oh, "cpu")
+            Hd = Hd.to(dev)
+        Wd = mesh.put_table(Wf)
+        ow = {k: mesh.put_table(v) for k, v in owf.items()}
+
+        def put(a):  # this rank's streams, the shard axis dropped
+            return torch.from_numpy(np.ascontiguousarray(a[0])).to(dev)
+
+        static = [put(a) for a in (u_loc, i_loc, rowsu, winw, si, rowsi,
+                                   wini)]
+        kw = dict(opt_name=self.optimizer, lr=self.learning_rate,
+                  weight_decay=self.weight_decay, K=K, rw=rw, rh=rh,
+                  wrows=wrows)
+
+        def publish():
+            self._state = {"W": Wd[:, :K], "H": Hd[:, :K], "oww": ow,
+                           "ohw": oh}
+            self._sharded_keys = frozenset({"W", "oww"})
+
+        def prep(epoch):
+            j2, mask, _, _, _ = prep_epoch(
+                np.random.default_rng((seed, epoch)), u2, i2, pos_keys, U,
+                I, K, rh, wrows, native_seed=seed * 1_000_003 + epoch,
+                key_filter=key_filter, sides=False)
+            j_loc, mf, sj, rowsj, winj = prep_shard_epoch(
+                j2, mask, starts, counts, Bd, rh, wrows, n, shard=p)
+            return (j_loc, mf, sj, rowsj, winj,
+                    *wide_shard_masks(mf, si, sj))
+
+        def run(epoch, *streams):
+            return sharded_wide_bpr_epoch(
+                mesh, Wd, Hd, ow, oh, *static, *(put(a) for a in streams),
+                N, **kw)
+
+        self._run_device_epochs(num_epochs, verbose, prep, run, publish,
+                                checkpoint_path, checkpoint_every,
+                                start_epoch)
 
     def _fit_batch(self, X, u2, i2, num_epochs, verbose, seed,
                    checkpoint_path, checkpoint_every, resume):
@@ -673,8 +930,8 @@ class BPR(MFTrainerBase, PersistenceMixin):
         ow, oh = opt.init(Wd), opt.init(Hd)
         flat, start_epoch = _resume_point(checkpoint_path, resume)
         if flat is not None:
-            Wd, Hd, ow, oh = _wide_resume_state(flat, U, I, K, wrows, ow, oh,
-                                                dev)
+            Wd, Hd, ow, oh = _wide_resume_state(flat, U, I, K, wrows, wrows,
+                                                ow, oh, dev)
         static = [put(a) for a in (u2, i2, rowsu, winw, si, rowsi, wini)]
         kw = dict(opt_name=self.optimizer, lr=self.learning_rate,
                   weight_decay=self.weight_decay, K=K, rw=rw, rh=rh,

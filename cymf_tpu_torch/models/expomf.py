@@ -40,7 +40,8 @@ from .. import config
 from ..ops.als import (build_chunks, gather_rows, get_solver,
                        place_device_chunks, resolve_chol_solver)
 from ..utils.checkpoint import resume_state
-from .base import MFTrainerBase, PersistenceMixin, as_csr
+from .base import (MFTrainerBase, PersistenceMixin, as_csr,
+                   require_one_device)
 # elements of (Y (x) Y) formed at once in the weighted Gramian (1 GiB)
 _GRAM_ELEMS = 1 << 28
 
@@ -135,6 +136,7 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
         """Train; signature parity with `expomf.pyx`.  ``num_threads`` is
         accepted and ignored.  ``checkpoint_path``, ``checkpoint_every``
         and ``resume`` as ``BPR.fit``."""
+        require_one_device("ExpoMF")
         X = as_csr(X)
         self.valid_evaluator = valid_evaluator
         self.valid_dcg = -np.inf

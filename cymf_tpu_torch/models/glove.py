@@ -46,9 +46,9 @@ placeholders), so the packed and the fused batch engine resume each
 other's, of either package; the sequential engine refuses them, as in
 the JAX package.
 
-Not ported yet (ROADMAP.md, queue 1): ``read_text`` and the
-co-occurrence builders.  The port trains on one device; the JAX
-package's sharded engines have no counterpart yet.
+Not ported yet (ROADMAP.md, queue 1): the JAX package's sharded
+engines.  Under a mesh of more than one rank (``cymf_tpu_torch.parallel``)
+``fit`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -69,6 +69,7 @@ from ..ops.packed_epoch import PackedAdaGrad
 from ..ops.segment import dedup_rows
 from ..optim import AdaGrad, masked_addend, set_rows
 from ..utils.checkpoint import AsyncCheckpointer, resume_state
+from .base import require_one_device
 from .bpr import choose_update_mode
 PAD_CENTRAL = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
 
@@ -230,6 +231,7 @@ class GloVe:
         and AdaGrad accumulators every ``checkpoint_every`` epochs;
         ``resume=True`` continues from there (``engine="pallas"``
         refuses checkpoints)."""
+        require_one_device("GloVe")
         if X is None:
             raise ValueError()
         if not sparse.issparse(X):

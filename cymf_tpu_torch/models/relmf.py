@@ -69,7 +69,8 @@ from ..ops.relmf_epoch import (epoch_generator, packed_relmf_epoch,
                                supports_packed_relmf)
 from ..ops.segment import csr_lookup
 from ..optim import make_optimizer
-from .base import MFTrainerBase, PersistenceMixin, as_csr
+from .base import (MFTrainerBase, PersistenceMixin, as_csr,
+                   require_one_device)
 from .bpr import (_batch_resume_state, _packed_resume_state, _resume_point,
                   choose_update_mode)
 
@@ -220,6 +221,7 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         (``prep_s``; host prep runs beside the previous epoch's device
         work).  ``checkpoint_path``, ``checkpoint_every`` and ``resume``
         as ``BPR.fit``; ``engine="pallas"`` refuses checkpoints."""
+        require_one_device("RelMF")
         X = as_csr(X)
         self.valid_evaluator = valid_evaluator
         self.valid_dcg = -np.inf

@@ -35,7 +35,8 @@ from ..ops.als import (AlsChunk, build_chunks, place_device_chunks,
                        resolve_chol_solver, wmf_chunk_solve,
                        wmf_chunk_solve_woodbury)
 from ..utils.checkpoint import resume_state
-from .base import MFTrainerBase, PersistenceMixin, as_csr
+from .base import (MFTrainerBase, PersistenceMixin, as_csr,
+                   require_one_device)
 
 
 def woodbury_max_p(num_components: int, weight: float, weight_decay: float,
@@ -97,6 +98,7 @@ class WMF(MFTrainerBase, PersistenceMixin):
         the number of ``standard`` and ``woodbury`` chunks).
         ``checkpoint_path``, ``checkpoint_every`` and ``resume`` as
         ``BPR.fit``."""
+        require_one_device("WMF")
         X = as_csr(X)
         self.valid_evaluator = valid_evaluator
         self.valid_dcg = -np.inf

@@ -251,24 +251,31 @@ def packed_bpr_epoch(Wp, Hp, ow, oh, u_steps, i_steps, si_steps,
 
 def _update_h_dual(opt, Hp, oh, Q, si, rowsi, wi_starts, wi_counts, sj,
                    rowsj, wj_starts, wj_counts, *, K: int, wd: float,
-                   rh: int, wrows_h: int) -> None:
+                   rh: int, wrows_h: int, reduce_h=None) -> None:
     """The logical H table's step: one dual-stream accumulation of ``Q``
-    by both item sorts yields ``Aj - Ai`` on the payload lanes with the
-    live counts summed at lane ``K``, then the optimizer pass."""
+    by both item sorts yields ``D = Aj - Ai`` on the payload lanes with the
+    live counts summed at lane ``K``, then the optimizer pass.  Between
+    the two, ``reduce_h(D)`` (when given) sums ``D`` over the ranks in
+    place: the sharded epoch's one collective a step."""
     D = sorted_accum_dual(
         rowsi, Q.index_select(0, si), wi_starts, wi_counts, rowsj,
         Q.index_select(0, sj), wj_starts, wj_counts, r_pad=rh, neg_lanes=K,
         wrows=wrows_h)
+    if reduce_h is not None:
+        reduce_h(D)
     _update_h(opt, Hp, oh, D, K, wd)
 
 
 def bpr_v4_step(Wp, Hp, ow, oh, opt, u, i, si, rowsi, wi_starts, wi_counts,
                 j, mf, sj, rowsj, wj_starts, wj_counts, ww_starts, ww_counts,
                 *, weight_decay: float, K: int, rw: int, rh: int,
-                wrows_w: int, wrows_h: int) -> torch.Tensor:
+                wrows_w: int, wrows_h: int, reduce_h=None) -> torch.Tensor:
     """One v4 step over ``B`` user-sorted samples; updates ``Wp``, ``Hp``
     and their optimizer states IN PLACE and returns the step's loss sum
-    (0-d tensor).  Host and device prep both run this body.
+    (0-d tensor).  Host and device prep both run this body, and so does
+    the sharded epoch (``parallel/shard_step.py``) on a rank's row shard
+    of ``Wp`` (``rw`` its rows) with ``reduce_h`` its all-reduce of the
+    item-side sums (:func:`_update_h_dual`).
 
     ``u``/``i``/``j`` are int32 (B,) users (ascending; padding
     ``PAD_USER``), positives and negatives, ``mf`` the float32 live mask,
@@ -292,7 +299,7 @@ def bpr_v4_step(Wp, Hp, ow, oh, opt, u, i, si, rowsi, wi_starts, wi_counts,
     _update_w(opt, Wp, ow, Aw, K, wd)
     _update_h_dual(opt, Hp, oh, Q, si, rowsi, wi_starts, wi_counts, sj,
                    rowsj, wj_starts, wj_counts, K=K, wd=wd, rh=rh,
-                   wrows_h=wrows_h)
+                   wrows_h=wrows_h, reduce_h=reduce_h)
     return loss
 
 
@@ -668,7 +675,7 @@ def prep_pool_epoch(rng: np.random.Generator, u2: np.ndarray,
 def prep_epoch(rng: np.random.Generator, u2: np.ndarray, i2: np.ndarray,
                pos_keys: np.ndarray, num_users: int, num_items: int, K: int,
                rh: int, wrows_h: int, tile: int = TILE, native_seed=None,
-               key_filter=None):
+               key_filter=None, sides: bool = True):
     """Once per epoch: negative draws, rejection+padding mask, and the
     j-side sort permutation/rows/windows.  Mirrors `bpr.pyx:165-167`: one
     uniform draw per interaction, collisions with known positives masked
@@ -682,6 +689,10 @@ def prep_epoch(rng: np.random.Generator, u2: np.ndarray, i2: np.ndarray,
     Otherwise ``rng`` draws the numpy (PCG64) stream of the JAX package's
     ``prep_epoch`` under ``CYMF_TPU_PREP=numpy``.  Each stream is
     deterministic in its seed.
+
+    ``sides=False`` (the sharded engines, which sort each shard's slice)
+    skips the numpy path's j-side sort and returns None in its place; the
+    native pass computes it whatever the flag, and draws the same stream.
 
     Returns ``(j2, mask uint8, sj, rowsj, winj)``."""
     S, B = u2.shape
@@ -702,5 +713,126 @@ def prep_epoch(rng: np.random.Generator, u2: np.ndarray, i2: np.ndarray,
                 winj.reshape(S, 2, rh // wrows_h))
     j2 = rng.integers(0, num_items, (S, B)).astype(np.int32)
     mask = _reject_mask(u2, j2, pos_keys, num_users, num_items)
+    if not sides:
+        return j2, mask, None, None, None
     sj, rowsj, winj = _sorted_side(j2, rh, wrows_h, tile)
     return j2, mask, sj, rowsj, winj
+
+
+# ---------------------------------------------------------------------------
+# the sharded engines' host prep (`cymf_tpu/ops/packed_epoch.py:717-827`)
+# ---------------------------------------------------------------------------
+
+def _shards(n: int, shard):
+    """The shards a sharded prep builds: all ``n``, or ``shard`` alone."""
+    return range(n) if shard is None else [int(shard)]
+
+
+def shard_slices(u2, K: int, rw: int, n: int, tile: int = TILE,
+                 slots: int | None = None):
+    """Per-step contiguous slice boundaries of the u-sorted sample stream
+    for ``n`` equal W row shards (the sharded packed engine's partition).
+    ``slots`` overrides the lane-packing slot count (the sharded wide
+    engine passes 1: at K >= 128 the target row IS the user id).
+
+    Each step's stream is ascending in u, and shard ``p`` owns packed rows
+    ``[p*rw/n, (p+1)*rw/n)``, so shard p's samples are exactly one
+    contiguous slice per step, found by binary search.  Global padding
+    sentinels (``PAD_USER``) sort last and land in the final shard.
+
+    Returns ``(starts int64[S, n], counts int64[S, n], Bd)``: ``Bd`` (a
+    ``tile`` multiple) is the per-shard batch, the longest slice over
+    every (step, shard).  On degree-balanced row ranges Bd ~= B/n."""
+    S, B = u2.shape
+    s = pk.num_slots(K) if slots is None else int(slots)
+    if rw % n:
+        raise ValueError("rw must be a multiple of the device count")
+    rw_l = rw // n
+    bounds = np.arange(1, n, dtype=np.int64) * rw_l * s
+    splits = np.empty((S, n - 1), np.int64)
+    u64 = np.asarray(u2, np.int64)
+    for t in range(S):
+        splits[t] = np.searchsorted(u64[t], bounds)
+    starts = np.concatenate([np.zeros((S, 1), np.int64), splits], axis=1)
+    ends = np.concatenate([splits, np.full((S, 1), B, np.int64)], axis=1)
+    counts = ends - starts
+    Bd = max(int(counts.max()), 1)
+    # small batches see 2x skew from ordinary randomness; only flag
+    # shard-degenerate streams at sizes where 2x means real imbalance
+    if n > 1 and B // n >= 1024 and Bd > 2 * B // n:
+        import warnings
+        warnings.warn(
+            f"sharded packed engine: one shard owns {Bd} of {B} samples "
+            f"in some step (balanced would be ~{B // n}); every shard is "
+            "padded to that length, multiplying per-step compute/memory. "
+            "A degree-skewed user->shard distribution is the usual cause "
+            "— consider the sharded batch engine (packed='off') instead.",
+            stacklevel=2)
+    return starts, counts, -(-Bd // tile) * tile
+
+
+def prep_shard_static(u2, i2, K: int, rw: int, rh: int, wrows_w: int,
+                      wrows_h: int, n: int, tile: int = TILE, shard=None):
+    """Once per fit (sharded packed engine): slice the static u/i streams
+    into ``n`` shard-contiguous pieces, localize user ids to shard row
+    offsets, and build the per-shard W windows and i-side sorted streams.
+
+    Padding samples get the local W-row sentinel ``rw_local * s`` (its
+    packed row ``rw_local`` is outside every accumulation window; the
+    gather clamps), item index 0 (they accumulate exactly-zero Q rows),
+    and mask 0 via :func:`prep_shard_epoch`.
+
+    Returns ``(u_loc, i_loc, winw, si, rowsi, wini, starts, counts, Bd)``
+    with a leading shard axis on every stream array, the JAX package's
+    arrays bit for bit; ``shard=p`` builds shard ``p``'s alone (a leading
+    axis of 1: a rank's own streams)."""
+    S, B = u2.shape
+    s = pk.num_slots(K)
+    starts, counts, Bd = shard_slices(u2, K, rw, n, tile)
+    rw_l = rw // n
+    sent = rw_l * s
+    ps = _shards(n, shard)
+    m = len(ps)
+    u_loc = np.full((m, S, Bd), sent, np.int32)
+    i_loc = np.zeros((m, S, Bd), np.int32)
+    winw = np.empty((m, S, 2, rw_l // wrows_w), np.int32)
+    si = np.empty((m, S, Bd), np.int32)
+    rowsi = np.empty((m, S, Bd // 128, 128), np.int32)
+    wini = np.empty((m, S, 2, rh // wrows_h), np.int32)
+    u64 = np.asarray(u2, np.int64)
+    for q, p in enumerate(ps):
+        off = np.int64(p) * rw_l * s
+        for t in range(S):
+            a, c = int(starts[t, p]), int(counts[t, p])
+            u_loc[q, t, :c] = np.minimum(u64[t, a:a + c] - off, sent)
+            i_loc[q, t, :c] = i2[t, a:a + c]
+            pu = u_loc[q, t].astype(np.int64) // s
+            winw[q, t, 0], winw[q, t, 1] = window_ranges(
+                pu, rw_l, wrows_w, tile, align=128)
+        si[q], rowsi[q], wini[q] = _sorted_side(i_loc[q], rh, wrows_h, tile)
+    return u_loc, i_loc, winw, si, rowsi, wini, starts, counts, Bd
+
+
+def prep_shard_epoch(j2, mask, starts, counts, Bd: int, rh: int,
+                     wrows_h: int, n: int, tile: int = TILE, shard=None):
+    """Once per epoch (sharded engines): slice the globally drawn negative
+    stream (the 1-device stream: draws happen before sharding, so fits are
+    mesh-size-invariant up to float summation order) and rebuild the
+    j-side sorted streams per shard.  Returns ``(j_loc, mf, sj, rowsj,
+    winj)``, the JAX package's arrays bit for bit; ``shard=p``: shard
+    ``p``'s alone, as :func:`prep_shard_static`."""
+    S, B = j2.shape
+    ps = _shards(n, shard)
+    m = len(ps)
+    j_loc = np.zeros((m, S, Bd), np.int32)
+    mf = np.zeros((m, S, Bd), np.uint8)
+    sj = np.empty((m, S, Bd), np.int32)
+    rowsj = np.empty((m, S, Bd // 128, 128), np.int32)
+    winj = np.empty((m, S, 2, rh // wrows_h), np.int32)
+    for q, p in enumerate(ps):
+        for t in range(S):
+            a, c = int(starts[t, p]), int(counts[t, p])
+            j_loc[q, t, :c] = j2[t, a:a + c]
+            mf[q, t, :c] = mask[t, a:a + c]
+        sj[q], rowsj[q], winj[q] = _sorted_side(j_loc[q], rh, wrows_h, tile)
+    return j_loc, mf, sj, rowsj, winj

@@ -16,8 +16,10 @@ T_r`` and the count-based touched-row mask of the packed engine.
 
 Host prep is the JAX package's numpy prep: :func:`prep_static_wide` once
 per fit, then per epoch ``packed_epoch.prep_epoch`` and
-:func:`wide_sorted_masks`.  The sharded forms (``prep_shard_static_wide``,
-``wide_shard_masks``) are multi-device and not ported yet.
+:func:`wide_sorted_masks`; the sharded engine's
+(``parallel/shard_step.py::sharded_wide_bpr_epoch``) are
+:func:`prep_shard_static_wide` and ``packed_epoch.prep_shard_epoch`` with
+:func:`wide_shard_masks`.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .packed_epoch import _sorted_side, make_packed_optimizer
+from .packed_epoch import (_shards, _sorted_side, make_packed_optimizer,
+                           shard_slices)
 from .sorted_accum import sorted_accum, sorted_accum_dual, window_ranges
 
 TILE = 1024
@@ -78,6 +81,59 @@ def prep_static_wide(u2, i2, rw: int, rh: int, wrows: int,
     return rowsu, winw, si, rowsi, wini
 
 
+def prep_shard_static_wide(u2, i2, rw: int, rh: int, wrows: int, n: int,
+                           tile: int = TILE, shard=None):
+    """Once per fit (sharded wide engine): slice the u-sorted static streams
+    into ``n`` shard-contiguous pieces (slots = 1: the target row IS the
+    id), localize user ids to shard row offsets, and build the per-shard W
+    windows, folded rows and i-side sorted streams.  Shard ``p`` owns rows
+    ``[p*rw/n, (p+1)*rw/n)`` of the wide W table, as in
+    ``packed_epoch.prep_shard_static``.
+
+    Returns ``(u_loc, rowsu, winw, i_loc, si, rowsi, wini, starts, counts,
+    Bd)`` with a leading shard axis on every stream array, the JAX
+    package's arrays bit for bit; ``shard=p``: shard ``p``'s alone (a
+    leading axis of 1)."""
+    S, B = u2.shape
+    starts, counts, Bd = shard_slices(u2, 0, rw, n, tile, slots=1)
+    rw_l = rw // n
+    sent = rw_l  # local sentinel: outside every window, the gather clamps
+    ps = _shards(n, shard)
+    m = len(ps)
+    u_loc = np.full((m, S, Bd), sent, np.int32)
+    i_loc = np.zeros((m, S, Bd), np.int32)
+    rowsu = np.empty((m, S, Bd // LANES, LANES), np.int32)
+    winw = np.empty((m, S, 2, rw_l // wrows), np.int32)
+    si = np.empty((m, S, Bd), np.int32)
+    rowsi = np.empty((m, S, Bd // LANES, LANES), np.int32)
+    wini = np.empty((m, S, 2, rh // wrows), np.int32)
+    u64 = np.asarray(u2, np.int64)
+    for q, p in enumerate(ps):
+        off = np.int64(p) * rw_l
+        for t in range(S):
+            a, c = int(starts[t, p]), int(counts[t, p])
+            u_loc[q, t, :c] = np.minimum(u64[t, a:a + c] - off, sent)
+            i_loc[q, t, :c] = i2[t, a:a + c]
+            rowsu[q, t] = u_loc[q, t].reshape(Bd // LANES, LANES)
+            winw[q, t, 0], winw[q, t, 1] = window_ranges(
+                u_loc[q, t], rw_l, wrows, tile, align=128)
+        si[q], rowsi[q], wini[q] = _sorted_side(i_loc[q], rh, wrows, tile)
+    return u_loc, rowsu, winw, i_loc, si, rowsi, wini, starts, counts, Bd
+
+
+def wide_shard_masks(mf, si, sj):
+    """Per epoch (sharded wide engine): :func:`wide_sorted_masks` applied
+    shard by shard to the sliced masks and the per-shard sort
+    permutations.  Returns ``(mi, mj)`` uint8 ``(n, S, Bd//128, 128)``
+    each."""
+    n, S, Bd = mf.shape
+    mi = np.empty((n, S, Bd // LANES, LANES), np.uint8)
+    mj = np.empty((n, S, Bd // LANES, LANES), np.uint8)
+    for p in range(n):
+        mi[p], mj[p] = wide_sorted_masks(mf[p], si[p], sj[p])
+    return mi, mj
+
+
 def wide_sample_phase(W, H, u, i, j, mf, *, rw: int, wd: float):
     """A step's per-sample math on gathered wide rows: ``(SW, Q, loss)``
     with ``SW = sig (h_i - h_j)`` and ``Q = sig w_u`` (``sig =
@@ -121,34 +177,49 @@ def wide_bpr_epoch(W, H, ow, oh, u_steps, i_steps, rowsu_steps, winw,
       mi_steps/mj_steps uint8[S, B/128, 128]  :func:`wide_sorted_masks`
     """
     opt = make_packed_optimizer(opt_name, lr)
+    loss = torch.zeros((), dtype=torch.float32, device=W.device)
+    for t in range(u_steps.shape[0]):
+        loss += wide_step(
+            W, H, ow, oh, opt, u_steps[t], i_steps[t], rowsu_steps[t],
+            winw[t, 0], winw[t, 1], si_steps[t], rowsi_steps[t], wini[t, 0],
+            wini[t, 1], j_steps[t], mask_steps[t], sj_steps[t],
+            rowsj_steps[t], winj[t, 0], winj[t, 1], mi_steps[t], mj_steps[t],
+            weight_decay=weight_decay, K=K, rw=rw, rh=rh, wrows=wrows)
+    return loss / max(int(n_valid), 1)
+
+
+def wide_step(W, H, ow, oh, opt, u, i, rowsu, ww_starts, ww_counts, si,
+              rowsi, wi_starts, wi_counts, j, mask, sj, rowsj, wj_starts,
+              wj_counts, mi, mj, *, weight_decay: float, K: int, rw: int,
+              rh: int, wrows: int, reduce_h=None) -> torch.Tensor:
+    """One wide step (the streams of :func:`wide_bpr_epoch` at one step);
+    updates ``W``, ``H`` and their optimizer states IN PLACE and returns the
+    step's loss sum.  The sharded epoch runs it on a rank's row shard of
+    ``W`` (``rw`` its rows) with ``reduce_h`` its all-reduce of the H-side
+    sums ``D`` between their accumulation and the H pass."""
     wd = float(weight_decay)
     Kp = W.shape[1]
     payb = (torch.arange(Kp, device=W.device) < K)[None, :]
     payf = payb.to(W.dtype)
-    loss = torch.zeros((), dtype=torch.float32, device=W.device)
-    for t in range(u_steps.shape[0]):
-        rowsu = rowsu_steps[t]
-        mask = mask_steps[t]
-        # dead and padding samples -> sentinel rows (never match a window)
-        rowsu_m = torch.where(mask.reshape(rowsu.shape) > 0, rowsu, rw)
-        rowsi_m = torch.where(mi_steps[t] > 0, rowsi_steps[t], rh)
-        rowsj_m = torch.where(mj_steps[t] > 0, rowsj_steps[t], rh)
-        SW, Q, loss_t = wide_sample_phase(
-            W, H, u_steps[t], i_steps[t], j_steps[t],
-            mask.to(torch.float32), rw=rw, wd=wd)
-        loss += loss_t
+    # dead and padding samples -> sentinel rows (never match a window)
+    rowsu_m = torch.where(mask.reshape(rowsu.shape) > 0, rowsu, rw)
+    rowsi_m = torch.where(mi > 0, rowsi, rh)
+    rowsj_m = torch.where(mj > 0, rowsj, rh)
+    SW, Q, loss = wide_sample_phase(W, H, u, i, j, mask.to(torch.float32),
+                                    rw=rw, wd=wd)
 
-        Aw = sorted_accum(rowsu_m, SW, winw[t, 0], winw[t, 1], r_pad=rw,
-                          wrows=wrows, count_lanes=True)
-        nw = Aw[:, Kp:Kp + 1]
-        opt.update(W, ow, (-Aw[:, :Kp] + wd * nw * W) * payf,
-                   (nw > 0) & payb)
-        del Aw, SW
+    Aw = sorted_accum(rowsu_m, SW, ww_starts, ww_counts, r_pad=rw,
+                      wrows=wrows, count_lanes=True)
+    nw = Aw[:, Kp:Kp + 1]
+    opt.update(W, ow, (-Aw[:, :Kp] + wd * nw * W) * payf, (nw > 0) & payb)
+    del Aw, SW
 
-        D = sorted_accum_dual(
-            rowsi_m, Q.index_select(0, si_steps[t]), wini[t, 0], wini[t, 1],
-            rowsj_m, Q.index_select(0, sj_steps[t]), winj[t, 0], winj[t, 1],
-            r_pad=rh, neg_lanes=Kp, wrows=wrows, count_lanes=True)
-        nh = D[:, Kp:Kp + 1]
-        opt.update(H, oh, (D[:, :Kp] + wd * nh * H) * payf, (nh > 0) & payb)
-    return loss / max(int(n_valid), 1)
+    D = sorted_accum_dual(
+        rowsi_m, Q.index_select(0, si), wi_starts, wi_counts, rowsj_m,
+        Q.index_select(0, sj), wj_starts, wj_counts, r_pad=rh, neg_lanes=Kp,
+        wrows=wrows, count_lanes=True)
+    if reduce_h is not None:
+        reduce_h(D)
+    nh = D[:, Kp:Kp + 1]
+    opt.update(H, oh, (D[:, :Kp] + wd * nh * H) * payf, (nh > 0) & payb)
+    return loss

@@ -1,10 +1,9 @@
 """The port's public namespaces hold the JAX package's names.
 
-For each of the seven namespaces, every name of the JAX one's ``__all__``
+For each of the eight namespaces, every name of the JAX one's ``__all__``
 (or, where it has none, every public name it defines) must be in the
-port's ``__all__`` (or its public names) and importable.  The one listed
-allowance: the mesh names of the top level, until the multi-device paths
-are ported.  Importing ``cymf_tpu_torch.ops`` builds and loads no kernel.
+port's ``__all__`` (or its public names) and importable, with no
+allowance.  Importing ``cymf_tpu_torch.ops`` builds and loads no kernel.
 """
 
 import importlib
@@ -16,9 +15,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 NAMESPACES = ["", ".utils", ".ops", ".dataset", ".evaluation", ".models",
-              ".optim"]
-# not ported yet: the multi-device paths (ROADMAP.md, queue 1)
-ALLOWED_MISSING = {"": {"MeshContext", "current_mesh", "use_mesh"}}
+              ".optim", ".parallel"]
+# names the port may lack, by namespace: none
+ALLOWED_MISSING: dict = {}
 
 
 def _public(mod) -> set:
