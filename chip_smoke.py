@@ -176,7 +176,7 @@ Phases, one line each; any failure raises and exits non-zero:
     DCG@5 by 0.05; ``read_text`` on a 2M-token corpus (Zipf over 50,000
     words), timed, then 3 epochs of GloVe d=50 on its matrix on the card
     and ``save_word2vec_format``;
-19. mesh: the sharded BPR paths of ``cymf_tpu_torch.parallel``, each rank
+19. mesh: the sharded paths of ``cymf_tpu_torch.parallel``, each rank
     a process of this script (``--mesh-rank``; the kernels are built
     above, once, before the ranks start), every group joined within
     ``MESH_TIMEOUT_S``, a rank that fails or hangs failing the phase.
@@ -201,8 +201,29 @@ Phases, one line each; any failure raises and exits non-zero:
     limit, its backend and world size, the first collective's time (the
     communicator's set-up), each epoch's wall and device seconds, the
     bytes all-reduced a step and an all-reduce's ms a step by CUDA events
-    (and by the host clock), and its launches; the ranks' launches are
-    summed, and each of #1-#3, #2w and #3w must show some.
+    (and by the host clock), and its launches.  The other trainers' sharded
+    paths follow in each group.  The NCCL ranks call each sharded function
+    at full width on the inputs of the public one-device fit's first
+    epoch (its calls recorded, or its init and chunks rebuilt) and hold
+    the gathered tables to that epoch's: WMF d=256 at ML-20M
+    (``sharded_gramian``, ``sharded_wmf_chunk``; chunk 2048, the auto
+    Woodbury cap; ``ALS_TOL``), ExpoMF d=128 at ml-1m shapes
+    (``sharded_expomf_chunk``, mu row-sharded; ``ALS_TOL``, mu atol 2e-6),
+    RelMF at ``relmf-xla``'s shapes (``sharded_relmf_epoch``, the same
+    ``torch.Generator`` cells; ``mesh_close``), GloVe fused and kfold at
+    ``glove-xla``'s (``sharded_glove_epoch``, ``sharded_glove_kfold_epoch``)
+    and packed GloVe at ``glove-full``'s (``prep_glove_shard_static``,
+    ``sharded_packed_glove_epoch``; step 0's #8 and both #2 calls against
+    their plain forms first), the GloVe tables within rtol 2e-3, atol
+    2e-5 and every loss within rtol 1e-5; each prints its wall, device
+    time, peak device memory, one step's collectives by CUDA events and
+    its launches (#9 for WMF and ExpoMF, #8 and #2 for packed GloVe).
+    The gloo ranks fit WMF, ExpoMF, RelMF and GloVe (fused, kfold,
+    packed) through the public API at the quickstart's size against the
+    same fits in a world of one, each fit's sharded function counted and
+    its single-device form not called, then run
+    ``parallel/dryrun.py::dryrun_multichip``.  The ranks' launches are
+    summed, and each of #1-#3, #2w, #3w, #8 and #9 must show some.
 
 Then it prints the kernels' JSON line (all seventeen), with each kernel's
 launches on its main path (a probe's: those of the probes phase),
@@ -334,7 +355,8 @@ CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 # limit, the fits' seed, and the kernels its sharded paths must launch
 MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
 MESH_TIMEOUT_S, MESH_SEED, MESH_GLOO_BATCH_STEPS = 300, 7, 20
-MESH_KERNELS = (*BPR_KERNELS, *WIDE_KERNELS)
+MESH_KERNELS = (*BPR_KERNELS, *WIDE_KERNELS, "glove_sample_phase",
+                "chol_inv_batched")
 
 
 def phase(name: str, msg: str) -> None:
@@ -3841,6 +3863,8 @@ MESH_NEEDS = {
     "batch": ("all_reduce", "all_gather", "reduce_scatter"),
     "evaluator": ("all_reduce",),
     "recommend": ("all_gather",),
+    "models": ("all_reduce", "all_reduce_max_int64", "all_gather",
+               "reduce_scatter", "broadcast"),
 }
 
 
@@ -3908,13 +3932,20 @@ def mesh_gloo(X, mesh, tag, smi, d: Path) -> dict:
               f"gloo refused {refused['evaluator'] + refused['recommend']}")
     else:
         mesh_eval_recommend(X, mesh, tag, smi, ref)
+    if refused["models"]:
+        phase(tag, f"the other trainers' fits and the dry run are left to the"
+              f" CPU tests: gloo refused {refused['models']} on CUDA tensors")
+    else:
+        launches.update(mesh_gloo_models(mesh, tag, smi))
     return {"launches": dict(launches), "refused": refused}
 
 
 def mesh_direct(X, mesh, tag, smi, d: Path) -> dict:
-    """One rank a card over NCCL: the three sharded epochs called directly
-    against their single-device forms, then the evaluator and
-    ``recommend`` under the mesh against one device's."""
+    """One rank a card over NCCL: the three sharded BPR epochs called
+    directly against their single-device forms, the evaluator and
+    ``recommend`` under the mesh against one device's, then the other
+    trainers' sharded functions at full width
+    (:func:`mesh_models_direct`)."""
     from cymf_tpu_torch.ops.packed_epoch import make_reject_filter
 
     coo = X.tocoo()
@@ -3925,7 +3956,584 @@ def mesh_direct(X, mesh, tag, smi, d: Path) -> dict:
     launches.update(mesh_wide(X, mesh, tag, smi, pos_keys, key_filter))
     mesh_batch(X, mesh, tag, smi, steps=u2_steps(X) // 3)
     mesh_eval_recommend(X, mesh, tag, smi, np.load(d / "ref.npz"))
+    launches.update(mesh_models_direct(mesh, tag, smi))
     return {"launches": dict(launches)}
+
+
+def collectives_ms(mesh, ops, reps: int = 20) -> tuple:
+    """One step's collectives ``ops`` (``(method, shape, dtype)`` of
+    ``MeshContext``) back to back: ms a step by CUDA events (mean of
+    ``reps`` steps) and by the host clock."""
+    calls = [(getattr(mesh, op), torch.zeros(shape, dtype=dt,
+                                             device=mesh.device))
+             for op, shape, dt in ops]
+    for fn, t in calls:
+        fn(t)
+    torch.cuda.synchronize(mesh.device)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(reps):
+        for fn, t in calls:
+            fn(t)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps, 1e3 * (time.perf_counter() - t0) / reps
+
+
+def mesh_model_line(tag, smi, what, wall, dev_s, peak, coll, unit,
+                    launches) -> None:
+    phase(tag, f"{smi}; {what}: wall {wall:.4f} s, device {dev_s:.4f} s, "
+          f"peak device memory {peak / 2**30:.3f} GiB; collectives "
+          f"{coll[0]:.4f} ms {unit} by CUDA events ({coll[1]:.4f} by the "
+          f"host clock); launches {launches}")
+
+
+def warm_epoch(make, fit, dev) -> float:
+    """The first epoch's seconds of a second one-device fit (``fit(make())``
+    in a world of one), after the kernels and libraries warmed up: the
+    epoch the sharded one is timed against."""
+    with world_of_one(dev):
+        m = make()
+        fit(m)
+    t = m.epoch_times_[0]
+    return t["device_s"] if isinstance(t, dict) else t
+
+
+def mesh_run(fn, mesh):
+    """``fn()`` timed by ``mesh_timed`` from a barrier (every rank starts
+    together, so no rank's time holds another's lateness), with the
+    launch counts reset before it and the peak device memory measured
+    over it: ``(out, wall, device s, peak bytes, launches)``."""
+    from cymf_tpu_torch.ops import _kernels
+    dev = mesh.device
+    mesh.barrier()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launches()
+    out, wall, dev_s = mesh_timed(fn)
+    return (out, wall, dev_s, torch.cuda.max_memory_allocated(dev),
+            dict(_kernels.launches))
+
+
+def world_of_one(dev):
+    """A world of one rank on ``dev``: the single-device references run
+    under it inside a rank."""
+    from cymf_tpu_torch.parallel import MeshContext, use_mesh
+    return use_mesh(MeshContext(None, 0, 1, dev))
+
+
+def mesh_wmf(X, mesh, tag, smi) -> dict:
+    """NCCL check 4: one WMF d=256 epoch at ML-20M (chunk 2048, weight 10,
+    the auto Woodbury cap) by ``sharded_gramian`` and ``sharded_wmf_chunk``
+    on ``place_mesh_chunks``' chunks, from the public fit's init, against
+    that fit's first epoch on one device; the gathered tables within
+    ``ALS_TOL``.  Launches #9 (``cholesky_cuda64``)."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.models.base import as_csr, padded_rows
+    from cymf_tpu_torch.models.wmf import woodbury_max_p
+    from cymf_tpu_torch.ops import als
+    from cymf_tpu_torch.parallel.mesh import fetch_to_host
+    from cymf_tpu_torch.parallel.shard_step import (sharded_gramian,
+                                                    sharded_wmf_chunk)
+
+    n, dev, K = mesh.num_devices, mesh.device, ALS_K
+    X = as_csr(X)
+    m = ct.WMF(num_components=K, device=dev)
+    m._ensure_tables(U, I)
+    W0, H0 = m.W, m.H
+    with world_of_one(dev):
+        m.fit(X, num_epochs=1, verbose=False)
+    solver = als.resolve_chol_solver(m.solver, K, dev)
+    cap = woodbury_max_p(K, m.weight, m.weight_decay, solver)
+    Up, Ip = mesh.pad_rows(U), mesh.pad_rows(I)
+    Xt = X.T.tocsr()
+    Xt.sort_indices()
+    sides = [als.build_chunks(A, m.chunk_size, rows, num_components=K)
+             for A, rows in ((X, Up), (Xt, Ip))]
+    big = max((c for cs in sides for c in cs if c.idx_pad.shape[1] > cap),
+              key=lambda c: c.idx_pad.size)
+    sides = [als.place_mesh_chunks(cs, mesh) for cs in sides]
+    W = mesh.put_table(padded_rows(W0, Up))
+    H = mesh.put_table(padded_rows(H0, Ip))
+
+    def epoch():
+        for T, Y, chunks in ((W, H, sides[0]), (H, W, sides[1])):
+            A0 = sharded_gramian(mesh, Y, m.weight_decay)
+            A0i = torch.linalg.inv_ex(A0)[0] if any(
+                c.idx_pad.shape[1] <= cap for c in chunks) else None
+            for ch in chunks:
+                sharded_wmf_chunk(mesh, Y, T, A0, A0i, ch, weight=m.weight,
+                                  solver=solver, wb_max_p=cap)
+
+    _, wall, dev_s, peak, launches = mesh_run(epoch, mesh)
+    ew = close(torch.from_numpy(fetch_to_host(W, mesh)[:U]),
+               torch.from_numpy(m.W), *ALS_TOL.values(), f"{tag} WMF W")
+    eh = close(torch.from_numpy(fetch_to_host(H, mesh)[:I]),
+               torch.from_numpy(m.H), *ALS_TOL.values(), f"{tag} WMF H")
+    C, P = big.idx_pad.shape
+    C += -C % n
+    coll = collectives_ms(mesh, [
+        ("all_gather", (C // n * P,), torch.int32),
+        ("reduce_scatter", (C * P, K), torch.float32),
+        ("all_gather", (C // n, K), torch.float32)])
+    nchunks = sum(map(len, sides))
+    mesh_model_line(tag, smi, f"WMF epoch (d={K}, {nchunks} chunks, "
+                    f"Woodbury at P <= {cap}, solver {solver})", wall, dev_s,
+                    peak, coll, f"for the largest standard chunk (C={C}, "
+                    f"P={P})", launches)
+    warm = warm_epoch(lambda: ct.WMF(num_components=K, device=dev),
+                      lambda w: w.fit(X, num_epochs=1, verbose=False), dev)
+    phase(tag, f"WMF: one-device epoch {warm:.4f} s (warm; the reference "
+          f"fit's {m.epoch_times_[0]:.4f}); gathered "
+          f"W max abs err {ew[0]:.3e}, H {eh[0]:.3e} (rtol "
+          f"{ALS_TOL['rtol']}, atol {ALS_TOL['atol']})")
+    std = sum(c.idx_pad.shape[1] > cap for cs in sides for c in cs)
+    if launches.get("chol_inv_batched") != (K // 64) * std:
+        raise AssertionError(f"{tag} WMF: launches {launches}, expected "
+                             f"{(K // 64) * std} of chol_inv_batched")
+    return launches
+
+
+def mesh_expomf(mesh, tag, smi) -> dict:
+    """NCCL check 5: one ExpoMF d=128 epoch at ``bench.py::bench_expomf``'s
+    ml-1m shapes (6,040 x 3,706, density 0.04, chunk 512) by
+    ``sharded_expomf_chunk`` (both sweeps, mu row-sharded) from the public
+    fit's init, against that fit's first epoch on one device; the
+    gathered W, H within ``ALS_TOL`` and mu within rtol 2e-3, atol 2e-6.
+    Launches #9."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.dataset import SyntheticImplicitDataset
+    from cymf_tpu_torch.models.base import as_csr, padded_rows
+    from cymf_tpu_torch.ops import als
+    from cymf_tpu_torch.parallel.mesh import fetch_to_host
+    from cymf_tpu_torch.parallel.shard_step import (rows_everywhere,
+                                                    sharded_expomf_chunk)
+
+    n, p, dev, K = mesh.num_devices, mesh.rank, mesh.device, 128
+    X = as_csr(SyntheticImplicitDataset(num_user=ML1M_U, num_item=ML1M_I,
+                                        rank=8, density=0.04, seed=0).train)
+    Ux, Ix = X.shape
+    m = ct.ExpoMF(num_components=K, device=dev)
+    m._ensure_tables(Ux, Ix)
+    W0, H0 = m.W, m.H
+    with world_of_one(dev):
+        m.fit(X, num_epochs=1, verbose=False)
+    solver = als.resolve_chol_solver(m.solver, K, dev)
+    Up, Ip = mesh.pad_rows(Ux), mesh.pad_rows(Ix)
+    Xt = X.T.tocsr()
+    Xt.sort_indices()
+    raw = [als.build_chunks(A, m.chunk_size, rows, num_components=K)
+           for A, rows in ((X, Up), (Xt, Ip))]
+    sides = [als.place_mesh_chunks(cs, mesh) for cs in raw]
+    W = mesh.put_table(padded_rows(W0, Up))
+    H = mesh.put_table(padded_rows(H0, Ip))
+    mu = mesh.put_table(torch.full((Ip,), 0.01))
+    rpd = Ip // n
+    live = (torch.arange(rpd, device=dev) + p * rpd) < Ix
+    kw = dict(lam_y=m.lam_y, prefactor=m.prefactor, solver=solver,
+              ridge=(m.weight_decay / m.lam_y) * torch.eye(K, device=dev))
+
+    def epoch():
+        W0d, H0d = W.clone(), H.clone()
+        term = torch.where(live, (1.0 - mu) / mu, 1.0)
+        colsum = torch.zeros(rpd, device=dev)
+        for ch in sides[0]:
+            colsum += sharded_expomf_chunk(
+                mesh, W0d, H0d, H0d, term, W, ch, mu_axis="col",
+                num_real_rows=Ux, num_real_cols=Ix, **kw)
+        for ch in sides[1]:
+            rows = rows_everywhere(mesh, term[:, None], ch.rows)[:, 0]
+            sharded_expomf_chunk(mesh, H0d, W0d, W, rows, H, ch,
+                                 mu_axis="row", num_real_rows=Ix,
+                                 num_real_cols=Ux, **kw)
+        # expomf.pyx:113-114,142: a Beta(1, 1) prior
+        mu.copy_(torch.where(live, (1.0 + colsum - 1.0) / (2.0 + Ux - 2.0),
+                             mu))
+
+    _, wall, dev_s, peak, launches = mesh_run(epoch, mesh)
+    ew = close(torch.from_numpy(fetch_to_host(W, mesh)[:Ux]),
+               torch.from_numpy(m.W), *ALS_TOL.values(), f"{tag} ExpoMF W")
+    eh = close(torch.from_numpy(fetch_to_host(H, mesh)[:Ix]),
+               torch.from_numpy(m.H), *ALS_TOL.values(), f"{tag} ExpoMF H")
+    em = close(torch.from_numpy(fetch_to_host(mu, mesh)[:Ix]),
+               torch.from_numpy(m.mu), 2e-3, 2e-6, f"{tag} ExpoMF mu")
+    big = max((c for cs in raw for c in cs), key=lambda c: c.idx_pad.size)
+    C, P = big.idx_pad.shape
+    C += -C % n
+    coll = collectives_ms(mesh, [
+        ("all_reduce", (C, K), torch.float32),
+        ("all_gather", (C // n, P), torch.int32),
+        ("reduce_scatter", (C, K, K), torch.float32),
+        ("reduce_scatter", (C * P, K), torch.float32),
+        ("all_gather", (C // n, K), torch.float32)])
+    nchunks = sum(map(len, sides))
+    mesh_model_line(tag, smi, f"ExpoMF epoch (ml-1m {Ux} x {Ix}, d={K}, "
+                    f"{nchunks} chunks, solver {solver})", wall, dev_s, peak,
+                    coll, f"for the largest chunk (C={C}, P={P})", launches)
+    warm = warm_epoch(lambda: ct.ExpoMF(num_components=K, device=dev),
+                      lambda e: e.fit(X, num_epochs=1, verbose=False), dev)
+    phase(tag, f"ExpoMF: one-device epoch {warm:.4f} s (warm; the reference "
+          f"fit's {m.epoch_times_[0]:.4f}); gathered W max abs err "
+          f"{ew[0]:.3e}, H {eh[0]:.3e}, mu {em[0]:.3e}")
+    if launches.get("chol_inv_batched") != (K // 64) * nchunks:
+        raise AssertionError(f"{tag} ExpoMF: launches {launches}, expected "
+                             f"{(K // 64) * nchunks} of chol_inv_batched")
+    return launches
+
+
+def mesh_relmf(mesh, tag, smi) -> None:
+    """NCCL check 6: ``sharded_relmf_epoch`` at ``relmf-xla``'s shapes
+    (ml-1m 6,040 x 3,706, batch 131,072: 171 steps, Adam) on the inputs the
+    public one-device batch engine's first epoch took (its ``_relmf_epoch``
+    call recorded) and the same ``torch.Generator`` stream; the gathered
+    tables within ``mesh_close``, the loss within rtol 1e-5."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.dataset import SyntheticImplicitDataset
+    from cymf_tpu_torch.models import relmf
+    from cymf_tpu_torch.models.base import padded_rows
+    from cymf_tpu_torch.ops.relmf_epoch import epoch_generator
+    from cymf_tpu_torch.parallel.mesh import fetch_to_host
+    from cymf_tpu_torch.parallel.shard_step import sharded_relmf_epoch
+
+    n, dev = mesh.num_devices, mesh.device
+    X = SyntheticImplicitDataset(num_user=ML1M_U, num_item=ML1M_I, rank=8,
+                                 density=0.04, seed=0).train
+    m = ct.RelMF(num_components=RELMF_K, batch_size=BATCH, packed="off",
+                 update_mode="dense", device=dev)
+    with world_of_one(dev):
+        got = record_calls(relmf, {"_relmf_epoch": 1},
+                           lambda: m.fit(X, num_epochs=1, seed=MESH_SEED))
+    (W, H, ow, oh, labels, props, _), kw = got["_relmf_epoch"][0]
+    B, S = kw["batch_size"], kw["num_steps"]
+    K = W.shape[1]
+    Ws, Hs = (mesh.put_table(padded_rows(T, mesh.pad_rows(T.shape[0])))
+              for T in (W, H))
+    opt = kw["optimizer"]
+    ows, ohs = opt.init(Ws), opt.init(Hs)
+    loss, wall, dev_s, peak, launches = mesh_run(lambda: float(
+        sharded_relmf_epoch(
+            mesh, Ws, Hs, ows, ohs, labels, props,
+            epoch_generator(MESH_SEED, 0, dev), optimizer=opt,
+            weight_decay=kw["weight_decay"], clip_value=kw["clip_value"],
+            num_users=ML1M_U, num_items=ML1M_I, num_steps=S, batch_size=B,
+            binary=kw["binary_labels"], draw=relmf._draw_cells)) / (S * B),
+        mesh)
+    lr = m.learning_rate
+    ew = mesh_close(torch.from_numpy(fetch_to_host(Ws, mesh)[:ML1M_U]),
+                    torch.from_numpy(m.W), lr, f"{tag} RelMF W")
+    eh = mesh_close(torch.from_numpy(fetch_to_host(Hs, mesh)[:ML1M_I]),
+                    torch.from_numpy(m.H), lr, f"{tag} RelMF H")
+    loss_close(loss, m.last_loss, f"{tag} RelMF")
+    coll = collectives_ms(mesh, [
+        ("reduce_scatter", (B, 2 * K), torch.float32),
+        ("all_gather", (B // n, 2 * K), torch.float32)])
+    mesh_model_line(tag, smi, f"RelMF batch epoch (ml-1m, d={K}, {S} steps "
+                    f"of {B} cells)", wall, dev_s, peak, coll, "a step",
+                    launches)
+    warm = warm_epoch(
+        lambda: ct.RelMF(num_components=RELMF_K, batch_size=BATCH,
+                         packed="off", update_mode="dense", device=dev),
+        lambda r: r.fit(X, num_epochs=1, seed=MESH_SEED), dev)
+    phase(tag, f"RelMF: one-device epoch {warm:.4f} s (warm; the reference "
+          f"fit's {m.epoch_times_[0]['device_s']:.4f}); gathered W max abs err "
+          f"{ew:.3e}, H {eh:.3e}, loss {loss:.7f} against "
+          f"{m.last_loss:.7f}")
+    if launches:
+        raise AssertionError(f"{tag} RelMF: the batch engine launched "
+                             f"{launches}")
+
+
+def mesh_glove_batch(G, mesh, tag, smi) -> None:
+    """NCCL check 7: ``sharded_glove_epoch`` (fused biases) and
+    ``sharded_glove_kfold_epoch`` at ``glove-xla``'s shapes (d=50, the
+    50,000-word stream, batch 131,072) on the inputs the public one-device
+    batch engine's first epoch took (its ``_glove_epoch`` call recorded),
+    each rank its slice of every step; the gathered tables (biases
+    included) within rtol 2e-3, atol 2e-5 of that epoch's, the loss
+    within rtol 1e-5."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.models import glove
+    from cymf_tpu_torch.models.base import padded_rows
+    from cymf_tpu_torch.ops.glove_epoch import augment_tables
+    from cymf_tpu_torch.parallel.mesh import fetch_to_host
+    from cymf_tpu_torch.parallel.shard_step import (
+        sharded_glove_epoch, sharded_glove_kfold_epoch)
+
+    n, p, dev = mesh.num_devices, mesh.rank, mesh.device
+    V1, V2 = G.shape
+    for mode in ("fused", "kfold"):
+        np.random.seed(0)
+        m = ct.GloVe(GLOVE_K, batch_size=BATCH, packed="off",
+                     update_mode="dense", bias_mode=mode, device=dev)
+        with world_of_one(dev):
+            got = record_calls(glove, {"_glove_epoch": 1},
+                               lambda: m.fit(G, num_epochs=1))
+        args, kw = got["_glove_epoch"][0]
+        tables, (c2, x2, n2, N) = args[:8], args[8:]
+        S, B = c2.shape
+        Bn, K = B // n, kw["num_components"]
+        sh = [mesh.put_table(padded_rows(T, mesh.pad_rows(T.shape[0])))
+              for T in tables[:4]]
+        opt = kw["optimizer"]
+        states = [opt.init(T) for T in sh[:2]] + \
+            [torch.ones_like(T) for T in sh[2:]]
+        steps = [a[:, p * Bn:(p + 1) * Bn].contiguous() for a in (c2, x2,
+                                                                  n2)]
+        common = dict(optimizer=opt, x_max=kw["x_max"], alpha=kw["alpha"],
+                      K=K, num_central=V1)
+        if mode == "fused":
+            def run():
+                return float(sharded_glove_epoch(
+                    mesh, sh[0], sh[1], *states[:2], *steps, N, **common))
+            width = K + 2
+            ops = [("reduce_scatter", (B, 2 * width), torch.float32),
+                   ("all_gather", (Bn, 2 * width), torch.float32)]
+        else:
+            def run():
+                return float(sharded_glove_kfold_epoch(
+                    mesh, *sh, *states, *steps, N,
+                    num_central_pad=sh[0].shape[0] * n, **common))
+            ops = [("reduce_scatter", (B, 2 * K + 2), torch.float32),
+                   ("all_gather", (Bn, 2 * K + 1), torch.float32)]
+        loss, wall, dev_s, peak, launches = mesh_run(run, mesh)
+        Wc, Wx, bc, bx = (fetch_to_host(T, mesh) for T in sh)
+        if mode == "kfold":
+            Wc, Wx = augment_tables(Wc[:V1], bc[:V1, 0], Wx[:V2],
+                                    bx[:V2, 0])
+        want = augment_tables(m.W_central, m.bias, m.W_context,
+                              m.context_bias)
+        errs = [close(torch.from_numpy(np.asarray(g[:len(w)], np.float64)),
+                      torch.from_numpy(w), 2e-3, 2e-5,
+                      f"{tag} GloVe {mode} {side}")[0]
+                for g, w, side in zip((Wc, Wx), want, ("central",
+                                                       "context"))]
+        loss_close(loss, m.last_loss, f"{tag} GloVe {mode}")
+        coll = collectives_ms(mesh, [("all_gather", (Bn, 2), torch.int32),
+                                     *ops])
+        mesh_model_line(tag, smi, f"GloVe {mode} batch epoch (d={K}, "
+                        f"{V1} words, {S} steps of {B})", wall, dev_s, peak,
+                        coll, "a step", launches)
+        warm = warm_epoch(
+            lambda: ct.GloVe(GLOVE_K, batch_size=BATCH, packed="off",
+                             update_mode="dense", bias_mode=mode, device=dev),
+            lambda g: g.fit(G, num_epochs=1), dev)
+        phase(tag, f"GloVe {mode}: one-device epoch {warm:.4f} s (warm; the "
+              f"reference fit's {m.epoch_times_[0]:.4f}); gathered tables max"
+              f" abs err {max(errs):.3e}, loss "
+              f"{loss:.7f} against {m.last_loss:.7f}")
+        if launches:
+            raise AssertionError(f"{tag} GloVe {mode}: the batch engine "
+                                 f"launched {launches}")
+
+
+def mesh_glove_packed(G, mesh, tag, smi) -> dict:
+    """NCCL check 8: ``sharded_packed_glove_epoch`` at ``glove-full``'s
+    shapes (d=50, 50,000 words, 3M triples, batch 131,072: 23 steps) on
+    ``prep_glove_shard_static``'s streams of the steps the public
+    one-device packed fit prepared (its ``prep_glove_static`` call
+    recorded), from that fit's init, against its first epoch: step 0's #8
+    and both of its #2 calls held against their plain forms, then the
+    epoch timed; the gathered tables within rtol 2e-3, atol 2e-5, the loss
+    within rtol 1e-5, the constant columns exactly one."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.models import glove
+    from cymf_tpu_torch.ops import glove_epoch as ge
+    from cymf_tpu_torch.ops import packed as pk
+    from cymf_tpu_torch.parallel.mesh import fetch_to_host
+    from cymf_tpu_torch.parallel.shard_step import sharded_packed_glove_epoch
+
+    n, p, dev = mesh.num_devices, mesh.rank, mesh.device
+    np.random.seed(0)
+    m = ct.GloVe(GLOVE_K, batch_size=BATCH, packed="on", device=dev)
+    with world_of_one(dev):
+        got = record_calls(glove, {"prep_glove_static": 1,
+                                   "packed_glove_epoch": 1},
+                           lambda: m.fit(G, num_epochs=1))
+    (c2, x2, n2, V1, K, _, rh, ww, wh, x_max, alpha), _ = \
+        got["prep_glove_static"][0]
+    ep_args = got["packed_glove_epoch"][0][0]
+    Zc1, Zx, N = ep_args[0], ep_args[1], ep_args[-1]
+    V2, Kp = G.shape[1], K + 2
+    rw = pk.packed_rows(V1, Kp, multiple=ww * n)
+    st = ge.prep_glove_shard_static(c2, x2, n2, V1, K, rw, rh, ww, wh, n,
+                                    x_max, alpha, shard=p)
+    streams = [torch.from_numpy(st[i][0]).to(dev)
+               for i in (0, 1, 2, 3, 4, 6, 7, 8, 5)]
+    Zc_full = pk.pack_array(pk.unpack_array(Zc1.cpu().numpy(), V1, Kp), Kp,
+                            multiple=ww * n)
+    kw = dict(lr=m.learning_rate, K=K, rw=rw, rh=rh, wrows_w=ww, wrows_h=wh)
+
+    def fresh():
+        Zc = mesh.put_table(Zc_full)
+        # AdaGrad's accumulators start at ones (the recorded ones have
+        # moved on: the fit updated them in place)
+        return Zc, Zx.clone(), {"accum": torch.ones_like(Zc)}, \
+            {"accum": torch.ones_like(Zx)}
+
+    # step 0's kernels against their plain forms, on a copy of the state
+    keep = {"glove_sample_phase": 1, "sorted_accum": 2}
+    rec = record_calls(ge, keep, lambda: sharded_packed_glove_epoch(
+        mesh, *fresh(), *streams, N, **kw))
+    (Du, Dx), skw = rec["glove_sample_phase"][0]
+    check_glove_sample(Du, Dx, skw["Kp"], f"{tag} sharded GloVe step 0")
+    for (args, akw), side in zip(rec["sorted_accum"], ("central",
+                                                        "context")):
+        check_sorted_accum(args, akw, f"{tag} sharded GloVe step 0, {side} "
+                           "side")
+    del rec, Du, Dx
+    Zc, Zxs, oc, oxs = fresh()
+    loss, wall, dev_s, peak, launches = mesh_run(lambda: float(
+        sharded_packed_glove_epoch(mesh, Zc, Zxs, oc, oxs, *streams, N,
+                                   **kw)), mesh)
+    got_c = pk.unpack_array(fetch_to_host(Zc, mesh), V1, Kp)
+    got_x = Zxs[:V2, :Kp].cpu().numpy()
+    want_c, want_x = ge.augment_tables(m.W_central, m.bias, m.W_context,
+                                       m.context_bias)
+    ec = close(torch.from_numpy(got_c.astype(np.float64)),
+               torch.from_numpy(want_c), 2e-3, 2e-5, f"{tag} packed GloVe "
+               "central")
+    ex = close(torch.from_numpy(got_x.astype(np.float64)),
+               torch.from_numpy(want_x), 2e-3, 2e-5, f"{tag} packed GloVe "
+               "context")
+    loss_close(loss, m.last_loss, f"{tag} packed GloVe")
+    ones = bool((got_c[:, K + 1] == 1).all() and (got_x[:, K] == 1).all())
+    S = c2.shape[0]
+    mesh_model_line(tag, smi, f"packed GloVe epoch (d={K}, {V1} words, {S} "
+                    f"steps, Bd={st[-1]})", wall, dev_s, peak,
+                    collectives_ms(mesh, [("all_reduce", (rh, 128),
+                                           torch.float32)]),
+                    f"a step (one all-reduce of {rh * 128 * 4 / 1e6:.3f} MB)",
+                    launches)
+    warm = warm_epoch(lambda: ct.GloVe(GLOVE_K, batch_size=BATCH,
+                                       packed="on", device=dev),
+                      lambda g: g.fit(G, num_epochs=1), dev)
+    phase(tag, f"packed GloVe: one-device epoch {warm:.4f} s (warm; the "
+          f"reference fit's {m.epoch_times_[0]:.4f}); "
+          f"gathered central max abs err {ec[0]:.3e}, context {ex[0]:.3e}, "
+          f"loss {loss:.7f} against {m.last_loss:.7f}; constant columns "
+          f"exactly one: {ones}")
+    if launches != {"glove_sample_phase": S, "sorted_accum": 2 * S}:
+        raise AssertionError(f"{tag} packed GloVe: launches {launches}")
+    if not ones:
+        raise AssertionError(f"{tag} packed GloVe: a constant column moved")
+    return launches
+
+
+def mesh_models_direct(mesh, tag, smi) -> dict:
+    """The NCCL rank's checks of the four trainers' sharded functions at
+    full width; returns their launches."""
+    launches = collections.Counter(mesh_wmf(bench_matrix(), mesh, tag, smi))
+    launches.update(mesh_expomf(mesh, tag, smi))
+    mesh_relmf(mesh, tag, smi)
+    G = glove_matrix()
+    mesh_glove_batch(G, mesh, tag, smi)
+    launches.update(mesh_glove_packed(G, mesh, tag, smi))
+    return dict(launches)
+
+
+@contextlib.contextmanager
+def counting(module, names):
+    """``module.<name>`` for each of ``names`` counts its calls into the
+    dict this yields."""
+    calls = collections.Counter()
+    origs = {k: getattr(module, k) for k in names}
+
+    def wrap(k):
+        def call(*a, **kw):
+            calls[k] += 1
+            return origs[k](*a, **kw)
+        return call
+
+    for k in names:
+        setattr(module, k, wrap(k))
+    try:
+        yield calls
+    finally:
+        for k, fn in origs.items():
+            setattr(module, k, fn)
+
+
+def mesh_gloo_models(mesh, tag, smi) -> dict:
+    """Two gloo ranks on card 0: the public fits of WMF, ExpoMF, RelMF and
+    GloVe (fused, kfold, packed) at the quickstart's size (600 x 300; 2,000
+    words) against the same fits in a world of one on this rank, every
+    fit's sharded function counted and the single-device forms not
+    called; then ``dryrun_multichip()``.  Returns the launches."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch import models
+    from cymf_tpu_torch.ops import _kernels
+    from cymf_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    dev = mesh.device
+    X = quickstart_data().train
+    G = glove_matrix(2000, 100_000)
+    launches = collections.Counter()
+    fits = (
+        ("WMF", models.wmf, "sharded_wmf_chunk", "wmf_chunk_solve",
+         lambda: ct.WMF(32, chunk_size=64, device=dev), 2),
+        ("ExpoMF", models.expomf, "sharded_expomf_chunk", "expomf_chunk",
+         lambda: ct.ExpoMF(32, chunk_size=64, device=dev), 1),
+        ("RelMF", models.relmf, "sharded_relmf_epoch", "_relmf_epoch",
+         lambda: ct.RelMF(8, learning_rate=0.01, batch_size=8192,
+                          device=dev), 1),
+        ("GloVe fused", models.glove, "sharded_glove_epoch", "_glove_epoch",
+         lambda: ct.GloVe(16, batch_size=8192, packed="off", device=dev),
+         2),
+        ("GloVe kfold", models.glove, "sharded_glove_kfold_epoch",
+         "_glove_epoch", lambda: ct.GloVe(16, batch_size=8192,
+                                          bias_mode="kfold", device=dev), 2),
+        ("GloVe packed", models.glove, "sharded_packed_glove_epoch",
+         "packed_glove_epoch", lambda: ct.GloVe(16, batch_size=8192,
+                                                packed="on", device=dev), 2))
+    for what, module, sharded, single, make, epochs in fits:
+        glove = what.startswith("GloVe")
+        data = G if glove else X
+
+        def fit(m):
+            np.random.seed(0)
+            if glove:
+                m.fit(data, num_epochs=epochs)
+            else:
+                m.fit(data, num_epochs=epochs, verbose=False,
+                      **({"seed": MESH_SEED} if what == "RelMF" else {}))
+            return m
+
+        with world_of_one(dev):
+            ref = make()
+            if what == "RelMF":
+                ref.packed = "off"  # the engine the mesh's "auto" takes
+            ref = fit(ref)
+        _kernels.reset_launches()
+        with counting(module, (sharded, single)) as calls:
+            m, wall, dev_s = mesh_timed(lambda: fit(make()))
+        launches.update(_kernels.launches)
+        tables = (("W_central", "W_context", "bias", "context_bias")
+                  if glove else ("W", "H") + (("mu",) if what == "ExpoMF"
+                                              else ()))
+        errs = []
+        for k in tables:
+            got, want = (torch.from_numpy(np.asarray(getattr(o, k),
+                                                     np.float64))
+                         for o in (m, ref))
+            errs.append(mesh_close(got, want, 0.01, f"{tag} {what} {k}")
+                        if what == "RelMF" else close(
+                            got, want, 2e-3, 2e-6 if k == "mu" else 2e-5,
+                            f"{tag} {what} {k}")[0])
+        phase(tag, f"{smi}; {what} public fit, {epochs} epochs on "
+              f"{mesh.num_devices} gloo ranks: wall {wall:.3f} s, device "
+              f"{dev_s:.3f} s; max abs err against one device "
+              f"{max(errs):.3e}; calls {dict(calls)}; launches "
+              f"{dict(_kernels.launches)}")
+        if calls[single] or not calls[sharded]:
+            raise AssertionError(f"{tag} {what}: calls {dict(calls)}")
+    _kernels.reset_launches()
+    res, wall, dev_s = mesh_timed(dryrun_multichip)
+    launches.update(_kernels.launches)
+    phase(tag, f"{smi}; dryrun_multichip: wall {wall:.3f} s, device "
+          f"{dev_s:.3f} s; {res}; launches {dict(_kernels.launches)}")
+    return dict(launches)
 
 
 def mesh_rank(argv) -> int:
@@ -4006,7 +4614,7 @@ def mesh_group(world: int, backend: str, d: Path) -> list:
 
 
 def mesh_phase(X, dev, smi) -> dict:
-    """Phase 19, mesh: the sharded BPR paths (``cymf_tpu_torch.parallel``)
+    """Phase 19, mesh: the sharded paths (``cymf_tpu_torch.parallel``)
     at world size ``torch.cuda.device_count()`` over NCCL, then at two
     ranks on card 0 over gloo; returns the ranks' summed launches."""
     import shutil

@@ -94,14 +94,13 @@ class EarlyStopper:
         return False
 
 
-def require_one_device(what: str) -> None:
-    """Raise ``NotImplementedError`` under a mesh of more than one rank:
-    ``what`` has no sharded form in the port yet (ROADMAP.md, queue 1)."""
-    n = current_mesh().num_devices
-    if n > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh of {n} ranks is not ported yet; fit it in a "
-            "world of one")
+def padded_rows(a, rows: int) -> torch.Tensor:
+    """``a`` (an array or a tensor) with zero rows appended up to
+    ``rows``, as a float32 CPU tensor: a whole table padded to a mesh's
+    row count, for ``MeshContext.put_table``."""
+    t = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a.cpu(),
+                        dtype=torch.float32)
+    return torch.cat([t, t.new_zeros((rows - t.shape[0],) + t.shape[1:])])
 
 
 def _to_host(t: torch.Tensor, n: int) -> np.ndarray:
@@ -192,12 +191,7 @@ class MFTrainerBase:
     def _pad_table(self, T: np.ndarray) -> torch.Tensor:
         """Pad rows to a mesh-divisible count; this rank's row shard."""
         mesh = self.mesh
-        n = T.shape[0]
-        n_pad = mesh.pad_rows(n)
-        if n_pad != n:
-            T = np.concatenate(
-                [T, np.zeros((n_pad - n,) + T.shape[1:], T.dtype)], axis=0)
-        return mesh.put_table(T)
+        return mesh.put_table(padded_rows(T, mesh.pad_rows(T.shape[0])))
 
     def _checkpoint_state(self):
         """The state a checkpoint holds: ``_state``, with each sharded

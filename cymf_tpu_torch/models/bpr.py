@@ -257,6 +257,33 @@ def _batch_resume_state(flat, U, I, K, ow, oh, device):
     return W, H, ow, oh
 
 
+def _sharded_batch_state(model, mesh, opt, U: int, I: int, checkpoint_path,
+                         resume: bool):
+    """A batch engine's state on a mesh (BPR's and RelMF's): this rank's
+    row shards of W, H and their optimizer states, rows padded by
+    ``mesh.pad_rows`` (the states' pad rows keep their init), from the
+    model's tables or from the checkpoint any engine wrote at any row
+    padding; and the start epoch, which the ranks must agree on."""
+    K = model.num_components
+    W_, H_ = model.W, model.H
+    owf = opt.init(torch.zeros((mesh.pad_rows(U), K)))
+    ohf = opt.init(torch.zeros((mesh.pad_rows(I), K)))
+    flat, start_epoch = _resume_point(checkpoint_path, resume)
+    mesh.agree(start_epoch, "the checkpoint's epoch")
+    if flat is not None:
+        W_, H_, ow_, oh_ = _batch_resume_state(
+            flat, U, I, K, opt.init(torch.zeros((U, K))),
+            opt.init(torch.zeros((I, K))), "cpu")
+        W_, H_ = W_.numpy(), H_.numpy()
+        for k in owf:
+            owf[k][:U] = ow_[k]
+        for k in ohf:
+            ohf[k][:I] = oh_[k]
+    return (model._pad_table(W_), model._pad_table(H_),
+            {k: mesh.put_table(v) for k, v in owf.items()},
+            {k: mesh.put_table(v) for k, v in ohf.items()}, start_epoch)
+
+
 def _wide_resume_state(flat, U, I, K, mult_w, wrows, ow, oh, device):
     """Rebuild the wide engine's state ``(Wd, Hd, ow, oh)`` (``(rows,
     Kp)`` tables: W rows padded to ``mult_w``, H rows to ``wrows``) on
@@ -545,32 +572,14 @@ class BPR(MFTrainerBase, PersistenceMixin):
         self.update_mode_ = "dense"
         dev = self.device
         U, I = X.shape
-        K = self.num_components
         Bn = u2.shape[1] // n
         N = self._samples_per_epoch
         self.last_loss = None
         coo = X.tocoo()
         hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
         opt = make_optimizer(self.optimizer, self.learning_rate)
-        W_, H_ = self.W, self.H
-        # the padded optimizer state on the host (pad rows keep their
-        # init), then this rank's rows of it
-        owf = opt.init(torch.zeros((mesh.pad_rows(U), K)))
-        ohf = opt.init(torch.zeros((mesh.pad_rows(I), K)))
-        flat, start_epoch = _resume_point(checkpoint_path, resume)
-        mesh.agree(start_epoch, "the checkpoint's epoch")
-        if flat is not None:
-            W_, H_, ow_, oh_ = _batch_resume_state(
-                flat, U, I, K, opt.init(torch.zeros((U, K))),
-                opt.init(torch.zeros((I, K))), "cpu")
-            W_, H_ = W_.numpy(), H_.numpy()
-            for k in owf:
-                owf[k][:U] = ow_[k]
-            for k in ohf:
-                ohf[k][:I] = oh_[k]
-        W, H = self._pad_table(W_), self._pad_table(H_)
-        ow = {k: mesh.put_table(v) for k, v in owf.items()}
-        oh = {k: mesh.put_table(v) for k, v in ohf.items()}
+        W, H, ow, oh, start_epoch = _sharded_batch_state(
+            self, mesh, opt, U, I, checkpoint_path, resume)
         u_d = torch.from_numpy(np.ascontiguousarray(
             u2[:, p * Bn:(p + 1) * Bn])).to(dev)
         i_d = torch.from_numpy(np.ascontiguousarray(

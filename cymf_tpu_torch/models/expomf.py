@@ -1,5 +1,5 @@
 """Exposure Matrix Factorization (Liang et al. 2016).  Port of
-`cymf_tpu/models/expomf.py`, its single-device branch.
+`cymf_tpu/models/expomf.py`.
 
 EM with exposure-weighted ALS (`cymf/expomf.pyx`).  Per epoch, with
 epoch-start factors (W0, H0):
@@ -23,14 +23,24 @@ The Gaussian prefactor defaults to the paper's ``sqrt(lam_y / (2 pi))``;
 the reference's ``sqrt(lam_y / 2.0*M_PI)`` is ``sqrt(lam_y pi / 2)`` by
 precedence (pass ``prefactor=`` to replicate it).
 
+Under a mesh of more than one rank (``cymf_tpu_torch.parallel``) both
+tables are row-sharded, each chunk's rows split over the ranks, and the
+exposure block is split by the other side's rows
+(``parallel/shard_step.py::sharded_expomf_chunk``, the JAX package's
+``shard_map`` branch).  ``mu`` is row-sharded like the item table (the
+JAX package replicates it): each rank updates the priors of its own
+items from its own exposure column sums, and ``model.mu`` is gathered at
+the end of the fit.
+
 ``fit(checkpoint_path=p)`` saves ``{"W", "H", "mu"}``, the JAX
-package's schema, and ``resume=True`` continues from it.  Not ported yet
-(ROADMAP.md, queue 1): the multi-device branch.
+package's schema, and ``resume=True`` continues from it, whatever row
+padding (number of ranks, or the JAX package's devices) wrote it.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Optional
 
 import numpy as np
@@ -38,31 +48,12 @@ import torch
 
 from .. import config
 from ..ops.als import (build_chunks, gather_rows, get_solver,
-                       place_device_chunks, resolve_chol_solver)
+                       place_device_chunks, place_mesh_chunks,
+                       resolve_chol_solver, weighted_gramian)
+from ..parallel.mesh import fetch_to_host
+from ..parallel.shard_step import rows_everywhere, sharded_expomf_chunk
 from ..utils.checkpoint import resume_state
-from .base import (MFTrainerBase, PersistenceMixin, as_csr,
-                   require_one_device)
-# elements of (Y (x) Y) formed at once in the weighted Gramian (1 GiB)
-_GRAM_ELEMS = 1 << 28
-
-
-def weighted_gramian(E: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-    """``sum_i E[c, i] y_i y_i^T`` for every row c of ``E (C, I)``:
-    ``(C, K, K)``.
-
-    Written as ``E @ (Y (x) Y).reshape(I, K*K)`` over row blocks of ``Y``:
-    each block's outer products are formed and taken into the sum by one
-    ``addmm`` with E's matching columns.  No ``(C, I, K)`` tensor exists,
-    and at most ``_GRAM_ELEMS`` elements of ``Y (x) Y``.
-    """
-    I, K = Y.shape
-    out = torch.zeros((E.shape[0], K * K), dtype=Y.dtype, device=Y.device)
-    step = max(1, _GRAM_ELEMS // (K * K))
-    for s in range(0, I, step):
-        Yb = Y[s:s + step]
-        out.addmm_(E[:, s:s + step], (Yb[:, :, None] * Yb[:, None, :])
-                   .reshape(len(Yb), K * K))
-    return out.view(-1, K, K)
+from .base import MFTrainerBase, PersistenceMixin, as_csr, padded_rows
 
 
 def expomf_chunk(E_src, E_other, Y, mu_term, rows, idx_pad, valid,
@@ -102,7 +93,8 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
     """API-compatible rebuild of ``cymf.ExpoMF`` (`expomf.pyx:40-64`), on
     ``device``: by default :func:`cymf_tpu_torch.config.default_device`,
     the card; ``device="cpu"`` runs on the CPU.
-    After a fit, ``mu`` holds the per-item exposure priors."""
+    After a fit, ``mu`` holds the per-item exposure priors and
+    ``epoch_times_`` each epoch's seconds."""
 
     def __init__(self, num_components: int = 20, lam_y: float = 1.0,
                  weight_decay: float = 0.01, chunk_size: int = 512,
@@ -136,8 +128,8 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
         """Train; signature parity with `expomf.pyx`.  ``num_threads`` is
         accepted and ignored.  ``checkpoint_path``, ``checkpoint_every``
         and ``resume`` as ``BPR.fit``."""
-        require_one_device("ExpoMF")
         X = as_csr(X)
+        mesh = self._mesh_device()
         self.valid_evaluator = valid_evaluator
         self.valid_dcg = -np.inf
         self.early_stopping = early_stopping
@@ -150,6 +142,10 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
         U, I = X.shape
         self._num_users, self._num_items = U, I
         self._ensure_tables(U, I)
+        if mesh.num_devices > 1:
+            self._fit_sharded(X, mesh, solver_r, num_epochs, verbose,
+                              checkpoint_path, checkpoint_every, resume)
+            return
 
         Xt = X.T.tocsr()
         Xt.sort_indices()
@@ -167,7 +163,8 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
             checkpoint_path, resume,
             {"W": put(self.W), "H": put(self.H),
              "mu": torch.full((I,), 0.01, dtype=dtype,
-                              device=dev)})                # expomf.pyx:111
+                              device=dev)},                # expomf.pyx:111
+            {"W": U, "H": I, "mu": I})
         ridge = (self.weight_decay / self.lam_y) * torch.eye(
             K, dtype=dtype, device=dev)                    # expomf.pyx:171
         lam_y, prefactor = self.lam_y, self.prefactor
@@ -199,6 +196,87 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
 
             st["mu"] = (a1 + colsum - 1.0) / (a1 + a2 + U - 2.0)
 
+        self._run_expomf(num_epochs, epoch_fn, verbose, checkpoint_path,
+                         checkpoint_every, start_epoch)
+
+    def _fit_sharded(self, X, mesh, solver_r, num_epochs, verbose,
+                     checkpoint_path, checkpoint_every, resume):
+        """The mesh branch of ``cymf_tpu.ExpoMF.fit``: W, H and mu
+        row-sharded over the ranks (rows padded by ``mesh.pad_rows``),
+        each chunk's rows split over them
+        (:func:`~cymf_tpu_torch.parallel.shard_step.sharded_expomf_chunk`).
+        The pad items keep mu = 0.01 and a ``(1 - mu) / mu`` of 1; the
+        exposure of the pad rows and columns is masked out."""
+        dev, p = self.device, mesh.rank
+        K = self.num_components
+        U, I = X.shape
+        Up, Ip = mesh.pad_rows(U), mesh.pad_rows(I)
+        Xt = X.T.tocsr()
+        Xt.sort_indices()
+        user_chunks = place_mesh_chunks(
+            build_chunks(X, self.chunk_size, Up, num_components=K), mesh)
+        item_chunks = place_mesh_chunks(
+            build_chunks(Xt, self.chunk_size, Ip, num_components=K), mesh)
+        dtype = config.param_dtype()
+
+        state, start_epoch = resume_state(
+            checkpoint_path, resume,
+            {"W": padded_rows(self.W, Up), "H": padded_rows(self.H, Ip),
+             "mu": torch.full((Ip,), 0.01, dtype=dtype)},  # expomf.pyx:111
+            {"W": U, "H": I, "mu": I})
+        mesh.agree(start_epoch, "the checkpoint's epoch")
+        self._state = {k: mesh.put_table(v) for k, v in state.items()}
+        self._sharded_keys = frozenset(self._state)
+        ridge = (self.weight_decay / self.lam_y) * torch.eye(
+            K, dtype=dtype, device=dev)                    # expomf.pyx:171
+        kw = dict(lam_y=self.lam_y, ridge=ridge, prefactor=self.prefactor,
+                  solver=solver_r)
+        a1 = a2 = 1.0  # Beta(1, 1) prior (expomf.pyx:113-114,142)
+        rpd_i = Ip // mesh.num_devices
+        # this rank's items, and which of them are real
+        live = (torch.arange(rpd_i, device=dev) + p * rpd_i) < I
+
+        def epoch_fn(epoch):
+            st = self._state
+            W0, H0 = st["W"].clone(), st["H"].clone()
+            mu_term = torch.where(live, (1.0 - st["mu"]) / st["mu"], 1.0)
+
+            # user sweep: mu by column, this rank's items
+            colsum = torch.zeros((rpd_i,), dtype=dtype, device=dev)
+            for ch in user_chunks:
+                colsum += sharded_expomf_chunk(
+                    mesh, W0, H0, H0, mu_term, st["W"], ch, mu_axis="col",
+                    num_real_rows=U, num_real_cols=I, **kw)
+
+            # item sweep: mu by row, the chunk's items on every rank
+            for ch in item_chunks:
+                mu_rows = rows_everywhere(mesh, mu_term[:, None],
+                                          ch.rows)[:, 0]
+                sharded_expomf_chunk(
+                    mesh, H0, W0, st["W"], mu_rows, st["H"], ch,
+                    mu_axis="row", num_real_rows=I, num_real_cols=U, **kw)
+
+            st["mu"] = torch.where(
+                live, (a1 + colsum - 1.0) / (a1 + a2 + U - 2.0), st["mu"])
+
+        self._run_expomf(num_epochs, epoch_fn, verbose, checkpoint_path,
+                         checkpoint_every, start_epoch)
+
+    def _run_expomf(self, num_epochs, epoch_fn, verbose, checkpoint_path,
+                    checkpoint_every, start_epoch):
+        """The epoch loop of either branch: ``epoch_times_`` holds each
+        epoch's seconds (synchronised on the card), ``mu`` the last
+        epoch's priors."""
+        dev = self.device
+        self.epoch_times_ = []
+
+        def timed(epoch):
+            t0 = time.perf_counter()
+            epoch_fn(epoch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            self.epoch_times_.append(time.perf_counter() - t0)
+
         def snapshot_fn():
             return (self.W, self.H)
 
@@ -206,9 +284,12 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
             self.W, self.H = snap
 
         state = self._state  # a best-epoch restore drops self._state
-        self._run_epochs(num_epochs, epoch_fn, snapshot_fn, restore_fn,
+        sharded = "mu" in self._sharded_keys
+        self._run_epochs(num_epochs, timed, snapshot_fn, restore_fn,
                          verbose, checkpoint_path, checkpoint_every,
                          start_epoch)
-        # the last epoch's, as in the JAX package
-        self.mu = state["mu"].cpu().numpy()
+        # the last epoch's, as in the JAX package; gathered from the ranks
+        # where it is sharded
+        self.mu = (fetch_to_host(state["mu"], self.mesh) if sharded
+                   else state["mu"].cpu().numpy())[:self._num_items]
         self._drop_device_state()

@@ -46,9 +46,18 @@ placeholders), so the packed and the fused batch engine resume each
 other's, of either package; the sequential engine refuses them, as in
 the JAX package.
 
-Not ported yet (ROADMAP.md, queue 1): the JAX package's sharded
-engines.  Under a mesh of more than one rank (``cymf_tpu_torch.parallel``)
-``fit`` raises ``NotImplementedError``.
+Under a mesh of more than one rank (``cymf_tpu_torch.parallel``) each
+engine runs its sharded form (`parallel/shard_step.py`), as the JAX
+package's mesh branches do: the packed engine
+(``sharded_packed_glove_epoch``: the packed central table row-sharded, the
+context table whole on every rank, one all-reduce of its accumulated sums
+a step) and the batch engine in either bias mode (``sharded_glove_epoch``,
+``sharded_glove_kfold_epoch``: every table row-sharded, the batch padded
+to a multiple of the world size and split over the ranks).  The init and
+the shuffle come from the ambient numpy state, which ranks need not
+share: rank 0 draws them and broadcasts them, so every rank trains the
+same stream (the JAX package's one controller draws once).  Checkpoints
+are written by rank 0, gathered; a resume takes any row padding.
 """
 
 from __future__ import annotations
@@ -64,12 +73,17 @@ from .. import config
 from ..ops import packed as pk
 from ..ops import pallas_engine as pe
 from ..ops.glove_epoch import (augment_tables, packed_glove_epoch,
-                               prep_glove_static, supports_packed_glove)
+                               prep_glove_shard_static, prep_glove_static,
+                               supports_packed_glove)
 from ..ops.packed_epoch import PackedAdaGrad
 from ..ops.segment import dedup_rows
-from ..optim import AdaGrad, masked_addend, set_rows
+from ..optim import AdaGrad, adagrad_kfold_rows
+from ..parallel.mesh import current_mesh, fetch_to_host
+from ..parallel.shard_step import (sharded_glove_epoch,
+                                   sharded_glove_kfold_epoch,
+                                   sharded_packed_glove_epoch)
 from ..utils.checkpoint import AsyncCheckpointer, resume_state
-from .base import require_one_device
+from .base import padded_rows
 from .bpr import choose_update_mode
 PAD_CENTRAL = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
 
@@ -82,16 +96,24 @@ def _bias_kfold_update(bias, accum, rows, grads, lr: float, k_steps: int,
     (`model.pyx:195-204`), so ``delta = -lr * g * sum_{t=1..K}
     rsqrt(a0 + t g^2)`` and ``accum += K g^2`` for each distinct row's
     summed gradient ``g``.  Rows at or past ``V`` are dropped."""
-    drop = bias.shape[0]
-    rows, g = dedup_rows(rows, grads[:, None], drop, presorted=presorted)
-    keep = rows < drop
-    tgt = rows.clamp(max=drop - 1)
-    a0 = accum.index_select(0, tgt)                      # (B, 1)
-    t = torch.arange(1, k_steps + 1, dtype=bias.dtype, device=bias.device)
-    denom = torch.sqrt(a0 + t[None, :] * torch.square(g))
-    delta = -lr * g[:, :1] * torch.sum(1.0 / denom, dim=1, keepdim=True)
-    set_rows(accum, tgt, a0 + k_steps * torch.square(g[:, :1]), keep)
-    bias.index_add_(0, tgt, masked_addend(delta, keep))
+    rows, g = dedup_rows(rows, grads[:, None], bias.shape[0],
+                         presorted=presorted)
+    adagrad_kfold_rows(bias, accum, rows, g, lr, k_steps)
+
+
+def _from_rank0(mesh, *arrays) -> list:
+    """Rank 0's ``arrays`` on every rank (one broadcast each, the bits
+    kept)."""
+    return [mesh.broadcast(torch.from_numpy(np.ascontiguousarray(a)).to(
+        mesh.device)).cpu().numpy() for a in arrays]
+
+
+def _gather(v, mesh):
+    """The whole table whose row shard on this rank is ``v`` (a dict of
+    them: each), on the host: a collective."""
+    if isinstance(v, dict):
+        return {k: _gather(t, mesh) for k, t in v.items()}
+    return fetch_to_host(v, mesh)
 
 
 def _glove_epoch(Wc, Wx, bc, bx, ow, oh, abc, abx, c_steps, x_steps,
@@ -192,6 +214,7 @@ class GloVe:
             raise NotImplementedError(
                 "engine='pallas' implements bias_mode='fused' only (as in "
                 "the JAX package)")
+        self._device_arg = device
         self.device = torch.device(device) if device is not None \
             else config.default_device()
         self.W = None
@@ -231,11 +254,13 @@ class GloVe:
         and AdaGrad accumulators every ``checkpoint_every`` epochs;
         ``resume=True`` continues from there (``engine="pallas"``
         refuses checkpoints)."""
-        require_one_device("GloVe")
         if X is None:
             raise ValueError()
         if not sparse.issparse(X):
             raise TypeError("X must be a type of scipy.sparse.*_matrix.")
+        mesh = current_mesh()
+        self.device = mesh.resolve_device(self._device_arg)
+        n = mesh.num_devices
         K = self.num_components
         t0 = time.perf_counter()
         V1, V2 = X.shape
@@ -249,6 +274,10 @@ class GloVe:
         coo = X.tocoo()
         order = np.arange(coo.nnz)
         np.random.shuffle(order)
+        if n > 1:
+            W_central, central_bias, W_context, context_bias, order = \
+                _from_rank0(mesh, W_central, central_bias, W_context,
+                            context_bias, order)
         central = coo.row.astype(np.int32)[order]
         context = coo.col.astype(np.int32)[order]
         counts = coo.data.astype(np.float64)[order]
@@ -256,9 +285,11 @@ class GloVe:
         N = len(central)
         use_packed = self.engine == "xla" and self._packed_engine(
             self.device.type, N)
-        B = min(self.batch_size, max(N, 1))
         if use_packed:
-            B = -(-B // 1024) * 1024
+            B = -(-min(self.batch_size, max(N, 1)) // 1024) * 1024
+        else:
+            # the batch splits evenly over the ranks
+            B = mesh.pad_rows(min(self.batch_size, max(N, n)))
         S = max(1, -(-N // B))
         pad = S * B - N
         if pad:
@@ -282,7 +313,8 @@ class GloVe:
         c2 = np.take_along_axis(c2, order, axis=1)
         x2 = np.take_along_axis(x2, order, axis=1)
         n2 = np.take_along_axis(n2, order, axis=1)
-        fit = self._fit_packed_glove if use_packed else self._fit_batch
+        fit = self._fit_packed_glove if use_packed else \
+            self._fit_batch_sharded if n > 1 else self._fit_batch
         fit(c2, x2, n2, W_central, central_bias, W_context, context_bias, N,
             num_epochs, verbose, V1, V2, t0, checkpoint_path,
             checkpoint_every, resume)
@@ -322,7 +354,8 @@ class GloVe:
             return {"Wc": Wc, "Wx": Wx, "bc": bc, "bx": bx, "ow": ow,
                     "oh": oh, "abc": abc, "abx": abx}
 
-        st, start_epoch = resume_state(checkpoint_path, resume, state())
+        st, start_epoch = resume_state(checkpoint_path, resume, state(),
+                                      self._ckpt_rows(V1, V2))
         Wc, Wx, bc, bx, ow, oh, abc, abx = (st[k] for k in (
             "Wc", "Wx", "bc", "bx", "ow", "oh", "abc", "abx"))
         steps = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -341,30 +374,138 @@ class GloVe:
             Wc, Wx = augment_tables(Wc, bc[:, 0], Wx, bx[:, 0])
         self._set_outputs(Wc, Wx, K)
 
+    def _ckpt_rows(self, V1: int, V2: int) -> dict:
+        """The logical rows of each checkpoint leaf (the fused mode's
+        unused bias leaves have one)."""
+        b1, b2 = (V1, V2) if self.bias_mode == "kfold" else (1, 1)
+        return {"Wc": V1, "Wx": V2, "ow": V1, "oh": V2, "bc": b1, "abc": b1,
+                "bx": b2, "abx": b2}
+
+    def _fit_batch_sharded(self, c2, x2, n2, W_central, central_bias,
+                           W_context, context_bias, N, num_epochs, verbose,
+                           V1, V2, t0, checkpoint_path, checkpoint_every,
+                           resume):
+        """The batch engine on a mesh, as the mesh branches of
+        ``cymf_tpu.GloVe.fit``: every table and AdaGrad state row-sharded
+        (rows padded by ``mesh.pad_rows``; the fused mode's unused bias
+        leaves stay ``(1, 1)`` on every rank), each central-sorted step
+        split into one contiguous slice a rank
+        (:func:`~cymf_tpu_torch.parallel.shard_step.sharded_glove_epoch`,
+        ``sharded_glove_kfold_epoch``)."""
+        mesh = current_mesh()
+        n, p, dev = mesh.num_devices, mesh.rank, self.device
+        K = self.num_components
+        S, B = c2.shape
+        Bn = B // n
+        V1p, V2p = mesh.pad_rows(V1), mesh.pad_rows(V2)
+        self.packed_engine_ = False
+        self.update_mode_ = "dense"
+        kfold = self.bias_mode == "kfold"
+
+        def table(T, rows):  # the whole padded table, on the host
+            T = np.asarray(T)
+            # column layout: row-addressed bias updates
+            return padded_rows(T[:, None] if T.ndim == 1 else T, rows)
+
+        if kfold:
+            Wc, Wx = table(W_central, V1p), table(W_context, V2p)
+            bc, bx = table(central_bias, V1p), table(context_bias, V2p)
+        else:
+            Wc, Wx = (table(T, r) for T, r in zip(augment_tables(
+                W_central, central_bias, W_context, context_bias),
+                (V1p, V2p)))
+            bc = bx = torch.zeros((1, 1))                   # unused
+        opt = AdaGrad(self.learning_rate)
+        # accumulators start at ones (optimizer.pyx:96-99)
+        like = {"Wc": Wc, "Wx": Wx, "bc": bc, "bx": bx, "ow": opt.init(Wc),
+                "oh": opt.init(Wx), "abc": torch.ones_like(bc),
+                "abx": torch.ones_like(bx)}
+        st, start_epoch = resume_state(checkpoint_path, resume, like,
+                                      self._ckpt_rows(V1, V2))
+        mesh.agree(start_epoch, "the checkpoint's epoch")
+        sharded = {"Wc", "Wx", "ow", "oh"} | (
+            {"bc", "bx", "abc", "abx"} if kfold else set())
+
+        def place(k, v):
+            if isinstance(v, dict):
+                return {j: place(k, t) for j, t in v.items()}
+            return mesh.put_table(v) if k in sharded else v.to(dev)
+
+        st = {k: place(k, v) for k, v in st.items()}
+        steps = [torch.from_numpy(np.ascontiguousarray(
+            a[:, p * Bn:(p + 1) * Bn])).to(dev)
+            for a in (c2, x2, n2.astype(np.float32))]
+        kw = dict(optimizer=opt, x_max=self.x_max, alpha=self.alpha, K=K,
+                  num_central=V1)
+        if kfold:
+            def run():
+                return sharded_glove_kfold_epoch(
+                    mesh, *(st[k] for k in ("Wc", "Wx", "bc", "bx", "ow",
+                                            "oh", "abc", "abx")),
+                    *steps, N, num_central_pad=V1p, **kw)
+        else:
+            def run():
+                return sharded_glove_epoch(mesh, st["Wc"], st["Wx"],
+                                           st["ow"], st["oh"], *steps, N,
+                                           **kw)
+        self._run_epochs(num_epochs, verbose, t0, run, lambda: st,
+                         checkpoint_path, checkpoint_every, start_epoch,
+                         sharded)
+        Wc, Wx, bc, bx = (fetch_to_host(st[k], mesh) for k in (
+            "Wc", "Wx", "bc", "bx"))
+        Wc, Wx = Wc[:V1], Wx[:V2]
+        if kfold:  # the augmented layout, for outputs
+            Wc, Wx = augment_tables(Wc, bc[:V1, 0], Wx, bx[:V2, 0])
+        self._set_outputs(Wc, Wx, K)
+
     def _fit_packed_glove(self, c2, x2, n2, W_central, central_bias,
                           W_context, context_bias, N, num_epochs, verbose,
                           V1, V2, t0, checkpoint_path, checkpoint_every,
                           resume):
         """Packed fused engine (`ops/glove_epoch.py`): every stream is
-        static per fit, so the prep runs once and each epoch replays it."""
-        dev = self.device
+        static per fit, so the prep runs once and each epoch replays it.
+        On a mesh (``cymf_tpu.GloVe._fit_packed_glove``'s sharded form):
+        this rank's row shard of the packed central table and its AdaGrad
+        state (rows padded to ``256 * n``, so a shard is whole windows),
+        the whole context table, the rank's contiguous slice of every step
+        (``prep_glove_shard_static``), one all-reduce of the context sums
+        a step
+        (:func:`~cymf_tpu_torch.parallel.shard_step.sharded_packed_glove_epoch`)."""
+        mesh = current_mesh()
+        n, dev = mesh.num_devices, self.device
         K = self.num_components
         Kp = K + 2
         wrows_w, wrows_h = 256, 256
-        rw = pk.packed_rows(V1, Kp, multiple=wrows_w)
+        mult_w = wrows_w * n
+        rw = pk.packed_rows(V1, Kp, multiple=mult_w)
         rh = pk.logical_rows(V2, multiple=wrows_h)
         self.packed_engine_ = True
-        m2, f2, l2, winw, sx, rowsx, winx = prep_glove_static(
-            c2, x2, n2, V1, K, rw, rh, wrows_w, wrows_h, self.x_max,
-            self.alpha)
+        if n > 1:
+            streams = prep_glove_shard_static(
+                c2, x2, n2, V1, K, rw, rh, wrows_w, wrows_h, n, self.x_max,
+                self.alpha, shard=mesh.rank)
+            # this rank's streams, the shard axis dropped, in the epoch's
+            # order (c, x, m, f, l, sx, rowsx, winx, winw)
+            streams = [streams[i][0] for i in (0, 1, 2, 3, 4, 6, 7, 8, 5)]
+        else:
+            m2, f2, l2, winw, sx, rowsx, winx = prep_glove_static(
+                c2, x2, n2, V1, K, rw, rh, wrows_w, wrows_h, self.x_max,
+                self.alpha)
+            streams = [c2, x2, m2, f2, l2, sx, rowsx, winx, winw]
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+        # the central table and its state: this rank's row shard
+        put_w = mesh.put_table if n > 1 else put
+
+        def host_w(T):  # the whole packed central table, on the host
+            return fetch_to_host(T, mesh)
+
         Zc_np, Zx_np = augment_tables(W_central, central_bias, W_context,
                                       context_bias)
-        Zc = put(pk.pack_array(Zc_np.astype(np.float32), Kp,
-                               multiple=wrows_w))
+        Zc = put_w(pk.pack_array(Zc_np.astype(np.float32), Kp,
+                                 multiple=mult_w))
         Zx = put(pk.pack_logical(Zx_np.astype(np.float32), Kp,
                                  multiple=wrows_h))
         opt = PackedAdaGrad(self.learning_rate)
@@ -373,40 +514,50 @@ class GloVe:
         def fused_state():
             # the fused batch engine's schema at logical shapes, so each
             # engine resumes the other's; bc/bx/abc/abx are the fused
-            # mode's unused placeholders
-            return {"Wc": pk.unpack_array(Zc.cpu().numpy(), V1, Kp),
+            # mode's unused placeholders.  A collective on a mesh
+            return {"Wc": pk.unpack_array(host_w(Zc), V1, Kp),
                     "Wx": Zx[:V2, :Kp].cpu().numpy(),
                     "bc": np.zeros((1, 1), np.float32),
                     "bx": np.zeros((1, 1), np.float32),
                     "ow": {"accum": pk.unpack_array(
-                        oc["accum"].cpu().numpy(), V1, Kp)},
+                        host_w(oc["accum"]), V1, Kp)},
                     "oh": {"accum": ox["accum"][:V2, :Kp].cpu().numpy()},
                     "abc": np.ones((1, 1), np.float32),
                     "abx": np.ones((1, 1), np.float32)}
 
         st, start_epoch = resume_state(checkpoint_path, resume,
-                                       fused_state())
+                                      fused_state(), self._ckpt_rows(V1, V2))
+        mesh.agree(start_epoch, "the checkpoint's epoch")
         if start_epoch:
             ones_w = pk.pack_array(np.ones((V1, Kp), np.float32), Kp,
-                                   multiple=wrows_w) > 0
+                                   multiple=mult_w) > 0
             ones_h = pk.pack_logical(np.ones((V2, Kp), np.float32), Kp,
                                      multiple=wrows_h) > 0
-            Zc = put(pk.pack_array(st["Wc"], Kp, multiple=wrows_w))
+            Zc = put_w(pk.pack_array(st["Wc"], Kp, multiple=mult_w))
             Zx = put(pk.pack_logical(st["Wx"], Kp, multiple=wrows_h))
             # off-payload accumulator lanes must be ONES (the
             # initializer): a zero accumulator with a zero gradient is
             # 0 * rsqrt(0) = NaN on lanes the kernels never read
-            oc = {"accum": put(np.where(ones_w, pk.pack_array(
-                st["ow"]["accum"], Kp, multiple=wrows_w), 1.0))}
+            oc = {"accum": put_w(np.where(ones_w, pk.pack_array(
+                st["ow"]["accum"], Kp, multiple=mult_w), 1.0).astype(
+                    np.float32))}
             ox = {"accum": put(np.where(ones_h, pk.pack_logical(
-                st["oh"]["accum"], Kp, multiple=wrows_h), 1.0))}
-        dev_streams = [put(a) for a in (c2, x2, m2, f2, l2, sx, rowsx, winx,
-                                        winw)]
-        self._run_epochs(num_epochs, verbose, t0, lambda: packed_glove_epoch(
-            Zc, Zx, oc, ox, *dev_streams, N, lr=self.learning_rate, K=K,
-            rw=rw, rh=rh, wrows_w=wrows_w, wrows_h=wrows_h), fused_state,
-            checkpoint_path, checkpoint_every, start_epoch)
-        Zc_log = pk.unpack_array(Zc.cpu().numpy(), V1, Kp)
+                st["oh"]["accum"], Kp, multiple=wrows_h), 1.0).astype(
+                    np.float32))}
+        dev_streams = [put(a) for a in streams]
+        kw = dict(lr=self.learning_rate, K=K, rw=rw, rh=rh, wrows_w=wrows_w,
+                  wrows_h=wrows_h)
+        if n > 1:
+            def run():
+                return sharded_packed_glove_epoch(mesh, Zc, Zx, oc, ox,
+                                                  *dev_streams, N, **kw)
+        else:
+            def run():
+                return packed_glove_epoch(Zc, Zx, oc, ox, *dev_streams, N,
+                                          **kw)
+        self._run_epochs(num_epochs, verbose, t0, run, fused_state,
+                         checkpoint_path, checkpoint_every, start_epoch)
+        Zc_log = pk.unpack_array(host_w(Zc), V1, Kp)
         Zx_log = Zx[:V2, :Kp].cpu().numpy()
         self._set_outputs(Zc_log, Zx_log, K)
 
@@ -456,7 +607,7 @@ class GloVe:
 
     def _run_epochs(self, num_epochs, verbose, t0, run, state_fn=None,
                     checkpoint_path=None, checkpoint_every=1,
-                    start_epoch=0):
+                    start_epoch=0, sharded=frozenset()):
         """Every engine's epoch loop: ``prep_s_`` (the host work since
         ``t0``, the card synchronised), then a call of ``run()`` (an
         epoch; it returns the loss) for each epoch from ``start_epoch``
@@ -464,7 +615,11 @@ class GloVe:
         ``last_loss`` from the last.  With ``checkpoint_path``,
         ``state_fn()`` is saved after every ``checkpoint_every``-th epoch
         (the copy to the host blocks, ``checkpoint_s_``; the write runs on
-        a thread and is flushed before this returns)."""
+        a thread and is flushed before this returns).  On a mesh every
+        rank calls ``state_fn()`` (which may gather) and the leaves under
+        the keys ``sharded``, this rank's row shards, are gathered; rank 0
+        writes the file, which is whole before any rank returns."""
+        mesh = current_mesh()
         dev = self.device
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -484,10 +639,14 @@ class GloVe:
                       f"LOSS: {float(loss):.4f}", flush=True)
             if ckpt and (it + 1) % checkpoint_every == 0:
                 t1 = time.perf_counter()
-                ckpt.save(checkpoint_path, state_fn(), it)
+                state = {k: _gather(v, mesh) if k in sharded else v
+                         for k, v in state_fn().items()}
+                if mesh.rank == 0:
+                    ckpt.save(checkpoint_path, state, it)
                 self.checkpoint_s_.append(time.perf_counter() - t1)
         if ckpt:
             ckpt.wait()
+            mesh.barrier()
         self.last_loss = float(loss) if loss is not None else None
 
     def _set_outputs(self, Zc_log, Zx_log, K):

@@ -47,14 +47,25 @@ against the card's kernels.
 Checkpoints hold the JAX package's schemas (``{"W", "H", "ow", "oh"}``
 batch, ``{"W", "H", "owp", "ohp"}`` packed) and either engine resumes
 either's, of either package (BPR's converters, `models/bpr.py`); the
-sequential engine refuses them, as in the JAX package.  Not ported yet
-(ROADMAP.md, queue 1): the multi-device engines.
+sequential engine refuses them, as in the JAX package.
+
+Under a mesh of more than one rank (``cymf_tpu_torch.parallel``) the
+routing is the JAX package's (`cymf_tpu/models/relmf.py:190-206`):
+``packed="on"`` raises ``ValueError`` and ``"auto"`` takes the batch
+engine's sharded form (``_fit_batch_sharded``,
+``parallel/shard_step.py::sharded_relmf_epoch``): both tables row-sharded,
+the batch padded to a multiple of the world size, each step's whole
+batch drawn on every rank and split between them, so the cell stream is
+the single-device engine's at the same batch.  ``engine="pallas"`` runs
+the sequential engine on each rank's device, as the JAX package runs it
+on one device of its mesh.
 """
 
 from __future__ import annotations
 
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -69,10 +80,10 @@ from ..ops.relmf_epoch import (epoch_generator, packed_relmf_epoch,
                                supports_packed_relmf)
 from ..ops.segment import csr_lookup
 from ..optim import make_optimizer
-from .base import (MFTrainerBase, PersistenceMixin, as_csr,
-                   require_one_device)
+from ..parallel.shard_step import sharded_relmf_epoch
+from .base import MFTrainerBase, PersistenceMixin, as_csr
 from .bpr import (_batch_resume_state, _packed_resume_state, _resume_point,
-                  choose_update_mode)
+                  _sharded_batch_state, choose_update_mode)
 
 # host prep holds an epoch's cells as int64 draws and int32 streams: cap
 # it at the JAX package's default of 2^27 cells (about 3 GiB of prep)
@@ -184,27 +195,30 @@ class RelMF(MFTrainerBase, PersistenceMixin):
             raise ValueError("CYMF_TPU_RELMF_PREP must be device|host")
         return mode
 
-    def _packed_engine(self, binary: bool, cells: int) -> bool:
+    def _packed_engine(self, binary: bool, cells: int,
+                       num_devices: int = 1) -> bool:
         """True if the packed engine takes this fit: not ``packed="off"``,
-        a binarized matrix, a packable payload and, under host prep, at
-        most :data:`HOST_PREP_MAX_CELLS` cells an epoch (device prep has
-        no cap).  Where it does not fit, ``packed="on"`` raises
-        ``ValueError`` as the JAX package does, and ``"auto"`` takes the
-        batch engine (`cymf_tpu/models/relmf.py:208-209`, whose TPU the
-        card and, deliberately, the CPU stand in for)."""
+        a world of one rank, a binarized matrix, a packable payload and,
+        under host prep, at most :data:`HOST_PREP_MAX_CELLS` cells an
+        epoch (device prep has no cap).  Where it does not fit,
+        ``packed="on"`` raises ``ValueError`` as the JAX package does, and
+        ``"auto"`` takes the batch engine (`cymf_tpu/models/relmf.py:
+        197-209`, whose TPU the card and, deliberately, the CPU stand in
+        for)."""
         if self.packed == "off":
             return False
         capped = (self._packed_prep_mode() == "host"
                   and cells > HOST_PREP_MAX_CELLS)
         if binary and supports_packed_relmf(self.num_components) \
-                and not capped:
+                and not capped and num_devices == 1:
             return True
         if self.packed == "on":
             raise ValueError(
-                "packed='on' requires a binarized matrix, num_components "
-                "<= 126, and (with CYMF_TPU_RELMF_PREP=host) at most "
-                f"{HOST_PREP_MAX_CELLS} cells an epoch (got {cells}; device "
-                "prep has no cap)")
+                "packed='on' requires a single-device mesh, a binarized "
+                "matrix, num_components <= 126, and (with "
+                "CYMF_TPU_RELMF_PREP=host) at most "
+                f"{HOST_PREP_MAX_CELLS} cells an epoch (got {cells} cells "
+                f"an epoch on {num_devices} ranks; device prep has no cap)")
         return False
 
     @torch.no_grad()
@@ -221,8 +235,8 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         (``prep_s``; host prep runs beside the previous epoch's device
         work).  ``checkpoint_path``, ``checkpoint_every`` and ``resume``
         as ``BPR.fit``; ``engine="pallas"`` refuses checkpoints."""
-        require_one_device("RelMF")
         X = as_csr(X)
+        n = self._mesh_device().num_devices
         self.valid_evaluator = valid_evaluator
         self.valid_dcg = -np.inf
         self.early_stopping = early_stopping
@@ -246,11 +260,11 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         binary = bool(X.nnz == 0 or np.all(X.data == 1.0))
         B = -(-self.batch_size // 1024) * 1024
         S = max(1, -(-(U * I) // B))      # N = U*I samples per epoch
-        self.packed_engine_ = self._packed_engine(binary, S * B)
+        self.packed_engine_ = self._packed_engine(binary, S * B, n)
         ckpt = (checkpoint_path, checkpoint_every, resume)
         if not self.packed_engine_:
-            self._fit_batch(X, props, binary, num_epochs, verbose, seed,
-                            *ckpt)
+            fit = self._fit_batch_sharded if n > 1 else self._fit_batch
+            fit(X, props, binary, num_epochs, verbose, seed, *ckpt)
             return
         self._samples_per_epoch = S * B
         self._fit_packed_relmf(X, props, B, S, num_epochs, verbose, seed,
@@ -270,18 +284,8 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         self._samples_per_epoch = num_steps * B
         self.last_loss = None
 
-        def put(a, dtype=None):
-            return torch.as_tensor(np.ascontiguousarray(a),
-                                   dtype=dtype).to(dev)
-
-        if binary:
-            coo = X.tocoo()
-            label_src = to_device(build_pair_hashset(coo.row, coo.col), dev)
-        else:
-            label_src = (put(X.indptr, torch.int64),
-                         put(X.indices, torch.int32),
-                         put(X.data, torch.float32))
-        props_d = put(props[:, None], torch.float32)
+        label_src = self._labels(X, binary)
+        props_d = torch.as_tensor(props[:, None], dtype=torch.float32).to(dev)
         # copies: the host tables must not see the in-place updates
         W = torch.tensor(self.W, dtype=torch.float32, device=dev)
         H = torch.tensor(self.H, dtype=torch.float32, device=dev)
@@ -307,6 +311,64 @@ class RelMF(MFTrainerBase, PersistenceMixin):
                 num_users=U, num_items=I, num_steps=num_steps, batch_size=B,
                 update_mode=self.update_mode_,
                 binary_labels=binary) / total
+
+        self._run_device_epochs(num_epochs, verbose, None, run, publish,
+                                checkpoint_path, checkpoint_every,
+                                start_epoch)
+
+    def _labels(self, X, binary: bool):
+        """Where the batch engines read their labels, on the tables'
+        device: the pair hash set of a binary ``X``, else its CSR."""
+        dev = self.device
+        if binary:
+            coo = X.tocoo()
+            return to_device(build_pair_hashset(coo.row, coo.col), dev)
+        return (torch.as_tensor(X.indptr, dtype=torch.int64).to(dev),
+                torch.as_tensor(X.indices, dtype=torch.int32).to(dev),
+                torch.as_tensor(X.data, dtype=torch.float32).to(dev))
+
+    def _fit_batch_sharded(self, X, props, binary, num_epochs, verbose,
+                           seed, checkpoint_path, checkpoint_every, resume):
+        """The batch engine on a mesh (:func:`~cymf_tpu_torch.parallel.
+        shard_step.sharded_relmf_epoch`), as the mesh branch of
+        ``cymf_tpu.RelMF.fit``: W, H and their Adam (or other) states
+        row-sharded over the ranks (rows padded by ``mesh.pad_rows``),
+        ``B = mesh.pad_rows(batch_size)`` (with the JAX package's warning
+        when that pads), ``ceil(U * I / B)`` steps an epoch, labels and
+        propensities whole on every rank, dense masked updates."""
+        mesh = self.mesh
+        dev = self.device
+        U, I = X.shape
+        B = mesh.pad_rows(self.batch_size)
+        if B != self.batch_size:
+            warnings.warn(
+                f"batch_size={self.batch_size} padded to {B} (multiple of "
+                f"{mesh.num_devices} devices): the drawn cell stream and "
+                "samples_per_epoch differ from a device count where no "
+                "padding is needed", stacklevel=3)
+        # python ints: ML-20M's 3.7e9 cells an epoch overflow int32
+        num_steps = max(1, -(-(U * I) // B))
+        self._samples_per_epoch = num_steps * B
+        self.update_mode_ = "dense"
+        self.last_loss = None
+        label_src = self._labels(X, binary)
+        props_d = torch.as_tensor(props[:, None], dtype=torch.float32).to(dev)
+        opt = make_optimizer(self.optimizer, self.learning_rate)
+        W, H, ow, oh, start_epoch = _sharded_batch_state(
+            self, mesh, opt, U, I, checkpoint_path, resume)
+        total = float(num_steps * B)
+
+        def publish():
+            self._state = {"W": W, "H": H, "ow": ow, "oh": oh}
+            self._sharded_keys = frozenset(self._state)
+
+        def run(epoch):
+            return sharded_relmf_epoch(
+                mesh, W, H, ow, oh, label_src, props_d,
+                epoch_generator(seed, epoch, dev), optimizer=opt,
+                weight_decay=self.weight_decay, clip_value=self.clip_value,
+                num_users=U, num_items=I, num_steps=num_steps, batch_size=B,
+                binary=binary, draw=_draw_cells) / total
 
         self._run_device_epochs(num_epochs, verbose, None, run, publish,
                                 checkpoint_path, checkpoint_every,

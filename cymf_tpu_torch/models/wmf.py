@@ -1,5 +1,5 @@
 """Weighted Matrix Factorization / implicit ALS (Hu, Koren, Volinsky 2008).
-Port of `cymf_tpu/models/wmf.py`, its single-device branch.
+Port of `cymf_tpu/models/wmf.py`.
 
 Per epoch, alternate closed-form least-squares sweeps over users then
 items (`cymf/wmf.pyx`).  For each row r with positive set P(r) over the
@@ -16,27 +16,33 @@ batched Cholesky (LU optional, as the reference's ``dgesv``).  At
 ``K >= 128`` on CUDA the Cholesky is the blocked form whose diagonal
 blocks run the hand-written kernel of ``csrc/chol_inv.cu``.
 
+Under a mesh of more than one rank (``cymf_tpu_torch.parallel``) both
+tables are row-sharded and each chunk's rows split over the ranks
+(``parallel/shard_step.py::sharded_wmf_chunk``, the JAX package's
+``shard_map`` branch): the Gramian is the local product all-reduced, a
+chunk's positives come by an O(gathered rows) exchange and its solutions
+by an all-gather of ``C x K``.
+
 ``fit(checkpoint_path=p)`` saves ``{"W", "H"}``, the JAX package's
-schema, and ``resume=True`` continues from it.  Not ported yet
-(ROADMAP.md, queue 1): the multi-device branch.
+schema, and ``resume=True`` continues from it, whatever row padding
+(number of ranks, or the JAX package's devices) wrote it.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import List
 
 import numpy as np
 import torch
 
 from .. import config
-from ..ops.als import (AlsChunk, build_chunks, place_device_chunks,
-                       resolve_chol_solver, wmf_chunk_solve,
-                       wmf_chunk_solve_woodbury)
+from ..ops.als import (build_chunks, place_device_chunks,
+                       place_mesh_chunks, resolve_chol_solver,
+                       wmf_chunk_solve, wmf_chunk_solve_woodbury)
+from ..parallel.shard_step import sharded_gramian, sharded_wmf_chunk
 from ..utils.checkpoint import resume_state
-from .base import (MFTrainerBase, PersistenceMixin, as_csr,
-                   require_one_device)
+from .base import MFTrainerBase, PersistenceMixin, as_csr, padded_rows
 
 
 def woodbury_max_p(num_components: int, weight: float, weight_decay: float,
@@ -98,8 +104,8 @@ class WMF(MFTrainerBase, PersistenceMixin):
         the number of ``standard`` and ``woodbury`` chunks).
         ``checkpoint_path``, ``checkpoint_every`` and ``resume`` as
         ``BPR.fit``."""
-        require_one_device("WMF")
         X = as_csr(X)
+        mesh = self._mesh_device()
         self.valid_evaluator = valid_evaluator
         self.valid_dcg = -np.inf
         self.early_stopping = early_stopping
@@ -107,6 +113,7 @@ class WMF(MFTrainerBase, PersistenceMixin):
             raise ValueError()
         dev = self.device
         K = self.num_components
+        # the solver and the Woodbury cap, once a fit
         solver_r = resolve_chol_solver(self.solver, K, dev)
         wb_max_p = woodbury_max_p(K, self.weight, self.weight_decay,
                                   solver_r)
@@ -115,37 +122,55 @@ class WMF(MFTrainerBase, PersistenceMixin):
         U, I = X.shape
         self._num_users, self._num_items = U, I
         self._ensure_tables(U, I)
+        sharded = mesh.num_devices > 1
+        # the tables' rows, padded to a multiple of the world size
+        Up, Ip = mesh.pad_rows(U), mesh.pad_rows(I)
 
         t0 = time.perf_counter()
         Xt = X.T.tocsr()
         Xt.sort_indices()
-        chunks = {"W": build_chunks(X, self.chunk_size, U, num_components=K),
-                  "H": build_chunks(Xt, self.chunk_size, I,
+        chunks = {"W": build_chunks(X, self.chunk_size, Up, num_components=K),
+                  "H": build_chunks(Xt, self.chunk_size, Ip,
                                     num_components=K)}
         self.chunks_ = {"build_s": time.perf_counter() - t0}
         for side, cs in chunks.items():
             nw = sum(c.idx_pad.shape[1] <= wb_max_p for c in cs)
             self.chunks_[side] = {"standard": len(cs) - nw, "woodbury": nw}
-        user_chunks = place_device_chunks(chunks["W"], dev, U)
-        item_chunks = place_device_chunks(chunks["H"], dev, I)
+        if sharded:
+            user_chunks = place_mesh_chunks(chunks["W"], mesh)
+            item_chunks = place_mesh_chunks(chunks["H"], mesh)
+        else:
+            user_chunks = place_device_chunks(chunks["W"], dev, U)
+            item_chunks = place_device_chunks(chunks["H"], dev, I)
         self._samples_per_epoch = X.nnz
 
-        def put(a):
-            return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
-
-        self._state, start_epoch = resume_state(
-            checkpoint_path, resume, {"W": put(self.W), "H": put(self.H)})
+        # the whole (padded) tables on the host, or on the one device
+        state, start_epoch = resume_state(
+            checkpoint_path, resume,
+            {"W": padded_rows(self.W, Up), "H": padded_rows(self.H, Ip)}
+            if sharded else {"W": padded_rows(self.W, U).to(dev),
+                             "H": padded_rows(self.H, I).to(dev)},
+            {"W": U, "H": I})
+        mesh.agree(start_epoch, "the checkpoint's epoch")
+        if sharded:
+            state = {k: mesh.put_table(v) for k, v in state.items()}
+        self._state = state
+        self._sharded_keys = frozenset(state) if sharded else frozenset()
         eye = torch.eye(K, dtype=config.param_dtype(), device=dev)
         wd, weight = self.weight_decay, self.weight
 
-        def half_sweep(target_key: str, source_key: str,
-                       chunks: List[AlsChunk]):
+        def half_sweep(target_key: str, source_key: str, chunks):
             Y = self._state[source_key]
-            A0 = Y.T @ Y + wd * eye
+            A0 = sharded_gramian(mesh, Y, wd) if sharded \
+                else Y.T @ Y + wd * eye
             A0i = torch.linalg.inv_ex(A0)[0] if any(
                 c.idx_pad.shape[1] <= wb_max_p for c in chunks) else None
             T = self._state[target_key]
             for ch in chunks:
+                if sharded:
+                    sharded_wmf_chunk(mesh, Y, T, A0, A0i, ch, weight=weight,
+                                      solver=solver_r, wb_max_p=wb_max_p)
+                    continue
                 if ch.idx_pad.shape[1] <= wb_max_p:
                     x = wmf_chunk_solve_woodbury(Y, A0i, ch.idx_pad,
                                                  ch.valid, weight,

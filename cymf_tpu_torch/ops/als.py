@@ -269,6 +269,61 @@ def place_device_chunks(chunks: List[AlsChunk], device,
     return out
 
 
+# elements of (Y (x) Y) formed at once in the weighted Gramian (1 GiB)
+_GRAM_ELEMS = 1 << 28
+
+
+def weighted_gramian(E: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """``sum_i E[c, i] y_i y_i^T`` for every row c of ``E (C, I)``:
+    ``(C, K, K)``.
+
+    Written as ``E @ (Y (x) Y).reshape(I, K*K)`` over row blocks of ``Y``:
+    each block's outer products are formed and taken into the sum by one
+    ``addmm`` with E's matching columns.  No ``(C, I, K)`` tensor exists,
+    and at most ``_GRAM_ELEMS`` elements of ``Y (x) Y``.
+    """
+    I, K = Y.shape
+    out = torch.zeros((E.shape[0], K * K), dtype=Y.dtype, device=Y.device)
+    step = max(1, _GRAM_ELEMS // (K * K))
+    for s in range(0, I, step):
+        Yb = Y[s:s + step]
+        out.addmm_(E[:, s:s + step], (Yb[:, :, None] * Yb[:, None, :])
+                   .reshape(len(Yb), K * K))
+    return out.view(-1, K, K)
+
+
+class MeshAlsChunk(NamedTuple):
+    """One chunk placed on a rank of a mesh (:func:`place_mesh_chunks`)."""
+    rows: torch.Tensor     # int64[Cp] every target row id, on every rank
+    idx_pad: torch.Tensor  # int32[Cp / n, P] this rank's rows' positives
+    valid: torch.Tensor    # bool[Cp / n, P]
+
+
+def place_mesh_chunks(chunks: List[AlsChunk], mesh) -> List[MeshAlsChunk]:
+    """The chunks on a rank of ``mesh`` (``cymf_tpu/ops/als.py:378-409``,
+    its mesh form): each chunk's ``C`` is padded to a multiple of the world
+    size with sentinel rows (``2**31 - 1``: no rank owns them, no entry is
+    valid), ``idx_pad``/``valid`` are cut to this rank's ``Cp / n`` rows
+    and ``rows`` stays whole, for the scatter every rank makes of the rows
+    it owns.  Unlike :func:`place_device_chunks`, sentinel rows stay: the
+    ranks' slices must split every chunk evenly."""
+    n, p, dev = mesh.num_devices, mesh.rank, mesh.device
+    out = []
+    for c in chunks:
+        pad = -len(c.rows) % n
+        rows = np.pad(c.rows.astype(np.int64), (0, pad),
+                      constant_values=2**31 - 1)
+        cn = len(rows) // n
+        sl = slice(p * cn, (p + 1) * cn)
+        out.append(MeshAlsChunk(
+            torch.from_numpy(rows).to(dev),
+            torch.from_numpy(np.pad(c.idx_pad, ((0, pad), (0, 0)))[sl]
+                             .copy()).to(dev),
+            torch.from_numpy(np.pad(c.valid, ((0, pad), (0, 0)))[sl]
+                             .copy()).to(dev)))
+    return out
+
+
 def gather_rows(Y: torch.Tensor, idx_pad: torch.Tensor,
                 valid: torch.Tensor) -> torch.Tensor:
     """``Y[idx_pad] * valid``: the chunk's positives, ``(C, P, K)``, with
@@ -284,7 +339,14 @@ def wmf_chunk_solve(Y, A0, idx_pad, valid, weight: float, *, solver: str):
     ``A = A0 + (weight-1) sum_{i in pos(r)} y_i y_i^T``,
     ``b = weight sum y_i`` (`wmf.pyx:161-168`).  Rows with no positives
     return zeros (`wmf.pyx:154-156`)."""
-    sub = gather_rows(Y, idx_pad, valid)                    # (C, P, K)
+    return wmf_solve_rows(gather_rows(Y, idx_pad, valid), A0, valid, weight,
+                          solver)
+
+
+def wmf_solve_rows(sub, A0, valid, weight: float, solver: str):
+    """The standard-form solve on gathered, pad-zeroed rows
+    ``sub (C, P, K)``: what :func:`wmf_chunk_solve` does after its gather,
+    and the sharded chunk after its row exchange."""
     with annotate("als.correction"):
         A = torch.baddbmm(A0.expand(sub.shape[0], -1, -1), sub.mT, sub,
                           alpha=weight - 1.0)

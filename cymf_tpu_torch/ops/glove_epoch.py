@@ -1,9 +1,13 @@
 """Packed fused GloVe engine and the GloVe sample phase.
 
-Port of `cymf_tpu/ops/glove_epoch.py` for one device.  GloVe's whole
+Port of `cymf_tpu/ops/glove_epoch.py`.  GloVe's whole
 sample stream (triples, weights ``f = min((count/x_max)^alpha, 1)``,
 ``log(count)``, sort permutations, accumulation windows) is static per
 fit, so :func:`prep_glove_static` runs once and every epoch replays it.
+On a mesh, :func:`prep_glove_shard_static` cuts it into one contiguous
+slice a rank, and the sharded epoch (``parallel/shard_step.py::
+sharded_packed_glove_epoch``) runs :func:`glove_step` with the mesh's
+all-reduce between the context side's accumulation and its update.
 
 Layout (fused-bias mode only): the augmented central table
 ``Zc = [w | b_c | 1]`` is lane-packed (``ops/packed.py``, payload width
@@ -30,8 +34,8 @@ from . import _kernels
 from . import packed as pk
 from .fused_sample import decorate
 from .packed_epoch import (TILE, PackedAdaGrad, _packed_windows, _pad_lanes,
-                           _sorted_side)
-from .sorted_accum import sorted_accum
+                           _shards, _sorted_side, shard_slices)
+from .sorted_accum import sorted_accum, window_ranges
 
 LANES = 128
 
@@ -160,6 +164,57 @@ def prep_glove_static(c2, x2, cnt2, num_central: int, K: int, rw: int,
     return m2, f2, l2, winw, sx, rowsx, winx
 
 
+def prep_glove_shard_static(c2, x2, cnt2, num_central: int, K: int,
+                            rw: int, rh: int, wrows_w: int, wrows_h: int,
+                            n: int, x_max: float, alpha: float,
+                            tile: int = TILE, shard=None):
+    """Once per fit (sharded packed GloVe, `cymf_tpu/ops/glove_epoch.py:
+    197-250`): the central-sorted steps cut into ``n`` shard-contiguous
+    slices (``packed_epoch.shard_slices``: shard ``p`` owns packed central
+    rows ``[p rw/n, (p+1) rw/n)``), central ids made local, and each
+    shard's windows, weights and context-side sorted streams.  GloVe
+    draws nothing per epoch, so there is no per-epoch shard prep.
+
+    Returns ``(c_loc, x_loc, m_loc, f_loc, l_loc, winw, sx, rowsx, winx,
+    Bd)`` with a leading shard axis on every array, the JAX package's
+    arrays bit for bit; ``shard=p`` builds shard ``p``'s alone (a leading
+    axis of 1: a rank's own streams)."""
+    S, B = c2.shape
+    s = pk.num_slots(K + 2)
+    starts, counts, Bd = shard_slices(c2, K + 2, rw, n, tile)
+    rw_l = rw // n
+    sent = rw_l * s
+    m2 = (c2.astype(np.int64) < num_central).astype(np.uint8)
+    f2 = np.minimum((cnt2 / x_max) ** alpha, 1.0).astype(np.float32)
+    l2 = np.log(np.maximum(cnt2, 1e-30)).astype(np.float32)
+    ps = _shards(n, shard)
+    m = len(ps)
+    c_loc = np.full((m, S, Bd), sent, np.int32)
+    x_loc = np.zeros((m, S, Bd), np.int32)
+    m_loc = np.zeros((m, S, Bd), np.uint8)
+    f_loc = np.zeros((m, S, Bd), np.float32)
+    l_loc = np.zeros((m, S, Bd), np.float32)
+    winw = np.empty((m, S, 2, rw_l // wrows_w), np.int32)
+    sx = np.empty((m, S, Bd), np.int32)
+    rowsx = np.empty((m, S, Bd // 128, 128), np.int32)
+    winx = np.empty((m, S, 2, rh // wrows_h), np.int32)
+    c64 = np.asarray(c2, np.int64)
+    for q, p in enumerate(ps):
+        off = np.int64(p) * rw_l * s
+        for t in range(S):
+            a, c = int(starts[t, p]), int(counts[t, p])
+            c_loc[q, t, :c] = np.minimum(c64[t, a:a + c] - off, sent)
+            x_loc[q, t, :c] = x2[t, a:a + c]
+            m_loc[q, t, :c] = m2[t, a:a + c]
+            f_loc[q, t, :c] = f2[t, a:a + c]
+            l_loc[q, t, :c] = l2[t, a:a + c]
+            pu = c_loc[q, t].astype(np.int64) // s
+            winw[q, t, 0], winw[q, t, 1] = window_ranges(
+                pu, rw_l, wrows_w, tile, align=128)
+        sx[q], rowsx[q], winx[q] = _sorted_side(x_loc[q], rh, wrows_h, tile)
+    return c_loc, x_loc, m_loc, f_loc, l_loc, winw, sx, rowsx, winx, Bd
+
+
 def glove_freeze_masks(K: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     """(1, 128) gradient masks that freeze the constant-one columns:
     slot-relative lane ``K + 1`` of the packed central table (and its
@@ -172,6 +227,36 @@ def glove_freeze_masks(K: int, device) -> tuple[torch.Tensor, torch.Tensor]:
                           .to(torch.float32)[None, :])
     freeze_x = ((lane < Kp) & (lane != K)).to(torch.float32)[None, :]
     return freeze_c, freeze_x
+
+
+def glove_step(Zc, Zx, oc, ox, opt, c, x, m, f, lc, sx, rowsx, winx_s,
+               winx_c, winw_s, winw_c, *, K: int, rw: int, rh: int,
+               wrows_w: int, wrows_h: int, freeze_c, freeze_x,
+               reduce_x=None) -> torch.Tensor:
+    """One step of :func:`packed_glove_epoch`; returns its loss sum.
+    ``reduce_x``, when given, merges the context side's sums ``D``
+    ``(rh, 128)`` in place before the context update: the sharded epoch
+    passes the mesh's all-reduce (``parallel/shard_step.py``), so one
+    device launches what it launches without it."""
+    Kp = K + 2
+    s = pk.num_slots(Kp)
+    phys, slot = c // s, c % s
+    # clamp only the gather index: padding sentinels stay >= rw so the
+    # accumulation drops them, and their zero mask zeroes the kernel's
+    # outputs
+    Du = decorate(Zc.index_select(0, phys.clamp(max=rw - 1)), slot,
+                  m.to(torch.float32), Kp)
+    Dx = decorate_x(Zx.index_select(0, x), f, lc, Kp)
+    SW, Q, loss = glove_sample_phase(Du, Dx, Kp=Kp)
+    Ac = sorted_accum(phys, SW, winw_s, winw_c, r_pad=rw, wrows=wrows_w)
+    gc, _ = pk.split_counts(Ac, Kp)
+    opt.update(Zc, oc, _pad_lanes(gc) * freeze_c, None)
+    D = sorted_accum(rowsx, Q.index_select(0, sx), winx_s, winx_c, r_pad=rh,
+                     wrows=wrows_h)
+    if reduce_x is not None:
+        reduce_x(D)
+    opt.update(Zx, ox, D * freeze_x, None)
+    return loss
 
 
 @torch.no_grad()
@@ -198,30 +283,14 @@ def packed_glove_epoch(Zc, Zx, oc, ox, c_steps, x_steps, m_steps, f_steps,
     Update semantics: one synchronous AdaGrad step per minibatch with
     duplicate rows pre-combined by the windowed accumulation, ones-init
     accumulators, the constant-one columns frozen."""
-    Kp = K + 2
     opt = PackedAdaGrad(lr)
-    s = pk.num_slots(Kp)
     freeze_c, freeze_x = glove_freeze_masks(K, Zc.device)
     loss = torch.zeros((), dtype=torch.float32, device=Zc.device)
     for t in range(c_steps.shape[0]):
-        c = c_steps[t]
-        phys, slot = c // s, c % s
-        # clamp only the gather index: padding sentinels stay >= rw so the
-        # accumulation drops them, and their zero mask zeroes the kernel's
-        # outputs
-        Du = decorate(Zc.index_select(0, phys.clamp(max=rw - 1)), slot,
-                      m_steps[t].to(torch.float32), Kp)
-        Dx = decorate_x(Zx.index_select(0, x_steps[t]), f_steps[t],
-                        l_steps[t], Kp)
-        SW, Q, loss_t = glove_sample_phase(Du, Dx, Kp=Kp)
-        loss += loss_t
-
-        Ac = sorted_accum(phys, SW, winw[t, 0], winw[t, 1], r_pad=rw,
-                          wrows=wrows_w)
-        gc, _ = pk.split_counts(Ac, Kp)
-        opt.update(Zc, oc, _pad_lanes(gc) * freeze_c, None)
-
-        D = sorted_accum(rowsx_steps[t], Q.index_select(0, sx_steps[t]),
-                         winx[t, 0], winx[t, 1], r_pad=rh, wrows=wrows_h)
-        opt.update(Zx, ox, D * freeze_x, None)
+        loss += glove_step(
+            Zc, Zx, oc, ox, opt, c_steps[t], x_steps[t], m_steps[t],
+            f_steps[t], l_steps[t], sx_steps[t], rowsx_steps[t], winx[t, 0],
+            winx[t, 1], winw[t, 0], winw[t, 1], K=K, rw=rw, rh=rh,
+            wrows_w=wrows_w, wrows_h=wrows_h, freeze_c=freeze_c,
+            freeze_x=freeze_x)
     return loss / max(int(n_valid), 1)

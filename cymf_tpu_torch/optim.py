@@ -210,6 +210,24 @@ class Adam(SparseOptimizer):
         return table, state
 
 
+def adagrad_kfold_rows(bias, accum, rows, g, lr: float, k_steps: int) -> None:
+    """``k_steps`` consecutive AdaGrad steps with the constant gradient
+    ``g`` ``(B, 1)`` on rows ``rows`` of the ``(V, 1)`` columns ``bias`` and
+    ``accum``, in closed form, IN PLACE: ``delta = -lr g sum_{t=1..k}
+    rsqrt(a0 + t g^2)``, ``accum += k g^2``.  ``rows`` are distinct
+    (:func:`~cymf_tpu_torch.ops.segment.dedup_rows`' output) apart from
+    those at or past ``V``, which are dropped."""
+    drop = bias.shape[0]
+    keep = rows < drop
+    tgt = rows.clamp(max=drop - 1)
+    a0 = accum.index_select(0, tgt)                      # (B, 1)
+    t = torch.arange(1, k_steps + 1, dtype=bias.dtype, device=bias.device)
+    denom = torch.sqrt(a0 + t[None, :] * torch.square(g))
+    delta = -lr * g[:, :1] * torch.sum(1.0 / denom, dim=1, keepdim=True)
+    set_rows(accum, tgt, a0 + k_steps * torch.square(g[:, :1]), keep)
+    bias.index_add_(0, tgt, masked_addend(delta, keep))
+
+
 def make_optimizer(name: str, learning_rate: float) -> SparseOptimizer:
     """Optimizer whitelist matching `cymf/bpr.pyx:65-66`."""
     if name == "adam":

@@ -165,15 +165,21 @@ class MeshContext:
                             group=self.group)
         return out
 
+    def broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``t`` on every rank, IN PLACE (every rank passes a
+        tensor of the same shape and dtype); returns it."""
+        if self.group is not None:
+            dist.broadcast(t, dist.get_global_rank(self.group, 0),
+                           group=self.group)
+        return t
+
     def broadcast_float(self, x: float) -> float:
         """Rank 0's ``x`` on every rank: a control-flow decision taken on
         it comes out the same everywhere."""
         if self.group is None:
             return x
-        t = torch.tensor([x], dtype=torch.float64, device=self.device)
-        dist.broadcast(t, dist.get_global_rank(self.group, 0),
-                       group=self.group)
-        return float(t.item())
+        return float(self.broadcast(torch.tensor(
+            [x], dtype=torch.float64, device=self.device)).item())
 
     def agree(self, x: int, what: str) -> int:
         """``x``, which every rank must hold the same: raises

@@ -161,13 +161,42 @@ def load_checkpoint(path: str, like: Any) -> Tuple[Any, int, Dict[str, Any]]:
     return _rebuild(like, leaves), epoch, meta
 
 
-def resume_state(path: str | None, resume: bool,
-                 like: Any) -> Tuple[Any, int]:
+def resume_state(path: str | None, resume: bool, like: Any,
+                 rows: Dict[str, int] | None = None) -> Tuple[Any, int]:
     """Where a fit starts: ``(state, start_epoch)``, the checkpoint at
-    ``path`` loaded into ``like`` (:func:`load_checkpoint`) and the epoch
-    after the saved one when ``resume`` is on and the file exists, else
-    ``(like, 0)``."""
-    if resume and path is not None and os.path.exists(path):
-        state, epoch, _ = load_checkpoint(path, like)
-        return state, epoch + 1
-    return like, 0
+    ``path`` loaded into the structure of ``like`` and the epoch after the
+    saved one when ``resume`` is on and the file exists, else ``(like,
+    0)``.  ``rows`` takes a checkpoint written under another row padding
+    (another number of ranks, or the JAX package's mesh, whose tables are
+    padded to a multiple of its device count): a leaf under the top-level
+    key ``k`` whose shape differs from ``like``'s in its row count alone
+    has its first ``rows[k]`` rows (the logical rows) copied into a copy
+    of ``like``'s leaf, whose other rows keep their values.  Any other
+    difference raises ``ValueError``, a missing leaf ``KeyError``.  A
+    tensor leaf of ``like`` comes back as a tensor on its device and of its
+    dtype, any other leaf as an array."""
+    if not (resume and path is not None and os.path.exists(path)):
+        return like, 0
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    epoch = int(flat.pop(_EPOCH_KEY, -1))
+    leaves = {}
+    for key, leaf in _leaves(like):
+        if key not in flat:
+            raise KeyError(f"checkpoint missing leaf {key!r}")
+        arr, shape = flat[key], tuple(leaf.shape)
+        if arr.shape != shape:
+            n = (rows or {}).get(key.split("/")[0], -1)
+            if arr.shape[1:] != shape[1:] or min(arr.shape[0],
+                                                 shape[0]) < n or n < 0:
+                raise ValueError(
+                    f"checkpoint leaf {key!r} has shape {arr.shape}, "
+                    f"expected {shape} or another row count of at least "
+                    f"{n}")
+            out = _to_host(leaf)
+            out[:n] = arr[:n]
+            arr = out
+        if isinstance(leaf, torch.Tensor):
+            arr = torch.as_tensor(arr, dtype=leaf.dtype).to(leaf.device)
+        leaves[key] = arr
+    return _rebuild(like, leaves), epoch + 1

@@ -4,13 +4,13 @@ JAX package's, in one process.
 ``cymf_tpu_torch.parallel.MeshContext`` at a world of one (no process
 group: every collective is the identity), its row layout (``pad_rows``,
 ``put_table``) against the shards of the JAX ``MeshContext``'s table
-sharding at 1, 3 and 8 devices, ``use_mesh`` nesting, and the refusals
-under a mesh of more than one rank (a mismatched device, the trainers
-without a sharded form).  The five numpy prep functions of the sharded
-BPR engines (``shard_slices``, ``prep_shard_static``,
-``prep_shard_epoch``, ``prep_shard_static_wide``, ``wide_shard_masks``)
-must equal the JAX ones bit for bit on the same inputs, at shapes where
-nothing divides evenly.  The multi-rank runs are in
+sharding at 1, 3 and 8 devices, ``use_mesh`` nesting, and every entry point's refusal of a ``device``
+other than the rank's under a mesh of more than one rank.  The five numpy
+prep functions of the sharded BPR engines (``shard_slices``,
+``prep_shard_static``, ``prep_shard_epoch``, ``prep_shard_static_wide``,
+``wide_shard_masks``) and sharded packed GloVe's
+``prep_glove_shard_static`` must equal the JAX ones bit for bit on the
+same inputs, at shapes where nothing divides evenly.  The multi-rank runs are in
 ``test_torch_multidevice.py``.
 """
 
@@ -26,9 +26,11 @@ import torch
 import torch.distributed as dist
 from scipy import sparse
 
+import cymf_tpu.ops.glove_epoch as jge
 import cymf_tpu.ops.packed_epoch as jpe
 import cymf_tpu.ops.wide_epoch as jwe
 import cymf_tpu_torch as ct
+import cymf_tpu_torch.ops.glove_epoch as tge
 import cymf_tpu_torch.ops.packed as pk
 import cymf_tpu_torch.ops.packed_epoch as tpe
 import cymf_tpu_torch.ops.wide_epoch as twe
@@ -120,13 +122,13 @@ def test_mesh_device_mismatch_raises():
         with pytest.raises(ValueError, match="mesh device"):
             ct.recommend(np.zeros((40, 4)), np.zeros((30, 4)), k=3,
                          device="meta")
-        for model in (ct.WMF(num_components=4, device="cpu"),
-                      ct.ExpoMF(num_components=4, device="cpu"),
-                      ct.RelMF(num_components=4, device="cpu")):
-            with pytest.raises(NotImplementedError, match="2 ranks"):
+        for model in (ct.WMF(num_components=4, device="meta"),
+                      ct.ExpoMF(num_components=4, device="meta"),
+                      ct.RelMF(num_components=4, device="meta")):
+            with pytest.raises(ValueError, match="mesh device"):
                 model.fit(d.train, num_epochs=1, verbose=False)
-        with pytest.raises(NotImplementedError, match="2 ranks"):
-            ct.GloVe(num_components=4, device="cpu").fit(
+        with pytest.raises(ValueError, match="mesh device"):
+            ct.GloVe(num_components=4, device="meta").fit(
                 sparse.csr_matrix(np.eye(5)), num_epochs=1)
 
 
@@ -223,3 +225,37 @@ def test_shard_prep_bit_equal_to_jax(fn, case):
     si = twe.prep_shard_static_wide(u2, i2, rw, rh, wrows, n)[4]
     _equal(twe.wide_shard_masks(got[1], si, got[2]),
            jwe.wide_shard_masks(want[1], si, want[2]))
+
+
+# (V1, V2, K, batch, n): words, batch and rows divide by nothing
+GLOVE_PREP_CASES = [(3001, 2003, 8, 2048, 3), (1301, 1307, 30, 1024, 4),
+                    (517, 499, 5, 1024, 8)]
+
+
+@pytest.mark.parametrize("case", GLOVE_PREP_CASES)
+def test_glove_shard_prep_bit_equal_to_jax(case):
+    """``prep_glove_shard_static`` on central-sorted steps of random
+    triples (the fit's padding sentinel last): every array equal to the
+    JAX package's, and ``shard=p`` its shard ``p``."""
+    V1, V2, K, batch, n = case
+    rng = np.random.default_rng(V1)
+    N = V1 * 5
+    S = -(-N // batch)
+    c = np.full(S * batch, 2**31 - 1, np.int32)
+    c[:N] = rng.integers(0, V1, N)
+    x = np.zeros(S * batch, np.int32)
+    x[:N] = rng.integers(0, V2, N)
+    cnt = np.ones(S * batch)
+    cnt[:N] = rng.integers(1, 40, N)
+    c2, x2, n2 = (a.reshape(S, batch) for a in (c, x, cnt))
+    order = np.argsort(c2, axis=1, kind="stable")
+    c2, x2, n2 = (np.take_along_axis(a, order, axis=1)
+                  for a in (c2, x2, n2))
+    rw = pk.packed_rows(V1, K + 2, multiple=256 * n)
+    rh = pk.logical_rows(V2, multiple=256)
+    args = (c2, x2, n2, V1, K, rw, rh, 256, 256, n, 10.0, 0.75)
+    want = jge.prep_glove_shard_static(*args)
+    _equal(tge.prep_glove_shard_static(*args), want)
+    p = n - 2
+    _equal(tge.prep_glove_shard_static(*args, shard=p),
+           [a[p:p + 1] for a in want[:9]] + [want[9]])
