@@ -349,6 +349,13 @@ ROUTE_N = 4096
 # the H100 SXM's published peaks: HBM3 bytes/s
 # and float32 operations/s outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# the bf16 phase: a bfloat16 WMF table's largest relative Frobenius
+# distance from the float32 fit's of the same run, and its test DCG@5's
+# largest distance on the train matrix
+BF16_REL, BF16_DCG = 0.1, 0.02
+# profiles taken before a device time falls back to CUDA events, and the
+# name that time has in a split (device_split, device_busy)
+PROFILE_TRIES, EVENTS_KEY = 3, "(CUDA events: no device time profiled)"
 # the checkpoint phase's files, removed after it
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 # the mesh phase: its ranks' files (removed after it), a group's join
@@ -403,29 +410,46 @@ def device_split(fn, reps: int = 20, counts: dict | None = None) -> dict:
     calls after a warm-up.  Only the device's own events count: the
     profiler also gives a PyTorch operator (``aten::index_select``) the
     time of the kernels it launched, which would count them twice.  With
-    ``counts``, each kernel's launches a call go there too."""
+    ``counts``, each kernel's launches a call go there too.
+
+    A profile can come back without device events (CUPTI's tracing does
+    not always attach); after :data:`PROFILE_TRIES` such profiles the
+    split is ``{EVENTS_KEY: ms}``, :func:`loop_ms`'s time of ``fn()``
+    between CUDA events, and ``counts`` stays as it was."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = ev.self_cuda_time_total
-        if t > 0:
-            split[ev.key[:60]] = t / 1e3 / reps
+    for _ in range(PROFILE_TRIES):
+        with _profile() as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        split, calls = {}, {}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            t = getattr(ev, "self_device_time_total", None)
+            if t is None:
+                t = ev.self_cuda_time_total
+            if t > 0:
+                split[ev.key[:60]] = t / 1e3 / reps
+                calls[ev.key[:60]] = ev.count / reps
+        if split:
             if counts is not None:
-                counts[ev.key[:60]] = ev.count / reps
-    return split
+                counts.update(calls)
+            return split
+    ms = loop_ms(fn, reps)
+    phase("timing", f"torch.profiler saw no device time in {PROFILE_TRIES} "
+          f"profiles; CUDA events instead: {ms:.4f} ms a call in a loop")
+    return {EVENTS_KEY: ms}
+
+
+def _profile():
+    """A ``torch.profiler`` profile of the host and the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -1709,7 +1733,8 @@ def wmf_full_width(X, dev):
         raise AssertionError("tables of the wrong shape")
     if not (np.isfinite(m.W).all() and np.isfinite(m.H).all()):
         raise AssertionError("non-finite tables")
-    return launches
+    # the bf16 phase's reference: this fit's tables, epochs and peak
+    return launches, dict(W=m.W, H=m.H, epochs=m.epoch_times_, peak=peak)
 
 
 def record_calls(module, keep, run):
@@ -2210,6 +2235,7 @@ def bpr_xla(X, dev, smi):
         if probe.calls != epochs:
             raise AssertionError(f"{what}: the fit left the card")
         if mode == "dense":
+            FIT_EPOCHS["bpr-xla"] = (secs, probe.walls(t0))
             ms_step = 1e3 * float(np.mean(secs[1:])) / S
             v4, v4_walls = FIT_EPOCHS["full"]
             phase(what, "epochs after the first, device s: batch "
@@ -2697,12 +2723,10 @@ def profile_wmf(X, dev):
     holds it; the Cholesky kernel is named apart from its scope."""
     import cymf_tpu_torch as ct
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     m = ct.WMF(num_components=ALS_K, device=dev)
     m.fit(X, num_epochs=1, verbose=False)          # warm-up
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profile() as prof:
         m.fit(X, num_epochs=1, verbose=False)
     spans = collections.defaultdict(list)
     kernels = []
@@ -2764,23 +2788,38 @@ def profile_wmf(X, dev):
         raise AssertionError("the profile shows no Cholesky kernel")
 
 
-def device_busy(run):
+def device_busy(run, fallback: bool = False):
     """``(busy_ms, spans, prof)``: the card's busy time during ``run()``,
     its kernel and copy intervals from ``torch.profiler`` merged where
     they overlap, the intervals ``(start_us, end_us, name)`` and the
-    profile."""
+    profile.  After :data:`PROFILE_TRIES` profiles without device events
+    it raises, or with ``fallback`` times ``run()`` between CUDA events:
+    one span named :data:`EVENTS_KEY` and no profile."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    for _ in range(PROFILE_TRIES):
+        with _profile() as prof:
+            run()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False))
+        if spans:
+            break
+    else:
+        if not fallback:
+            raise AssertionError("the profile holds no device time")
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
         run()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
-    if not spans:
-        raise AssertionError("the profile holds no device time")
+        b.record()
+        b.synchronize()
+        ms = a.elapsed_time(b)
+        phase("timing", f"torch.profiler saw no device time in "
+              f"{PROFILE_TRIES} profiles; CUDA events instead: {ms:.4f} ms")
+        return ms, [(0.0, 1e3 * ms, EVENTS_KEY)], None
     busy, last = 0.0, -np.inf
     for t0, t1, _ in spans:
         busy += max(t1 - max(t0, last), 0)
@@ -2919,7 +2958,7 @@ def recommend_phase(X, dev, smi):
         b.synchronize()
         wall_ms.append(1e3 * (time.perf_counter() - t0))
         dev_ms.append(a.elapsed_time(b))
-    busy, spans, _ = device_busy(call)
+    busy, spans, prof = device_busy(call, fallback=True)
     split = collections.Counter()
     for t0, t1, name in spans:
         split[name[:60]] += (t1 - t0) / 1e3
@@ -2927,7 +2966,8 @@ def recommend_phase(X, dev, smi):
     floor = bound(2 * U * I * 4 + X.nnz * 8 + U * k * 8, 2 * U * I * 20)
     phase("recommend", f"{smi}; ({U} x {I}, d=20, k={k}, {X.nnz} "
           f"exclusions, chunks of {chunk}): device {d_ms:.2f} ms a call "
-          f"between CUDA events, busy {busy:.2f} ms (profiler), wall "
+          f"between CUDA events, busy {busy:.2f} ms "
+          f"({'profiler' if prof is not None else 'CUDA events'}), wall "
           f"{w_ms:.2f} ms (calls {', '.join(f'{t:.2f}' for t in wall_ms)})"
           f"; {U / busy * 1e3:.4e} users/s by busy time, "
           f"{U / d_ms * 1e3:.4e} by events, {U / w_ms * 1e3:.4e} end to "
@@ -2991,6 +3031,270 @@ def recommend_phase(X, dev, smi):
                              "reference")
     if not np.array_equal(st[users], np.take_along_axis(rows, want, 1)):
         raise AssertionError("recommend's tie-case scores are off")
+
+
+@contextlib.contextmanager
+def param_dtype(dtype):
+    """The port's param dtype ``dtype`` inside the block; the one before
+    it restored after, whatever happened."""
+    from cymf_tpu_torch import config
+    prev = config.param_dtype()
+    config.set_param_dtype(dtype)
+    try:
+        yield
+    finally:
+        config.set_param_dtype(prev)
+
+
+def _bf16_values(a, what):
+    """``a`` is a finite float32 array of bfloat16 values (what a bfloat16
+    table comes back as)."""
+    a = np.asarray(a)
+    if a.dtype != np.float32 or (a.view(np.uint32) & 0xFFFF).any():
+        raise AssertionError(f"{what}: not a float32 array of bfloat16 "
+                             "values")
+    if not np.isfinite(a).all():
+        raise AssertionError(f"{what}: non-finite values")
+
+
+def bf16_phase(X, dev, smi, wmf32):
+    """bf16: the param-dtype switch on the card
+    (``config.set_param_dtype(torch.bfloat16)``, float32 restored in a
+    ``finally``; no exception is caught and nothing falls back).
+
+    1. WMF d=256 at ML-20M, 2 epochs, beside the float32 ``wmf`` phase of
+       this run (``wmf32``): epoch seconds, peak device memory, #9's
+       launches (``ALS_EPOCHS * K/64 *`` the standard chunks, as in
+       float32); each table within a relative Frobenius distance of
+       ``BF16_REL`` of the float32 fit's and the fits' DCG@5 on the train
+       matrix within ``BF16_DCG``; then #9 on a bfloat16 copy of the first
+       standard chunk's first diagonal block against its plain version
+       (both cast to float32 at entry), with ``check_chol``'s limits.
+    2. The BPR batch engine (``packed="off"``) at ``bpr-xla``'s shapes, 2
+       dense epochs, beside the float32 ``bpr-xla`` epochs of this run.
+    3. The evaluator at ML-20M (every user's train positives against 100
+       negatives) on those tables, timed under bfloat16 and float32.
+    4. ``recommend`` at the recommend phase's shapes, timed; 512 sampled
+       users equal to the plain reference on the bfloat16 tables' own
+       float32 products, ties counted (bfloat16 makes them common).
+    5. The quickstart of BPR and RelMF (batch engines), WMF and ExpoMF
+       (d=20): each learns, test DCG@5 at least 0.1 over untrained.
+    6. One packed BPR v4 epoch at ML-20M, whose tables must equal the
+       float32 epoch's bit for bit (the fused engines ignore the switch).
+
+    Returns the kernels' launches in the bfloat16 runs (1, 2, 5, 6; the
+    float32 references and the comparison calls are not counted)."""
+    import cymf_tpu_torch as ct
+    from cymf_tpu_torch.ops import _kernels
+    from cymf_tpu_torch.ops import chol_kernel as ck
+
+    counts = collections.Counter()
+
+    def counted(run):
+        """``run()``'s kernel launches, added to the phase's."""
+        _kernels.reset_launches()
+        run()
+        got = dict(_kernels.launches)
+        counts.update(got)
+        return got
+
+    ev = ct.AoaEvaluator(X, None, k=5, device=dev)
+    with param_dtype(torch.bfloat16):
+        # 1. WMF d=256
+        m = ct.WMF(num_components=ALS_K, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        n9 = counted(lambda: m.fit(X, num_epochs=ALS_EPOCHS,
+                                   verbose=False)).get("chol_inv_batched", 0)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        c = m.chunks_
+        want = ALS_EPOCHS * (ALS_K // 64) * (c["W"]["standard"]
+                                             + c["H"]["standard"])
+        rel = {}
+        for name in ("W", "H"):
+            got, ref = getattr(m, name), wmf32[name]
+            _bf16_values(got, f"bf16 WMF {name}")
+            rel[name] = float(np.linalg.norm(got - ref)
+                              / np.linalg.norm(ref))
+        dcg = ev.evaluate(m.W, m.H)["DCG@5"]
+        with param_dtype(torch.float32):
+            dcg32 = ev.evaluate(wmf32["W"], wmf32["H"])["DCG@5"]
+        phase("bf16", f"{smi}; WMF d={ALS_K} at ML-20M, {ALS_EPOCHS} "
+              f"epochs: bf16 {[round(x, 4) for x in m.epoch_times_]} s "
+              f"against float32 {[round(x, 4) for x in wmf32['epochs']]} "
+              f"s; fit wall {wall:.2f} s; peak device memory "
+              f"{peak / 2**30:.3f} GiB against float32's "
+              f"{wmf32['peak'] / 2**30:.3f}; chunks W {c['W']} H {c['H']}; "
+              f"chol_inv_batched {n9} launches (want {want}); relative "
+              f"Frobenius distance from the float32 fit W {rel['W']:.4e}, "
+              f"H {rel['H']:.4e} (limit {BF16_REL}); train DCG@5 bf16 "
+              f"{dcg:.4f}, float32 {dcg32:.4f}")
+        if n9 != want:
+            raise AssertionError(f"bf16 WMF: {n9} chol_inv_batched "
+                                 f"launches, expected {want}")
+        if max(rel.values()) > BF16_REL or abs(dcg - dcg32) > BF16_DCG:
+            raise AssertionError("bf16 WMF: too far from the float32 fit")
+        # the float32 phase's reckoned bound holds: the bfloat16 tables are
+        # half, a chunk's bfloat16 gather and mask with its float32 copy
+        # for the products take the bytes of the float32 gather and mask
+        gather = min(1 << 25, max((1 << 29) // ALS_K, 1 << 16)) * ALS_K * 4
+        reckon = ((U + I) * ALS_K * 4 + 2 * gather
+                  + 2 * m.chunk_size * ALS_K ** 2 * 4)
+        if peak > reckon:
+            raise AssertionError("bf16 WMF: peak device memory above the "
+                                 f"reckoned bound {reckon / 2**30:.3f} GiB")
+
+        A, P = first_wmf_block(X, dev)
+        blk = A[:, :64, :64].to(torch.bfloat16)
+        L, Linv = ck.chol_inv_batched(blk, 64)
+        Lp, _ = ck.chol_inv_batched_plain(blk)
+        torch.cuda.synchronize()
+        err = float((L.double() - Lp.double()).abs().max())
+        lim = 1e-4 * float(Lp.abs().max())
+        eye = torch.eye(64, dtype=torch.float64, device=dev)
+        inv_err = float((Linv.double() @ Lp.double() - eye).abs().max())
+        ms = time_ms(lambda: ck.chol_inv_batched(blk, 64))
+        pms = time_ms(lambda: ck.chol_inv_batched_plain(blk))
+        phase("bf16", f"chol_inv_batched on a bfloat16 {tuple(blk.shape)} "
+              f"(first standard user chunk, P={P}), float32 out: max abs dL "
+              f"{err:.3e} (limit {lim:.3e}), |Linv L - I| {inv_err:.3e} "
+              f"(limit 1e-3); {ms:.4f} ms a call (the cast included) vs "
+              f"plain {pms:.4f} ms")
+        if not (L.dtype == Linv.dtype == torch.float32) or err > lim \
+                or inv_err > 1e-3 or not torch.isfinite(Linv).all():
+            raise AssertionError("chol_inv_batched on bfloat16 disagrees")
+        del A, blk, L, Linv, Lp
+
+        # 2. the BPR batch engine at bpr-xla's shapes
+        N = X.count_nonzero()
+        mb = ct.BPR(num_components=20, learning_rate=0.001,
+                    optimizer="adam", weight_decay=0.01, batch_size=BATCH,
+                    update_mode="dense", packed="off", device=dev)
+        probe = _DeviceProbe(mb)
+        t0 = time.perf_counter()
+        got = counted(lambda: mb.fit(X, num_epochs=2, valid_evaluator=probe,
+                                     verbose=False))
+        secs = batch_epochs("bf16 bpr-xla", mb, probe, t0, N, "int/s")
+        f32 = FIT_EPOCHS["bpr-xla"][0]
+        phase("bf16", f"bpr-xla dense epochs, device s: bf16 "
+              f"{[round(x, 4) for x in secs]} against float32 "
+              f"{[round(x, 4) for x in f32[:2]]}; last loss "
+              f"{mb.last_loss:.6f}")
+        check_batch_fit("bf16 bpr-xla", mb, got, mb.engine_ == "batch",
+                        X.shape)
+        _bf16_values(mb.W, "bf16 bpr-xla W")
+
+        # 3. the evaluator at ML-20M
+        ev.evaluate(mb.W, mb.H)                          # warm-up
+        t0 = time.perf_counter()
+        res = ev.evaluate(mb.W, mb.H)
+        ev_s = time.perf_counter() - t0
+        with param_dtype(torch.float32):
+            t0 = time.perf_counter()
+            res32 = ev.evaluate(mb.W, mb.H)
+            ev32_s = time.perf_counter() - t0
+        phase("bf16", f"evaluator at ML-20M ({U} users, their train "
+              f"positives and 100 negatives each, d=20): bf16 {ev_s:.3f} s "
+              f"{res}; float32 {ev32_s:.3f} s {res32}")
+        if not all(np.isfinite(v) for v in res.values()):
+            raise AssertionError("bf16 evaluator: non-finite metrics")
+
+        # 4. recommend at the recommend phase's shapes
+        k, chunk = 10, 4096
+        rng = np.random.default_rng(0)
+        W = rng.normal(size=(U, 20)).astype(np.float32)
+        H = rng.normal(size=(I, 20)).astype(np.float32)
+
+        def call():
+            return ct.recommend(W, H, k=k, exclude=X, user_chunk=chunk,
+                                device=dev)
+
+        call()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            scores, items = call()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        users = np.unique(np.linspace(0, U - 1, 512).astype(np.int64))
+        Wd = torch.from_numpy(W).to(dev, torch.bfloat16)
+        Hd = torch.from_numpy(H).to(dev, torch.bfloat16).float()
+        rows = np.empty((len(users), I), np.float32)
+        for ci in np.unique(users // chunk):
+            at = np.nonzero(users // chunk == ci)[0]
+            full = Wd[ci * chunk:(ci + 1) * chunk].float() @ Hd.T
+            rows[at] = full[torch.from_numpy(users[at] - ci * chunk).to(
+                dev)].cpu().numpy()
+        rows[_excluded(X, users, I)] = -np.inf
+        want = _plain_topk(rows, k)
+        ties = int(sum((r[w] == r[w[-1]]).sum() > 1
+                       for r, w in zip(rows, want)))
+        w_ms = statistics.median(walls)
+        phase("bf16", f"recommend ({U} x {I}, d=20, k={k}): wall "
+              f"{w_ms:.2f} ms a call ({U / w_ms * 1e3:.4e} users/s); "
+              f"{len(users)} sampled users equal to the plain reference on "
+              f"the bfloat16 tables, {ties} with ties in their top {k}")
+        if not np.array_equal(items[users], want) or scores.dtype \
+                != np.float32:
+            raise AssertionError("bf16 recommend differs from the plain "
+                                 "reference")
+        del Wd, Hd, rows
+
+        # 5. the quickstarts
+        d = quickstart_data()
+        test = ct.AoaEvaluator(d.test, d.train, k=5, device=dev)
+        for name, make, fit in (
+                ("BPR", lambda: ct.BPR(20, learning_rate=0.01,
+                                       packed="off", device=dev),
+                 dict(num_epochs=10, verbose=False)),
+                ("RelMF", lambda: ct.RelMF(20, learning_rate=0.01,
+                                           weight_decay=1e-4,
+                                           batch_size=8192, packed="off",
+                                           device=dev),
+                 dict(num_epochs=20)),
+                ("WMF", lambda: ct.WMF(20, device=dev),
+                 dict(num_epochs=10, verbose=False)),
+                ("ExpoMF", lambda: ct.ExpoMF(20, device=dev),
+                 dict(num_epochs=10, verbose=False))):
+            m0 = make()
+            m0._ensure_tables(*d.train.shape)
+            base = test.evaluate(m0.W, m0.H)["DCG@5"]
+            mq = make()
+            counted(lambda: mq.fit(d.train, **fit))
+            got = test.evaluate(mq.W, mq.H)["DCG@5"]
+            phase("bf16", f"{name} quickstart: test DCG@5 {got:.4f}, "
+                  f"untrained {base:.4f}")
+            _bf16_values(mq.W, f"bf16 {name} quickstart W")
+            if not got >= base + 0.1:
+                raise AssertionError(f"the bf16 {name} quickstart did not "
+                                     "learn")
+
+        # 6. one packed BPR v4 epoch at ML-20M, float32 under the switch
+        tables = {}
+        with forced_kernel("4"):
+            for dt in (torch.float32, torch.bfloat16):
+                with param_dtype(dt):
+                    mv = ct.BPR(num_components=20, learning_rate=0.001,
+                                optimizer="adam", weight_decay=0.01,
+                                batch_size=BATCH, device=dev)
+                    def fit(mv=mv):
+                        mv.fit(X, num_epochs=1, verbose=False)
+
+                    if dt is torch.bfloat16:
+                        counted(fit)
+                    else:   # the float32 reference's are not the phase's
+                        fit()
+                    tables[dt] = (mv.W, mv.H, mv.packed_kernel_)
+        same = all(np.array_equal(a, b) and a.dtype == np.float32
+                   for a, b in zip(*(tables[t][:2] for t in tables)))
+        phase("bf16", f"packed BPR v{tables[torch.bfloat16][2]} epoch at "
+              f"ML-20M under bfloat16: float32 tables, equal to the float32 "
+              f"epoch's bit for bit: {same}")
+        if not same or tables[torch.bfloat16][2] != 4:
+            raise AssertionError("the packed v4 epoch changed under bf16")
+    phase("bf16", f"launches in the bfloat16 runs {dict(counts)}")
+    return dict(counts)
 
 
 def _resume_pair(name, make, X, dev, epochs=6, **fit):
@@ -4705,7 +5009,8 @@ def main() -> int:
     launches.update(bpr_wide(X, dev))
     wide_quickstart(dev)
     als_quickstart(dev)
-    launches.update(wmf_full_width(X, dev))
+    wmf_launches, wmf32 = wmf_full_width(X, dev)
+    launches.update(wmf_launches)
     relmf_quickstart(dev)
     launches["glove_sample_phase"] = relmf_full(dev)["glove_sample_phase"]
     glove_full(G, dev)
@@ -4733,6 +5038,8 @@ def main() -> int:
 
     X = bench_matrix()
     recommend_phase(X, dev, smi)
+    slice_launches["bf16"] = bf16_phase(X, dev, smi, wmf32)
+    del wmf32
     checkpoint_phase(X, dev, smi)
     slice_launches["datasets"] = datasets_phase(dev, smi)
     slice_launches["mesh"] = mesh_phase(X, dev, smi)

@@ -8,7 +8,12 @@ does the same for the wide BPR engine's,
 :func:`pallas_state_from_jax` does the same for a fused table of the
 sequential engine (``engine="pallas"``).  :func:`from_arrays`
 (and :func:`bpr_from_arrays` for BPR) builds a model that warm-starts from
-learned tables, such as a JAX model's ``W`` and ``H``.  A model saved with
+learned tables, such as a JAX model's ``W`` and ``H``.  A JAX array in
+bfloat16 (an ``ml_dtypes`` array, or its ``V2`` bit patterns read from an
+npz file) becomes a tensor in :func:`cymf_tpu_torch.config.param_dtype`
+with the same bits under a bfloat16 param dtype; every other array becomes
+a float32 tensor, as the fused engines, which ignore the switch, keep
+their state.  A model saved with
 ``cymf_tpu.<Model>.save`` loads with ``cymf_tpu_torch.<Model>.load``: both
 packages share the npz format.
 """
@@ -18,11 +23,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import config
 from .models.bpr import BPR
 from .ops.pallas_engine import _N_STATE, LANES, segment_width
 
 
 def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        # bfloat16 (ml_dtypes, or V2 from an npz): reinterpret the bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device, config.param_dtype())
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
 

@@ -120,8 +120,10 @@ def _chunk_metric_sums(W, H, user_ids, pos_pad, pos_valid, neg_items,
          torch.zeros((C, num_negatives), dtype=W.dtype, device=W.device)],
         dim=-1)
 
-    h = H[cand]                                   # [C, L, K]
-    w = W[user_ids.long()]                        # [C, K]
+    # float32 scores under any param dtype (the JAX package's
+    # preferred_element_type): the products of the tables' values exact
+    h = H[cand].float()                           # [C, L, K]
+    w = W[user_ids.long()].float()                # [C, K]
     scores = torch.bmm(h, w[:, :, None])[:, :, 0]
     scores = torch.where(valid, scores,
                          torch.full_like(scores, -torch.inf))

@@ -90,7 +90,9 @@ def recommend(W, H, k: int = 10, exclude=None, user_chunk: int = 4096,
 
     Returns:
       (scores float32[U, k], items int32[U, k]) sorted by score descending,
-      equal scores by ascending item id.  Under a mesh, a collective: every
+      equal scores by ascending item id.  ``W`` and ``H`` are first cast
+      to :func:`cymf_tpu_torch.config.param_dtype` (under bfloat16, ties
+      are common), then scored in float32.  Under a mesh, a collective: every
       rank calls it with the same arguments and gets the whole result.
     """
     mesh = current_mesh()
@@ -106,7 +108,9 @@ def recommend(W, H, k: int = 10, exclude=None, user_chunk: int = 4096,
     # this rank's item rows [lo, lo + ipd) of the catalog padded to n
     ipd = mesh.pad_rows(I) // n
     lo = mesh.rank * ipd
-    Hd = Ht[lo:lo + ipd].to(dev)
+    # float32 scores under any param dtype, as the JAX package's
+    # preferred_element_type: the tables' values cast, their products exact
+    Hd = Ht[lo:lo + ipd].to(dev).float()
 
     if exclude is not None:
         X = sparse.csr_matrix(exclude)
@@ -119,7 +123,7 @@ def recommend(W, H, k: int = 10, exclude=None, user_chunk: int = 4096,
     out_items = np.empty((U, k), np.int32)
     for start in range(0, U, user_chunk):
         end = min(start + user_chunk, U)
-        scores = Wd[start:end] @ Hd.T
+        scores = Wd[start:end].float() @ Hd.T
         if scores.shape[1] < ipd:  # the last shard's pad rows
             scores = torch.nn.functional.pad(
                 scores, (0, ipd - scores.shape[1]), value=-torch.inf)

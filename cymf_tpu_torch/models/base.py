@@ -32,7 +32,8 @@ import torch
 from scipy import sparse
 
 from .. import config
-from ..parallel.mesh import MeshContext, current_mesh, fetch_to_host
+from ..parallel.mesh import (MeshContext, current_mesh, fetch_to_host,
+                             host_array)
 
 
 def as_csr(X) -> sparse.csr_matrix:
@@ -96,17 +97,12 @@ class EarlyStopper:
 
 def padded_rows(a, rows: int) -> torch.Tensor:
     """``a`` (an array or a tensor) with zero rows appended up to
-    ``rows``, as a float32 CPU tensor: a whole table padded to a mesh's
-    row count, for ``MeshContext.put_table``."""
+    ``rows``, as a CPU tensor in :func:`cymf_tpu_torch.config.param_dtype`
+    (as the JAX package's ``_pad_table`` places tables): a whole table
+    padded to a mesh's row count, for ``MeshContext.put_table``."""
     t = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a.cpu(),
-                        dtype=torch.float32)
+                        dtype=config.param_dtype())
     return torch.cat([t, t.new_zeros((rows - t.shape[0],) + t.shape[1:])])
-
-
-def _to_host(t: torch.Tensor, n: int) -> np.ndarray:
-    """First ``n`` rows of a device table as a host copy that later
-    in-place updates of the table cannot reach."""
-    return t[:n].detach().to("cpu", copy=True).numpy()
 
 
 class MFTrainerBase:
@@ -141,7 +137,7 @@ class MFTrainerBase:
         gathered from the ranks if it is sharded (a collective)."""
         if key in self._sharded_keys:
             return fetch_to_host(self._state[key], self.mesh)[:n]
-        return _to_host(self._state[key], n)
+        return host_array(self._state[key][:n])
 
     @property
     def W(self):

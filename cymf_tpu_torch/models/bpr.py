@@ -87,17 +87,19 @@ import warnings
 import numpy as np
 import torch
 
+from .. import config
 from ..ops import packed as pk
 from ..ops import pallas_engine as pe
 from ..ops.fused_step import supports_v8
 from ..ops.hashset import build_pair_hashset, to_device
-from ..ops.packed_epoch import (live_negatives, make_packed_optimizer,
-                                make_reject_filter, packed_bpr_epoch,
-                                packed_bpr_epoch_device,
+from ..ops.packed_epoch import (live_negatives, log_sigmoid,
+                                make_packed_optimizer, make_reject_filter,
+                                packed_bpr_epoch, packed_bpr_epoch_device,
                                 packed_bpr_pool_epoch, prep_backend,
                                 prep_epoch, prep_pool_epoch,
                                 prep_shard_epoch, prep_shard_static,
-                                prep_static, prep_static_pool, unpack_device)
+                                prep_static, prep_static_pool, row_dot,
+                                sigmoid, unpack_device)
 from ..ops.relmf_epoch import epoch_generator
 from ..ops.wide_epoch import (pack_wide, prep_shard_static_wide,
                               prep_static_wide, wide_bpr_epoch, wide_rows,
@@ -106,6 +108,8 @@ from ..optim import make_optimizer
 from ..parallel.shard_step import (sharded_bpr_epoch,
                                    sharded_packed_bpr_epoch,
                                    sharded_wide_bpr_epoch)
+from ..parallel.mesh import host_array
+from ..utils.checkpoint import check_leaves
 from .base import MFTrainerBase, PersistenceMixin, as_csr
 
 PAD_USER = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
@@ -126,6 +130,7 @@ def _load_ckpt_raw(path):
     for k in list(flat):
         if k.startswith("__meta__/"):
             flat.pop(k)
+    check_leaves(flat)
     return flat, epoch
 
 
@@ -141,14 +146,15 @@ def _resume_point(checkpoint_path, resume: bool):
     return None, 0
 
 
-def _put(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+def _put(a, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        device, dtype)
 
 
 def _restore_opt_state(flat, native_prefix, other_prefix, template,
                        convert, paymask, repad=None):
     """Rebuild one table's optimizer-state dict from checkpoint leaves,
-    as tensors on the template's device.
+    as tensors on the template's device and of its dtype.
 
     Leaves under ``native_prefix`` (this engine's own layout) load
     verbatim when shapes match; on a row-padding mismatch (a checkpoint
@@ -162,7 +168,7 @@ def _restore_opt_state(flat, native_prefix, other_prefix, template,
     """
     out = {}
     for sub, tleaf in template.items():
-        t = tleaf.cpu().numpy()
+        t = host_array(tleaf)
         nk, ok = f"{native_prefix}/{sub}", f"{other_prefix}/{sub}"
         if nk in flat:
             arr = np.asarray(flat[nk])
@@ -183,7 +189,7 @@ def _restore_opt_state(flat, native_prefix, other_prefix, template,
             raise KeyError(
                 f"checkpoint has neither {nk!r} nor {ok!r} — not a BPR "
                 "checkpoint for this optimizer")
-        out[sub] = _put(arr, tleaf.device)
+        out[sub] = _put(arr, tleaf.device, tleaf.dtype)
     return out
 
 
@@ -238,9 +244,10 @@ def _wide_to_logical(flat, U, I, K):
 def _batch_resume_state(flat, U, I, K, ow, oh, device):
     """Rebuild the batch engine's logical state ``(W, H, ow, oh)`` on
     ``device`` from a raw checkpoint dict of any engine (batch, packed,
-    wide), at any row padding."""
-    W = _put(np.asarray(flat["W"])[:U], device)
-    H = _put(np.asarray(flat["H"])[:I], device)
+    wide), at any row padding; the tables in the param dtype, each state
+    in its template's dtype."""
+    W = _put(np.asarray(flat["W"])[:U], device, config.param_dtype())
+    H = _put(np.asarray(flat["H"])[:I], device, config.param_dtype())
     s = pk.num_slots(K)
 
     def unpack_w(a):  # packed (rw, 128) -> logical (U, K)
@@ -274,7 +281,6 @@ def _sharded_batch_state(model, mesh, opt, U: int, I: int, checkpoint_path,
         W_, H_, ow_, oh_ = _batch_resume_state(
             flat, U, I, K, opt.init(torch.zeros((U, K))),
             opt.init(torch.zeros((I, K))), "cpu")
-        W_, H_ = W_.numpy(), H_.numpy()
         for k in owf:
             owf[k][:U] = ow_[k]
         for k in ohf:
@@ -386,6 +392,7 @@ def _bpr_epoch(W, H, opt_w, opt_h, u_steps, i_steps, hs, n_valid, gen, *,
     S, B = u_steps.shape
     dev = W.device
     nw = W.shape[0]
+    weight_decay = config.scalar(weight_decay, W.dtype)
     loss_acc = torch.zeros((), dtype=W.dtype, device=dev)
     for t in range(S):
         u, i = u_steps[t], i_steps[t]
@@ -395,16 +402,14 @@ def _bpr_epoch(W, H, opt_w, opt_h, u_steps, i_steps, hs, n_valid, gen, *,
         mf = live_negatives(hs, u, j, num_users).to(W.dtype)[:, None]
         wu = W.index_select(0, u.clamp(max=nw - 1))
         hi, hj = H.index_select(0, i), H.index_select(0, j)
-        x = torch.sum(wu * (hi - hj), dim=1, keepdim=True)
-        sig = torch.sigmoid(-x)  # 1/(1+e^x), cf. model.pyx:78
+        x = row_dot(wu, hi - hj, keepdim=True)
+        sig = sigmoid(-x)  # 1/(1+e^x), cf. model.pyx:78
         # gradients per model.pyx:81-83 (decay inside the gradient)
         g_wu = -(sig * (hi - hj) - weight_decay * wu) * mf
         g_hi = -(sig * wu - weight_decay * hi) * mf
         g_hj = -(-sig * wu - weight_decay * hj) * mf
-        l2 = (torch.sum(torch.square(wu), dim=1)
-              + torch.sum(torch.square(hi), dim=1)
-              + torch.sum(torch.square(hj), dim=1))
-        loss = (-torch.nn.functional.logsigmoid(x[:, 0])
+        l2 = row_dot(wu, wu) + row_dot(hi, hi) + row_dot(hj, hj)
+        loss = (-log_sigmoid(x[:, 0])
                 + weight_decay * l2) * mf[:, 0]
         if update_mode == "dense":
             optimizer.update_dense(W, opt_w, [(u, g_wu)])
@@ -414,7 +419,7 @@ def _bpr_epoch(W, H, opt_w, opt_h, u_steps, i_steps, hs, n_valid, gen, *,
             optimizer.update_rows(H, opt_h, torch.cat([i, j]),
                                   torch.cat([g_hi, g_hj]))
         loss_acc += torch.sum(loss)
-    return loss_acc / max(int(n_valid), 1)
+    return loss_acc / config.scalar(float(max(int(n_valid), 1)), W.dtype)
 
 
 class BPR(MFTrainerBase, PersistenceMixin):
@@ -640,8 +645,8 @@ class BPR(MFTrainerBase, PersistenceMixin):
             Wf, Hp, owf, oh = _packed_resume_state(
                 flat, U, I, K, wrows_w * n, wrows_h, owf, oh, "cpu")
             Hp = Hp.to(dev)
-        Wp = mesh.put_table(Wf)
-        ow = {k: mesh.put_table(v) for k, v in owf.items()}
+        Wp = mesh.put_table(Wf, torch.float32)
+        ow = {k: mesh.put_table(v, torch.float32) for k, v in owf.items()}
 
         def put(a):  # this rank's streams, the shard axis dropped
             return torch.from_numpy(np.ascontiguousarray(a[0])).to(dev)
@@ -707,8 +712,8 @@ class BPR(MFTrainerBase, PersistenceMixin):
             Wf, Hd, owf, oh = _wide_resume_state(
                 flat, U, I, K, wrows * n, wrows, owf, oh, "cpu")
             Hd = Hd.to(dev)
-        Wd = mesh.put_table(Wf)
-        ow = {k: mesh.put_table(v) for k, v in owf.items()}
+        Wd = mesh.put_table(Wf, torch.float32)
+        ow = {k: mesh.put_table(v, torch.float32) for k, v in owf.items()}
 
         def put(a):  # this rank's streams, the shard axis dropped
             return torch.from_numpy(np.ascontiguousarray(a[0])).to(dev)
@@ -761,9 +766,10 @@ class BPR(MFTrainerBase, PersistenceMixin):
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        # copies: the host tables must not see the in-place updates
-        W = torch.tensor(self.W, dtype=torch.float32, device=dev)
-        H = torch.tensor(self.H, dtype=torch.float32, device=dev)
+        # copies in the param dtype: the host tables must not see the
+        # in-place updates
+        W = torch.tensor(self.W, dtype=config.param_dtype(), device=dev)
+        H = torch.tensor(self.H, dtype=config.param_dtype(), device=dev)
         self.update_mode_ = choose_update_mode(self.update_mode, 3 * B,
                                                U + I)
         opt = make_optimizer(self.optimizer, self.learning_rate)

@@ -50,7 +50,8 @@ from .. import config
 from ..ops.als import (build_chunks, gather_rows, get_solver,
                        place_device_chunks, place_mesh_chunks,
                        resolve_chol_solver, weighted_gramian)
-from ..parallel.mesh import fetch_to_host
+from ..config import scalar
+from ..parallel.mesh import fetch_to_host, host_array
 from ..parallel.shard_step import rows_everywhere, sharded_expomf_chunk
 from ..utils.checkpoint import resume_state
 from .base import MFTrainerBase, PersistenceMixin, as_csr, padded_rows
@@ -69,11 +70,15 @@ def expomf_chunk(E_src, E_other, Y, mu_term, rows, idx_pad, valid,
     the sentinels).
 
     Returns ``(new_rows [C, K], e_colsum [Co])``, the column sums of the
-    chunk's E for the mu update.
+    chunk's E for the mu update, in float32.  Under a bfloat16 param dtype
+    ``lam_y`` and ``prefactor`` are rounded to it, as the JAX package
+    places them; the scores, the exposure and the Gramian are float32,
+    ``b`` is in the param dtype.
     """
     C = rows.shape[0]
     Co = E_other.shape[0]
-    S = E_src.index_select(0, rows) @ E_other.T                # [C, Co]
+    lam_y, prefactor = (scalar(v, Y.dtype) for v in (lam_y, prefactor))
+    S = E_src.index_select(0, rows).float() @ E_other.float().T  # [C, Co]
     n = prefactor * torch.exp(-lam_y * S.square() / 2.0)
     post = (n + 1e-8) / (n + 1e-8 + mu_term)
     # observed cells -> exposure 1 (expomf.pyx:135-137); pads go to a
@@ -157,7 +162,7 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
         dtype = config.param_dtype()
 
         def put(a):
-            return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+            return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
 
         self._state, start_epoch = resume_state(
             checkpoint_path, resume,
@@ -176,13 +181,14 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
             W0, H0 = st["W"].clone(), st["H"].clone()
             mu_term = (1.0 - st["mu"]) / st["mu"]                 # [I]
 
-            # user sweep (Y = H0) and the column sums of the exposure
-            colsum = torch.zeros((I,), dtype=dtype, device=dev)
+            # user sweep (Y = H0) and the column sums of the exposure (in
+            # float32, the exposure's dtype, as in the JAX package)
+            colsum = torch.zeros((I,), dtype=torch.float32, device=dev)
             for ch in user_chunks:
                 x, cs = expomf_chunk(W0, H0, H0, mu_term, ch.rows,
                                      ch.idx_pad, ch.valid, lam_y, ridge,
                                      prefactor, solver=solver_r)
-                st["W"].index_copy_(0, ch.rows, x)
+                st["W"].index_copy_(0, ch.rows, x.to(dtype))
                 colsum += cs
 
             # item sweep: E from (W0, H0), normal equations over the
@@ -192,9 +198,9 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
                                     mu_term.index_select(0, ch.rows)[:, None],
                                     ch.rows, ch.idx_pad, ch.valid, lam_y,
                                     ridge, prefactor, solver=solver_r)
-                st["H"].index_copy_(0, ch.rows, x)
+                st["H"].index_copy_(0, ch.rows, x.to(dtype))
 
-            st["mu"] = (a1 + colsum - 1.0) / (a1 + a2 + U - 2.0)
+            st["mu"] = ((a1 + colsum - 1.0) / (a1 + a2 + U - 2.0)).to(dtype)
 
         self._run_expomf(num_epochs, epoch_fn, verbose, checkpoint_path,
                          checkpoint_every, start_epoch)
@@ -241,8 +247,9 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
             W0, H0 = st["W"].clone(), st["H"].clone()
             mu_term = torch.where(live, (1.0 - st["mu"]) / st["mu"], 1.0)
 
-            # user sweep: mu by column, this rank's items
-            colsum = torch.zeros((rpd_i,), dtype=dtype, device=dev)
+            # user sweep: mu by column, this rank's items; float32, and so
+            # mu after the first epoch, as in the JAX package's mesh form
+            colsum = torch.zeros((rpd_i,), dtype=torch.float32, device=dev)
             for ch in user_chunks:
                 colsum += sharded_expomf_chunk(
                     mesh, W0, H0, H0, mu_term, st["W"], ch, mu_axis="col",
@@ -291,5 +298,5 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
         # the last epoch's, as in the JAX package; gathered from the ranks
         # where it is sharded
         self.mu = (fetch_to_host(state["mu"], self.mesh) if sharded
-                   else state["mu"].cpu().numpy())[:self._num_items]
+                   else host_array(state["mu"]))[:self._num_items]
         self._drop_device_state()

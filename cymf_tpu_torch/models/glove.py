@@ -75,10 +75,10 @@ from ..ops import pallas_engine as pe
 from ..ops.glove_epoch import (augment_tables, packed_glove_epoch,
                                prep_glove_shard_static, prep_glove_static,
                                supports_packed_glove)
-from ..ops.packed_epoch import PackedAdaGrad
+from ..ops.packed_epoch import PackedAdaGrad, row_dot
 from ..ops.segment import dedup_rows
 from ..optim import AdaGrad, adagrad_kfold_rows
-from ..parallel.mesh import current_mesh, fetch_to_host
+from ..parallel.mesh import current_mesh, fetch_to_host, host_array
 from ..parallel.shard_step import (sharded_glove_epoch,
                                    sharded_glove_kfold_epoch,
                                    sharded_packed_glove_epoch)
@@ -142,6 +142,7 @@ def _glove_epoch(Wc, Wx, bc, bx, ow, oh, abc, abx, c_steps, x_steps,
     K = num_components
     nc = Wc.shape[0]
     col = torch.arange(Wc.shape[1], device=Wc.device)
+    x_max, alpha = (config.scalar(v, Wc.dtype) for v in (x_max, alpha))
     loss_acc = torch.zeros((), dtype=Wc.dtype, device=Wc.device)
     for t in range(S):
         c, x, cnt = c_steps[t], x_steps[t], n_steps_counts[t]
@@ -152,9 +153,9 @@ def _glove_epoch(Wc, Wx, bc, bx, ow, oh, abc, abx, c_steps, x_steps,
         wc, hx = Wc.index_select(0, cc), Wx.index_select(0, x)
         f = torch.clamp(torch.pow(cnt / x_max, alpha), max=1.0)
         if bias_mode == "fused":
-            diff = torch.sum(wc * hx, dim=1) - torch.log(cnt)
+            diff = row_dot(wc, hx) - torch.log(cnt)
         else:
-            diff = (torch.sum(wc * hx, dim=1) + bc.index_select(0, cc)[:, 0]
+            diff = (row_dot(wc, hx) + bc.index_select(0, cc)[:, 0]
                     + bx.index_select(0, x)[:, 0] - torch.log(cnt))
         loss = 0.5 * f * torch.square(diff) * mf
         fd = (f * diff * mf)[:, None]
@@ -175,7 +176,7 @@ def _glove_epoch(Wc, Wx, bc, bx, ow, oh, abc, abx, c_steps, x_steps,
                                presorted=True)
             _bias_kfold_update(bx, abx, x, fd[:, 0], learning_rate, K)
         loss_acc += torch.sum(loss)
-    return loss_acc / max(int(n_valid), 1)
+    return loss_acc / config.scalar(float(max(int(n_valid), 1)), Wc.dtype)
 
 
 class GloVe:
@@ -336,7 +337,7 @@ class GloVe:
             T = np.asarray(T)
             if T.ndim == 1:
                 T = T[:, None]  # column layout: row-addressed bias updates
-            return torch.tensor(T, dtype=torch.float32, device=dev)
+            return torch.tensor(T, dtype=config.param_dtype(), device=dev)
 
         if self.bias_mode == "fused":
             Wc, Wx = (table(T) for T in augment_tables(
@@ -360,6 +361,7 @@ class GloVe:
             "Wc", "Wx", "bc", "bx", "ow", "oh", "abc", "abx"))
         steps = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                  for a in (c2, x2, n2.astype(np.float32))]
+        steps[2] = steps[2].to(config.param_dtype())   # the counts
         self.update_mode_ = choose_update_mode(self.update_mode, 2 * B,
                                                V1 + V2)
         self._run_epochs(num_epochs, verbose, t0, lambda: _glove_epoch(
@@ -369,7 +371,7 @@ class GloVe:
             num_central=V1, update_mode=self.update_mode_,
             bias_mode=self.bias_mode), state, checkpoint_path,
             checkpoint_every, start_epoch)
-        Wc, Wx, bc, bx = (T.cpu().numpy() for T in (Wc, Wx, bc, bx))
+        Wc, Wx, bc, bx = (host_array(T) for T in (Wc, Wx, bc, bx))
         if self.bias_mode == "kfold":  # the augmented layout, for outputs
             Wc, Wx = augment_tables(Wc, bc[:, 0], Wx, bx[:, 0])
         self._set_outputs(Wc, Wx, K)
@@ -414,7 +416,8 @@ class GloVe:
             Wc, Wx = (table(T, r) for T, r in zip(augment_tables(
                 W_central, central_bias, W_context, context_bias),
                 (V1p, V2p)))
-            bc = bx = torch.zeros((1, 1))                   # unused
+            bc = bx = torch.zeros((1, 1),                   # unused
+                                  dtype=config.param_dtype())
         opt = AdaGrad(self.learning_rate)
         # accumulators start at ones (optimizer.pyx:96-99)
         like = {"Wc": Wc, "Wx": Wx, "bc": bc, "bx": bx, "ow": opt.init(Wc),
@@ -435,6 +438,7 @@ class GloVe:
         steps = [torch.from_numpy(np.ascontiguousarray(
             a[:, p * Bn:(p + 1) * Bn])).to(dev)
             for a in (c2, x2, n2.astype(np.float32))]
+        steps[2] = steps[2].to(config.param_dtype())   # the counts
         kw = dict(optimizer=opt, x_max=self.x_max, alpha=self.alpha, K=K,
                   num_central=V1)
         if kfold:
@@ -496,8 +500,10 @@ class GloVe:
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        # the central table and its state: this rank's row shard
-        put_w = mesh.put_table if n > 1 else put
+        # the central table and its state: this rank's row shard, float32
+        # under any param dtype (the kernels' dtype)
+        def put_w(a):
+            return mesh.put_table(a, torch.float32) if n > 1 else put(a)
 
         def host_w(T):  # the whole packed central table, on the host
             return fetch_to_host(T, mesh)

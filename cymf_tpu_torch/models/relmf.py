@@ -70,11 +70,12 @@ import warnings
 import numpy as np
 import torch
 
+from .. import config
 from ..ops import packed as pk
 from ..ops import pallas_engine as pe
 from ..ops.hashset import build_pair_hashset, hashset_contains, to_device
 from ..ops.packed_epoch import (make_packed_optimizer, make_reject_filter,
-                                prep_backend, unpack_device)
+                                prep_backend, row_dot, unpack_device)
 from ..ops.relmf_epoch import (epoch_generator, packed_relmf_epoch,
                                packed_relmf_epoch_device, prep_relmf_epoch,
                                supports_packed_relmf)
@@ -115,6 +116,8 @@ def _relmf_epoch(W, H, opt_w, opt_h, label_src, props, gen, *, optimizer,
     the optimizer states IN PLACE; returns the SUM of the per-sample
     losses (callers normalize over the epoch)."""
     dev = W.device
+    weight_decay = config.scalar(weight_decay, W.dtype)
+    clip_value = config.scalar(clip_value, W.dtype)
     loss_acc = torch.zeros((), dtype=W.dtype, device=dev)
     for _ in range(num_steps):
         u, i = _draw_cells(gen, batch_size, num_users, num_items, dev)
@@ -125,15 +128,14 @@ def _relmf_epoch(W, H, opt_w, opt_h, label_src, props, gen, *, optimizer,
         p = props.index_select(0, i)[:, 0]
         w = r / torch.clamp(p, min=clip_value)
         wu, hi = W.index_select(0, u), H.index_select(0, i)
-        s = torch.sum(wu * hi, dim=1, keepdim=True)
+        s = row_dot(wu, hi, keepdim=True)
         wcol = w[:, None]
         # gradients per model.pyx:130-139 (decay ADDED, reference sign quirk)
         g_w = -(wcol * (1.0 - s) * hi + (1.0 - wcol) * (0.0 - s) * hi) \
             + weight_decay * wu
         g_h = -(wcol * (1.0 - s) * wu + (1.0 - wcol) * (0.0 - s) * wu) \
             + weight_decay * hi
-        l2 = (torch.sum(torch.square(wu), dim=1)
-              + torch.sum(torch.square(hi), dim=1))
+        l2 = row_dot(wu, wu) + row_dot(hi, hi)
         loss = (w * torch.square(1.0 - s[:, 0])
                 + (1.0 - w) * torch.square(s[:, 0]) + weight_decay * l2)
         if update_mode == "dense":
@@ -285,10 +287,12 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         self.last_loss = None
 
         label_src = self._labels(X, binary)
-        props_d = torch.as_tensor(props[:, None], dtype=torch.float32).to(dev)
-        # copies: the host tables must not see the in-place updates
-        W = torch.tensor(self.W, dtype=torch.float32, device=dev)
-        H = torch.tensor(self.H, dtype=torch.float32, device=dev)
+        dtype = config.param_dtype()
+        props_d = torch.as_tensor(props[:, None], dtype=dtype).to(dev)
+        # copies in the param dtype: the host tables must not see the
+        # in-place updates
+        W = torch.tensor(self.W, dtype=dtype, device=dev)
+        H = torch.tensor(self.H, dtype=dtype, device=dev)
         self.update_mode_ = choose_update_mode(self.update_mode, 2 * B,
                                                U + I)
         opt = make_optimizer(self.optimizer, self.learning_rate)
@@ -298,7 +302,8 @@ class RelMF(MFTrainerBase, PersistenceMixin):
             W, H, ow, oh = _batch_resume_state(flat, U, I,
                                                self.num_components, ow, oh,
                                                dev)
-        total = float(num_steps * B)  # a float: U * I may pass int32
+        # a float (U * I may pass int32), in the param dtype as in JAX
+        total = config.scalar(float(num_steps * B), dtype)
 
         def publish():
             self._state = {"W": W, "H": H, "ow": ow, "oh": oh}
@@ -325,7 +330,7 @@ class RelMF(MFTrainerBase, PersistenceMixin):
             return to_device(build_pair_hashset(coo.row, coo.col), dev)
         return (torch.as_tensor(X.indptr, dtype=torch.int64).to(dev),
                 torch.as_tensor(X.indices, dtype=torch.int32).to(dev),
-                torch.as_tensor(X.data, dtype=torch.float32).to(dev))
+                torch.as_tensor(X.data, dtype=config.param_dtype()).to(dev))
 
     def _fit_batch_sharded(self, X, props, binary, num_epochs, verbose,
                            seed, checkpoint_path, checkpoint_every, resume):
@@ -352,11 +357,12 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         self.update_mode_ = "dense"
         self.last_loss = None
         label_src = self._labels(X, binary)
-        props_d = torch.as_tensor(props[:, None], dtype=torch.float32).to(dev)
+        dtype = config.param_dtype()
+        props_d = torch.as_tensor(props[:, None], dtype=dtype).to(dev)
         opt = make_optimizer(self.optimizer, self.learning_rate)
         W, H, ow, oh, start_epoch = _sharded_batch_state(
             self, mesh, opt, U, I, checkpoint_path, resume)
-        total = float(num_steps * B)
+        total = config.scalar(float(num_steps * B), dtype)
 
         def publish():
             self._state = {"W": W, "H": H, "ow": ow, "oh": oh}

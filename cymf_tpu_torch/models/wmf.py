@@ -161,8 +161,10 @@ class WMF(MFTrainerBase, PersistenceMixin):
 
         def half_sweep(target_key: str, source_key: str, chunks):
             Y = self._state[source_key]
+            # float32 under any param dtype (preferred_element_type in
+            # JAX); wd * eye is in the param dtype
             A0 = sharded_gramian(mesh, Y, wd) if sharded \
-                else Y.T @ Y + wd * eye
+                else Y.float().T @ Y.float() + wd * eye
             A0i = torch.linalg.inv_ex(A0)[0] if any(
                 c.idx_pad.shape[1] <= wb_max_p for c in chunks) else None
             T = self._state[target_key]
@@ -178,7 +180,7 @@ class WMF(MFTrainerBase, PersistenceMixin):
                 else:
                     x = wmf_chunk_solve(Y, A0, ch.idx_pad, ch.valid,
                                         weight, solver=solver_r)
-                T.index_copy_(0, ch.rows, x)
+                T.index_copy_(0, ch.rows, x.to(T.dtype))
 
         self.epoch_times_ = []
 

@@ -15,8 +15,17 @@ Rows are grouped on the host into degree-bucketed chunks
 (:func:`build_chunks`, identical to the JAX package's), so the padded
 gather stays tight at ML-20M scale.
 
-Every product runs in float32 at PyTorch's global matmul precision.  The
-JAX package runs them at ``Precision.HIGHEST``, so TF32 must stay off:
+Every product runs in float32 at PyTorch's global matmul precision, also
+under a bfloat16 param dtype (``config.set_param_dtype``): where the JAX
+package multiplies bfloat16 operands with ``preferred_element_type=
+float32`` (the Gramians, the corrections, the exposure), the port casts
+them to float32 first and multiplies there (a product of two bfloat16
+values is exact in float32, so only the summation order differs), and the
+solves promote a bfloat16 right-hand side to float32.  The sums the JAX
+package leaves in the param dtype stay there: ``b = weight * sum(sub)``.
+A solution is cast to the target table's dtype where it is written.  The
+JAX package runs the products at ``Precision.HIGHEST``, so TF32 must stay
+off:
 ``torch.backends.cuda.matmul.allow_tf32`` False and
 ``torch.get_float32_matmul_precision() == "highest"``, PyTorch's defaults.
 No solve here syncs with the host: a failed factorisation gives NaN, as in
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 from scipy import sparse
 
+from ..config import scalar
 from ..utils.profiling import annotate
 from .chol_kernel import (MAX_BLOCK, chol_inv_batched,
                           chol_inv_batched_plain, cholesky_nan)
@@ -42,8 +52,10 @@ def solve_spd_dense(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched SPD solve, ``A [..., K, K]``, ``b [..., K]``:
     ``cholesky_ex`` + ``cholesky_solve``.  The counterpart of the JAX
     package's ``solve_spd_xla``; its solver name stays ``cholesky_xla``,
-    the form that ``CYMF_TPU_ALS_CHOL=xla`` selects."""
-    return torch.cholesky_solve(b[..., None], cholesky_nan(A))[..., 0]
+    the form that ``CYMF_TPU_ALS_CHOL=xla`` selects.  ``b`` is promoted to
+    ``A``'s dtype."""
+    return torch.cholesky_solve(b[..., None].to(A.dtype),
+                                cholesky_nan(A))[..., 0]
 
 
 def solve_spd_blocked(A: torch.Tensor, b: torch.Tensor, block: int = 64,
@@ -101,6 +113,15 @@ def resolve_chol_solver(solver: str, num_components: int,
     return "cholesky_xla"
 
 
+def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched SPD solve routed by matrix size, as
+    :func:`resolve_chol_solver` routes ``"cholesky"`` for ``A``'s width
+    and device.  For eager use; the trainers resolve the name once per
+    fit instead."""
+    return get_solver(resolve_chol_solver("cholesky", A.shape[-1],
+                                          A.device))(A, b)
+
+
 def get_solver(name: str):
     """Solver name -> callable, including ``cholesky_blocked<block>`` and
     ``cholesky_cuda<block>``."""
@@ -132,7 +153,7 @@ def _solve_spd_blocked(A: torch.Tensor, b: torch.Tensor, block: int,
     nb = K // block
     lead = A.shape[:-2]
     A2 = A.reshape((-1, K, K))
-    b2 = b.reshape((-1, K))
+    b2 = b.reshape((-1, K)).to(A.dtype)
 
     def dblk(M, i, j):
         return M[:, i * block:(i + 1) * block, j * block:(j + 1) * block]
@@ -172,8 +193,9 @@ def _solve_spd_blocked(A: torch.Tensor, b: torch.Tensor, block: int,
 
 def solve_lu(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched LU solve (the reference's ``dgesv``); ``solve_ex`` does not
-    sync with the host to raise on a singular matrix."""
-    return torch.linalg.solve_ex(A, b[..., None])[0][..., 0]
+    sync with the host to raise on a singular matrix.  ``b`` is promoted
+    to ``A``'s dtype."""
+    return torch.linalg.solve_ex(A, b[..., None].to(A.dtype))[0][..., 0]
 
 
 # the bare "cholesky" name is the dense form: auto routing happens once
@@ -275,7 +297,8 @@ _GRAM_ELEMS = 1 << 28
 
 def weighted_gramian(E: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     """``sum_i E[c, i] y_i y_i^T`` for every row c of ``E (C, I)``:
-    ``(C, K, K)``.
+    ``(C, K, K)``, in float32 (``Y`` in the param dtype is cast to
+    float32 a block at a time).
 
     Written as ``E @ (Y (x) Y).reshape(I, K*K)`` over row blocks of ``Y``:
     each block's outer products are formed and taken into the sum by one
@@ -283,10 +306,12 @@ def weighted_gramian(E: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     and at most ``_GRAM_ELEMS`` elements of ``Y (x) Y``.
     """
     I, K = Y.shape
-    out = torch.zeros((E.shape[0], K * K), dtype=Y.dtype, device=Y.device)
+    out = torch.zeros((E.shape[0], K * K), dtype=torch.float32,
+                      device=Y.device)
+    E = E.float()
     step = max(1, _GRAM_ELEMS // (K * K))
     for s in range(0, I, step):
-        Yb = Y[s:s + step]
+        Yb = Y[s:s + step].float()
         out.addmm_(E[:, s:s + step], (Yb[:, :, None] * Yb[:, None, :])
                    .reshape(len(Yb), K * K))
     return out.view(-1, K, K)
@@ -346,11 +371,16 @@ def wmf_chunk_solve(Y, A0, idx_pad, valid, weight: float, *, solver: str):
 def wmf_solve_rows(sub, A0, valid, weight: float, solver: str):
     """The standard-form solve on gathered, pad-zeroed rows
     ``sub (C, P, K)``: what :func:`wmf_chunk_solve` does after its gather,
-    and the sharded chunk after its row exchange."""
+    and the sharded chunk after its row exchange.  The correction is
+    formed in float32 (``A0`` is float32); ``b`` stays in ``sub``'s dtype,
+    as in the JAX package.  Returns float32 rows."""
+    dt = sub.dtype
+    w = scalar(weight, dt)
     with annotate("als.correction"):
-        A = torch.baddbmm(A0.expand(sub.shape[0], -1, -1), sub.mT, sub,
-                          alpha=weight - 1.0)
-        b = weight * sub.sum(dim=1)
+        subf = sub.float()
+        A = torch.baddbmm(A0.expand(sub.shape[0], -1, -1), subf.mT, subf,
+                          alpha=scalar(w - 1.0, dt))
+        b = w * sub.sum(dim=1)
     x = get_solver(solver)(A, b)
     return torch.where(valid.any(dim=1, keepdim=True), x, 0.0)
 
@@ -375,15 +405,20 @@ def wmf_chunk_solve_woodbury(Y, A0inv, idx_pad, valid, weight: float, *,
 
 
 def woodbury_core(sub, A0inv, valid, weight: float, solver: str):
-    """The Woodbury solve on gathered, pad-zeroed rows ``sub (C, P, K)``."""
+    """The Woodbury solve on gathered, pad-zeroed rows ``sub (C, P, K)``;
+    ``b`` in ``sub``'s dtype, the products in float32 (``A0inv`` is
+    float32).  Returns float32 rows."""
+    dt = sub.dtype
+    w = scalar(weight, dt)
     with annotate("als.woodbury"):
-        b = weight * sub.sum(dim=1)                         # (C, K)
+        b = w * sub.sum(dim=1)                              # (C, K)
+        sub = sub.float()
         T = sub @ A0inv.mT                                  # (C, P, K)
         P = sub.shape[1]
         eye = torch.eye(P, dtype=sub.dtype, device=sub.device)
-        M = torch.baddbmm((eye / (weight - 1.0)).expand(sub.shape[0], -1,
-                                                        -1), sub, T.mT)
-        A0ib = b @ A0inv.mT                                 # (C, K)
+        M = torch.baddbmm((eye / scalar(w - 1.0, dt)).expand(
+            sub.shape[0], -1, -1), sub, T.mT)
+        A0ib = b.float() @ A0inv.mT                         # (C, K)
         UtA0ib = (sub @ A0ib[..., None])[..., 0]            # (C, P)
         # padded P positions give zero rows of M; the identity keeps it
         # SPD, and their z entries multiply zero columns of T

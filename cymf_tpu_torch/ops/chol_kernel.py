@@ -2,15 +2,17 @@
 blocked ALS solve.  Port of `cymf_tpu/ops/chol_kernel.py`.
 
 ``chol_inv_batched(A, block)`` takes ``C`` symmetric positive definite
-``block x block`` float32 matrices and returns ``(L, Linv)``: the lower
-Cholesky factors, with exact zeros above the diagonal, and their
-inverses.  On a CUDA tensor it launches the hand-written kernel of
-``csrc/chol_inv.cu`` (a thread, or two at ``block > 64``, per row of a
-matrix, holding in registers that row of ``A`` until its pivot, then that
-column of ``Linv``; one named barrier per right-looking column step; a
-matrix smaller than 64 or 128 padded with the identity);
-:func:`chol_inv_twin` is its column step in
-Python.  On a CPU tensor it runs :func:`chol_inv_batched_plain`.  A matrix
+``block x block`` matrices and returns ``(L, Linv)``: the lower Cholesky
+factors, with exact zeros above the diagonal, and their inverses, in
+float32.  An ``A`` of another float dtype (bfloat16, float16) is cast to
+float32 at entry, as the JAX wrapper casts it (`chol_kernel.py:102`,
+`:120`): the kernel and its plain version work in float32 only.  On a
+CUDA tensor it launches the hand-written kernel of ``csrc/chol_inv.cu``
+(a thread, or two at ``block > 64``, per row of a matrix, holding in
+registers that row of ``A`` until its pivot, then that column of
+``Linv``; one named barrier per right-looking column step; a matrix
+smaller than 64 or 128 padded with the identity); :func:`chol_inv_twin`
+is its column step in Python.  On a CPU tensor it runs :func:`chol_inv_batched_plain`.  A matrix
 that is not SPD comes out NaN in both outputs, in both versions, as XLA's
 Cholesky gives: nothing syncs with the host to raise.
 
@@ -41,8 +43,10 @@ def cholesky_nan(A: torch.Tensor) -> torch.Tensor:
 
 
 def chol_inv_batched_plain(A: torch.Tensor):
-    """Plain PyTorch version of :func:`chol_inv_batched`: ``cholesky_ex``
-    and ``solve_triangular`` against the identity."""
+    """Plain PyTorch version of :func:`chol_inv_batched`: ``A`` cast to
+    float32, then ``cholesky_ex`` and ``solve_triangular`` against the
+    identity."""
+    A = A.float()
     L = cholesky_nan(A)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     return L, torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
@@ -102,8 +106,9 @@ def chol_inv_twin(A: torch.Tensor, size: int | None = None):
 
 
 def chol_inv_batched(A: torch.Tensor, block: int = 64):
-    """``A (C, block, block)`` SPD float32 -> ``(L, Linv)``, both
-    ``(C, block, block)`` float32 and contiguous.
+    """``A (C, block, block)`` SPD -> ``(L, Linv)``, both
+    ``(C, block, block)`` float32 and contiguous.  A bfloat16 or float16
+    ``A`` is cast to float32 first (a contiguous copy the kernel reads).
 
     On CUDA, ``A`` may be a strided view, such as the diagonal block of a
     larger batch of matrices: the kernel reads it in place through its
@@ -119,8 +124,11 @@ def chol_inv_batched(A: torch.Tensor, block: int = 64):
     if A.device.type != "cuda":
         raise ValueError(f"chol_inv_batched runs on cpu or cuda, not "
                          f"{A.device}")
+    if A.dtype in (torch.bfloat16, torch.float16):
+        A = A.float()
     if A.dtype != torch.float32:
-        raise ValueError(f"A has dtype {A.dtype}, expected torch.float32")
+        raise ValueError(f"A has dtype {A.dtype}, expected a float32, "
+                         "bfloat16 or float16 tensor")
     if block > MAX_BLOCK:
         raise ValueError(f"block {block} > {MAX_BLOCK}: the kernel's rows "
                          "do not fit its registers and shared memory")

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import os
 
@@ -310,6 +311,35 @@ def draw_negatives(gen: torch.Generator, B: int,
     only draw."""
     return torch.randint(0, num_items, (B,), generator=gen,
                          device=gen.device, dtype=torch.int32)
+
+
+def row_dot(a: torch.Tensor, b: torch.Tensor,
+            keepdim: bool = False) -> torch.Tensor:
+    """``sum(a * b, dim=1)`` as the batch engines take it: in a reduced
+    dtype (a bfloat16 param dtype) the products and their sum in float32,
+    rounded once to ``a``'s dtype, as XLA computes a product fused into a
+    row sum; in float32 the plain sum."""
+    return torch.sum(a.float() * b.float(), dim=1,
+                     keepdim=keepdim).to(a.dtype)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``sigmoid(x)`` as the batch engines take it: ``torch.sigmoid`` in
+    float32; in a reduced dtype (a bfloat16 param dtype) ``1 / (1 +
+    exp(-x))`` rounded op by op, as XLA expands ``jax.nn.sigmoid`` there
+    (``torch.sigmoid`` rounds once, and differs in the last bit)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``log(sigmoid(x))`` as the batch engines take it: ``F.logsigmoid``
+    in float32; in a reduced dtype ``-(max(-x, 0) + log1p(exp(-|x|)))``
+    rounded op by op, ``jax.nn.log_sigmoid``'s form."""
+    if x.dtype == torch.float32:
+        return F.logsigmoid(x)
+    return -(torch.clamp(-x, min=0.0) + torch.log1p(torch.exp(-x.abs())))
 
 
 def live_negatives(hs: PairHashSet, u: torch.Tensor, j: torch.Tensor,

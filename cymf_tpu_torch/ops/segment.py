@@ -24,6 +24,20 @@ import torch
 _KEY_SHIFT = 31  # columns are int32: row * 2**31 + col never collides
 
 
+def scatter_add_rows(buf: torch.Tensor, rows: torch.Tensor,
+                     vals: torch.Tensor) -> torch.Tensor:
+    """``buf[rows[p]] += vals[p]`` for every ``p``, IN PLACE (``rows``
+    in range, duplicates allowed); returns ``buf``.  In float32 one
+    ``index_add_``.  In a reduced dtype (a bfloat16 param dtype) the
+    duplicates of a row are added one by one in ``p`` order, each add
+    rounded, as XLA's scatter-add of that dtype adds them
+    (``index_put_(accumulate=True)``; ``index_add_`` accumulates them
+    otherwise on the CPU)."""
+    if buf.dtype in (torch.bfloat16, torch.float16):
+        return buf.index_put_((rows.long(),), vals, accumulate=True)
+    return buf.index_add_(0, rows, vals)
+
+
 def dedup_rows(rows: torch.Tensor, grads: torch.Tensor, drop_index: int,
                presorted: bool = False):
     """Combine duplicate row indices by summing their gradients.
@@ -44,7 +58,7 @@ def dedup_rows(rows: torch.Tensor, grads: torch.Tensor, drop_index: int,
     is_start = torch.ones(b, dtype=torch.bool, device=rows.device)
     is_start[1:] = srows[1:] != srows[:-1]
     seg_id = torch.cumsum(is_start, 0) - 1
-    sums = torch.zeros_like(sgrads).index_add_(0, seg_id, sgrads)
+    sums = scatter_add_rows(torch.zeros_like(sgrads), seg_id, sgrads)
     out_rows = torch.where(is_start, srows,
                            torch.full_like(srows, drop_index))
     gshape = (b,) + (1,) * (grads.dim() - 1)

@@ -14,8 +14,12 @@ Deliberately replicated quirks (they affect convergence):
   ``1/(1-beta2)``: the reference keeps no timestep
   (`optimizer.pyx:150-160`).  Defaults beta1=0.9, beta2=0.999, eps=1e-8.
 
-Tables and states are float32 tensors on one device, updated IN PLACE
-(call under ``torch.no_grad()``); ``update_rows`` and ``update_dense``
+Tables and states are tensors of one dtype on one device
+(:func:`cymf_tpu_torch.config.param_dtype`: float32 by default), updated IN
+PLACE (call under ``torch.no_grad()``); the constants (learning rate,
+Adam's betas and epsilon) are first rounded to that dtype, as the JAX
+package's weakly typed scalars are (:func:`~cymf_tpu_torch.config.scalar`);
+``update_rows`` and ``update_dense``
 return ``(table, state)``, the same objects, as the JAX package's
 functional forms return the new ones.  Rows at or past the table's length
 are dropped, as XLA's ``mode="drop"`` scatters drop them: a dropped entry
@@ -29,7 +33,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from .ops.segment import dedup_rows
+from .config import scalar
+from .ops.segment import dedup_rows, scatter_add_rows
 
 State = Dict[str, torch.Tensor]
 
@@ -105,8 +110,8 @@ class SparseOptimizer:
             rows = torch.cat([r for r, _ in pairs])
             grads = torch.cat([g for _, g in pairs])
         n = table.shape[0]
-        gbuf = torch.zeros_like(table).index_add_(
-            0, rows.clamp(max=n - 1), masked_addend(grads, rows < n))
+        gbuf = scatter_add_rows(torch.zeros_like(table), rows.clamp(max=n - 1),
+                                masked_addend(grads, rows < n))
         if not with_mask:
             return gbuf, None
         return gbuf, torch.any(gbuf != 0, dim=-1, keepdim=True)
@@ -123,14 +128,14 @@ class Sgd(SparseOptimizer):
 
     def update_rows(self, table, state, rows, grads):
         tgt, grads, keep = _dedup(table, rows, grads)
-        table.index_add_(0, tgt,
-                         masked_addend(-self.learning_rate * grads, keep))
+        lr = scalar(-self.learning_rate, table.dtype)
+        table.index_add_(0, tgt, masked_addend(lr * grads, keep))
         return table, state
 
     def update_dense(self, table, state, pairs, rows_sorted=False):
         # untouched rows have zero accumulated gradient: a no-op
         gbuf, _ = self._accumulate(table, pairs, with_mask=False)
-        table.sub_(self.learning_rate * gbuf)
+        table.sub_(scalar(self.learning_rate, table.dtype) * gbuf)
         return table, state
 
 
@@ -147,7 +152,8 @@ class AdaGrad(SparseOptimizer):
         tgt, grads, keep = _dedup(table, rows, grads)
         accum_new = state["accum"].index_select(0, tgt) + torch.square(grads)
         set_rows(state["accum"], tgt, accum_new, keep)
-        delta = -self.learning_rate * grads * torch.rsqrt(accum_new)
+        delta = scalar(-self.learning_rate, table.dtype) * grads \
+            * torch.rsqrt(accum_new)
         table.index_add_(0, tgt, masked_addend(delta, keep))
         return table, state
 
@@ -155,7 +161,8 @@ class AdaGrad(SparseOptimizer):
         # untouched rows: accum += 0 and delta = 0, a no-op
         gbuf, _ = self._accumulate(table, pairs, with_mask=False)
         accum = state["accum"].add_(torch.square(gbuf))
-        table.sub_(self.learning_rate * gbuf * torch.rsqrt(accum))
+        table.sub_(scalar(self.learning_rate, table.dtype) * gbuf
+                   * torch.rsqrt(accum))
         return table, state
 
 
@@ -179,18 +186,25 @@ class Adam(SparseOptimizer):
     def init(self, table):
         return {"m": torch.zeros_like(table), "v": torch.zeros_like(table)}
 
+    def _consts(self, dtype):
+        """beta1, 1 - beta1, beta2, 1 - beta2, -alpha and epsilon in
+        ``dtype`` (:func:`~cymf_tpu_torch.config.scalar`)."""
+        return tuple(scalar(x, dtype) for x in (
+            self.beta1, 1.0 - self.beta1, self.beta2, 1.0 - self.beta2,
+            -self.alpha, self.epsilon))
+
     def _delta(self, m, v):
         # constant bias correction: deliberate parity with the reference
-        return -self.alpha * (m / (1.0 - self.beta1)) / (
-            torch.sqrt(v / (1.0 - self.beta2)) + self.epsilon)
+        _, c1, _, c2, na, eps = self._consts(m.dtype)
+        return na * (m / c1) / (torch.sqrt(v / c2) + eps)
 
     def update_rows(self, table, state, rows, grads):
         tgt, grads, keep = _dedup(table, rows, grads)
         keep = keep & torch.any(grads != 0, dim=-1)
-        m_new = (self.beta1 * state["m"].index_select(0, tgt)
-                 + (1.0 - self.beta1) * grads)
-        v_new = (self.beta2 * state["v"].index_select(0, tgt)
-                 + (1.0 - self.beta2) * torch.square(grads))
+        b1, c1, b2, c2, _, _ = self._consts(table.dtype)
+        m_new = b1 * state["m"].index_select(0, tgt) + c1 * grads
+        v_new = (b2 * state["v"].index_select(0, tgt)
+                 + c2 * torch.square(grads))
         set_rows(state["m"], tgt, m_new, keep)
         set_rows(state["v"], tgt, v_new, keep)
         table.index_add_(0, tgt,
@@ -202,10 +216,9 @@ class Adam(SparseOptimizer):
         # semantics, optimizer.pyx's per-element updates): a masked pass
         gbuf, touched = self._accumulate(table, pairs, with_mask=True)
         m, v = state["m"], state["v"]
-        m.copy_(torch.where(touched,
-                            self.beta1 * m + (1.0 - self.beta1) * gbuf, m))
-        v.copy_(torch.where(touched, self.beta2 * v
-                            + (1.0 - self.beta2) * torch.square(gbuf), v))
+        b1, c1, b2, c2, _, _ = self._consts(table.dtype)
+        m.copy_(torch.where(touched, b1 * m + c1 * gbuf, m))
+        v.copy_(torch.where(touched, b2 * v + c2 * torch.square(gbuf), v))
         table.add_(torch.where(touched, self._delta(m, v), 0.0))
         return table, state
 
@@ -223,8 +236,12 @@ def adagrad_kfold_rows(bias, accum, rows, g, lr: float, k_steps: int) -> None:
     a0 = accum.index_select(0, tgt)                      # (B, 1)
     t = torch.arange(1, k_steps + 1, dtype=bias.dtype, device=bias.device)
     denom = torch.sqrt(a0 + t[None, :] * torch.square(g))
-    delta = -lr * g[:, :1] * torch.sum(1.0 / denom, dim=1, keepdim=True)
-    set_rows(accum, tgt, a0 + k_steps * torch.square(g[:, :1]), keep)
+    # the quotients and their sum in float32, rounded once to the bias's
+    # dtype (XLA computes the op that feeds a bfloat16 sum in float32)
+    delta = scalar(-lr, bias.dtype) * g[:, :1] * torch.sum(
+        1.0 / denom.float(), dim=1, keepdim=True).to(bias.dtype)
+    set_rows(accum, tgt, a0 + scalar(float(k_steps), bias.dtype)
+             * torch.square(g[:, :1]), keep)
     bias.index_add_(0, tgt, masked_addend(delta, keep))
 
 

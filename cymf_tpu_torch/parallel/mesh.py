@@ -122,20 +122,24 @@ class MeshContext:
         d = self.num_devices
         return ((n + d - 1) // d) * d
 
-    def put_table(self, x) -> torch.Tensor:
+    def put_table(self, x, dtype=None) -> torch.Tensor:
         """This rank's row shard ``[rank * rpd, (rank + 1) * rpd)`` of the
-        whole table ``x`` (rows a multiple of the world size) as a float32
-        tensor on this rank's device."""
+        whole table ``x`` (rows a multiple of the world size) as a tensor
+        on this rank's device, in ``dtype`` (by default
+        :func:`cymf_tpu_torch.config.param_dtype`; the fused engines,
+        whose kernels take float32 under any param dtype, pass
+        ``torch.float32``)."""
         x = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
         if x.shape[0] % self.num_devices:
             raise ValueError(f"{x.shape[0]} rows do not split evenly over "
                              f"{self.num_devices} ranks (pad_rows first)")
         rpd = x.shape[0] // self.num_devices
         return x[self.rank * rpd:(self.rank + 1) * rpd].to(
-            self.device, config.param_dtype(), copy=True)
+            self.device, dtype or config.param_dtype(), copy=True)
 
     def put_replicated(self, x) -> torch.Tensor:
-        """The whole of ``x`` as a float32 tensor on this rank's device."""
+        """The whole of ``x`` as a tensor on this rank's device, in
+        :func:`cymf_tpu_torch.config.param_dtype`."""
         x = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
         return x.to(self.device, config.param_dtype(), copy=True)
 
@@ -204,8 +208,15 @@ class MeshContext:
             t.item()
 
 
-def _host_copy(t: torch.Tensor) -> np.ndarray:
-    return t.detach().to("cpu", copy=True).numpy()
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t`` that later in-place updates of the tensor
+    cannot reach.  numpy has no bfloat16: a bfloat16 (or float16) tensor
+    comes back as a float32 array with the same values, where the JAX
+    package returns an ``ml_dtypes`` array."""
+    t = t.detach()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return t.to("cpu", torch.float32).numpy()
+    return t.to("cpu", copy=True).numpy()
 
 
 def fetch_to_host(x, mesh: Optional[MeshContext] = None) -> np.ndarray:
@@ -214,13 +225,14 @@ def fetch_to_host(x, mesh: Optional[MeshContext] = None) -> np.ndarray:
     table on every rank, as the JAX form's ``process_allgather``.  A
     collective under a world of more than one rank (``mesh``, by default
     :func:`current_mesh`): every rank calls it together.  A copy that later
-    in-place updates of ``x`` cannot reach."""
+    in-place updates of ``x`` cannot reach (:func:`host_array`: a bfloat16
+    table comes back as float32)."""
     mesh = mesh if mesh is not None else current_mesh()
     if not torch.is_tensor(x):
         return np.array(x)
     if mesh.num_devices == 1:
-        return _host_copy(x)
-    return _host_copy(mesh.all_gather(x.detach()))
+        return host_array(x)
+    return host_array(mesh.all_gather(x.detach()))
 
 
 _local = threading.local()

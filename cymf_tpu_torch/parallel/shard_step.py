@@ -52,21 +52,25 @@ Each epoch sums its loss on the rank and all-reduces it once at the end
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
+from ..config import scalar
 from ..ops.als import (get_solver, weighted_gramian, wmf_solve_rows,
                        woodbury_core)
 from ..ops.glove_epoch import glove_freeze_masks, glove_step
 from ..ops.hashset import hashset_contains
 from ..ops.packed_epoch import (PackedAdaGrad, bpr_v4_step, live_negatives,
-                                make_packed_optimizer)
+                                log_sigmoid, make_packed_optimizer, row_dot,
+                                sigmoid)
 from ..ops.segment import csr_lookup, dedup_rows
 from ..ops.wide_epoch import wide_step
 from ..optim import adagrad_kfold_rows, set_rows
 
 
 def _epoch_loss(mesh, loss: torch.Tensor, n_valid: int) -> torch.Tensor:
-    return mesh.all_reduce(loss) / max(int(n_valid), 1)
+    """The epoch's summed loss over the ranks, over ``n_valid`` in the
+    loss's dtype (the JAX forms' ``maximum(n_valid, 1).astype``)."""
+    return mesh.all_reduce(loss) / scalar(float(max(int(n_valid), 1)),
+                                          loss.dtype)
 
 
 @torch.no_grad()
@@ -198,7 +202,7 @@ def sharded_bpr_epoch(mesh, W, H, opt_w, opt_h, u_steps, i_steps, hs,
     K = W.shape[1]
     rpd_u, rpd_i = W.shape[0], H.shape[0]
     dev = W.device
-    wd = weight_decay
+    wd = scalar(weight_decay, W.dtype)
     loss_acc = torch.zeros((), dtype=W.dtype, device=dev)
     for t in range(S):
         u, i = u_steps[t], i_steps[t]
@@ -212,15 +216,13 @@ def sharded_bpr_epoch(mesh, W, H, opt_w, opt_h, u_steps, i_steps, hs,
              _resolve_rows(H, j_all, rpd_i, p)], dim=1)).split(K, dim=1)
 
         # the gradient work on the rank's B / n samples (model.pyx:81-83)
-        x = torch.sum(wu * (hi - hj), dim=1, keepdim=True)
-        sig = torch.sigmoid(-x)
+        x = row_dot(wu, hi - hj, keepdim=True)
+        sig = sigmoid(-x)
         g_wu = -(sig * (hi - hj) - wd * wu) * mf
         g_hi = -(sig * wu - wd * hi) * mf
         g_hj = -(-sig * wu - wd * hj) * mf
-        l2 = (torch.sum(torch.square(wu), dim=1)
-              + torch.sum(torch.square(hi), dim=1)
-              + torch.sum(torch.square(hj), dim=1))
-        loss_acc += torch.sum((-F.logsigmoid(x[:, 0]) + wd * l2) * mf[:, 0])
+        l2 = row_dot(wu, wu) + row_dot(hi, hi) + row_dot(hj, hj)
+        loss_acc += torch.sum((-log_sigmoid(x[:, 0]) + wd * l2) * mf[:, 0])
 
         # the return path: each owner accumulates the rows it owns
         g_all = mesh.all_gather(torch.cat([g_wu, g_hi, g_hj], dim=1))
@@ -253,7 +255,7 @@ def sharded_relmf_epoch(mesh, W, H, opt_w, opt_h, label_src, props, gen, *,
     B, Bn, K = batch_size, batch_size // mesh.num_devices, W.shape[1]
     rpd_u, rpd_i = W.shape[0], H.shape[0]
     dev = W.device
-    wd, M = weight_decay, clip_value
+    wd, M = scalar(weight_decay, W.dtype), scalar(clip_value, W.dtype)
     loss_acc = torch.zeros((), dtype=W.dtype, device=dev)
     for _ in range(num_steps):
         # every rank holds the whole draw: no gather of the indices
@@ -267,11 +269,10 @@ def sharded_relmf_epoch(mesh, W, H, opt_w, opt_h, label_src, props, gen, *,
         wu, hi = _resolve(mesh, [(W, u_all), (H, i_all)])
 
         # the gradient work on the rank's B / n cells (model.pyx:130-139)
-        s = torch.sum(wu * hi, dim=1, keepdim=True)
+        s = row_dot(wu, hi, keepdim=True)
         g_w = -(w * (1.0 - s) * hi + (1.0 - w) * (0.0 - s) * hi) + wd * wu
         g_h = -(w * (1.0 - s) * wu + (1.0 - w) * (0.0 - s) * wu) + wd * hi
-        l2 = (torch.sum(torch.square(wu), dim=1)
-              + torch.sum(torch.square(hi), dim=1))
+        l2 = row_dot(wu, wu) + row_dot(hi, hi)
         loss_acc += torch.sum(w[:, 0] * torch.square(1.0 - s[:, 0])
                               + (1.0 - w[:, 0]) * torch.square(s[:, 0])
                               + wd * l2)
@@ -306,8 +307,9 @@ def sharded_glove_epoch(mesh, Wc, Wx, ow, oh, c_steps, x_steps, n_steps,
         mf = (c < num_central).to(Wc.dtype)
         c_all, x_all = mesh.all_gather(torch.stack([c, x], dim=1)).unbind(1)
         wc, hx = _resolve(mesh, [(Wc, c_all), (Wx, x_all)])
-        f = torch.clamp(torch.pow(cnt / x_max, alpha), max=1.0)
-        diff = torch.sum(wc * hx, dim=1) - torch.log(cnt)
+        f = torch.clamp(torch.pow(cnt / scalar(x_max, Wc.dtype),
+                                  scalar(alpha, Wc.dtype)), max=1.0)
+        diff = row_dot(wc, hx) - torch.log(cnt)
         loss_acc += torch.sum(0.5 * f * torch.square(diff) * mf)
         fd = (f * diff * mf)[:, None]
         # the constant-1 columns must stay constant
@@ -345,8 +347,9 @@ def sharded_glove_kfold_epoch(mesh, Wc, Wx, bc, bx, ow, oh, abc, abx,
         c_all, x_all = mesh.all_gather(torch.stack([c, x], dim=1)).unbind(1)
         wc, bcv, hx, bxv = _resolve(mesh, [(Wc, c_all), (bc, c_all),
                                            (Wx, x_all), (bx, x_all)])
-        f = torch.clamp(torch.pow(cnt / x_max, alpha), max=1.0)
-        diff = (torch.sum(wc * hx, dim=1) + bcv[:, 0] + bxv[:, 0]
+        f = torch.clamp(torch.pow(cnt / scalar(x_max, Wc.dtype),
+                                  scalar(alpha, Wc.dtype)), max=1.0)
+        diff = (row_dot(wc, hx) + bcv[:, 0] + bxv[:, 0]
                 - torch.log(cnt))
         loss_acc += torch.sum(0.5 * f * torch.square(diff) * mf)
         fd = (f * diff * mf)[:, None]
@@ -404,10 +407,12 @@ def sharded_packed_glove_epoch(mesh, Zc, Zx, oc, ox, c_steps, x_steps,
 
 
 def sharded_gramian(mesh, Y, weight_decay: float) -> torch.Tensor:
-    """``Y^T Y + wd I`` of a row-sharded ``Y``: the local product,
-    all-reduced, the same on every rank (``:282-285``)."""
+    """``Y^T Y + wd I`` of a row-sharded ``Y``: the local product in
+    float32, all-reduced, the same on every rank (``:282-285``); ``wd I``
+    in ``Y``'s dtype."""
     eye = torch.eye(Y.shape[1], dtype=Y.dtype, device=Y.device)
-    return mesh.all_reduce(Y.T @ Y) + weight_decay * eye
+    Yf = Y.float()
+    return mesh.all_reduce(Yf.T @ Yf) + weight_decay * eye
 
 
 @torch.no_grad()
@@ -430,7 +435,7 @@ def sharded_wmf_chunk(mesh, Y, T, A0, A0inv, chunk, *, weight: float,
         x = woodbury_core(sub, A0inv, chunk.valid, weight, solver)
     else:
         x = wmf_solve_rows(sub, A0, chunk.valid, weight, solver)
-    _write_owned(mesh, T, chunk.rows, mesh.all_gather(x))
+    _write_owned(mesh, T, chunk.rows, mesh.all_gather(x.to(T.dtype)))
 
 
 @torch.no_grad()
@@ -459,10 +464,12 @@ def sharded_expomf_chunk(mesh, E_src, E_other, Y, mu_term, T, chunk, *,
     rpd_o = E_other.shape[0]
     C = chunk.rows.shape[0]
     Cn, P = chunk.idx_pad.shape
+    lam_y, prefactor = (scalar(v, Y.dtype) for v in (lam_y, prefactor))
     # 1. the chunk rows' epoch-start factors on every rank (O(C K))
     w_rows = rows_everywhere(mesh, E_src, chunk.rows)
-    # 2. this rank's E block [C, rows of E_other] (expomf.pyx:134-137)
-    S = w_rows @ E_other.T
+    # 2. this rank's E block [C, rows of E_other] (expomf.pyx:134-137),
+    # float32 under any param dtype
+    S = w_rows.float() @ E_other.float().T
     nn = prefactor * torch.exp(-lam_y * S.square() / 2.0)
     mu_b = mu_term[None, :] if mu_axis == "col" else mu_term[:, None]
     post = (nn + 1e-8) / (nn + 1e-8 + mu_b)
@@ -485,5 +492,5 @@ def sharded_expomf_chunk(mesh, E_src, E_other, Y, mu_term, T, chunk, *,
     b = lam_y * sub.reshape(Cn, P, -1).sum(dim=1)
     x = get_solver(solver)(A, b)
     x = torch.where(chunk.valid.any(dim=1, keepdim=True), x, 0.0)
-    _write_owned(mesh, T, chunk.rows, mesh.all_gather(x))
+    _write_owned(mesh, T, chunk.rows, mesh.all_gather(x.to(T.dtype)))
     return e_colsum

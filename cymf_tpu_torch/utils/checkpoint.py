@@ -8,6 +8,12 @@ keys are the ``/``-joined dict keys (``"W"``, ``"ow/m"``, ``"owp/v"``),
 ``__epoch__`` an int64 and ``__meta__/<name>`` each meta entry, so a file
 either package writes loads in the other.
 
+Under ``config.set_param_dtype(torch.bfloat16)`` a bfloat16 leaf is
+written as the JAX package writes its ``ml_dtypes`` arrays: the 2-byte bit
+patterns as a void ``V2`` entry, which numpy cannot cast.  Such a file does
+not resume, in either package: loading it raises ``ValueError``
+(:func:`check_leaves`), as the JAX package's ``astype`` does.
+
 :class:`AsyncCheckpointer` overlaps the disk write with training: the
 device-to-host copy happens before ``save`` returns (the consistency
 point: the engines update their tables in place, so the snapshot must be
@@ -26,6 +32,8 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import host_array
+
 _EPOCH_KEY = "__epoch__"
 _META_PREFIX = "__meta__/"
 
@@ -43,10 +51,27 @@ def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
 
 def _to_host(leaf) -> np.ndarray:
     """A host copy of ``leaf`` that later in-place updates of the tensor
-    cannot reach (``.cpu()`` of a CPU tensor would share its memory)."""
+    cannot reach (``.cpu()`` of a CPU tensor would share its memory); a
+    bfloat16 tensor as its bit patterns, a ``V2`` array."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
     return np.array(leaf)
+
+
+def check_leaves(flat: Dict[str, np.ndarray]) -> None:
+    """Raise ``ValueError`` if a leaf of a loaded checkpoint is a void
+    entry: the ``V2`` bit patterns of a bfloat16 table, which numpy (and
+    the JAX package's resume) cannot cast to a number."""
+    for key, arr in flat.items():
+        if arr.dtype.kind == "V":
+            raise ValueError(
+                f"checkpoint leaf {key!r} holds {arr.dtype.str} entries (the "
+                "bit patterns of a bfloat16 table), which cannot be cast: a "
+                "checkpoint written under a bfloat16 param dtype does not "
+                "resume, as in the JAX package")
 
 
 def _flatten(state: Any, epoch: int,
@@ -133,10 +158,12 @@ def load_checkpoint(path: str, like: Any) -> Tuple[Any, int, Dict[str, Any]]:
     Returns ``(state, epoch, meta)``.  A tensor leaf of ``like`` comes
     back as a tensor on its device and of its dtype; any other leaf as
     the stored array.  A missing leaf raises ``KeyError``, a leaf of
-    another shape ``ValueError``.
+    another shape or a bfloat16 leaf (:func:`check_leaves`)
+    ``ValueError``.
     """
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
+    check_leaves(flat)
     epoch = int(flat.pop(_EPOCH_KEY, -1))
     meta = {k[len(_META_PREFIX):]: flat.pop(k)
             for k in list(flat) if k.startswith(_META_PREFIX)}
@@ -179,6 +206,7 @@ def resume_state(path: str | None, resume: bool, like: Any,
         return like, 0
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
+    check_leaves(flat)
     epoch = int(flat.pop(_EPOCH_KEY, -1))
     leaves = {}
     for key, leaf in _leaves(like):
@@ -193,7 +221,8 @@ def resume_state(path: str | None, resume: bool, like: Any,
                     f"checkpoint leaf {key!r} has shape {arr.shape}, "
                     f"expected {shape} or another row count of at least "
                     f"{n}")
-            out = _to_host(leaf)
+            out = host_array(leaf) if isinstance(leaf, torch.Tensor) \
+                else np.array(leaf)
             out[:n] = arr[:n]
             arr = out
         if isinstance(leaf, torch.Tensor):

@@ -17,6 +17,19 @@ from cymf_tpu.ops import als as jals
 from cymf_tpu_torch.ops import als
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test, restored after, as the other files that
+    pin it do.  A batched LU solve at K > 128 with several threads hangs
+    in a process whose torch thread count was set to 1 and back before
+    (MKL's SLASWP is then called with a bad argument), which another
+    file's test in the same worker may have done; one thread solves."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _skewed():
     rows = np.concatenate([np.zeros(500, int), np.arange(1, 50),
                            np.repeat(np.arange(50, 80), 7)])
@@ -113,3 +126,26 @@ def test_blocked_solve_matches_jax(K, block):
                                      torch.from_numpy(b), block,
                                      diag).numpy()
         assert _rel(got, want) < 5e-4, (diag, _rel(got, want))
+
+
+@pytest.mark.parametrize("K", [16, 128, 256])
+def test_solve_spd_routes_and_matches_jax(monkeypatch, K):
+    """The eager ``solve_spd`` routes by width as ``resolve_chol_solver``
+    does (dense below 128, the blocked form at 128 and above on the CPU)
+    and solves as JAX's ``solve_spd``; a bfloat16 right-hand side is
+    promoted to float32, as JAX promotes it."""
+    for v in ("CYMF_TPU_ALS_CHOL", "CYMF_TPU_ALS_CHOL_BLOCK"):
+        monkeypatch.delenv(v, raising=False)
+    rng = np.random.default_rng(K)
+    X = rng.standard_normal((3, K, K)).astype(np.float32)
+    A = X @ X.transpose(0, 2, 1) + np.eye(K, dtype=np.float32)
+    b = rng.standard_normal((3, K)).astype(np.float32)
+    want = np.array(jals.solve_spd(jnp.asarray(A), jnp.asarray(b)))
+    got = als.solve_spd(torch.from_numpy(A), torch.from_numpy(b))
+    assert got.dtype == torch.float32
+    assert _rel(got.numpy(), want) < 5e-4
+    bb = torch.from_numpy(b).to(torch.bfloat16)
+    got = als.solve_spd(torch.from_numpy(A), bb).numpy()
+    want = np.array(jals.solve_spd(jnp.asarray(A), jnp.asarray(
+        bb.float().numpy(), jnp.bfloat16)))
+    assert _rel(got, want) < 5e-4

@@ -1,6 +1,6 @@
 """The port's public namespaces hold the JAX package's names.
 
-For each of the eight namespaces, every name of the JAX one's ``__all__``
+For each of the nine namespaces, every name of the JAX one's ``__all__``
 (or, where it has none, every public name it defines) must be in the
 port's ``__all__`` (or its public names) and importable, with no
 allowance.  Importing ``cymf_tpu_torch.ops`` builds and loads no kernel.
@@ -15,7 +15,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 NAMESPACES = ["", ".utils", ".ops", ".dataset", ".evaluation", ".models",
-              ".optim", ".parallel"]
+              ".optim", ".parallel", ".config"]
 # names the port may lack, by namespace: none
 ALLOWED_MISSING: dict = {}
 
