@@ -45,6 +45,7 @@ from scipy import sparse
 from .. import config
 from ..parallel.mesh import current_mesh
 from ..ops.hashset import build_pair_hashset, hashset_contains, to_device
+from ..utils.profiling import span, spanned, upload
 from . import metrics as M
 from .recommend import _stable_topk
 
@@ -158,6 +159,12 @@ class Evaluator:
     tensors; the work runs on ``device``: by default
     :func:`cymf_tpu_torch.config.default_device`, the card;
     ``device="cpu"`` runs on the CPU.
+
+    A call is a span ``eval.evaluate``
+    (:mod:`cymf_tpu_torch.utils.profiling`): ``eval.upload`` (the tables
+    to the device), ``eval.state`` (the device state, built by the first
+    call) and ``eval.fetch`` (the sums to the host, which waits for the
+    card).
     """
 
     def __init__(self, X, X_train=None,
@@ -248,19 +255,21 @@ class Evaluator:
                 c = -(-a.shape[0] // n)
                 a = np.pad(a, [(0, n * c - a.shape[0])]
                            + [(0, 0)] * (a.ndim - 1))
-                return torch.from_numpy(a[p * c:(p + 1) * c]).to(dev)
+                return upload(torch.from_numpy(a[p * c:(p + 1) * c]), dev)
 
             self._device_state = dict(
                 mesh=mesh,
                 chunks=[tuple(rows(a) for a in ch)
                         for ch in self._user_chunks],
                 hs=to_device(build_pair_hashset(up.row, up.col), dev),
-                props=torch.as_tensor(self.propensity_scores,
-                                      dtype=config.param_dtype()).to(dev),
+                props=upload(torch.as_tensor(self.propensity_scores,
+                                             dtype=config.param_dtype()),
+                             dev),
             )
         return self._device_state
 
     @torch.no_grad()
+    @spanned("eval.evaluate")
     def evaluate(self, W, H, seed: int = 1234) -> dict:
         ks = ((int(self.k),) if isinstance(self.k, int)
               else tuple(int(k) for k in self.k))
@@ -268,9 +277,11 @@ class Evaluator:
         U, I = self.X.shape
         mesh = current_mesh()
         dev = self.device = mesh.resolve_device(self._device_arg)
-        Wd = torch.as_tensor(W, dtype=config.param_dtype()).to(dev)
-        Hd = torch.as_tensor(H, dtype=config.param_dtype()).to(dev)
-        st = self._to_device(mesh)
+        with span("eval.upload"):
+            Wd = upload(torch.as_tensor(W, dtype=config.param_dtype()), dev)
+            Hd = upload(torch.as_tensor(H, dtype=config.param_dtype()), dev)
+        with span("eval.state"):
+            st = self._to_device(mesh)
         gen = torch.Generator(device=dev)
         # one device: the seed; a rank of a mesh: the seed and the rank
         gen.manual_seed(int(seed) if mesh.num_devices == 1
@@ -284,7 +295,8 @@ class Evaluator:
                 st["props"], ks=ks, metric_names=metric_names,
                 unbiased=self.unbiased)
             total = part if total is None else total + part
-        sums = mesh.all_reduce(total).to("cpu", torch.float64).numpy()
+        with span("eval.fetch"):
+            sums = mesh.all_reduce(total).to("cpu", torch.float64).numpy()
 
         buff = {}
         for mi, name in enumerate(metric_names):

@@ -27,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import upload
+
 __all__ = [
     "dcg_at_k", "recall_at_k", "average_precision_at_k",
     "dcg_at_k_with_ips", "recall_at_k_with_ips",
@@ -41,7 +43,7 @@ __all__ = [
 
 
 def _like(arr: np.ndarray, ref: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(arr, dtype=ref.dtype, device=ref.device)
+    return upload(torch.as_tensor(arr, dtype=ref.dtype), ref.device)
 
 
 def _dcg_weights(ref: torch.Tensor, k: int) -> torch.Tensor:

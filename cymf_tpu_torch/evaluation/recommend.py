@@ -34,6 +34,7 @@ from scipy import sparse
 
 from .. import config
 from ..parallel.mesh import current_mesh
+from ..utils.profiling import span, spanned, upload
 
 _LOW32 = (1 << 32) - 1
 
@@ -72,6 +73,7 @@ def _topk_chunk(scores: torch.Tensor, k: int
 
 
 @torch.no_grad()
+@spanned("recommend")
 def recommend(W, H, k: int = 10, exclude=None, user_chunk: int = 4096,
               device=None) -> Tuple[np.ndarray, np.ndarray]:
     """Top-k items per user over the full catalog.
@@ -94,30 +96,39 @@ def recommend(W, H, k: int = 10, exclude=None, user_chunk: int = 4096,
       to :func:`cymf_tpu_torch.config.param_dtype` (under bfloat16, ties
       are common), then scored in float32.  Under a mesh, a collective: every
       rank calls it with the same arguments and gets the whole result.
+
+    A call is a span ``recommend`` (:mod:`cymf_tpu_torch.utils.profiling`):
+    ``recommend.upload`` (the tables), ``recommend.exclusions`` (the CSR and
+    its upload) and one ``recommend.fetch`` a chunk (its answer to the
+    host, which waits for the card).
     """
     mesh = current_mesh()
     n = mesh.num_devices
     dev = mesh.resolve_device(device)
     dtype = config.param_dtype()
-    Wd = torch.as_tensor(W, dtype=dtype).to(dev)
     Ht = torch.as_tensor(H, dtype=dtype)
-    U = Wd.shape[0]
     I = Ht.shape[0]
     if k > I:
         raise ValueError(f"k={k} exceeds catalog size {I}")
     # this rank's item rows [lo, lo + ipd) of the catalog padded to n
     ipd = mesh.pad_rows(I) // n
     lo = mesh.rank * ipd
-    # float32 scores under any param dtype, as the JAX package's
-    # preferred_element_type: the tables' values cast, their products exact
-    Hd = Ht[lo:lo + ipd].to(dev).float()
+    with span("recommend.upload"):
+        Wd = upload(torch.as_tensor(W, dtype=dtype), dev)
+        # float32 scores under any param dtype, as the JAX package's
+        # preferred_element_type: the tables' values cast, their products
+        # exact
+        Hd = upload(Ht[lo:lo + ipd], dev).float()
+    U = Wd.shape[0]
 
     if exclude is not None:
-        X = sparse.csr_matrix(exclude)
-        indptr = X.indptr.astype(np.int64)
-        indptr_d = torch.from_numpy(indptr).to(dev)
-        # scipy's own index dtype: no host copy, widened a chunk at a time
-        indices_d = torch.from_numpy(X.indices).to(dev)
+        with span("recommend.exclusions"):
+            X = sparse.csr_matrix(exclude)
+            indptr = X.indptr.astype(np.int64)
+            indptr_d = upload(torch.from_numpy(indptr), dev)
+            # scipy's own index dtype: no host copy, widened a chunk at a
+            # time
+            indices_d = upload(torch.from_numpy(X.indices), dev)
 
     out_scores = np.empty((U, k), np.float32)
     out_items = np.empty((U, k), np.int32)
@@ -139,13 +150,14 @@ def recommend(W, H, k: int = 10, exclude=None, user_chunk: int = 4096,
                 mine = (cols >= 0) & (cols < ipd)
                 rows, cols = rows[mine], cols[mine]
             scores.index_put_((rows, cols),
-                              torch.tensor(-torch.inf, device=dev))
+                              upload(torch.tensor(-torch.inf), dev))
         vals, idx = _topk_chunk(scores, min(int(k), ipd))
         if n > 1:
             # merge the ranks' candidates by (score desc, global id asc)
             vals, idx = _stable_topk(
                 mesh.all_gather(vals.T.contiguous()).T.contiguous(), int(k),
                 mesh.all_gather((idx + lo).T.contiguous()).T.contiguous())
-        out_scores[start:end] = vals.cpu().numpy()
-        out_items[start:end] = idx.to(torch.int32).cpu().numpy()
+        with span("recommend.fetch"):
+            out_scores[start:end] = vals.cpu().numpy()
+            out_items[start:end] = idx.to(torch.int32).cpu().numpy()
     return out_scores, out_items

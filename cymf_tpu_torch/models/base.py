@@ -23,7 +23,6 @@ reads the file on every rank; the early-stopping decision follows rank
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -34,6 +33,7 @@ from scipy import sparse
 from .. import config
 from ..parallel.mesh import (MeshContext, current_mesh, fetch_to_host,
                              host_array)
+from ..utils.profiling import count, current, format_rate, span
 
 
 def as_csr(X) -> sparse.csr_matrix:
@@ -134,10 +134,12 @@ class MFTrainerBase:
 
     def _fetch(self, key: str, n: int) -> np.ndarray:
         """First ``n`` rows of the live table ``_state[key]`` on the host:
-        gathered from the ranks if it is sharded (a collective)."""
-        if key in self._sharded_keys:
-            return fetch_to_host(self._state[key], self.mesh)[:n]
-        return host_array(self._state[key][:n])
+        gathered from the ranks if it is sharded (a collective).  Span
+        ``tables.fetch``."""
+        with span("tables.fetch"):
+            if key in self._sharded_keys:
+                return fetch_to_host(self._state[key], self.mesh)[:n]
+            return host_array(self._state[key][:n])
 
     @property
     def W(self):
@@ -221,47 +223,56 @@ class MFTrainerBase:
         Mirrors the loop at `bpr.pyx:160-190`: per-epoch validation via
         ``valid_evaluator.evaluate(W, H)["DCG@5"]``, stop after >10
         consecutive non-improving epochs, restore the best weights at the
-        end.  ``verbose`` prints one progress line per epoch.
+        end.  ``verbose`` prints one progress line per epoch, with the
+        fit's samples so far over its seconds so far (its span's).
+
+        Each epoch is a span ``epoch`` (counting ``samples``), holding the
+        epoch's work, ``epoch.checkpoint`` and ``epoch.evaluate`` (the
+        tables' fetches and the evaluator's spans).
 
         When ``checkpoint_path`` is set, ``self._state`` is written after
         every epoch ``e`` with ``(e + 1) % checkpoint_every == 0``
         (atomic npz, ``cymf_tpu_torch.utils.checkpoint``): the copy to the
         host blocks the loop, the disk write runs on a thread and is
         flushed before this returns.  ``checkpoint_s_`` holds each save's
-        blocking seconds.
+        blocking seconds (its ``epoch.checkpoint`` span).
         """
         from ..utils.checkpoint import AsyncCheckpointer
-        from ..utils.profiling import Throughput
         mesh = self.mesh
         stopper = EarlyStopper(self.early_stopping)
         ckpt = AsyncCheckpointer() if checkpoint_path else None
         self.checkpoint_s_ = []
         valid_dcg = None
-        thr = Throughput()
         samples_per_epoch = getattr(self, "_samples_per_epoch", 0)
-        thr.tick(0)
+        # the fit's span: its samples so far over its seconds so far
+        fit = current()
         for epoch in range(start_epoch, num_epochs):
-            epoch_fn(epoch)
-            thr.tick(samples_per_epoch)
-            if ckpt and (epoch + 1) % checkpoint_every == 0:
-                t0 = time.perf_counter()
-                state = self._checkpoint_state()
-                if mesh.rank == 0:
-                    ckpt.save(checkpoint_path, state, epoch)
-                self.checkpoint_s_.append(time.perf_counter() - t0)
-            if self.valid_evaluator:
-                # rank 0's score decides, so every rank stops together
-                valid_dcg = mesh.broadcast_float(self.valid_evaluator.evaluate(
-                    self.W, self.H)["DCG@5"])
-                if stopper.update(valid_dcg, snapshot_fn):
-                    break
-                self.valid_dcg = stopper.best_dcg
+            with span("epoch"):
+                epoch_fn(epoch)
+                count("samples", samples_per_epoch)
+                if ckpt and (epoch + 1) % checkpoint_every == 0:
+                    with span("epoch.checkpoint") as t:
+                        state = self._checkpoint_state()
+                        if mesh.rank == 0:
+                            ckpt.save(checkpoint_path, state, epoch)
+                    self.checkpoint_s_.append(t.seconds)
+                if self.valid_evaluator:
+                    with span("epoch.evaluate"):
+                        # rank 0's score decides, so every rank stops
+                        # together
+                        valid_dcg = mesh.broadcast_float(
+                            self.valid_evaluator.evaluate(
+                                self.W, self.H)["DCG@5"])
+                        if stopper.update(valid_dcg, snapshot_fn):
+                            break
+                    self.valid_dcg = stopper.best_dcg
             if verbose:
+                samples = fit.counts.get("samples", 0) if fit else 0
                 print(f"EPOCH={epoch + 1:{len(str(num_epochs))}}"
                       + (f", DCG@5={np.round(valid_dcg, 3)}"
                          if self.valid_evaluator else "")
-                      + (f", {thr.format()}" if samples_per_epoch
-                         and thr.rate else ""), flush=True)
+                      + (f", {format_rate(samples / fit.seconds)}"
+                         if samples else ""), flush=True)
         if ckpt:
             ckpt.wait()
             # the file is whole before any rank returns (or resumes)
@@ -295,7 +306,13 @@ class MFTrainerBase:
         the host seconds of its prep
         (``prep_s``, where there is one) and the seconds of its device
         work (``device_s``: between CUDA events around ``run`` on the
-        card, the host clock on the CPU)."""
+        card, the host clock on the CPU).
+
+        Spans under each ``epoch``: ``epoch.prep_wait`` (waiting for the
+        prep, or running epoch 0's inline), ``epoch.run`` (queueing the
+        uploads and steps), ``epoch.sync`` (waiting for the card) and
+        ``epoch.publish``; the prep itself is ``epoch.prep``, attached to
+        the fit's span from whichever thread runs it."""
         dev = self.device
         publish()
         self.epoch_times_ = []
@@ -303,34 +320,40 @@ class MFTrainerBase:
         ahead = {}
         pool = ThreadPoolExecutor(max_workers=1) \
             if prep is not None and self._overlap_prep else None
+        # the worker's prep spans join the fit's span
+        fit = current()
 
         def timed_prep(epoch):
-            t0 = time.perf_counter()
-            streams = prep(epoch)
-            return streams, time.perf_counter() - t0
+            with span("epoch.prep", parent=fit) as t:
+                streams = prep(epoch)
+            return streams, t.seconds
 
         def epoch_fn(epoch):
             nonlocal loss
             times, streams = {}, ()
             if prep is not None:
-                fut = ahead.pop(epoch, None)
-                streams, times["prep_s"] = fut.result() if fut is not None \
-                    else timed_prep(epoch)
+                with span("epoch.prep_wait"):
+                    fut = ahead.pop(epoch, None)
+                    streams, times["prep_s"] = fut.result() \
+                        if fut is not None else timed_prep(epoch)
                 if pool is not None and epoch + 1 < num_epochs:
                     ahead[epoch + 1] = pool.submit(timed_prep, epoch + 1)
             if dev.type == "cuda":
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record(torch.cuda.current_stream(dev))
-                loss = run(epoch, *streams)
+                with span("epoch.run"):
+                    loss = run(epoch, *streams)
                 ev[1].record(torch.cuda.current_stream(dev))
-                ev[1].synchronize()
+                with span("epoch.sync"):
+                    ev[1].synchronize()
                 times["device_s"] = ev[0].elapsed_time(ev[1]) / 1e3
             else:
-                t0 = time.perf_counter()
-                loss = run(epoch, *streams)
-                times["device_s"] = time.perf_counter() - t0
+                with span("epoch.run") as t:
+                    loss = run(epoch, *streams)
+                times["device_s"] = t.seconds
             self.epoch_times_.append(times)
-            publish()
+            with span("epoch.publish"):
+                publish()
 
         def snapshot_fn():
             return (self.W, self.H)

@@ -110,6 +110,7 @@ from ..parallel.shard_step import (sharded_bpr_epoch,
                                    sharded_wide_bpr_epoch)
 from ..parallel.mesh import host_array
 from ..utils.checkpoint import check_leaves
+from ..utils.profiling import span, spanned, upload
 from .base import MFTrainerBase, PersistenceMixin, as_csr
 
 PAD_USER = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
@@ -340,20 +341,24 @@ def sorted_batches(users, positives, batch_size: int, multiple: int = 1024):
     padded with ``PAD_USER`` to ``S x B`` with ``B`` rounded up to a
     ``multiple`` (1024 for the fused engines, 1 for the batch engine),
     each step sorted by user (order within a synchronous batch is
-    semantically irrelevant; the W-side accumulation needs it)."""
-    N = len(users)
-    B = min(int(batch_size), max(N, 1))
-    B = -(-B // multiple) * multiple
-    S = max(1, -(-N // B))
-    pad = S * B - N
-    if pad:
-        users = np.concatenate([users, np.full(pad, PAD_USER, np.int32)])
-        positives = np.concatenate([positives, np.zeros(pad, np.int32)])
-    u2 = users.reshape(S, B)
-    i2 = positives.reshape(S, B)
-    order = np.argsort(u2, axis=1, kind="stable")
-    return (np.take_along_axis(u2, order, axis=1),
-            np.take_along_axis(i2, order, axis=1))
+    semantically irrelevant; the W-side accumulation needs it).  Span
+    ``bpr.batches``."""
+    with span("bpr.batches"):
+        N = len(users)
+        B = min(int(batch_size), max(N, 1))
+        B = -(-B // multiple) * multiple
+        S = max(1, -(-N // B))
+        pad = S * B - N
+        if pad:
+            users = np.concatenate([users,
+                                    np.full(pad, PAD_USER, np.int32)])
+            positives = np.concatenate([positives,
+                                        np.zeros(pad, np.int32)])
+        u2 = users.reshape(S, B)
+        i2 = positives.reshape(S, B)
+        order = np.argsort(u2, axis=1, kind="stable")
+        return (np.take_along_axis(u2, order, axis=1),
+                np.take_along_axis(i2, order, axis=1))
 
 
 def choose_update_mode(mode: str, batch_rows: int, table_rows: int) -> str:
@@ -483,6 +488,7 @@ class BPR(MFTrainerBase, PersistenceMixin):
         return "batch"
 
     @torch.no_grad()
+    @spanned("bpr.fit")
     def fit(self, X, num_epochs: int = 10, num_threads: int = 1,
             valid_evaluator=None, early_stopping: bool = False,
             verbose: bool = True, seed: int = 1234,
@@ -498,20 +504,27 @@ class BPR(MFTrainerBase, PersistenceMixin):
         beside the previous epoch's device work).  The
         sequential engine logs one entry per launch, with the epochs it ran
         (``epochs``): one entry for a fit that runs as one launch.
+
+        The fit is a span ``bpr.fit`` (:mod:`cymf_tpu_torch.utils.profiling`):
+        ``bpr.shuffle`` (input coercion, the tables' first draw, the
+        shuffle), ``bpr.batches``, on the packed engine ``bpr.prep_static``,
+        ``bpr.reject_filter`` and ``bpr.upload``, the epochs' spans, and
+        ``tables.fetch`` at the end.
         """
-        X = as_csr(X)
-        self.valid_evaluator = valid_evaluator
-        self.valid_dcg = -np.inf
-        self.early_stopping = early_stopping
-        if early_stopping and valid_evaluator is None:
-            raise ValueError()
+        with span("bpr.shuffle"):
+            X = as_csr(X)
+            self.valid_evaluator = valid_evaluator
+            self.valid_dcg = -np.inf
+            self.early_stopping = early_stopping
+            if early_stopping and valid_evaluator is None:
+                raise ValueError()
 
-        U, I = X.shape
-        n = self._mesh_device().num_devices
-        self._num_users, self._num_items = U, I
-        self._ensure_tables(U, I)
+            U, I = X.shape
+            n = self._mesh_device().num_devices
+            self._num_users, self._num_items = U, I
+            self._ensure_tables(U, I)
 
-        users, positives = shuffled_interactions(X)
+            users, positives = shuffled_interactions(X)
         self._samples_per_epoch = len(users)
         if self.engine == "pallas":
             if checkpoint_path is not None:
@@ -585,10 +598,10 @@ class BPR(MFTrainerBase, PersistenceMixin):
         opt = make_optimizer(self.optimizer, self.learning_rate)
         W, H, ow, oh, start_epoch = _sharded_batch_state(
             self, mesh, opt, U, I, checkpoint_path, resume)
-        u_d = torch.from_numpy(np.ascontiguousarray(
-            u2[:, p * Bn:(p + 1) * Bn])).to(dev)
-        i_d = torch.from_numpy(np.ascontiguousarray(
-            i2[:, p * Bn:(p + 1) * Bn])).to(dev)
+        u_d = upload(torch.from_numpy(np.ascontiguousarray(
+            u2[:, p * Bn:(p + 1) * Bn])), dev)
+        i_d = upload(torch.from_numpy(np.ascontiguousarray(
+            i2[:, p * Bn:(p + 1) * Bn])), dev)
 
         def publish():
             self._state = {"W": W, "H": H, "ow": ow, "oh": oh}
@@ -637,19 +650,20 @@ class BPR(MFTrainerBase, PersistenceMixin):
         key_filter = make_reject_filter(pos_keys, U, I)
         opt = make_packed_optimizer(self.optimizer, self.learning_rate)
         Wf = _put(pk.pack_array(self.W, K, multiple=wrows_w * n), "cpu")
-        Hp = _put(pk.pack_logical(self.H, K, multiple=wrows_h), dev)
+        Hp = upload(_put(pk.pack_logical(self.H, K, multiple=wrows_h), "cpu"),
+                    dev)
         owf, oh = opt.init(Wf), opt.init(Hp)
         flat, start_epoch = _resume_point(checkpoint_path, resume)
         mesh.agree(start_epoch, "the checkpoint's epoch")
         if flat is not None:
             Wf, Hp, owf, oh = _packed_resume_state(
                 flat, U, I, K, wrows_w * n, wrows_h, owf, oh, "cpu")
-            Hp = Hp.to(dev)
+            Hp = upload(Hp, dev)
         Wp = mesh.put_table(Wf, torch.float32)
         ow = {k: mesh.put_table(v, torch.float32) for k, v in owf.items()}
 
         def put(a):  # this rank's streams, the shard axis dropped
-            return torch.from_numpy(np.ascontiguousarray(a[0])).to(dev)
+            return upload(torch.from_numpy(np.ascontiguousarray(a[0])), dev)
 
         static = [put(a) for a in (u_loc, i_loc, si, rowsi, wini)]
         winw_d = put(winw)
@@ -704,19 +718,19 @@ class BPR(MFTrainerBase, PersistenceMixin):
         key_filter = make_reject_filter(pos_keys, U, I)
         opt = make_packed_optimizer(self.optimizer, self.learning_rate)
         Wf = _put(pack_wide(self.W, K, multiple=wrows * n), "cpu")
-        Hd = _put(pack_wide(self.H, K, multiple=wrows), dev)
+        Hd = upload(_put(pack_wide(self.H, K, multiple=wrows), "cpu"), dev)
         owf, oh = opt.init(Wf), opt.init(Hd)
         flat, start_epoch = _resume_point(checkpoint_path, resume)
         mesh.agree(start_epoch, "the checkpoint's epoch")
         if flat is not None:
             Wf, Hd, owf, oh = _wide_resume_state(
                 flat, U, I, K, wrows * n, wrows, owf, oh, "cpu")
-            Hd = Hd.to(dev)
+            Hd = upload(Hd, dev)
         Wd = mesh.put_table(Wf, torch.float32)
         ow = {k: mesh.put_table(v, torch.float32) for k, v in owf.items()}
 
         def put(a):  # this rank's streams, the shard axis dropped
-            return torch.from_numpy(np.ascontiguousarray(a[0])).to(dev)
+            return upload(torch.from_numpy(np.ascontiguousarray(a[0])), dev)
 
         static = [put(a) for a in (u_loc, i_loc, rowsu, winw, si, rowsi,
                                    wini)]
@@ -764,12 +778,12 @@ class BPR(MFTrainerBase, PersistenceMixin):
         hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
 
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            return upload(torch.from_numpy(np.ascontiguousarray(a)), dev)
 
         # copies in the param dtype: the host tables must not see the
         # in-place updates
-        W = torch.tensor(self.W, dtype=config.param_dtype(), device=dev)
-        H = torch.tensor(self.H, dtype=config.param_dtype(), device=dev)
+        W = upload(torch.tensor(self.W, dtype=config.param_dtype()), dev)
+        H = upload(torch.tensor(self.H, dtype=config.param_dtype()), dev)
         self.update_mode_ = choose_update_mode(self.update_mode, 3 * B,
                                                U + I)
         opt = make_optimizer(self.optimizer, self.learning_rate)
@@ -831,55 +845,61 @@ class BPR(MFTrainerBase, PersistenceMixin):
                     f"neg_pool={self.neg_pool} unsupported at "
                     f"num_components={K}: needs s*(K+1) <= 127 and a "
                     "lane-aligned pool")
-            winw, si, rowsi, wini = prep_static_pool(
-                u2, i2, K, rw, rh, wrows_w, wrows_h)
+            with span("bpr.prep_static"):
+                winw, si, rowsi, wini = prep_static_pool(
+                    u2, i2, K, rw, rh, wrows_w, wrows_h)
             wstart = bcs = bcn = np.zeros((u2.shape[0], 1), np.int32)
             kernel_v = 8
             # pool prep draws from the numpy stream alone; the native
             # library only tests membership, bit-identically
             self.prep_backend_ = "numpy"
         else:
-            winw, wstart, si, rowsi, wini, bcs, bcn, kernel_v = \
-                prep_static(u2, i2, K, rw, rh, wrows_w, wrows_h)
+            with span("bpr.prep_static"):
+                winw, wstart, si, rowsi, wini, bcs, bcn, kernel_v = \
+                    prep_static(u2, i2, K, rw, rh, wrows_w, wrows_h)
         if device_prep:
             # the device epoch runs the span-independent v4 (v5/v6 need
             # host-computed expansion starts)
             kernel_v = 4
         # which pipeline runs (8/6/5/4, data-dependent; 7 when forced)
         self.packed_kernel_ = kernel_v
-        coo = X.tocoo()
-        if device_prep:
-            hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
-        else:
-            pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
-            # once per fit: the rejection filter of both prep streams
-            key_filter = make_reject_filter(pos_keys, U, I)
+        with span("bpr.reject_filter"):
+            coo = X.tocoo()
+            if device_prep:
+                hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
+            else:
+                pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+                # once per fit: the rejection filter of both prep streams
+                key_filter = make_reject_filter(pos_keys, U, I)
 
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            return upload(torch.from_numpy(np.ascontiguousarray(a)), dev)
 
-        Wp = put(pk.pack_array(self.W, K, multiple=wrows_w))
-        Hp = put(pk.pack_logical(self.H, K, multiple=wrows_h))
-        opt = make_packed_optimizer(self.optimizer, self.learning_rate)
-        ow, oh = opt.init(Wp), opt.init(Hp)
-        flat, start_epoch = _resume_point(checkpoint_path, resume)
-        if flat is not None:
-            Wp, Hp, ow, oh = _packed_resume_state(flat, U, I, K, wrows_w,
-                                                  wrows_h, ow, oh, dev)
-        static = [put(a) for a in (u2, i2, si, rowsi, wini)]
-        winw_d = put(winw)
-        blocks = [put(a) for a in (wstart, bcs, bcn)]
+        with span("bpr.upload"):
+            Wp = put(pk.pack_array(self.W, K, multiple=wrows_w))
+            Hp = put(pk.pack_logical(self.H, K, multiple=wrows_h))
+            opt = make_packed_optimizer(self.optimizer, self.learning_rate)
+            ow, oh = opt.init(Wp), opt.init(Hp)
+            flat, start_epoch = _resume_point(checkpoint_path, resume)
+            if flat is not None:
+                Wp, Hp, ow, oh = _packed_resume_state(
+                    flat, U, I, K, wrows_w, wrows_h, ow, oh, dev)
+            static = [put(a) for a in (u2, i2, si, rowsi, wini)]
+            winw_d = put(winw)
+            blocks = [put(a) for a in (wstart, bcs, bcn)]
+            rjs_d = None
+            if kernel_v == 8:
+                # the per-sample pool slots are drawn once per fit (a
+                # fresh uniform pool each epoch makes j = pool[r] as
+                # uniform as redrawing r); each epoch draws its pool from
+                # (seed, epoch)
+                r2_fit = np.random.default_rng((seed, 1 << 20)).integers(
+                    0, self.neg_pool, u2.shape, dtype=np.int32)
+                rjs_d = put(r2_fit.reshape(u2.shape[0], u2.shape[1] // 128,
+                                           128))
         kw = dict(opt_name=self.optimizer, lr=self.learning_rate,
                   weight_decay=self.weight_decay, K=K, rw=rw, rh=rh,
                   wrows_w=wrows_w, wrows_h=wrows_h)
-        rjs_d = None
-        if kernel_v == 8:
-            # the per-sample pool slots are drawn once per fit (a fresh
-            # uniform pool each epoch makes j = pool[r] as uniform as
-            # redrawing r); each epoch draws its pool from (seed, epoch)
-            r2_fit = np.random.default_rng((seed, 1 << 20)).integers(
-                0, self.neg_pool, u2.shape, dtype=np.int32)
-            rjs_d = put(r2_fit.reshape(u2.shape[0], u2.shape[1] // 128, 128))
 
         def publish():
             self._state = {"W": unpack_device(Wp, K), "H": Hp[:, :K],
@@ -903,14 +923,16 @@ class BPR(MFTrainerBase, PersistenceMixin):
                 num_items=I, **kw)
 
         def run(epoch, *streams):
+            with span("epoch.upload"):
+                streams = [put(a) for a in streams]
             if kernel_v == 8:
                 pool2, mask = streams
                 return packed_bpr_pool_epoch(
-                    Wp, Hp, ow, oh, *static, put(pool2), rjs_d, put(mask),
-                    winw_d, N, **kw)
+                    Wp, Hp, ow, oh, *static, pool2, rjs_d, mask, winw_d, N,
+                    **kw)
             return packed_bpr_epoch(
-                Wp, Hp, ow, oh, *static, *(put(a) for a in streams), winw_d,
-                *blocks, N, kernel_v=kernel_v, **kw)
+                Wp, Hp, ow, oh, *static, *streams, winw_d, *blocks, N,
+                kernel_v=kernel_v, **kw)
 
         self._run_device_epochs(
             num_epochs, verbose, None if device_prep else prep,
@@ -937,7 +959,7 @@ class BPR(MFTrainerBase, PersistenceMixin):
         key_filter = make_reject_filter(pos_keys, U, I)
 
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            return upload(torch.from_numpy(np.ascontiguousarray(a)), dev)
 
         Wd = put(pack_wide(self.W, K, multiple=wrows))
         Hd = put(pack_wide(self.H, K, multiple=wrows))
@@ -1004,8 +1026,8 @@ class BPR(MFTrainerBase, PersistenceMixin):
         mask_all = np.tile(in_data, num_epochs) & keep_all.astype(np.int32)
 
         def put(a, epochs=1):
-            return torch.from_numpy(np.ascontiguousarray(
-                a.reshape(epochs * S, 1, chunk))).to(dev)
+            return upload(torch.from_numpy(np.ascontiguousarray(
+                a.reshape(epochs * S, 1, chunk))), dev)
 
         Wp = pe.pack_table(self.W, self.optimizer, dev)
         Hp = pe.pack_table(self.H, self.optimizer, dev)

@@ -54,6 +54,7 @@ from ..config import scalar
 from ..parallel.mesh import fetch_to_host, host_array
 from ..parallel.shard_step import rows_everywhere, sharded_expomf_chunk
 from ..utils.checkpoint import resume_state
+from ..utils.profiling import spanned
 from .base import MFTrainerBase, PersistenceMixin, as_csr, padded_rows
 
 
@@ -126,6 +127,7 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
             self.H = np.random.randn(num_rows_h, K) * 0.01
 
     @torch.no_grad()
+    @spanned("expomf.fit")
     def fit(self, X, num_epochs: int = 5, num_threads: int = 1,
             valid_evaluator=None, early_stopping: bool = False,
             verbose: bool = True, checkpoint_path=None,

@@ -83,6 +83,7 @@ from ..parallel.shard_step import (sharded_glove_epoch,
                                    sharded_glove_kfold_epoch,
                                    sharded_packed_glove_epoch)
 from ..utils.checkpoint import AsyncCheckpointer, resume_state
+from ..utils.profiling import spanned
 from .base import padded_rows
 from .bpr import choose_update_mode
 PAD_CENTRAL = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
@@ -243,6 +244,7 @@ class GloVe:
         return self.packed == "on" or device_type != "cuda" \
             or n_samples >= 4096
 
+    @spanned("glove.fit")
     def fit(self, X, num_epochs: int, num_threads: int = 1,
             verbose: bool = False, checkpoint_path=None,
             checkpoint_every: int = 1, resume: bool = False):

@@ -82,6 +82,7 @@ from ..ops.relmf_epoch import (epoch_generator, packed_relmf_epoch,
 from ..ops.segment import csr_lookup
 from ..optim import make_optimizer
 from ..parallel.shard_step import sharded_relmf_epoch
+from ..utils.profiling import spanned
 from .base import MFTrainerBase, PersistenceMixin, as_csr
 from .bpr import (_batch_resume_state, _packed_resume_state, _resume_point,
                   _sharded_batch_state, choose_update_mode)
@@ -224,6 +225,7 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         return False
 
     @torch.no_grad()
+    @spanned("relmf.fit")
     def fit(self, X, num_epochs: int = 10, num_threads: int = 1,
             valid_evaluator=None, early_stopping: bool = False,
             verbose: bool = False, seed: int = 1234, checkpoint_path=None,

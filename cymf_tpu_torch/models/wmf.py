@@ -31,7 +31,6 @@ schema, and ``resume=True`` continues from it, whatever row padding
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -42,6 +41,7 @@ from ..ops.als import (build_chunks, place_device_chunks,
                        wmf_chunk_solve, wmf_chunk_solve_woodbury)
 from ..parallel.shard_step import sharded_gramian, sharded_wmf_chunk
 from ..utils.checkpoint import resume_state
+from ..utils.profiling import current, span, spanned, upload
 from .base import MFTrainerBase, PersistenceMixin, as_csr, padded_rows
 
 
@@ -91,6 +91,7 @@ class WMF(MFTrainerBase, PersistenceMixin):
         self.solver = solver
 
     @torch.no_grad()
+    @spanned("wmf.fit")
     def fit(self, X, num_epochs: int = 5, num_threads: int = 1,
             valid_evaluator=None, early_stopping: bool = False,
             verbose: bool = True, checkpoint_path=None,
@@ -103,7 +104,12 @@ class WMF(MFTrainerBase, PersistenceMixin):
         ``chunks_`` (host ``build_s`` seconds, and per side ``"W"``/``"H"``
         the number of ``standard`` and ``woodbury`` chunks).
         ``checkpoint_path``, ``checkpoint_every`` and ``resume`` as
-        ``BPR.fit``."""
+        ``BPR.fit``.
+
+        The fit is a span ``wmf.fit``: ``wmf.transpose`` and
+        ``wmf.build_chunks`` (``build_s`` is the two), ``wmf.upload`` (the
+        chunks and the tables), the epochs' spans with ``epoch.sync`` and
+        the ALS scopes, and ``tables.fetch`` at the end."""
         X = as_csr(X)
         mesh = self._mesh_device()
         self.valid_evaluator = valid_evaluator
@@ -126,31 +132,33 @@ class WMF(MFTrainerBase, PersistenceMixin):
         # the tables' rows, padded to a multiple of the world size
         Up, Ip = mesh.pad_rows(U), mesh.pad_rows(I)
 
-        t0 = time.perf_counter()
-        Xt = X.T.tocsr()
-        Xt.sort_indices()
-        chunks = {"W": build_chunks(X, self.chunk_size, Up, num_components=K),
-                  "H": build_chunks(Xt, self.chunk_size, Ip,
-                                    num_components=K)}
-        self.chunks_ = {"build_s": time.perf_counter() - t0}
+        with span("wmf.transpose") as t_transpose:
+            Xt = X.T.tocsr()
+            Xt.sort_indices()
+        with span("wmf.build_chunks") as t_build:
+            chunks = {"W": build_chunks(X, self.chunk_size, Up,
+                                        num_components=K),
+                      "H": build_chunks(Xt, self.chunk_size, Ip,
+                                        num_components=K)}
+        self.chunks_ = {"build_s": t_transpose.seconds + t_build.seconds}
         for side, cs in chunks.items():
             nw = sum(c.idx_pad.shape[1] <= wb_max_p for c in cs)
             self.chunks_[side] = {"standard": len(cs) - nw, "woodbury": nw}
-        if sharded:
-            user_chunks = place_mesh_chunks(chunks["W"], mesh)
-            item_chunks = place_mesh_chunks(chunks["H"], mesh)
-        else:
-            user_chunks = place_device_chunks(chunks["W"], dev, U)
-            item_chunks = place_device_chunks(chunks["H"], dev, I)
         self._samples_per_epoch = X.nnz
-
-        # the whole (padded) tables on the host, or on the one device
-        state, start_epoch = resume_state(
-            checkpoint_path, resume,
-            {"W": padded_rows(self.W, Up), "H": padded_rows(self.H, Ip)}
-            if sharded else {"W": padded_rows(self.W, U).to(dev),
-                             "H": padded_rows(self.H, I).to(dev)},
-            {"W": U, "H": I})
+        with span("wmf.upload"):
+            if sharded:
+                user_chunks = place_mesh_chunks(chunks["W"], mesh)
+                item_chunks = place_mesh_chunks(chunks["H"], mesh)
+            else:
+                user_chunks = place_device_chunks(chunks["W"], dev, U)
+                item_chunks = place_device_chunks(chunks["H"], dev, I)
+            # the whole (padded) tables on the host, or on the one device
+            state, start_epoch = resume_state(
+                checkpoint_path, resume,
+                {"W": padded_rows(self.W, Up), "H": padded_rows(self.H, Ip)}
+                if sharded else {"W": upload(padded_rows(self.W, U), dev),
+                                 "H": upload(padded_rows(self.H, I), dev)},
+                {"W": U, "H": I})
         mesh.agree(start_epoch, "the checkpoint's epoch")
         if sharded:
             state = {k: mesh.put_table(v) for k, v in state.items()}
@@ -185,12 +193,14 @@ class WMF(MFTrainerBase, PersistenceMixin):
         self.epoch_times_ = []
 
         def epoch_fn(epoch):
-            t0 = time.perf_counter()
             half_sweep("W", "H", user_chunks)   # wmf.pyx:111
             half_sweep("H", "W", item_chunks)   # wmf.pyx:112
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            self.epoch_times_.append(time.perf_counter() - t0)
+                with span("epoch.sync"):
+                    torch.cuda.synchronize(dev)
+            # the seconds of the open `epoch` span, which _run_epochs opens
+            # around this call
+            self.epoch_times_.append(current().seconds)
 
         def snapshot_fn():
             return (self.W, self.H)

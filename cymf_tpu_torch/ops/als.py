@@ -43,7 +43,7 @@ import torch
 from scipy import sparse
 
 from ..config import scalar
-from ..utils.profiling import annotate
+from ..utils.profiling import span, upload
 from .chol_kernel import (MAX_BLOCK, chol_inv_batched,
                           chol_inv_batched_plain, cholesky_nan)
 
@@ -161,7 +161,7 @@ def _solve_spd_blocked(A: torch.Tensor, b: torch.Tensor, block: int,
     diag_factor = (functools.partial(chol_inv_batched, block=block)
                    if diag == "kernel" else chol_inv_batched_plain)
 
-    with annotate("als.blocked"):
+    with span("als.blocked"):
         L = [[None] * nb for _ in range(nb)]
         Dinv = [None] * nb
         for j in range(nb):
@@ -285,9 +285,9 @@ def place_device_chunks(chunks: List[AlsChunk], device,
         if not keep.all():
             c = AlsChunk(*(a[keep] for a in c))
         out.append(AlsChunk(
-            torch.from_numpy(c.rows.astype(np.int64)).to(device),
-            torch.from_numpy(c.idx_pad).to(device),
-            torch.from_numpy(c.valid).to(device), c.weights))
+            upload(torch.from_numpy(c.rows.astype(np.int64)), device),
+            upload(torch.from_numpy(c.idx_pad), device),
+            upload(torch.from_numpy(c.valid), device), c.weights))
     return out
 
 
@@ -341,11 +341,11 @@ def place_mesh_chunks(chunks: List[AlsChunk], mesh) -> List[MeshAlsChunk]:
         cn = len(rows) // n
         sl = slice(p * cn, (p + 1) * cn)
         out.append(MeshAlsChunk(
-            torch.from_numpy(rows).to(dev),
-            torch.from_numpy(np.pad(c.idx_pad, ((0, pad), (0, 0)))[sl]
-                             .copy()).to(dev),
-            torch.from_numpy(np.pad(c.valid, ((0, pad), (0, 0)))[sl]
-                             .copy()).to(dev)))
+            upload(torch.from_numpy(rows), dev),
+            upload(torch.from_numpy(np.pad(c.idx_pad, ((0, pad), (0, 0)))[sl]
+                                    .copy()), dev),
+            upload(torch.from_numpy(np.pad(c.valid, ((0, pad), (0, 0)))[sl]
+                                    .copy()), dev)))
     return out
 
 
@@ -354,7 +354,7 @@ def gather_rows(Y: torch.Tensor, idx_pad: torch.Tensor,
     """``Y[idx_pad] * valid``: the chunk's positives, ``(C, P, K)``, with
     the pads zeroed."""
     C, P = idx_pad.shape
-    with annotate("als.gather"):
+    with span("als.gather"):
         sub = Y.index_select(0, idx_pad.reshape(-1)).view(C, P, -1)
         return sub * valid[..., None].to(Y.dtype)
 
@@ -376,7 +376,7 @@ def wmf_solve_rows(sub, A0, valid, weight: float, solver: str):
     as in the JAX package.  Returns float32 rows."""
     dt = sub.dtype
     w = scalar(weight, dt)
-    with annotate("als.correction"):
+    with span("als.correction"):
         subf = sub.float()
         A = torch.baddbmm(A0.expand(sub.shape[0], -1, -1), subf.mT, subf,
                           alpha=scalar(w - 1.0, dt))
@@ -410,7 +410,7 @@ def woodbury_core(sub, A0inv, valid, weight: float, solver: str):
     float32).  Returns float32 rows."""
     dt = sub.dtype
     w = scalar(weight, dt)
-    with annotate("als.woodbury"):
+    with span("als.woodbury"):
         b = w * sub.sum(dim=1)                              # (C, K)
         sub = sub.float()
         T = sub @ A0inv.mT                                  # (C, P, K)

@@ -20,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import upload
+
 _SLOTS1 = 64   # level-1 bucket width
 _SLOTS2 = 16   # level-2: small overflow table
 _SALT1 = np.uint32(0x9E3779B1)
@@ -126,9 +128,9 @@ def build_pair_hashset(users: np.ndarray, items: np.ndarray) -> PairHashSet:
 
 
 def to_device(hs: PairHashSet, device) -> PairHashSet:
-    """The set's tables as int32 tensors on ``device``."""
-    return PairHashSet(*(torch.as_tensor(t, dtype=torch.int32).to(device)
-                         for t in hs))
+    """The set's tables as int32 tensors on ``device`` (``h2d_bytes``)."""
+    return PairHashSet(*(upload(torch.as_tensor(t, dtype=torch.int32),
+                                device) for t in hs))
 
 
 def hashset_contains(hs: PairHashSet, u: torch.Tensor,

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from . import _kernels
+from ..utils.profiling import upload
 
 VMEM_BUDGET_BYTES = 10 * 1024 * 1024
 LANES = 128
@@ -100,7 +101,7 @@ def pack_table(T: np.ndarray, optimizer: str, device) -> torch.Tensor:
     out[:, :K] = T
     if optimizer == "adagrad":
         out[:, Kp:2 * Kp] = 1.0
-    return torch.from_numpy(out).to(device)
+    return upload(torch.from_numpy(out), device)
 
 
 def unpack_table(P, K: int):

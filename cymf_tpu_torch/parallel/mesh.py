@@ -128,20 +128,22 @@ class MeshContext:
         on this rank's device, in ``dtype`` (by default
         :func:`cymf_tpu_torch.config.param_dtype`; the fused engines,
         whose kernels take float32 under any param dtype, pass
-        ``torch.float32``)."""
+        ``torch.float32``).  The shard's bytes count as ``h2d_bytes``."""
+        from ..utils.profiling import upload  # utils imports this module
         x = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
         if x.shape[0] % self.num_devices:
             raise ValueError(f"{x.shape[0]} rows do not split evenly over "
                              f"{self.num_devices} ranks (pad_rows first)")
         rpd = x.shape[0] // self.num_devices
-        return x[self.rank * rpd:(self.rank + 1) * rpd].to(
-            self.device, dtype or config.param_dtype(), copy=True)
+        return upload(x[self.rank * rpd:(self.rank + 1) * rpd], self.device,
+                      dtype or config.param_dtype(), copy=True)
 
     def put_replicated(self, x) -> torch.Tensor:
         """The whole of ``x`` as a tensor on this rank's device, in
-        :func:`cymf_tpu_torch.config.param_dtype`."""
+        :func:`cymf_tpu_torch.config.param_dtype` (``h2d_bytes``)."""
+        from ..utils.profiling import upload  # utils imports this module
         x = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
-        return x.to(self.device, config.param_dtype(), copy=True)
+        return upload(x, self.device, config.param_dtype(), copy=True)
 
     # -- collectives (every rank calls each, in the same order) ---------------
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
