@@ -1,14 +1,18 @@
 // Native host-side epoch prep of the PyTorch port: the port's own copy of
 // the JAX package's C++ OpenMP pipeline (cymf_tpu/native/_native.cpp).
 //
-// The compute bodies are that file's, unchanged: the per-step mt19937_64
-// streams seeded through SplitMix64, the counting sorts, the one-bit filter
-// probe with its exact per-user fallback, and the bad_range reductions.
-// They are what make the streams the JAX package's.  Only the CPython layer
-// is gone: every entry point is an extern "C" function over raw pointers
-// that writes into buffers its caller allocated, so the library needs no
-// Python headers and loads with ctypes (cymf_tpu_torch/native/__init__.py,
-// which also checks every length and range before it calls in).  Each
+// The compute bodies are that file's: the per-step mt19937_64 streams
+// seeded through SplitMix64, the counting sorts, the one-bit filter probe
+// with its exact per-user fallback, and the bad_range reductions.  They are
+// what make the streams the JAX package's.  The item-side counting sorts
+// of the BPR and RelMF entries are the helper sort_side, which the
+// once-a-fit static entries at the end (the port's own: the JAX package
+// sorts those streams with numpy) share; their outputs equal numpy's bit
+// for bit.  The CPython layer is gone: every entry point is an extern "C"
+// function over raw pointers that writes into buffers its caller
+// allocated, so the library needs no Python headers and loads with ctypes
+// (cymf_tpu_torch/native/__init__.py, which also checks every length and
+// range before it calls in).  Each
 // returns 0, or 1 where the JAX code raises "indptr not nondecreasing".
 // The OpenMP regions run cymf_prep_threads() threads; the streams do not
 // depend on that count (each step seeds its own generator and writes only
@@ -65,6 +69,52 @@ void windows(const int64_t* counts, int64_t wrows, int64_t rows, int64_t nw,
     ws[w] = static_cast<int32_t>(astart);
     ws[nw + w] = static_cast<int32_t>(hi - astart);
   }
+}
+
+// An id's row: id / slots, without the division on the logical layout
+inline int64_t row_of(int32_t id, int64_t slots) {
+  return slots == 1 ? id : id / slots;
+}
+
+// counts[k] = the ids of one step whose row is below k, for k <= rows;
+// every row at or past `rows` shares the one bucket past them
+// (counts[rows + 1] = B).  False on a negative id.
+bool count_rows(const int32_t* v, int64_t B, int64_t slots, int64_t rows,
+                int64_t* counts) {
+  std::fill(counts, counts + rows + 2, 0);
+  for (int64_t b = 0; b < B; ++b) {
+    if (v[b] < 0) return false;
+    ++counts[std::min(row_of(v[b], slots), rows) + 1];
+  }
+  for (int64_t r = 0; r <= rows; ++r) counts[r + 1] += counts[r];
+  return true;
+}
+
+// One step's sorted side: a stable counting sort of its B ids by row
+// (id / slots) into perm (positions) and srows (rows), and the windows
+// over the sorted rows.  Rows at or past `rows` sort last, by row and then
+// by position, as a stable argsort puts them.  counts: rows + 2 scratch.
+// False (nothing written) on a negative id.
+bool sort_side(const int32_t* v, int64_t B, int64_t slots, int64_t rows,
+               int64_t wrows, int64_t tile, int64_t Bn, int64_t* counts,
+               int32_t* perm, int32_t* srows, int32_t* win) {
+  if (!count_rows(v, B, slots, rows, counts)) return false;
+  windows(counts, wrows, rows, rows / wrows, Bn, tile, win);
+  const int64_t tail = counts[rows];
+  for (int64_t b = 0; b < B; ++b) {
+    const int64_t r = row_of(v[b], slots);
+    const int64_t pos = counts[std::min(r, rows)]++;
+    perm[pos] = static_cast<int32_t>(b);
+    srows[pos] = static_cast<int32_t>(r);
+  }
+  if (tail < B) {
+    std::stable_sort(perm + tail, perm + B, [&](int32_t a, int32_t b) {
+      return row_of(v[a], slots) < row_of(v[b], slots);
+    });
+    for (int64_t pos = tail; pos < B; ++pos)
+      srows[pos] = static_cast<int32_t>(row_of(v[perm[pos]], slots));
+  }
+  return true;
 }
 
 struct Cooc {
@@ -135,7 +185,7 @@ int cymf_bpr_prep_epoch_v2(const int32_t* u2, const int64_t* pos_keys,
 #pragma omp parallel num_threads(nthreads())
 #endif
   {
-    std::vector<int64_t> counts(rh + 1);
+    std::vector<int64_t> counts(rh + 2);
 #ifdef _OPENMP
 #pragma omp for schedule(dynamic)
 #endif
@@ -162,19 +212,9 @@ int cymf_bpr_prep_epoch_v2(const int32_t* u2, const int64_t* pos_keys,
         }
         mf[b] = live ? 1.0f : 0.0f;
       }
-      // counting sort of j by physical row
-      std::fill(counts.begin(), counts.end(), 0);
-      for (int64_t b = 0; b < B; ++b) ++counts[j[b] / slots + 1];
-      for (int64_t r = 0; r < rh; ++r) counts[r + 1] += counts[r];
-      windows(counts.data(), wrows, rh, nw, B, tile, winj + t * 2 * nw);
-      int32_t* pj = sj + t * B;
-      int32_t* rj = rowsj + t * B;
-      std::vector<int64_t> cursor(counts.begin(), counts.end() - 1);
-      for (int64_t b = 0; b < B; ++b) {
-        const int64_t pos = cursor[j[b] / slots]++;
-        pj[pos] = static_cast<int32_t>(b);
-        rj[pos] = j[b] / slots;
-      }
+      // counting sort of j by physical row (draws are never negative)
+      sort_side(j, B, slots, rh, wrows, tile, B, counts.data(), sj + t * B,
+                rowsj + t * B, winj + t * 2 * nw);
     }
   }
   return 0;
@@ -318,7 +358,7 @@ int cymf_bpr_prep_epoch_v3(const int32_t* u2, const int64_t* pos_keys,
 #pragma omp parallel num_threads(nthreads()) reduction(||: bad_range)
 #endif
   {
-    std::vector<int64_t> counts(rh + 1);
+    std::vector<int64_t> counts(rh + 2);
 #ifdef _OPENMP
 #pragma omp for schedule(dynamic)
 #endif
@@ -367,18 +407,8 @@ int cymf_bpr_prep_epoch_v3(const int32_t* u2, const int64_t* pos_keys,
         mf[b] = live ? 1.0f : 0.0f;
       }
       // counting sort of j by physical row (identical to v2)
-      std::fill(counts.begin(), counts.end(), 0);
-      for (int64_t b = 0; b < B; ++b) ++counts[j[b] / slots + 1];
-      for (int64_t r = 0; r < rh; ++r) counts[r + 1] += counts[r];
-      windows(counts.data(), wrows, rh, nw, B, tile, winj + t * 2 * nw);
-      int32_t* pj = sj + t * B;
-      int32_t* rj = rowsj + t * B;
-      std::vector<int64_t> cursor(counts.begin(), counts.end() - 1);
-      for (int64_t b = 0; b < B; ++b) {
-        const int64_t pos = cursor[j[b] / slots]++;
-        pj[pos] = static_cast<int32_t>(b);
-        rj[pos] = j[b] / slots;
-      }
+      sort_side(j, B, slots, rh, wrows, tile, B, counts.data(), sj + t * B,
+                rowsj + t * B, winj + t * 2 * nw);
     }
   }
   return bad_range ? 1 : 0;
@@ -408,7 +438,7 @@ int cymf_relmf_prep_epoch(const int64_t* pos_keys, int64_t nkeys,
   {
     std::vector<int32_t> ru(B), ri(B);
     std::vector<uint8_t> rl(B);
-    std::vector<int64_t> countsw(rw + 1), countsh(rh + 1);
+    std::vector<int64_t> countsw(rw + 1), countsh(rh + 2);
 #ifdef _OPENMP
 #pragma omp for schedule(dynamic)
 #endif
@@ -461,21 +491,171 @@ int cymf_relmf_prep_epoch(const int64_t* pos_keys, int64_t nkeys,
         }
       }
       // i side over the u-sorted stream (logical H rows: row == item id)
-      std::fill(countsh.begin(), countsh.end(), 0);
-      for (int64_t b = 0; b < B; ++b) ++countsh[is[b] + 1];
-      for (int64_t r = 0; r < rh; ++r) countsh[r + 1] += countsh[r];
-      windows(countsh.data(), wrows_h, rh, nwh, B, tile, wini + t * 2 * nwh);
-      int32_t* ps = si + t * B;
-      int32_t* rs = rowsi + t * B;
-      std::vector<int64_t> cursor(countsh.begin(), countsh.end() - 1);
-      for (int64_t b = 0; b < B; ++b) {
-        const int64_t pos = cursor[is[b]]++;
-        ps[pos] = static_cast<int32_t>(b);
-        rs[pos] = is[b];
-      }
+      sort_side(is, B, 1, rh, wrows_h, tile, B, countsh.data(), si + t * B,
+                rowsi + t * B, wini + t * 2 * nwh);
     }
   }
   return 0;
+}
+
+// Once-a-fit BPR static prep: the minibatches of the shuffled interactions.
+// Step t holds samples [t B, (t + 1) B) of users/items, padded past n with
+// pad (users) and 0 (items), sorted stably by user into u2/i2 (S*B each):
+// a counting sort over U + 1 buckets (pad the last) where U < 16 B, else a
+// sort of (bucket, position) keys, which is also stable.  Returns 1 on a
+// user outside [0, U) other than pad.
+int cymf_sort_batches(const int32_t* users, const int32_t* items, int64_t n,
+                      int64_t S, int64_t B, int64_t U, int32_t pad,
+                      int32_t* u2, int32_t* i2) {
+  const bool counting = U < 16 * B;
+  bool bad = false;
+#ifdef _OPENMP
+#pragma omp parallel num_threads(nthreads()) reduction(||: bad)
+#endif
+  {
+    // 32-bit counts (B < 2^31): half the cache lines a step touches
+    std::vector<int32_t> counts(counting ? U + 2 : 0);
+    std::vector<uint64_t> keys(counting ? 0 : B);
+#ifdef _OPENMP
+#pragma omp for schedule(dynamic)
+#endif
+    for (int64_t t = 0; t < S; ++t) {
+      const int32_t* u = users + t * B;
+      const int32_t* it = items + t * B;
+      const int64_t m = std::max<int64_t>(0, std::min(n - t * B, B));
+      int32_t* us = u2 + t * B;
+      int32_t* is = i2 + t * B;
+      bool ok = true;
+      if (counting) {
+        std::fill(counts.begin(), counts.end(), 0);
+        for (int64_t b = 0; b < m && ok; ++b) {
+          if (u[b] == pad) {
+            ++counts[U + 1];
+          } else if (u[b] < 0 || u[b] >= U) {
+            ok = false;
+          } else {
+            ++counts[u[b] + 1];
+          }
+        }
+        if (!ok) {
+          bad = true;
+          continue;
+        }
+        counts[U + 1] += static_cast<int32_t>(B - m);
+        for (int64_t r = 0; r < U; ++r) counts[r + 1] += counts[r];
+        for (int64_t b = 0; b < B; ++b) {
+          const bool live = b < m && u[b] != pad;
+          const int64_t pos = counts[live ? u[b] : U]++;
+          us[pos] = live ? u[b] : pad;
+          is[pos] = b < m ? it[b] : 0;
+        }
+      } else {
+        for (int64_t b = 0; b < B && ok; ++b) {
+          uint64_t key = static_cast<uint64_t>(U);
+          if (b < m && u[b] != pad) {
+            ok = u[b] >= 0 && u[b] < U;
+            key = static_cast<uint64_t>(u[b]);
+          }
+          keys[b] = key << 32 | static_cast<uint64_t>(b);
+        }
+        if (!ok) {
+          bad = true;
+          continue;
+        }
+        std::sort(keys.begin(), keys.end());
+        for (int64_t pos = 0; pos < B; ++pos) {
+          const int64_t b = static_cast<int64_t>(keys[pos] & 0xffffffffULL);
+          us[pos] = b < m ? u[b] : pad;
+          is[pos] = b < m ? it[b] : 0;
+        }
+      }
+    }
+  }
+  return bad ? 1 : 0;
+}
+
+// Once-a-fit static sorted side of an [S, B] id stream over logical rows
+// (row = id): each step's sort_side (the j side of the per-epoch entries)
+// into perm, srows (S*B) and win (S*2*(rows/wrows)); Bn: the step's length
+// rounded up to a tile.  Returns 1 on a negative id.
+int cymf_sorted_side(const int32_t* v2, int64_t S, int64_t B, int64_t rows,
+                     int64_t wrows, int64_t tile, int64_t Bn, int32_t* perm,
+                     int32_t* srows, int32_t* win) {
+  const int64_t nw = rows / wrows;
+  bool bad = false;
+#ifdef _OPENMP
+#pragma omp parallel num_threads(nthreads()) reduction(||: bad)
+#endif
+  {
+    std::vector<int64_t> counts(rows + 2);
+#ifdef _OPENMP
+#pragma omp for schedule(dynamic)
+#endif
+    for (int64_t t = 0; t < S; ++t) {
+      if (!sort_side(v2 + t * B, B, 1, rows, wrows, tile, Bn, counts.data(),
+                     perm + t * B, srows + t * B, win + t * 2 * nw))
+        bad = true;
+    }
+  }
+  return bad ? 1 : 0;
+}
+
+// The windows of each step of an [S, B] stream ascending by row (id /
+// slots) into win (S*2*(rows/wrows)): each window's edges by binary
+// search, as window_ranges finds them.  Returns 1 on a negative id.
+int cymf_sorted_windows(const int32_t* v2, int64_t S, int64_t B,
+                        int64_t slots, int64_t rows, int64_t wrows,
+                        int64_t tile, int64_t Bn, int32_t* win) {
+  const int64_t nw = rows / wrows;
+  bool bad = false;
+#ifdef _OPENMP
+#pragma omp parallel num_threads(nthreads()) reduction(||: bad)
+#endif
+  {
+    std::vector<int64_t> edges(nw + 1);
+#ifdef _OPENMP
+#pragma omp for schedule(static)
+#endif
+    for (int64_t t = 0; t < S; ++t) {
+      const int32_t* v = v2 + t * B;
+      if (v[0] < 0) bad = true;
+      // row < k wrows  <=>  id < k wrows slots, for ids >= 0
+      for (int64_t k = 0; k <= nw; ++k)
+        edges[k] = std::lower_bound(v, v + B, k * wrows * slots) - v;
+      windows(edges.data(), 1, nw, nw, Bn, tile, win + t * 2 * nw);
+    }
+  }
+  return bad ? 1 : 0;
+}
+
+// The packed engine's span gate: *fits = 1 iff every stride-sample chunk
+// of the row stream u2 / slots (S*B, stride dividing B) has its in-table
+// rows (< rw) within margin rows of its first row, or its first row past
+// rw - margin, or no in-table row.  Returns 1 on a negative id.
+int cymf_spans_fit(const int32_t* u2, int64_t S, int64_t B, int64_t slots,
+                   int64_t stride, int64_t margin, int64_t rw,
+                   int64_t* fits) {
+  const int64_t nc = S * B / stride;
+  const int64_t end = rw * slots;  // row < rw  <=>  id < rw slots
+  bool bad = false, miss = false;
+#ifdef _OPENMP
+#pragma omp parallel for num_threads(nthreads()) schedule(static) \
+    reduction(||: bad, miss)
+#endif
+  for (int64_t c = 0; c < nc; ++c) {
+    const int32_t* u = u2 + c * stride;
+    int32_t hi = -1;  // the chunk's largest in-table id
+    for (int64_t k = 0; k < stride; ++k) {
+      if (u[k] < 0) bad = true;
+      if (u[k] < end && u[k] > hi) hi = u[k];
+    }
+    const int64_t first = u[0] / slots;
+    const int64_t last = hi < 0 ? -1 : hi / slots;
+    if (!(last - first < margin || first > rw - margin || last < 0))
+      miss = true;
+  }
+  *fits = miss ? 0 : 1;
+  return bad ? 1 : 0;
 }
 
 }  // extern "C"

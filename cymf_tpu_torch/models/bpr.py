@@ -44,9 +44,13 @@ kernels), where the JAX package would take the batch engine.
 
 Initialization, the shuffle and the batch sort replay the JAX package's
 numpy streams, and the fused engines' negative streams too, so both
-packages train on identical inputs.  The batch engine draws its negatives
-from a ``torch.Generator`` a fit and epoch (:func:`_draw_negatives`), a
-stream the JAX package's threefry draws differ from.
+packages train on identical inputs.  The batch sort and the engines'
+other once-a-fit sorts run as counting sorts in the native library
+(``static_prep_ == "native"``) and give numpy's arrays bit for bit;
+``CYMF_TPU_PREP=numpy`` runs numpy's (``static_prep_ == "numpy"``).  The
+batch engine draws its negatives from a ``torch.Generator`` a fit and
+epoch (:func:`_draw_negatives`), a stream the JAX package's threefry
+draws differ from.
 
 ``fit(checkpoint_path=p)`` writes each engine's state in the JAX
 package's schema (``{"W", "H", "ow", "oh"}`` batch, ``{"W", "H", "owp",
@@ -110,7 +114,7 @@ from ..parallel.shard_step import (sharded_bpr_epoch,
                                    sharded_wide_bpr_epoch)
 from ..parallel.mesh import host_array
 from ..utils.checkpoint import check_leaves
-from ..utils.profiling import span, spanned, upload
+from ..utils.profiling import count, span, spanned, upload
 from .base import MFTrainerBase, PersistenceMixin, as_csr
 
 PAD_USER = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
@@ -340,14 +344,25 @@ def sorted_batches(users, positives, batch_size: int, multiple: int = 1024):
     (:func:`shuffled_interactions`): ``(u2, i2)``, int32 ``[S, B]``,
     padded with ``PAD_USER`` to ``S x B`` with ``B`` rounded up to a
     ``multiple`` (1024 for the fused engines, 1 for the batch engine),
-    each step sorted by user (order within a synchronous batch is
+    each step sorted stably by user (order within a synchronous batch is
     semantically irrelevant; the W-side accumulation needs it).  Span
-    ``bpr.batches``."""
+    ``bpr.batches``, which counts the steps the native library sorted
+    (:func:`~cymf_tpu_torch.native.sort_batches`, under the native
+    backend) as ``native_steps``; under ``CYMF_TPU_PREP=numpy`` numpy's
+    argsort gives the same arrays and the count is 0."""
     with span("bpr.batches"):
         N = len(users)
         B = min(int(batch_size), max(N, 1))
         B = -(-B // multiple) * multiple
         S = max(1, -(-N // B))
+        if prep_backend() == "native":
+            from .. import native
+            U = min(int(np.max(users)) + 1, int(PAD_USER)) if N else 0
+            out = native.sort_batches(users, positives, S, B, U,
+                                      int(PAD_USER))
+            count("native_steps", S)
+            return out
+        count("native_steps", 0)
         pad = S * B - N
         if pad:
             users = np.concatenate([users,
@@ -540,6 +555,12 @@ class BPR(MFTrainerBase, PersistenceMixin):
                 "single-device TPU run, or packed='on'); this fit "
                 f"selected {self.engine_!r}")
         ckpt = (checkpoint_path, checkpoint_every, resume)
+        # which path sorts the static streams (sorted_batches and the
+        # engines' static prep): the native library or numpy
+        self.static_prep_ = prep_backend()
+        if n > 1:
+            # before the static pass: the ranks of one host share its cores
+            _cap_prep_threads(self.mesh)
         if self.engine_ == "batch":
             if n > 1:
                 # the batch split evenly over the ranks (mesh.pad_rows)
@@ -631,7 +652,6 @@ class BPR(MFTrainerBase, PersistenceMixin):
         mesh = self.mesh
         n, p = mesh.num_devices, mesh.rank
         self.prep_backend_ = prep_backend()
-        _cap_prep_threads(mesh)
         dev = self.device
         U, I = X.shape
         K = self.num_components
@@ -703,7 +723,6 @@ class BPR(MFTrainerBase, PersistenceMixin):
         mesh = self.mesh
         n, p = mesh.num_devices, mesh.rank
         self.prep_backend_ = prep_backend()
-        _cap_prep_threads(mesh)
         dev = self.device
         U, I = X.shape
         K = self.num_components

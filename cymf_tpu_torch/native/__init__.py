@@ -18,6 +18,11 @@ package raises, allocates the outputs, and returns them as flat numpy
 arrays (the JAX extension returns the same bytes).  The ``ctypes`` call
 releases the interpreter lock, so a prep runs beside the main thread.
 
+The once-a-fit static entries at the end (:func:`sort_batches`,
+:func:`sorted_side`, :func:`sorted_windows`, :func:`spans_fit`) have no
+JAX counterpart: they return what the numpy code of
+``models/bpr.py::sorted_batches`` and ``ops/packed_epoch.py`` returns.
+
 ``HAVE_NATIVE`` (read lazily) is True when the library built and loaded;
 :func:`lib` raises ``RuntimeError`` with the compiler's output when it did
 not.
@@ -52,6 +57,11 @@ _SIGNATURES = {
     "cymf_bpr_prep_epoch_v3": ([_P, _P, _L, _P, _P] + [_L] * 10 + [_P] * 5,
                                _I),
     "cymf_relmf_prep_epoch": ([_P, _L, _P, _P] + [_L] * 12 + [_P] * 7, _I),
+    "cymf_sort_batches": ([_P, _P] + [_L] * 4 + [ctypes.c_int32, _P, _P],
+                          _I),
+    "cymf_sorted_side": ([_P] + [_L] * 6 + [_P] * 3, _I),
+    "cymf_sorted_windows": ([_P] + [_L] * 7 + [_P], _I),
+    "cymf_spans_fit": ([_P] + [_L] * 6 + [_P], _I),
 }
 
 _lib = None
@@ -331,3 +341,120 @@ def relmf_prep_epoch(pos_keys, indptr, filt, S: int, B: int, U: int, I: int,
         _ptr(keys), keys.size, _ptr(ip), _ptr(bits), S, B, U, I, slots, rw,
         rh, wrows_w, wrows_h, tile, _seed(seed), log2_bits, *map(_ptr, out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# once-a-fit static streams (the port's own entries: the JAX package sorts
+# these with numpy)
+# ---------------------------------------------------------------------------
+
+def _ids(a, what: str) -> np.ndarray:
+    """Integer ids as a C-contiguous int32 array.  Another integer dtype is
+    converted when every id lies in ``[0, 2**31)``; int32 ids are checked
+    for sign by the library itself."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.int32:
+        return a
+    if a.dtype.kind not in "iu":
+        raise ValueError(f"{what} must be integer ids, not {a.dtype.name}")
+    if a.size and (a.min() < 0 or a.max() >= 2**31):
+        raise ValueError(f"{what}: ids outside [0, 2**31)")
+    return a.astype(np.int32)
+
+
+def _steps(a, what: str, fold: bool = False):
+    """An ``[S, B]`` id stream as int32 and its ``(S, B)``; ``fold``: ``B``
+    must be a multiple of 128 (the folded ``[S, B / 128, 128]`` rows)."""
+    a = _ids(a, what)
+    if a.ndim != 2 or min(a.shape) <= 0 or (fold and a.shape[1] % 128):
+        raise ValueError(f"{what} must be [S, B] with S, B > 0"
+                         + (" and B a multiple of 128" if fold else ""))
+    return a, a.shape[0], a.shape[1]
+
+
+def _window_dims(name, rows, wrows, tile, B):
+    """The ``Bn`` of :func:`~cymf_tpu_torch.ops.sorted_accum.window_ranges`
+    with ``align=128`` (the step's length rounded up to a tile)."""
+    if min(rows, wrows, tile) <= 0 or rows % wrows or tile % 128:
+        raise ValueError(f"{name}: rows a positive multiple of wrows and "
+                         "tile a multiple of 128 required")
+    return -(-B // tile) * tile
+
+
+def _negative(rc: int, name: str) -> None:
+    if rc != 0:
+        raise ValueError(f"{name}: negative id")
+
+
+def sort_batches(users, positives, S: int, B: int, U: int, pad: int):
+    """The ``S x B`` minibatches of ``users``/``positives`` (int ids of
+    one length, at most ``S * B``), padded with user ``pad`` and item 0,
+    each step sorted stably by user: ``(u2, i2)``, int32 ``[S, B]``, what
+    a stable ``argsort`` of each step gives.  Users lie in ``[0, U)`` or
+    equal ``pad`` (``>= U``); another raises ``ValueError``."""
+    name = "sort_batches"
+    users = _ids(users, f"{name}: users").ravel()
+    positives = _ids(positives, f"{name}: positives").ravel()
+    n = users.size
+    if (positives.size != n or min(S, B) <= 0 or n > S * B or U < 0
+            or B >= 2**31 or not U <= pad < 2**31):
+        raise ValueError(f"{name}: users and positives of one length n <= "
+                         "S * B, B < 2**31 and U <= pad < 2**31 required")
+    u2 = np.empty((S, B), np.int32)
+    i2 = np.empty((S, B), np.int32)
+    if lib().cymf_sort_batches(_ptr(users), _ptr(positives), n, S, B, U,
+                               pad, _ptr(u2), _ptr(i2)) != 0:
+        raise ValueError(f"{name}: a user outside [0, {U})")
+    return u2, i2
+
+
+def sorted_side(v2, rows: int, wrows: int, tile: int):
+    """Each step of the ``[S, B]`` ids ``v2`` (``B`` a multiple of 128)
+    sorted stably, and the windows of ``window_ranges(sorted ids, rows,
+    wrows, tile, align=128)``: ``(perm [S, B], sorted ids [S, B / 128,
+    128], windows [S, 2, rows / wrows])``, int32, what
+    ``ops/packed_epoch.py::_sorted_side``'s numpy body gives.  Ids at or
+    past ``rows`` sort last, by id.  Negative ids raise ``ValueError``."""
+    name = "sorted_side"
+    v2, S, B = _steps(v2, f"{name}: ids", fold=True)
+    Bn = _window_dims(name, rows, wrows, tile, B)
+    perm = np.empty((S, B), np.int32)
+    srows = np.empty((S, B // 128, 128), np.int32)
+    win = np.empty((S, 2, rows // wrows), np.int32)
+    _negative(lib().cymf_sorted_side(_ptr(v2), S, B, rows, wrows, tile, Bn,
+                                     _ptr(perm), _ptr(srows), _ptr(win)),
+              name)
+    return perm, srows, win
+
+
+def sorted_windows(v2, slots: int, rows: int, wrows: int, tile: int):
+    """The windows of each step of ``v2`` (``[S, B]`` ids ascending by row
+    ``id // slots``), as ``window_ranges(align=128)`` gives them, by binary
+    search: int32 ``[S, 2, rows / wrows]``.  A negative id (a step's first,
+    its least) raises ``ValueError``."""
+    name = "sorted_windows"
+    v2, S, B = _steps(v2, f"{name}: ids")
+    Bn = _window_dims(name, rows, wrows, tile, B)
+    if slots <= 0:
+        raise ValueError(f"{name}: slots must be positive")
+    win = np.empty((S, 2, rows // wrows), np.int32)
+    _negative(lib().cymf_sorted_windows(_ptr(v2), S, B, slots, rows, wrows,
+                                        tile, Bn, _ptr(win)), name)
+    return win
+
+
+def spans_fit(u2, slots: int, stride: int, margin: int, rw: int) -> bool:
+    """True iff every ``stride``-sample chunk of each step's row stream
+    ``u2 // slots`` (``[S, B]``, ascending, ``stride`` dividing ``B``) has
+    its rows below ``rw`` within ``margin`` rows of its first row, or its
+    first row past ``rw - margin``, or no row below ``rw``: the packed
+    engine's span gate (``ops/packed_epoch.py::_spans_fit``).  Negative
+    ids raise ``ValueError``."""
+    name = "spans_fit"
+    u2, S, B = _steps(u2, f"{name}: ids")
+    if min(slots, stride) <= 0 or B % stride:
+        raise ValueError(f"{name}: stride must divide the step")
+    fits = ctypes.c_int64()
+    _negative(lib().cymf_spans_fit(_ptr(u2), S, B, slots, stride, margin,
+                                   rw, ctypes.addressof(fits)), name)
+    return bool(fits.value)

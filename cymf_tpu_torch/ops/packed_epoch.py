@@ -40,7 +40,10 @@ filter of :func:`make_reject_filter`) by default, and the numpy branch
 verbatim (:func:`prep_static`, :func:`prep_epoch` with the same
 ``default_rng((seed, epoch))`` draws, :func:`prep_static_pool`,
 :func:`prep_pool_epoch`) under ``CYMF_TPU_PREP=numpy``, so both packages
-train on the same streams and pick the same pipeline.
+train on the same streams and pick the same pipeline.  The once-a-fit
+static streams (:func:`prep_static`'s sorts, windows and span gates) are
+the same arrays on both backends: counting sorts in the library, the
+numpy code under ``CYMF_TPU_PREP=numpy``.
 
 Device prep (:func:`packed_bpr_epoch_device`, ``CYMF_TPU_BPR_PREP=device``)
 draws, rejects, sorts and windows each step's negatives on the tables'
@@ -64,6 +67,7 @@ from .fused_step import (CROWS, LOSS_LANE, bpr_block_step_v6,
                          supports_v6, supports_v7)
 from .sorted_accum import sorted_accum, sorted_accum_dual, window_ranges
 from .hashset import PairHashSet, hashset_contains
+from ..utils.profiling import count
 
 # window-range alignment tile of the JAX package's default
 # (CYMF_TPU_ACCUM_TILE); the CUDA kernels do not need it, but the host
@@ -445,14 +449,25 @@ def packed_bpr_pool_epoch(Wp, Hp, ow, oh, u_steps, i_steps, si_steps,
 
 
 # ---------------------------------------------------------------------------
-# host-side preparation (numpy, as in the JAX package)
+# host-side preparation (numpy, as in the JAX package; the once-a-fit
+# sorts and windows in the native library under the native backend)
 # ---------------------------------------------------------------------------
 
 def _sorted_side(vals2, r_pad, wrows, tile):
     """Per-step sort permutation + folded sorted rows + windows for one
     H side (``vals2`` = item ids, int [S, B]).  The H table is stored in
-    LOGICAL layout, so the target row IS the item id."""
+    LOGICAL layout, so the target row IS the item id.
+
+    Under the native backend (:func:`prep_backend`) one counting-sort pass
+    of the library computes the same arrays (:func:`native.sorted_side`)
+    and counts its steps as ``native_steps`` on the open span; under
+    ``CYMF_TPU_PREP=numpy`` the numpy body below runs and counts 0."""
     S, B = vals2.shape
+    if prep_backend() == "native":
+        out = native.sorted_side(vals2, r_pad, wrows, tile)
+        count("native_steps", S)
+        return out
+    count("native_steps", 0)
     perm = np.empty((S, B), np.int32)
     rows = np.empty((S, B // 128, 128), np.int32)
     win = np.empty((S, 2, r_pad // wrows), np.int32)
@@ -469,7 +484,10 @@ def _sorted_side(vals2, r_pad, wrows, tile):
 def _packed_windows(u2, s: int, rw: int, wrows: int, tile: int):
     """Per-step windows of a lane-packed side over its sorted physical
     rows ``u2 // s`` (``u2`` int [S, B], ascending within each step):
-    int32 ``[S, 2, rw / wrows]``."""
+    int32 ``[S, 2, rw / wrows]``; by the library's binary searches under
+    the native backend (:func:`native.sorted_windows`)."""
+    if prep_backend() == "native":
+        return native.sorted_windows(u2, s, rw, wrows, tile)
     S = u2.shape[0]
     win = np.empty((S, 2, rw // wrows), np.int32)
     for t in range(S):
@@ -588,24 +606,32 @@ def engine_version(K: int, rw: int, wrows_w: int, u2=None,
     ``CYMF_TPU_PACKED_KERNEL=4|5|6|7`` forces (5/6/7 still subject to
     their correctness gates), ``CYMF_TPU_PACKED_V6=0`` disables v6.  v7 is
     taken only when forced, as in the JAX package (its TPU measurement
-    found it slower than v4)."""
+    found it slower than v4).  The span gates run in the library under
+    the native backend (:func:`native.spans_fit`), else in numpy."""
     s = pk.num_slots(K)
     forced = os.environ.get("CYMF_TPU_PACKED_KERNEL", "")
     no_v6 = os.environ.get("CYMF_TPU_PACKED_V6", "").lower() in (
         "0", "off", "false") or forced in ("4", "5", "7")
     if forced == "4":
         return 4
-    pu2 = None
-    if u2 is not None:
+    if u2 is None:
+        def fits(stride, margin):
+            return True
+    elif prep_backend() == "native":
+        def fits(stride, margin):
+            return native.spans_fit(u2, s, stride, margin, rw)
+    else:
         pu2 = np.minimum(np.asarray(u2).astype(np.int64) // s,
                          np.iinfo(np.int32).max)
-    if not no_v6 and supports_v6(K, rw, wrows_w) and (
-            pu2 is None or _spans_fit(pu2, tile, CROWS, rw)):
+
+        def fits(stride, margin):
+            return _spans_fit(pu2, stride, margin, rw)
+    if not no_v6 and supports_v6(K, rw, wrows_w) and fits(tile, CROWS):
         return 6
     wrows_a = min(WROWS_A, rw)
     if forced != "7" and s >= 2 \
-            and wrows_a >= min(-(-SAMPLE_TILE // s) + 1, rw) and (
-            pu2 is None or _spans_fit(pu2, SAMPLE_TILE, wrows_a, rw)):
+            and wrows_a >= min(-(-SAMPLE_TILE // s) + 1, rw) \
+            and fits(SAMPLE_TILE, wrows_a):
         return 5
     if forced == "7" and supports_v7(K, rw, wrows_w):
         return 7

@@ -34,9 +34,14 @@ from cymf_tpu.ops import relmf_epoch as jre
 from cymf_tpu.parallel import MeshContext, use_mesh
 from cymf_tpu_torch import native
 from cymf_tpu_torch.dataset import SyntheticImplicitDataset
+from cymf_tpu_torch.models import bpr as tbpr
+from cymf_tpu_torch.ops import glove_epoch as tge
 from cymf_tpu_torch.ops import packed as pk
 from cymf_tpu_torch.ops import packed_epoch as tpe
 from cymf_tpu_torch.ops import relmf_epoch as tre
+from cymf_tpu_torch.ops import wide_epoch as twe
+from cymf_tpu_torch.parallel import MeshContext as TorchMesh
+from cymf_tpu_torch.parallel import use_mesh as use_torch_mesh
 
 ROOT = Path(__file__).resolve().parent.parent
 U, I, K, S, B, WROWS = 300, 200, 20, 3, 2048, 128
@@ -543,3 +548,231 @@ def test_overlap_drops_the_epoch_prepared_last(data):
                False, num_epochs=1)
     np.testing.assert_array_equal(m.W, one.W)
     np.testing.assert_array_equal(m.H, one.H)
+
+
+# ---------------------------------------------------------------------------
+# the once-a-fit static streams: the library's counting sorts against the
+# numpy bodies (CYMF_TPU_PREP=numpy), array for array
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(params=[1, 8], ids=["omp1", "omp8"])
+def static_threads(request):
+    assert native.set_num_threads(request.param) == request.param
+    return request.param
+
+
+def _native_and_numpy(monkeypatch, fn):
+    """``fn()`` on the native backend, then under ``CYMF_TPU_PREP=numpy``."""
+    got = fn()
+    monkeypatch.setenv("CYMF_TPU_PREP", "numpy")
+    want = fn()
+    monkeypatch.delenv("CYMF_TPU_PREP")
+    return got, want
+
+
+@pytest.mark.parametrize("multiple,batch,n", [
+    (1024, 2048, 8192), (1024, 2048, 8000),  # counting sort; a padded tail
+    (1, 100, 8000), (1, 96, 8000),           # U >= 16 B: the key sort
+    (4, 1000, 8000), (4, 1002, 8000)])
+def test_sorted_batches(static_threads, monkeypatch, multiple, batch, n):
+    rng = np.random.default_rng(n + batch)
+    users = rng.integers(0, 3000, n).astype(np.int32)
+    users[:700] = 7                           # a long run of one user
+    items = rng.integers(0, I, n).astype(np.int32)
+    got, want = _native_and_numpy(monkeypatch, lambda: tbpr.sorted_batches(
+        users, items, batch, multiple=multiple))
+    _equal(got, want, ("u2", "i2"))
+    assert got[0].shape[1] % multiple == 0
+    assert (got[0] == tbpr.PAD_USER).any() == (got[0].size > n)
+
+
+@pytest.mark.parametrize("case", ["plain", "beyond", "one_id"])
+@pytest.mark.parametrize("Bs", [2048, 1152])
+def test_sorted_side(static_threads, monkeypatch, case, Bs):
+    """Ids at and past ``r_pad`` sort last, by id; a step of one repeated
+    id; a step length that is not a tile multiple (windows re-anchored
+    within its tile-rounded length)."""
+    rng = np.random.default_rng(Bs)
+    rh = 256
+    v = rng.integers(0, I, (S, Bs)).astype(np.int32)
+    if case == "beyond":
+        v[0, ::7] = rh
+        v[1, 3::5] = rh + rng.integers(0, 50, v[1, 3::5].size)
+        v[2, -40:] = 2**31 - 1
+    elif case == "one_id":
+        v[1] = 17
+    got, want = _native_and_numpy(
+        monkeypatch, lambda: tpe._sorted_side(v, rh, WROWS, 1024))
+    _equal(got, want, ("perm", "rows", "win"))
+
+
+@pytest.mark.parametrize("Kp", [20, 40, 100])
+def test_packed_windows(static_threads, monkeypatch, Kp):
+    u2, _, _ = _problem(14)
+    s = pk.num_slots(Kp)
+    rw = pk.packed_rows(U, Kp, multiple=WROWS)
+    got, want = _native_and_numpy(
+        monkeypatch, lambda: tpe._packed_windows(u2, s, rw, WROWS, 1024))
+    _equal([got], [want], ["winw"])
+
+
+def _gated(Ug, K, wrows, seed=3):
+    """Two steps of 1024 user-sorted samples over ``Ug`` users with a
+    padded tail (tests/test_torch_packed_epoch.py's gate streams)."""
+    rng = np.random.default_rng(seed)
+    u2 = np.sort(rng.integers(0, Ug, (2, 1024)).astype(np.int32), axis=1)
+    i2 = rng.integers(0, I, (2, 1024)).astype(np.int32)
+    u2[-1, -100:] = tbpr.PAD_USER
+    i2[-1, -100:] = 0
+    return (u2, i2, pk.packed_rows(Ug, K, multiple=wrows),
+            pk.logical_rows(I, multiple=wrows))
+
+
+@pytest.mark.parametrize("Ug,K,wrows,force,want_v", [
+    (12000, 20, 512, "4", 4), (12000, 20, 512, "", 4),
+    (300, 20, 128, "", 5), (1200, 20, 512, "5", 5),
+    (1200, 20, 512, "6", 6), (1200, 20, 512, "", 6),
+    (12000, 20, 512, "7", 7), (12000, 31, 512, "7", 4)])
+def test_prep_static(static_threads, monkeypatch, Ug, K, wrows, force,
+                     want_v):
+    monkeypatch.setenv("CYMF_TPU_PACKED_KERNEL", force)
+    u2, i2, rw, rh = _gated(Ug, K, wrows)
+    got, want = _native_and_numpy(monkeypatch, lambda: tpe.prep_static(
+        u2, i2, K, rw, rh, wrows, wrows))
+    assert got[-1] == want[-1] == want_v
+    _equal(got[:-1], want[:-1],
+           ("winw", "wstart", "si", "rowsi", "wini", "cs", "cn"))
+
+
+@pytest.mark.parametrize("stride,margin", [(512, 16), (512, 64),
+                                           (1024, 40), (1024, 512)])
+def test_spans_fit(static_threads, stride, margin):
+    """The span gate on dense, sparse and all-padding chunks."""
+    for Ug in (300, 1200, 12000):
+        u2, _, rw, _ = _gated(Ug, 20, 128)
+        u2[0, :512] = tbpr.PAD_USER           # a chunk of padding alone
+        s = pk.num_slots(20)
+        pu2 = np.minimum(u2.astype(np.int64) // s, 2**31 - 1)
+        assert native.spans_fit(u2, s, stride, margin, rw) == \
+            tpe._spans_fit(pu2, stride, margin, rw)
+    # a chunk whose rows span margin - 1 fits, one that spans margin not
+    rw = 4 * margin
+    for span_, fit in ((margin - 1, True), (margin, False)):
+        u2 = np.zeros((2, 2048), np.int32)
+        u2[1, :stride] = np.linspace(0, span_, stride).astype(np.int32)
+        assert native.spans_fit(u2, 1, stride, margin, rw) == fit == \
+            tpe._spans_fit(u2.astype(np.int64), stride, margin, rw)
+
+
+@pytest.mark.parametrize("fn", ["pool", "wide", "shard", "shard_wide",
+                                "shard_epoch", "glove"])
+def test_static_preps(static_threads, monkeypatch, fn):
+    """The engines' other static preps on both backends."""
+    u2, i2, keys = _problem(15)
+    K, n = 20, 2
+    rw = pk.packed_rows(U, K, multiple=WROWS * n)
+    rh = pk.logical_rows(I, multiple=WROWS)
+    wr, wh = twe.wide_rows(U, 512 * n), twe.wide_rows(I, 512)
+    calls = {
+        "pool": lambda: tpe.prep_static_pool(u2, i2, K, rw, rh, WROWS,
+                                             WROWS),
+        "wide": lambda: twe.prep_static_wide(u2, i2, wr, wh, 512),
+        "shard": lambda: tpe.prep_shard_static(u2, i2, K, rw, rh, WROWS,
+                                               WROWS, n),
+        "shard_wide": lambda: twe.prep_shard_static_wide(u2, i2, wr, wh,
+                                                         512, n),
+        "shard_epoch": lambda: tpe.prep_shard_epoch(
+            i2[:, ::-1].copy(), (u2 < U).astype(np.uint8),
+            *tpe.shard_slices(u2, K, rw, n), rh, WROWS, n),
+        "glove": lambda: tge.prep_glove_static(
+            u2, i2, np.full(u2.shape, 3.0), U, 10, pk.packed_rows(
+                U, 12, multiple=WROWS), rh, WROWS, WROWS, 100.0, 0.75),
+    }
+    got, want = _native_and_numpy(monkeypatch, calls[fn])
+    _equal(got, want, [f"{fn}[{k}]" for k in range(len(want))])
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+def test_prep_epoch_j_side_is_the_static_sort(jn, static_threads,
+                                              monkeypatch, filtered):
+    """The per-epoch entries' j side, now the helper the static entry
+    shares, is the JAX extension's bit for bit and equals the static
+    entry and the numpy sort of the same draws."""
+    u2, i2, keys = _problem(16)
+    rh = pk.logical_rows(I, multiple=WROWS)
+    kw = dict(native_seed=2**40 + 3)
+    got = tpe.prep_epoch(None, u2, i2, keys, U, I, K, rh, WROWS,
+                         key_filter=tpe.make_reject_filter(keys, U, I)
+                         if filtered else None, **kw)
+    want = jpe.prep_epoch(None, u2, i2, keys, U, I, K, rh, WROWS,
+                          key_filter=jpe.make_reject_filter(keys, U, I)
+                          if filtered else None, **kw)
+    _equal(got, want, PREP)
+    _equal(got[2:], native.sorted_side(got[0], rh, WROWS, tpe.TILE),
+           PREP[2:])
+    monkeypatch.setenv("CYMF_TPU_PREP", "numpy")
+    _equal(got[2:], tpe._sorted_side(got[0], rh, WROWS, tpe.TILE), PREP[2:])
+
+
+def test_static_entries_reject_bad_input():
+    v = np.zeros((2, 256), np.int32)
+    neg = v.copy()
+    neg[1, 5] = -1
+    first = v.copy()
+    first[1, 0] = -2
+    for fn in (lambda: native.sorted_side(neg, 256, 128, 1024),
+               lambda: native.sorted_windows(first, 1, 256, 128, 1024),
+               lambda: native.spans_fit(neg, 1, 128, 8, 256),
+               lambda: native.sorted_side(neg.astype(np.int64), 256, 128,
+                                          1024)):
+        with pytest.raises(ValueError, match="negative|outside"):
+            fn()
+    for args in ((np.zeros((2, 200), np.int32), 256, 128, 1024),
+                 (v, 250, 128, 1024),         # rows not a multiple of wrows
+                 (v, 256, 128, 1000),         # tile not a multiple of 128
+                 (v.ravel(), 256, 128, 1024),
+                 (v.astype(np.float32), 256, 128, 1024)):
+        with pytest.raises(ValueError):
+            native.sorted_side(*args)
+    with pytest.raises(ValueError, match="stride"):
+        native.spans_fit(v, 1, 100, 8, 256)
+    with pytest.raises(ValueError, match="slots"):
+        native.sorted_windows(v, 0, 256, 128, 1024)
+    users = np.arange(10, dtype=np.int32)
+    for bad in (-1, 10):
+        u = users.copy()
+        u[3] = bad
+        with pytest.raises(ValueError, match="outside"):
+            native.sort_batches(u, users, 2, 8, 10, 2**31 - 1)
+    with pytest.raises(ValueError):          # positives of another length
+        native.sort_batches(users, users[:-1], 2, 8, 10, 2**31 - 1)
+    with pytest.raises(ValueError):          # more samples than S * B
+        native.sort_batches(users, users, 1, 8, 10, 2**31 - 1)
+    u = users.copy()
+    u[2] = -4
+    with pytest.raises(ValueError, match="outside"):
+        tbpr.sorted_batches(u, users, 4)
+
+
+def test_mesh_caps_prep_threads_before_the_static_pass(monkeypatch, data):
+    """On a mesh the library's threads are capped at the host's cores a
+    local rank before ``sorted_batches`` runs."""
+    class Stop(Exception):
+        pass
+
+    seen = []
+
+    def batches(*args, **kwargs):
+        seen.append(native.num_threads())
+        raise Stop
+
+    monkeypatch.setattr(tbpr, "sorted_batches", batches)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    cores = os.cpu_count() or 1
+    native.set_num_threads(cores)
+    with use_torch_mesh(TorchMesh(None, 0, 2, torch.device("cpu"))):
+        with pytest.raises(Stop):
+            ct.BPR(20, device="cpu").fit(data.train, num_epochs=1,
+                                         verbose=False)
+    assert seen == [min(cores, max(1, cores // 2))]
+

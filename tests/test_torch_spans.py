@@ -242,6 +242,29 @@ def test_bpr_fit_spans(monkeypatch):
         r.paths["epoch.prep"].s)
 
 
+@pytest.mark.parametrize("prep", ["native", "numpy"])
+def test_bpr_static_prep_counts_native_steps(monkeypatch, prep):
+    """``bpr.batches`` and ``bpr.prep_static`` count the steps the native
+    library sorted, each step once; none under ``CYMF_TPU_PREP=numpy``,
+    and ``static_prep_`` says which ran."""
+    if prep == "numpy":
+        monkeypatch.setenv("CYMF_TPU_PREP", "numpy")
+    else:
+        monkeypatch.delenv("CYMF_TPU_PREP", raising=False)
+    X = _interactions()
+    m = ct.BPR(num_components=20, batch_size=2048, device="cpu")
+    m.fit(X, num_epochs=1, verbose=False, seed=7)
+    assert m.engine_ == "packed"
+    assert m.static_prep_ == m.prep_backend_ == prep
+    steps = -(-X.nnz // 2048)
+    r = last_root("bpr.fit")
+    for name in ("bpr.batches", "bpr.prep_static"):
+        assert r.paths[name].counts["native_steps"] == \
+            (steps if prep == "native" else 0), name
+    assert r.counts["native_steps"] == (2 * steps if prep == "native"
+                                        else 0)
+
+
 # (the sequential engine is left out: its CPU version copies masks from
 # host to host, which no card run does)
 @pytest.mark.parametrize("engine,kwargs,prep", [
