@@ -54,8 +54,26 @@ from ..config import scalar
 from ..parallel.mesh import fetch_to_host, host_array
 from ..parallel.shard_step import rows_everywhere, sharded_expomf_chunk
 from ..utils.checkpoint import resume_state
-from ..utils.profiling import spanned
+from ..utils.profiling import span, spanned, upload
 from .base import MFTrainerBase, PersistenceMixin, as_csr, padded_rows
+
+
+def exposure(src_rows, E_other, mu_term, idx_pad, valid, lam_y,
+             prefactor) -> torch.Tensor:
+    """The exposure posterior of a chunk's rows, ``[C, Co]`` float32
+    (`expomf.pyx:134-137`): ``src_rows [C, K]`` are the rows' epoch-start
+    factors, ``E_other [Co, K]`` the other side's, ``mu_term`` is
+    ``(1-mu)/mu`` as ``[Co]`` or ``[C, 1]``, and the observed cells
+    (``idx_pad`` where ``valid``) are 1."""
+    C, Co = src_rows.shape[0], E_other.shape[0]
+    S = src_rows.float() @ E_other.float().T                # [C, Co]
+    n = prefactor * torch.exp(-lam_y * S.square() / 2.0)
+    post = (n + 1e-8) / (n + 1e-8 + mu_term)
+    # the pads go to a spare column that is cut off
+    obs_idx = torch.where(valid, idx_pad.long(), Co)
+    obs = torch.zeros((C, Co + 1), dtype=torch.bool,
+                      device=S.device).scatter_(1, obs_idx, True)
+    return torch.where(obs[:, :Co], 1.0, post)
 
 
 def expomf_chunk(E_src, E_other, Y, mu_term, rows, idx_pad, valid,
@@ -75,24 +93,24 @@ def expomf_chunk(E_src, E_other, Y, mu_term, rows, idx_pad, valid,
     ``lam_y`` and ``prefactor`` are rounded to it, as the JAX package
     places them; the scores, the exposure and the Gramian are float32,
     ``b`` is in the param dtype.
+
+    Spans: ``expomf.exposure`` (the score product, the exposure, the
+    observed cells and the column sums), ``expomf.gramian`` (the
+    exposure-weighted Gramian and the ridge) and ``expomf.solve`` (the
+    right-hand side and the solver).
     """
-    C = rows.shape[0]
-    Co = E_other.shape[0]
     lam_y, prefactor = (scalar(v, Y.dtype) for v in (lam_y, prefactor))
-    S = E_src.index_select(0, rows).float() @ E_other.float().T  # [C, Co]
-    n = prefactor * torch.exp(-lam_y * S.square() / 2.0)
-    post = (n + 1e-8) / (n + 1e-8 + mu_term)
-    # observed cells -> exposure 1 (expomf.pyx:135-137); pads go to a
-    # spare column that is cut off
-    obs_idx = torch.where(valid, idx_pad.long(), Co)
-    obs = torch.zeros((C, Co + 1), dtype=torch.bool,
-                      device=S.device).scatter_(1, obs_idx, True)
-    E = torch.where(obs[:, :Co], 1.0, post)
-    e_colsum = E.sum(dim=0)
-    A = ridge + lam_y * weighted_gramian(E, Y)
-    b = lam_y * gather_rows(Y, idx_pad, valid).sum(dim=1)     # E=1 observed
-    x = get_solver(solver)(A, b)
-    return torch.where(valid.any(dim=1, keepdim=True), x, 0.0), e_colsum
+    with span("expomf.exposure"):
+        E = exposure(E_src.index_select(0, rows), E_other, mu_term, idx_pad,
+                     valid, lam_y, prefactor)
+        e_colsum = E.sum(dim=0)
+    with span("expomf.gramian"):
+        A = ridge + lam_y * weighted_gramian(E, Y)
+    with span("expomf.solve"):
+        b = lam_y * gather_rows(Y, idx_pad, valid).sum(dim=1)  # E=1 observed
+        x = get_solver(solver)(A, b)
+        x = torch.where(valid.any(dim=1, keepdim=True), x, 0.0)
+    return x, e_colsum
 
 
 class ExpoMF(MFTrainerBase, PersistenceMixin):
@@ -134,7 +152,13 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
             checkpoint_every: int = 1, resume: bool = False):
         """Train; signature parity with `expomf.pyx`.  ``num_threads`` is
         accepted and ignored.  ``checkpoint_path``, ``checkpoint_every``
-        and ``resume`` as ``BPR.fit``."""
+        and ``resume`` as ``BPR.fit``.
+
+        The fit is a span ``expomf.fit``: ``expomf.build`` (the transpose,
+        both sides' chunks and their placement), ``expomf.upload`` (the
+        tables and mu), then each epoch's span, which holds each chunk's
+        spans on one device (:func:`expomf_chunk`), and ``tables.fetch``
+        at the end."""
         X = as_csr(X)
         mesh = self._mesh_device()
         self.valid_evaluator = valid_evaluator
@@ -154,24 +178,28 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
                               checkpoint_path, checkpoint_every, resume)
             return
 
-        Xt = X.T.tocsr()
-        Xt.sort_indices()
-        user_chunks = place_device_chunks(
-            build_chunks(X, self.chunk_size, U, num_components=K), dev, U)
-        item_chunks = place_device_chunks(
-            build_chunks(Xt, self.chunk_size, I, num_components=K), dev, I)
-
+        with span("expomf.build"):
+            Xt = X.T.tocsr()
+            Xt.sort_indices()
+            user_chunks = place_device_chunks(
+                build_chunks(X, self.chunk_size, U, num_components=K), dev, U)
+            item_chunks = place_device_chunks(
+                build_chunks(Xt, self.chunk_size, I, num_components=K), dev,
+                I)
+        self._samples_per_epoch = X.nnz
         dtype = config.param_dtype()
 
         def put(a):
-            return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+            # a copy on the CPU too: the sweeps write the tables in place
+            return upload(torch.from_numpy(np.asarray(a, np.float32)), dev,
+                          dtype, copy=True)
 
-        self._state, start_epoch = resume_state(
-            checkpoint_path, resume,
-            {"W": put(self.W), "H": put(self.H),
-             "mu": torch.full((I,), 0.01, dtype=dtype,
-                              device=dev)},                # expomf.pyx:111
-            {"W": U, "H": I, "mu": I})
+        with span("expomf.upload"):
+            self._state, start_epoch = resume_state(
+                checkpoint_path, resume,
+                {"W": put(self.W), "H": put(self.H),
+                 "mu": put(np.full(I, 0.01))},             # expomf.pyx:111
+                {"W": U, "H": I, "mu": I})
         ridge = (self.weight_decay / self.lam_y) * torch.eye(
             K, dtype=dtype, device=dev)                    # expomf.pyx:171
         lam_y, prefactor = self.lam_y, self.prefactor
@@ -219,12 +247,15 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
         K = self.num_components
         U, I = X.shape
         Up, Ip = mesh.pad_rows(U), mesh.pad_rows(I)
-        Xt = X.T.tocsr()
-        Xt.sort_indices()
-        user_chunks = place_mesh_chunks(
-            build_chunks(X, self.chunk_size, Up, num_components=K), mesh)
-        item_chunks = place_mesh_chunks(
-            build_chunks(Xt, self.chunk_size, Ip, num_components=K), mesh)
+        with span("expomf.build"):
+            Xt = X.T.tocsr()
+            Xt.sort_indices()
+            user_chunks = place_mesh_chunks(
+                build_chunks(X, self.chunk_size, Up, num_components=K), mesh)
+            item_chunks = place_mesh_chunks(
+                build_chunks(Xt, self.chunk_size, Ip, num_components=K),
+                mesh)
+        self._samples_per_epoch = X.nnz
         dtype = config.param_dtype()
 
         state, start_epoch = resume_state(
@@ -233,7 +264,8 @@ class ExpoMF(MFTrainerBase, PersistenceMixin):
              "mu": torch.full((Ip,), 0.01, dtype=dtype)},  # expomf.pyx:111
             {"W": U, "H": I, "mu": I})
         mesh.agree(start_epoch, "the checkpoint's epoch")
-        self._state = {k: mesh.put_table(v) for k, v in state.items()}
+        with span("expomf.upload"):
+            self._state = {k: mesh.put_table(v) for k, v in state.items()}
         self._sharded_keys = frozenset(self._state)
         ridge = (self.weight_decay / self.lam_y) * torch.eye(
             K, dtype=dtype, device=dev)                    # expomf.pyx:171

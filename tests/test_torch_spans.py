@@ -1,7 +1,7 @@
 """The port's span log (``cymf_tpu_torch.utils.profiling``): nesting,
 paths and self time, counters, a worker thread's spans, errors, the
 profiler's host ranges, the log's bound, and the spans a BPR fit, a WMF
-fit, an evaluation and a ``recommend`` call leave in it."""
+fit, an ExpoMF fit, an evaluation and a ``recommend`` call leave in it."""
 
 import sys
 import threading
@@ -313,6 +313,36 @@ def test_wmf_fit_spans(monkeypatch):
     assert r.counts["h2d_bytes"] == copies.bytes + tables
     assert r.counts["samples"] == 2 * X.nnz
     assert len(m.epoch_times_) == 2
+    assert sum(m.epoch_times_) <= r.paths["epoch"].s
+
+
+def test_expomf_fit_spans(monkeypatch):
+    """One ``expomf.fit`` root: the build and the uploads once, each
+    chunk's exposure, Gramian and solve inside each epoch, and every byte
+    handed to the device counted."""
+    X = _interactions(U=120, I=90, nnz=1500)
+    m = ct.ExpoMF(num_components=8, chunk_size=32, device="cpu")
+    copies = HostCopies(monkeypatch)
+    m.fit(X, num_epochs=2, verbose=False)
+    monkeypatch.undo()
+    r = last_root("expomf.fit")
+    assert not r.error
+    for name in ("expomf.build", "expomf.upload"):
+        assert r.paths[name].n == 1, name
+    assert r.paths["epoch"].n == 2
+    chunks = r.paths["epoch/expomf.exposure"].n
+    assert chunks >= 2 * 2 * 2       # both sides, several chunks, 2 epochs
+    for name in ("expomf.gramian", "expomf.solve"):
+        assert r.paths[f"epoch/{name}"].n == chunks, name
+    assert r.paths["epoch/expomf.solve/als.gather"].n == chunks
+    # the chunks, and the tables and mu, marked at their making
+    assert r.counts["h2d_bytes"] == copies.bytes > 0
+    assert r.paths["expomf.upload"].counts["h2d_bytes"] == \
+        (120 + 90) * 8 * 4 + 90 * 4
+    assert r.counts["h2d_bytes"] == (
+        r.paths["expomf.build"].counts["h2d_bytes"]
+        + r.paths["expomf.upload"].counts["h2d_bytes"])
+    assert r.counts["samples"] == 2 * X.nnz
     assert sum(m.epoch_times_) <= r.paths["epoch"].s
 
 
