@@ -43,7 +43,7 @@ import torch
 from scipy import sparse
 
 from ..config import scalar
-from ..utils.profiling import span, upload
+from ..utils.profiling import count, span, upload
 from .chol_kernel import (MAX_BLOCK, chol_inv_batched,
                           chol_inv_batched_plain, cholesky_nan)
 
@@ -291,8 +291,31 @@ def place_device_chunks(chunks: List[AlsChunk], device,
     return out
 
 
-# elements of (Y (x) Y) formed at once in the weighted Gramian (1 GiB)
+# elements of a block of the packed operand and its doubled rows, formed at
+# once in the weighted Gramian (1 GiB)
 _GRAM_ELEMS = 1 << 28
+
+
+@functools.lru_cache(maxsize=64)
+def _packed_pairs(K: int, device: torch.device):
+    """The packed operand's layout for width ``K``: ``(D, h, Kp, cols)``.
+
+    Each unordered pair ``{p, q}`` of ``range(K)`` has one column.  Column
+    ``d K + p``, for ``d < D = (K + 1) // 2``, holds ``y_p y_{(p+d) mod K}``;
+    for even ``K`` a half group of ``h = K / 2`` columns follows (else
+    ``h = 0``), column ``D K + p`` holding ``y_p y_{p+h}``.  That is
+    ``D K + h = K (K + 1) / 2`` columns, each pair once, padded with zero
+    columns to ``Kp``, a multiple of 32 (rows 128-byte aligned).  The
+    cyclic order makes the ``D`` full groups one broadcast product of a
+    strided view, with no gather.  ``cols [K*K]`` (int64, made on
+    ``device``) maps ``p K + q`` to the column of ``{p, q}``."""
+    D, h = (K + 1) // 2, K // 2 if K % 2 == 0 else 0
+    cols = torch.empty((K, K), dtype=torch.int64, device=device)
+    p = torch.arange(K, device=device)
+    for d in range(D):
+        cols[p, (p + d) % K] = cols[(p + d) % K, p] = d * K + p
+    cols[p[:h], p[:h] + h] = cols[p[:h] + h, p[:h]] = D * K + p[:h]
+    return D, h, -(-(D * K + h) // 32) * 32, cols.view(-1)
 
 
 def weighted_gramian(E: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
@@ -300,21 +323,36 @@ def weighted_gramian(E: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     ``(C, K, K)``, in float32 (``Y`` in the param dtype is cast to
     float32 a block at a time).
 
-    Written as ``E @ (Y (x) Y).reshape(I, K*K)`` over row blocks of ``Y``:
-    each block's outer products are formed and taken into the sum by one
-    ``addmm`` with E's matching columns.  No ``(C, I, K)`` tensor exists,
-    and at most ``_GRAM_ELEMS`` elements of ``Y (x) Y``.
+    Each distinct product ``y_p y_q`` (``p <= q``) is formed and summed
+    once: ``E @ P`` over row blocks of ``Y``, where ``P [I, Kp]`` is the
+    packed operand of :func:`_packed_pairs` (``K (K + 1) / 2`` columns,
+    zero-padded to ``Kp``), a block formed by one broadcast product and
+    taken into the sum by one ``addmm``; the ``[C, Kp]`` sum is unpacked
+    into the symmetric ``[C, K, K]`` by one ``index_select``, so the
+    result is exactly symmetric.  No ``(C, I, K)`` tensor exists, and a
+    block and its doubled rows hold at most ``_GRAM_ELEMS`` elements.
+    Counts ``gramian_flops``, the ``2 C I Kp`` operations of the products.
     """
     I, K = Y.shape
-    out = torch.zeros((E.shape[0], K * K), dtype=torch.float32,
-                      device=Y.device)
+    C = E.shape[0]
+    D, h, Kp, cols = _packed_pairs(K, Y.device)
+    count("gramian_flops", 2 * C * I * Kp)
+    out = torch.zeros((C, Kp), dtype=torch.float32, device=Y.device)
     E = E.float()
-    step = max(1, _GRAM_ELEMS // (K * K))
+    step = max(1, _GRAM_ELEMS // (Kp + 2 * K))
+    P = torch.empty((min(step, I), Kp), dtype=torch.float32, device=Y.device)
+    P[:, D * K + h:].zero_()
     for s in range(0, I, step):
         Yb = Y[s:s + step].float()
-        out.addmm_(E[:, s:s + step], (Yb[:, :, None] * Yb[:, None, :])
-                   .reshape(len(Yb), K * K))
-    return out.view(-1, K, K)
+        n = len(Yb)
+        # Y2[i, d + p] = y_i[(p + d) mod K] for d + p < 2K
+        Y2 = torch.cat((Yb, Yb), 1)
+        torch.mul(Yb[:, None, :], Y2.as_strided((n, D, K), (2 * K, 1, 1)),
+                  out=P[:n, :D * K].view(n, D, K))
+        torch.mul(Yb[:, :h], Yb[:, K - h:], out=P[:n, D * K:D * K + h])
+        out.addmm_(E[:, s:s + step], P[:n])
+    del P
+    return out.index_select(1, cols).view(C, K, K)
 
 
 class MeshAlsChunk(NamedTuple):

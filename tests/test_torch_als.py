@@ -15,6 +15,7 @@ from scipy import sparse
 
 from cymf_tpu.ops import als as jals
 from cymf_tpu_torch.ops import als
+from cymf_tpu_torch.utils.profiling import span
 
 
 @pytest.fixture(autouse=True)
@@ -149,3 +150,29 @@ def test_solve_spd_routes_and_matches_jax(monkeypatch, K):
     want = np.array(jals.solve_spd(jnp.asarray(A), jnp.asarray(
         bb.float().numpy(), jnp.bfloat16)))
     assert _rel(got, want) < 5e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,Kp", [(1, 32), (2, 32), (6, 32), (100, 5056)])
+def test_weighted_gramian_packed(monkeypatch, K, Kp, dtype):
+    """``weighted_gramian`` over several row blocks of ``Y`` (7 rows a
+    block, ``I = 30``) equals the float64 ``einsum`` of the same float32
+    values within float32's worst-case bound for a sum of ``I`` products,
+    ``(I + 2) u sum|terms|``, is exactly symmetric, and counts
+    ``2 C I Kp`` operations on the enclosing span (``Kp``: the
+    ``K (K + 1) / 2`` distinct products padded to a multiple of 32)."""
+    C, I = 5, 30
+    monkeypatch.setattr(als, "_GRAM_ELEMS", (Kp + 2 * K) * 7)
+    rng = np.random.default_rng(K)
+    E = torch.from_numpy(rng.uniform(0, 1, (C, I)).astype(np.float32))
+    Y = torch.from_numpy(rng.standard_normal((I, K)).astype(np.float32))
+    Y = Y.to(dtype)
+    with span("gramian") as sp:
+        G = als.weighted_gramian(E, Y)
+    assert G.shape == (C, K, K) and G.dtype == torch.float32
+    assert torch.equal(G, G.mT)
+    assert sp.counts["gramian_flops"] == 2 * C * I * Kp
+    Ed, Yd = E.double(), Y.float().double()
+    want = torch.einsum("ci,ik,il->ckl", Ed, Yd, Yd)
+    bound = torch.einsum("ci,ik,il->ckl", Ed.abs(), Yd.abs(), Yd.abs())
+    assert ((G.double() - want).abs() <= (I + 2) * 2.0**-24 * bound).all()

@@ -40,7 +40,9 @@ Cholesky ``|dL| <= 1e-4 max|L|`` and ``|Linv L - I| <= 1e-3``, the JAX
 package's own bounds for its kernel, at every B of both instantiations
 (16-128, the identity padding included), with a matrix that is not SPD
 and one with a NaN pivot among 262; ALS fits ``rtol 2e-3, atol 2e-4``,
-its bound between solver forms.  The sequential epochs: tables ``rtol
+its bound between solver forms; ExpoMF's packed Gramian within
+float32's worst-case bound of a float64 ``einsum``, ``(I + 2) u
+sum|terms|``, and exactly symmetric.  The sequential epochs: tables ``rtol
 1e-4, atol 1e-5`` under sgd and adagrad (the dot products' summation
 order compounding over the chain), under adam fewer than 1% of elements
 outside that and none off by more than ``2.5 lr`` (a first touch whose
@@ -1336,6 +1338,32 @@ def test_als_fit_on_card_matches_cpu(dev, monkeypatch, model):
     assert nc == {} and ng.get("chol_inv_batched", 0) > 0
     np.testing.assert_allclose(Wg, Wc, rtol=2e-3, atol=2e-4)
     np.testing.assert_allclose(Hg, Hc, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,Kp", [(1, 32), (2, 32), (6, 32), (100, 5056)])
+def test_weighted_gramian_packed_on_card(dev, monkeypatch, K, Kp, dtype):
+    """ExpoMF's packed Gramian on the card, over several row blocks of
+    ``Y``: the float64 ``einsum`` of the same values on the CPU within
+    float32's worst-case bound for a sum of ``I`` products, exactly
+    symmetric, ``2 C I Kp`` operations counted (the CPU test's case)."""
+    from cymf_tpu_torch.ops import als
+    from cymf_tpu_torch.utils.profiling import span
+    C, I = 5, 30
+    monkeypatch.setattr(als, "_GRAM_ELEMS", (Kp + 2 * K) * 7)
+    rng = np.random.default_rng(K)
+    E = torch.from_numpy(rng.uniform(0, 1, (C, I)).astype(np.float32))
+    Y = torch.from_numpy(rng.standard_normal((I, K)).astype(np.float32))
+    Y = Y.to(dtype)
+    with span("gramian") as sp:
+        G = als.weighted_gramian(E.to(dev), Y.to(dev)).cpu()
+    assert G.shape == (C, K, K) and G.dtype == torch.float32
+    assert torch.equal(G, G.mT)
+    assert sp.counts["gramian_flops"] == 2 * C * I * Kp
+    Ed, Yd = E.double(), Y.float().double()
+    want = torch.einsum("ci,ik,il->ckl", Ed, Yd, Yd)
+    bound = torch.einsum("ci,ik,il->ckl", Ed.abs(), Yd.abs(), Yd.abs())
+    assert ((G.double() - want).abs() <= (I + 2) * 2.0**-24 * bound).all()
 
 
 def test_relmf_fit_on_card_matches_cpu(dev, monkeypatch):

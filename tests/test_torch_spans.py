@@ -318,8 +318,9 @@ def test_wmf_fit_spans(monkeypatch):
 
 def test_expomf_fit_spans(monkeypatch):
     """One ``expomf.fit`` root: the build and the uploads once, each
-    chunk's exposure, Gramian and solve inside each epoch, and every byte
-    handed to the device counted."""
+    chunk's exposure, Gramian and solve inside each epoch, the Gramians'
+    products counted on their span, and every byte handed to the device
+    counted."""
     X = _interactions(U=120, I=90, nnz=1500)
     m = ct.ExpoMF(num_components=8, chunk_size=32, device="cpu")
     copies = HostCopies(monkeypatch)
@@ -335,6 +336,10 @@ def test_expomf_fit_spans(monkeypatch):
     for name in ("expomf.gramian", "expomf.solve"):
         assert r.paths[f"epoch/{name}"].n == chunks, name
     assert r.paths["epoch/expomf.solve/als.gather"].n == chunks
+    # the packed Gramian's products: 2 Kp a row and column of each half
+    # sweep, Kp = 64 (K (K + 1) / 2 = 36 padded to a multiple of 32)
+    assert r.paths["epoch/expomf.gramian"].counts["gramian_flops"] == \
+        2 * 2 * (2 * 64 * 120 * 90)
     # the chunks, and the tables and mu, marked at their making
     assert r.counts["h2d_bytes"] == copies.bytes > 0
     assert r.paths["expomf.upload"].counts["h2d_bytes"] == \
