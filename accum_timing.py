@@ -98,6 +98,7 @@ def build_inputs(dev):
     from cymf_tpu_torch.ops import fused_sample as fs
     from cymf_tpu_torch.ops import glove_epoch as ge
     from cymf_tpu_torch.ops import packed as pk
+    from cymf_tpu_torch.models.sgd import epoch_generator
     from cymf_tpu_torch.ops import relmf_epoch as tre
     from cymf_tpu_torch.ops import sorted_accum as sa
 
@@ -157,7 +158,7 @@ def build_inputs(dev):
             st["Wp"].clone(), st["Hp"].clone(),
             {k: v.clone() for k, v in st["ow"].items()},
             {k: v.clone() for k, v in st["oh"].items()}, st["hs"],
-            tre.epoch_generator(1234, 0, dev), 1, 1.0, **st["kw"])
+            epoch_generator(1234, 0, dev), 1, 1.0, **st["kw"])
 
     def glove_epoch0():
         import cymf_tpu_torch as ct

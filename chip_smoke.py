@@ -2008,6 +2008,7 @@ def check_glove_kernels(relmf, G, dev):
     ``glove_packed`` stream."""
     import cymf_tpu_torch as ct
     from cymf_tpu_torch.ops import glove_epoch as ge
+    from cymf_tpu_torch.models.sgd import epoch_generator
     from cymf_tpu_torch.ops import relmf_epoch as tre
 
     st = relmf
@@ -2018,7 +2019,7 @@ def check_glove_kernels(relmf, G, dev):
             st["Wp"].clone(), st["Hp"].clone(),
             {k: v.clone() for k, v in st["ow"].items()},
             {k: v.clone() for k, v in st["oh"].items()}, st["hs"],
-            tre.epoch_generator(1234, 0, dev), 1, 1.0, **st["kw"])
+            epoch_generator(1234, 0, dev), 1, 1.0, **st["kw"])
 
     def glove_epoch0():
         np.random.seed(0)
@@ -2042,12 +2043,13 @@ def relmf_ml20m(st, dev):
     device-prep fit calls) at ML-20M shapes: the depth cut of the JAX
     bench's BENCH_SMALL slice, at full width."""
     from cymf_tpu_torch.ops import _kernels
+    from cymf_tpu_torch.models.sgd import epoch_generator
     from cymf_tpu_torch.ops import relmf_epoch as tre
 
     full_steps = -(-U * I // BATCH)
     n_valid = float(full_steps) * BATCH
     args = (st["Wp"], st["Hp"], st["ow"], st["oh"], st["hs"])
-    tre.packed_relmf_epoch_device(*args, tre.epoch_generator(1, 0, dev), 20,
+    tre.packed_relmf_epoch_device(*args, epoch_generator(1, 0, dev), 20,
                                   n_valid, **st["kw"])        # warm-up
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2055,7 +2057,7 @@ def relmf_ml20m(st, dev):
     _kernels.reset_launches()
     t0 = time.perf_counter()
     loss = tre.packed_relmf_epoch_device(
-        *args, tre.epoch_generator(1234, 0, dev), ML20M_STEPS, n_valid,
+        *args, epoch_generator(1234, 0, dev), ML20M_STEPS, n_valid,
         **st["kw"])
     torch.cuda.synchronize(dev)
     sec = time.perf_counter() - t0
@@ -2859,12 +2861,13 @@ def profile_steps(run, steps: int, title: str, ms_step: float,
 def profile_relmf(st, dev, ms_step: float, steps: int = 50):
     """``--profile``: ``steps`` device-prep RelMF steps at ML-20M shapes
     against the unprofiled ``ms_step`` of phase 4."""
+    from cymf_tpu_torch.models.sgd import epoch_generator
     from cymf_tpu_torch.ops import relmf_epoch as tre
 
     def run():
         tre.packed_relmf_epoch_device(
             st["Wp"], st["Hp"], st["ow"], st["oh"], st["hs"],
-            tre.epoch_generator(7, 0, dev), steps, 1.0, **st["kw"])
+            epoch_generator(7, 0, dev), steps, 1.0, **st["kw"])
         torch.cuda.synchronize(dev)
 
     profile_steps(run, steps, f"{steps} device-prep RelMF steps at ML-20M "
@@ -3453,8 +3456,8 @@ def device_prep_step(X, dev):
     from cymf_tpu_torch.ops.packed_epoch import (draw_negatives,
                                                  live_negatives,
                                                  prep_static)
-    from cymf_tpu_torch.ops.relmf_epoch import (_sorted_side_device,
-                                                epoch_generator)
+    from cymf_tpu_torch.models.sgd import epoch_generator
+    from cymf_tpu_torch.ops.relmf_epoch import _sorted_side_device
 
     K = 20
     u2, i2 = sorted_batches(*shuffled_interactions(X), BATCH)
@@ -4002,7 +4005,7 @@ def mesh_batch(X, mesh, tag, smi, steps: int) -> None:
     from cymf_tpu_torch.ops.hashset import build_pair_hashset, to_device
     from cymf_tpu_torch.models.bpr import _bpr_epoch, _draw_negatives
     from cymf_tpu_torch.ops import _kernels
-    from cymf_tpu_torch.ops.relmf_epoch import epoch_generator
+    from cymf_tpu_torch.models.sgd import epoch_generator
     from cymf_tpu_torch.optim import make_optimizer
     from cymf_tpu_torch.parallel.shard_step import sharded_bpr_epoch
 
@@ -4497,7 +4500,7 @@ def mesh_relmf(mesh, tag, smi) -> None:
     from cymf_tpu_torch.dataset import SyntheticImplicitDataset
     from cymf_tpu_torch.models import relmf
     from cymf_tpu_torch.models.base import padded_rows
-    from cymf_tpu_torch.ops.relmf_epoch import epoch_generator
+    from cymf_tpu_torch.models.sgd import epoch_generator
     from cymf_tpu_torch.parallel.mesh import fetch_to_host
     from cymf_tpu_torch.parallel.shard_step import sharded_relmf_epoch
 

@@ -186,11 +186,6 @@ class MFTrainerBase:
         self.device = mesh.resolve_device(self._device_arg)
         return mesh
 
-    def _pad_table(self, T: np.ndarray) -> torch.Tensor:
-        """Pad rows to a mesh-divisible count; this rank's row shard."""
-        mesh = self.mesh
-        return mesh.put_table(padded_rows(T, mesh.pad_rows(T.shape[0])))
-
     def _checkpoint_state(self):
         """The state a checkpoint holds: ``_state``, with each sharded
         leaf gathered from the ranks (a collective)."""
@@ -316,7 +311,7 @@ class MFTrainerBase:
         dev = self.device
         publish()
         self.epoch_times_ = []
-        loss = None
+        self.last_loss = loss = None
         ahead = {}
         pool = ThreadPoolExecutor(max_workers=1) \
             if prep is not None and self._overlap_prep else None

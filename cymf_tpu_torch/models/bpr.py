@@ -29,7 +29,8 @@ Port of `cymf_tpu/models/bpr.py` on two engines:
   batch engine (``_fit_batch``, :func:`_bpr_epoch`, ``packed="off"``):
   logical tables, negatives drawn on the tables' device and rejected by
   the pair hash set inside the step, and the row updates of
-  :mod:`cymf_tpu_torch.optim`, dense or sparse (:func:`choose_update_mode`);
+  :mod:`cymf_tpu_torch.optim`, dense or sparse
+  (:func:`~cymf_tpu_torch.optim.choose_update_mode`);
 - ``engine="pallas"``: the sequential small-catalog engine
   (``_fit_pallas``, `ops/pallas_engine.py`): per-sample updates in groups
   of 8, one kernel launch an epoch, or one for the whole fit when no
@@ -56,9 +57,9 @@ draws differ from.
 package's schema (``{"W", "H", "ow", "oh"}`` batch, ``{"W", "H", "owp",
 "ohp"}`` packed, ``{"W", "H", "oww", "ohw"}`` wide) and ``resume=True``
 continues from it: any engine from any engine's checkpoint, of either
-package, at any row padding (:func:`_packed_resume_state`,
-:func:`_batch_resume_state`, :func:`_wide_resume_state`).  The sequential
-engine refuses checkpoints, as in the JAX package.
+package, at any row padding (``models/sgd.py::Layout``, which also lays
+out each engine's tables and publishes them).  The sequential engine
+refuses checkpoints, as in the JAX package.
 
 ``CYMF_TPU_BPR_PREP=device`` (read by the packed engine alone, as in the
 JAX package) prepares the negative side on the card
@@ -95,7 +96,6 @@ from .. import config
 from ..ops import packed as pk
 from ..ops import pallas_engine as pe
 from ..ops.fused_step import supports_v8
-from ..ops.hashset import build_pair_hashset, to_device
 from ..ops.packed_epoch import (live_negatives, log_sigmoid,
                                 make_packed_optimizer, make_reject_filter,
                                 packed_bpr_epoch, packed_bpr_epoch_device,
@@ -103,221 +103,19 @@ from ..ops.packed_epoch import (live_negatives, log_sigmoid,
                                 prep_epoch, prep_pool_epoch,
                                 prep_shard_epoch, prep_shard_static,
                                 prep_static, prep_static_pool, row_dot,
-                                sigmoid, unpack_device)
-from ..ops.relmf_epoch import epoch_generator
-from ..ops.wide_epoch import (pack_wide, prep_shard_static_wide,
-                              prep_static_wide, wide_bpr_epoch, wide_rows,
-                              wide_shard_masks, wide_sorted_masks)
-from ..optim import make_optimizer
+                                sigmoid)
+from ..ops.wide_epoch import (prep_shard_static_wide, prep_static_wide,
+                              wide_bpr_epoch, wide_rows, wide_shard_masks,
+                              wide_sorted_masks)
+from ..optim import choose_update_mode, make_optimizer
 from ..parallel.shard_step import (sharded_bpr_epoch,
                                    sharded_packed_bpr_epoch,
                                    sharded_wide_bpr_epoch)
-from ..parallel.mesh import host_array
-from ..utils.checkpoint import check_leaves
-from ..utils.profiling import count, span, spanned, upload
+from ..utils.profiling import count, span, spanned, upload_array
 from .base import MFTrainerBase, PersistenceMixin, as_csr
+from .sgd import Layout, epoch_generator, pair_hashset, positive_keys
 
 PAD_USER = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
-
-
-def _load_ckpt_raw(path):
-    """Engine-agnostic checkpoint read: raw flat leaf dict + epoch.
-
-    BPR's engines store state under different schemas (logical tables +
-    ``ow``/``oh`` optimizer leaves for the batch engine, packed-layout
-    ``owp``/``ohp`` for the packed one, lane-padded ``oww``/``ohw`` for
-    the wide one) and each may resume a checkpoint another wrote, so
-    resume starts from the raw dict and converts
-    (`utils/checkpoint.py` loads the same-schema case elsewhere)."""
-    with np.load(path) as z:
-        flat = {k: z[k] for k in z.files}
-    epoch = int(flat.pop("__epoch__", -1))
-    for k in list(flat):
-        if k.startswith("__meta__/"):
-            flat.pop(k)
-    check_leaves(flat)
-    return flat, epoch
-
-
-def _resume_point(checkpoint_path, resume: bool):
-    """``(flat, start_epoch)``: the raw leaves of the checkpoint a fit
-    resumes from (:func:`_load_ckpt_raw`) and the epoch after the saved
-    one, or ``(None, 0)`` when the fit starts afresh (``resume`` off, or
-    no file at ``checkpoint_path`` yet)."""
-    if resume and checkpoint_path is not None \
-            and os.path.exists(checkpoint_path):
-        flat, last_epoch = _load_ckpt_raw(checkpoint_path)
-        return flat, last_epoch + 1
-    return None, 0
-
-
-def _put(a, device, dtype=torch.float32) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
-        device, dtype)
-
-
-def _restore_opt_state(flat, native_prefix, other_prefix, template,
-                       convert, paymask, repad=None):
-    """Rebuild one table's optimizer-state dict from checkpoint leaves,
-    as tensors on the template's device and of its dtype.
-
-    Leaves under ``native_prefix`` (this engine's own layout) load
-    verbatim when shapes match; on a row-padding mismatch (a checkpoint
-    written under another device count) they run through ``repad``
-    (same-layout slice + re-pad, the conversion the tables themselves
-    get) and splice into ``template`` where ``paymask`` is True.  Leaves
-    under ``other_prefix`` run through ``convert`` (the cross-engine
-    layout transform) with the same splice: positions outside the
-    payload keep their initializer values (e.g. AdaGrad's ones on packed
-    count/dead lanes).
-    """
-    out = {}
-    for sub, tleaf in template.items():
-        t = host_array(tleaf)
-        nk, ok = f"{native_prefix}/{sub}", f"{other_prefix}/{sub}"
-        if nk in flat:
-            arr = np.asarray(flat[nk])
-            if arr.shape != t.shape:
-                # repad only heals ROW-count mismatches (same layout,
-                # different device padding); any trailing-dim difference
-                # is a genuinely different layout/version
-                if repad is None or arr.ndim != t.ndim \
-                        or arr.shape[1:] != t.shape[1:]:
-                    raise ValueError(
-                        f"checkpoint leaf {nk!r} has shape {arr.shape}, "
-                        f"expected {t.shape} — written by an "
-                        "incompatible layout/version")
-                arr = np.where(paymask, repad(arr), t)
-        elif ok in flat:
-            arr = np.where(paymask, convert(np.asarray(flat[ok])), t)
-        else:
-            raise KeyError(
-                f"checkpoint has neither {nk!r} nor {ok!r} — not a BPR "
-                "checkpoint for this optimizer")
-        out[sub] = _put(arr, tleaf.device, tleaf.dtype)
-    return out
-
-
-def _packed_resume_state(flat, U, I, K, mult_w, wrows_h, ow, oh, device):
-    """Rebuild the packed engine's state from a raw checkpoint dict (any
-    engine's schema, see :func:`_load_ckpt_raw`) under W row padding
-    ``mult_w`` and H row padding ``wrows_h``, on ``device``.  Returns
-    ``(Wp, Hp, ow, oh)``."""
-    # tables: every engine schema stores logical rows
-    Wp = _put(pk.pack_array(np.asarray(flat["W"])[:U], K, multiple=mult_w),
-              device)
-    Hp = _put(pk.pack_logical(np.asarray(flat["H"])[:I], K,
-                              multiple=wrows_h), device)
-
-    def pack_w(a):  # logical (>=U, K) -> packed (rw, 128)
-        return pk.pack_array(a[:U], K, multiple=mult_w)
-
-    def pack_h(a):  # logical (>=I, K) -> logical-layout (rh, 128)
-        return pk.pack_logical(a[:I], K, multiple=wrows_h)
-
-    mpay_w = pk.pack_array(np.ones((U, K), np.float32), K,
-                           multiple=mult_w) > 0
-    mpay_h = pk.pack_logical(np.ones((I, K), np.float32), K,
-                             multiple=wrows_h) > 0
-    s_k = pk.num_slots(K)
-
-    def repad_wp(a):  # packed layout under a different row pad
-        return pk.pack_array(a[:, :s_k * K].reshape(-1, K)[:U], K,
-                             multiple=mult_w)
-
-    def repad_hp(a):  # logical layout under a different row pad
-        return pk.pack_logical(a[:I, :K], K, multiple=wrows_h)
-
-    ow = _restore_opt_state(flat, "owp", "ow", ow, pack_w, mpay_w,
-                            repad=repad_wp)
-    oh = _restore_opt_state(flat, "ohp", "oh", oh, pack_h, mpay_h,
-                            repad=repad_hp)
-    return Wp, Hp, ow, oh
-
-
-def _wide_to_logical(flat, U, I, K):
-    """Add the batch engine's logical ``ow/*``/``oh/*`` leaves for a wide
-    engine's checkpoint (``oww``/``ohw``: logical rows, lane-padded
-    columns), so the logical-to-layout converters read it too."""
-    for pre, n_rows in (("oww", U), ("ohw", I)):
-        for k in [k for k in flat if k.startswith(pre + "/")]:
-            dst = ("ow/" if pre == "oww" else "oh/") + k.split("/", 1)[1]
-            if dst not in flat:
-                flat[dst] = np.asarray(flat[k])[:n_rows, :K]
-
-
-def _batch_resume_state(flat, U, I, K, ow, oh, device):
-    """Rebuild the batch engine's logical state ``(W, H, ow, oh)`` on
-    ``device`` from a raw checkpoint dict of any engine (batch, packed,
-    wide), at any row padding; the tables in the param dtype, each state
-    in its template's dtype."""
-    W = _put(np.asarray(flat["W"])[:U], device, config.param_dtype())
-    H = _put(np.asarray(flat["H"])[:I], device, config.param_dtype())
-    s = pk.num_slots(K)
-
-    def unpack_w(a):  # packed (rw, 128) -> logical (U, K)
-        return a[:, :s * K].reshape(-1, K)[:U]
-
-    def unpack_h(a):  # logical-layout (rh, 128) -> (I, K)
-        return a[:I, :K]
-
-    _wide_to_logical(flat, U, I, K)
-    ow = _restore_opt_state(flat, "ow", "owp", ow, unpack_w, True,
-                            repad=lambda a: a[:U])
-    oh = _restore_opt_state(flat, "oh", "ohp", oh, unpack_h, True,
-                            repad=lambda a: a[:I])
-    return W, H, ow, oh
-
-
-def _sharded_batch_state(model, mesh, opt, U: int, I: int, checkpoint_path,
-                         resume: bool):
-    """A batch engine's state on a mesh (BPR's and RelMF's): this rank's
-    row shards of W, H and their optimizer states, rows padded by
-    ``mesh.pad_rows`` (the states' pad rows keep their init), from the
-    model's tables or from the checkpoint any engine wrote at any row
-    padding; and the start epoch, which the ranks must agree on."""
-    K = model.num_components
-    W_, H_ = model.W, model.H
-    owf = opt.init(torch.zeros((mesh.pad_rows(U), K)))
-    ohf = opt.init(torch.zeros((mesh.pad_rows(I), K)))
-    flat, start_epoch = _resume_point(checkpoint_path, resume)
-    mesh.agree(start_epoch, "the checkpoint's epoch")
-    if flat is not None:
-        W_, H_, ow_, oh_ = _batch_resume_state(
-            flat, U, I, K, opt.init(torch.zeros((U, K))),
-            opt.init(torch.zeros((I, K))), "cpu")
-        for k in owf:
-            owf[k][:U] = ow_[k]
-        for k in ohf:
-            ohf[k][:I] = oh_[k]
-    return (model._pad_table(W_), model._pad_table(H_),
-            {k: mesh.put_table(v) for k, v in owf.items()},
-            {k: mesh.put_table(v) for k, v in ohf.items()}, start_epoch)
-
-
-def _wide_resume_state(flat, U, I, K, mult_w, wrows, ow, oh, device):
-    """Rebuild the wide engine's state ``(Wd, Hd, ow, oh)`` (``(rows,
-    Kp)`` tables: W rows padded to ``mult_w``, H rows to ``wrows``) on
-    ``device`` from a raw checkpoint dict of the wide or the batch
-    engine."""
-    Wd = _put(pack_wide(np.asarray(flat["W"])[:U], K, multiple=mult_w),
-              device)
-    Hd = _put(pack_wide(np.asarray(flat["H"])[:I], K, multiple=wrows),
-              device)
-
-    def cvt_w(a):  # logical leaf (>=U, K) -> wide layout
-        return pack_wide(a[:U], K, multiple=mult_w)
-
-    def cvt_h(a):
-        return pack_wide(a[:I], K, multiple=wrows)
-
-    mpay_w = pack_wide(np.ones((U, K), np.float32), K, multiple=mult_w) > 0
-    mpay_h = pack_wide(np.ones((I, K), np.float32), K, multiple=wrows) > 0
-    ow = _restore_opt_state(flat, "oww", "ow", ow, cvt_w, mpay_w,
-                            repad=cvt_w)
-    oh = _restore_opt_state(flat, "ohw", "oh", oh, cvt_h, mpay_h,
-                            repad=cvt_h)
-    return Wd, Hd, ow, oh
 
 
 def _cap_prep_threads(mesh) -> None:
@@ -374,14 +172,6 @@ def sorted_batches(users, positives, batch_size: int, multiple: int = 1024):
         order = np.argsort(u2, axis=1, kind="stable")
         return (np.take_along_axis(u2, order, axis=1),
                 np.take_along_axis(i2, order, axis=1))
-
-
-def choose_update_mode(mode: str, batch_rows: int, table_rows: int) -> str:
-    """'auto' resolves to dense when the batch covers enough of the table
-    that a full-table pass is cheaper than sorted row-scatters."""
-    if mode != "auto":
-        return mode
-    return "dense" if batch_rows * 16 >= table_rows else "sparse"
 
 
 def _draw_negatives(gen: torch.Generator, B: int, num_items: int,
@@ -457,7 +247,7 @@ class BPR(MFTrainerBase, PersistenceMixin):
         wide for K >= 128, ``packed="off"`` the batch engine, and
         ``packed="auto"`` picks as :meth:`_fused_engine` says.
         ``update_mode`` picks the batch engine's update (dense, sparse, or
-        by :func:`choose_update_mode`); as in the JAX package's fused and
+        by ``optim.choose_update_mode``); as in the JAX package's fused and
         sequential engines, it has no effect on them.
         ``neg_pool=P`` (a multiple of 128 in [128, 2048]) draws each
         step's negatives from a pool of P items (pipeline v8)."""
@@ -613,20 +403,14 @@ class BPR(MFTrainerBase, PersistenceMixin):
         U, I = X.shape
         Bn = u2.shape[1] // n
         N = self._samples_per_epoch
-        self.last_loss = None
-        coo = X.tocoo()
-        hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
+        hs = pair_hashset(X, dev)
         opt = make_optimizer(self.optimizer, self.learning_rate)
-        W, H, ow, oh, start_epoch = _sharded_batch_state(
-            self, mesh, opt, U, I, checkpoint_path, resume)
-        u_d = upload(torch.from_numpy(np.ascontiguousarray(
-            u2[:, p * Bn:(p + 1) * Bn])), dev)
-        i_d = upload(torch.from_numpy(np.ascontiguousarray(
-            i2[:, p * Bn:(p + 1) * Bn])), dev)
-
-        def publish():
-            self._state = {"W": W, "H": H, "ow": ow, "oh": oh}
-            self._sharded_keys = frozenset(self._state)
+        layout = Layout("logical", U, I, self.num_components, n, n,
+                        shard=(True, True))
+        W, H, ow, oh, start_epoch = layout.state(self, opt, checkpoint_path,
+                                                 resume)
+        u_d, i_d = (upload_array(a[:, p * Bn:(p + 1) * Bn], dev)
+                    for a in (u2, i2))
 
         def run(epoch):
             return sharded_bpr_epoch(
@@ -635,9 +419,9 @@ class BPR(MFTrainerBase, PersistenceMixin):
                 weight_decay=self.weight_decay, num_users=U, num_items=I,
                 draw=_draw_negatives)
 
-        self._run_device_epochs(num_epochs, verbose, None, run, publish,
-                                checkpoint_path, checkpoint_every,
-                                start_epoch)
+        self._run_device_epochs(num_epochs, verbose, None, run,
+                                layout.publish, checkpoint_path,
+                                checkpoint_every, start_epoch)
 
     def _fit_packed_sharded(self, X, u2, i2, num_epochs, verbose, seed,
                             checkpoint_path, checkpoint_every, resume):
@@ -656,7 +440,6 @@ class BPR(MFTrainerBase, PersistenceMixin):
         U, I = X.shape
         K = self.num_components
         N = self._samples_per_epoch
-        self.last_loss = None
         wrows_w, wrows_h = 256, 256
         rw = pk.packed_rows(U, K, multiple=wrows_w * n)
         rh = pk.logical_rows(I, multiple=wrows_h)
@@ -665,36 +448,22 @@ class BPR(MFTrainerBase, PersistenceMixin):
         (u_loc, i_loc, winw, si, rowsi, wini, starts, counts, Bd) = \
             prep_shard_static(u2, i2, K, rw, rh, wrows_w, wrows_h, n,
                               shard=p)
-        coo = X.tocoo()
-        pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+        pos_keys = positive_keys(X)
         key_filter = make_reject_filter(pos_keys, U, I)
         opt = make_packed_optimizer(self.optimizer, self.learning_rate)
-        Wf = _put(pk.pack_array(self.W, K, multiple=wrows_w * n), "cpu")
-        Hp = upload(_put(pk.pack_logical(self.H, K, multiple=wrows_h), "cpu"),
-                    dev)
-        owf, oh = opt.init(Wf), opt.init(Hp)
-        flat, start_epoch = _resume_point(checkpoint_path, resume)
-        mesh.agree(start_epoch, "the checkpoint's epoch")
-        if flat is not None:
-            Wf, Hp, owf, oh = _packed_resume_state(
-                flat, U, I, K, wrows_w * n, wrows_h, owf, oh, "cpu")
-            Hp = upload(Hp, dev)
-        Wp = mesh.put_table(Wf, torch.float32)
-        ow = {k: mesh.put_table(v, torch.float32) for k, v in owf.items()}
+        layout = Layout("packed", U, I, K, wrows_w * n, wrows_h,
+                        shard=(True, False))
+        Wp, Hp, ow, oh, start_epoch = layout.state(
+            self, opt, checkpoint_path, resume)
 
         def put(a):  # this rank's streams, the shard axis dropped
-            return upload(torch.from_numpy(np.ascontiguousarray(a[0])), dev)
+            return upload_array(a[0], dev)
 
         static = [put(a) for a in (u_loc, i_loc, si, rowsi, wini)]
         winw_d = put(winw)
         kw = dict(opt_name=self.optimizer, lr=self.learning_rate,
                   weight_decay=self.weight_decay, K=K, rw=rw, rh=rh,
                   wrows_w=wrows_w, wrows_h=wrows_h)
-
-        def publish():
-            self._state = {"W": unpack_device(Wp, K), "H": Hp[:, :K],
-                           "owp": ow, "ohp": oh}
-            self._sharded_keys = frozenset({"W", "owp"})
 
         def prep(epoch):
             j2, mask, _, _, _ = prep_epoch(
@@ -709,9 +478,9 @@ class BPR(MFTrainerBase, PersistenceMixin):
                 mesh, Wp, Hp, ow, oh, *static, *(put(a) for a in streams),
                 winw_d, N, **kw)
 
-        self._run_device_epochs(num_epochs, verbose, prep, run, publish,
-                                checkpoint_path, checkpoint_every,
-                                start_epoch)
+        self._run_device_epochs(num_epochs, verbose, prep, run,
+                                layout.publish, checkpoint_path,
+                                checkpoint_every, start_epoch)
 
     def _fit_wide_sharded(self, X, u2, i2, num_epochs, verbose, seed,
                           checkpoint_path, checkpoint_every, resume):
@@ -727,40 +496,26 @@ class BPR(MFTrainerBase, PersistenceMixin):
         U, I = X.shape
         K = self.num_components
         N = self._samples_per_epoch
-        self.last_loss = None
         wrows = 512
         rw, rh = wide_rows(U, wrows * n), wide_rows(I, wrows)
         (u_loc, rowsu, winw, i_loc, si, rowsi, wini, starts, counts,
          Bd) = prep_shard_static_wide(u2, i2, rw, rh, wrows, n, shard=p)
-        coo = X.tocoo()
-        pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+        pos_keys = positive_keys(X)
         key_filter = make_reject_filter(pos_keys, U, I)
         opt = make_packed_optimizer(self.optimizer, self.learning_rate)
-        Wf = _put(pack_wide(self.W, K, multiple=wrows * n), "cpu")
-        Hd = upload(_put(pack_wide(self.H, K, multiple=wrows), "cpu"), dev)
-        owf, oh = opt.init(Wf), opt.init(Hd)
-        flat, start_epoch = _resume_point(checkpoint_path, resume)
-        mesh.agree(start_epoch, "the checkpoint's epoch")
-        if flat is not None:
-            Wf, Hd, owf, oh = _wide_resume_state(
-                flat, U, I, K, wrows * n, wrows, owf, oh, "cpu")
-            Hd = upload(Hd, dev)
-        Wd = mesh.put_table(Wf, torch.float32)
-        ow = {k: mesh.put_table(v, torch.float32) for k, v in owf.items()}
+        layout = Layout("wide", U, I, K, wrows * n, wrows,
+                        shard=(True, False))
+        Wd, Hd, ow, oh, start_epoch = layout.state(
+            self, opt, checkpoint_path, resume)
 
         def put(a):  # this rank's streams, the shard axis dropped
-            return upload(torch.from_numpy(np.ascontiguousarray(a[0])), dev)
+            return upload_array(a[0], dev)
 
         static = [put(a) for a in (u_loc, i_loc, rowsu, winw, si, rowsi,
                                    wini)]
         kw = dict(opt_name=self.optimizer, lr=self.learning_rate,
                   weight_decay=self.weight_decay, K=K, rw=rw, rh=rh,
                   wrows=wrows)
-
-        def publish():
-            self._state = {"W": Wd[:, :K], "H": Hd[:, :K], "oww": ow,
-                           "ohw": oh}
-            self._sharded_keys = frozenset({"W", "oww"})
 
         def prep(epoch):
             j2, mask, _, _, _ = prep_epoch(
@@ -777,9 +532,9 @@ class BPR(MFTrainerBase, PersistenceMixin):
                 mesh, Wd, Hd, ow, oh, *static, *(put(a) for a in streams),
                 N, **kw)
 
-        self._run_device_epochs(num_epochs, verbose, prep, run, publish,
-                                checkpoint_path, checkpoint_every,
-                                start_epoch)
+        self._run_device_epochs(num_epochs, verbose, prep, run,
+                                layout.publish, checkpoint_path,
+                                checkpoint_every, start_epoch)
 
     def _fit_batch(self, X, u2, i2, num_epochs, verbose, seed,
                    checkpoint_path, checkpoint_every, resume):
@@ -787,35 +542,19 @@ class BPR(MFTrainerBase, PersistenceMixin):
         single-device branch of ``cymf_tpu.BPR.fit``: logical tables, the
         pair hash set on the device, ``mode`` from ``3 * B`` rows against
         the tables', one ``torch.Generator`` an epoch
-        (``ops/relmf_epoch.py::epoch_generator``)."""
+        (``models/sgd.py::epoch_generator``)."""
         dev = self.device
         U, I = X.shape
         B = u2.shape[1]
         N = self._samples_per_epoch
-        self.last_loss = None
-        coo = X.tocoo()
-        hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
-
-        def put(a):
-            return upload(torch.from_numpy(np.ascontiguousarray(a)), dev)
-
-        # copies in the param dtype: the host tables must not see the
-        # in-place updates
-        W = upload(torch.tensor(self.W, dtype=config.param_dtype()), dev)
-        H = upload(torch.tensor(self.H, dtype=config.param_dtype()), dev)
+        hs = pair_hashset(X, dev)
         self.update_mode_ = choose_update_mode(self.update_mode, 3 * B,
                                                U + I)
         opt = make_optimizer(self.optimizer, self.learning_rate)
-        ow, oh = opt.init(W), opt.init(H)
-        flat, start_epoch = _resume_point(checkpoint_path, resume)
-        if flat is not None:
-            W, H, ow, oh = _batch_resume_state(flat, U, I,
-                                               self.num_components, ow, oh,
-                                               dev)
-        u_d, i_d = put(u2), put(i2)
-
-        def publish():
-            self._state = {"W": W, "H": H, "ow": ow, "oh": oh}
+        layout = Layout("logical", U, I, self.num_components)
+        W, H, ow, oh, start_epoch = layout.state(self, opt, checkpoint_path,
+                                                 resume)
+        u_d, i_d = upload_array(u2, dev), upload_array(i2, dev)
 
         def run(epoch):
             return _bpr_epoch(
@@ -824,9 +563,9 @@ class BPR(MFTrainerBase, PersistenceMixin):
                 weight_decay=self.weight_decay, num_users=U, num_items=I,
                 update_mode=self.update_mode_)
 
-        self._run_device_epochs(num_epochs, verbose, None, run, publish,
-                                checkpoint_path, checkpoint_every,
-                                start_epoch)
+        self._run_device_epochs(num_epochs, verbose, None, run,
+                                layout.publish, checkpoint_path,
+                                checkpoint_every, start_epoch)
 
     def _fit_packed(self, X, u2, i2, num_epochs, verbose, seed,
                     checkpoint_path, checkpoint_every, resume):
@@ -853,7 +592,6 @@ class BPR(MFTrainerBase, PersistenceMixin):
         U, I = X.shape
         K = self.num_components
         N = self._samples_per_epoch
-        self.last_loss = None
         wrows_w, wrows_h = 256, 256
         rw = pk.packed_rows(U, K, multiple=wrows_w)
         rh = pk.logical_rows(I, multiple=wrows_h)
@@ -883,26 +621,21 @@ class BPR(MFTrainerBase, PersistenceMixin):
         # which pipeline runs (8/6/5/4, data-dependent; 7 when forced)
         self.packed_kernel_ = kernel_v
         with span("bpr.reject_filter"):
-            coo = X.tocoo()
             if device_prep:
-                hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
+                hs = pair_hashset(X, dev)
             else:
-                pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+                pos_keys = positive_keys(X)
                 # once per fit: the rejection filter of both prep streams
                 key_filter = make_reject_filter(pos_keys, U, I)
 
         def put(a):
-            return upload(torch.from_numpy(np.ascontiguousarray(a)), dev)
+            return upload_array(a, dev)
 
+        layout = Layout("packed", U, I, K, wrows_w, wrows_h)
         with span("bpr.upload"):
-            Wp = put(pk.pack_array(self.W, K, multiple=wrows_w))
-            Hp = put(pk.pack_logical(self.H, K, multiple=wrows_h))
             opt = make_packed_optimizer(self.optimizer, self.learning_rate)
-            ow, oh = opt.init(Wp), opt.init(Hp)
-            flat, start_epoch = _resume_point(checkpoint_path, resume)
-            if flat is not None:
-                Wp, Hp, ow, oh = _packed_resume_state(
-                    flat, U, I, K, wrows_w, wrows_h, ow, oh, dev)
+            Wp, Hp, ow, oh, start_epoch = layout.state(
+                self, opt, checkpoint_path, resume)
             static = [put(a) for a in (u2, i2, si, rowsi, wini)]
             winw_d = put(winw)
             blocks = [put(a) for a in (wstart, bcs, bcn)]
@@ -919,10 +652,6 @@ class BPR(MFTrainerBase, PersistenceMixin):
         kw = dict(opt_name=self.optimizer, lr=self.learning_rate,
                   weight_decay=self.weight_decay, K=K, rw=rw, rh=rh,
                   wrows_w=wrows_w, wrows_h=wrows_h)
-
-        def publish():
-            self._state = {"W": unpack_device(Wp, K), "H": Hp[:, :K],
-                           "owp": ow, "ohp": oh}
 
         def prep(epoch):
             rng = np.random.default_rng((seed, epoch))
@@ -955,8 +684,8 @@ class BPR(MFTrainerBase, PersistenceMixin):
 
         self._run_device_epochs(
             num_epochs, verbose, None if device_prep else prep,
-            run_device if device_prep else run, publish, checkpoint_path,
-            checkpoint_every, start_epoch)
+            run_device if device_prep else run, layout.publish,
+            checkpoint_path, checkpoint_every, start_epoch)
 
     def _fit_wide(self, X, u2, i2, num_epochs, verbose, seed,
                   checkpoint_path, checkpoint_every, resume):
@@ -968,34 +697,24 @@ class BPR(MFTrainerBase, PersistenceMixin):
         U, I = X.shape
         K = self.num_components
         N = self._samples_per_epoch
-        self.last_loss = None
         wrows = 512  # both sides, as the JAX package's wide engine
         rw, rh = wide_rows(U, wrows), wide_rows(I, wrows)
         rowsu, winw, si, rowsi, wini = prep_static_wide(u2, i2, rw, rh,
                                                         wrows)
-        coo = X.tocoo()
-        pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+        pos_keys = positive_keys(X)
         key_filter = make_reject_filter(pos_keys, U, I)
+        opt = make_packed_optimizer(self.optimizer, self.learning_rate)
+        layout = Layout("wide", U, I, K, wrows, wrows)
+        Wd, Hd, ow, oh, start_epoch = layout.state(self, opt,
+                                                   checkpoint_path, resume)
 
         def put(a):
-            return upload(torch.from_numpy(np.ascontiguousarray(a)), dev)
+            return upload_array(a, dev)
 
-        Wd = put(pack_wide(self.W, K, multiple=wrows))
-        Hd = put(pack_wide(self.H, K, multiple=wrows))
-        opt = make_packed_optimizer(self.optimizer, self.learning_rate)
-        ow, oh = opt.init(Wd), opt.init(Hd)
-        flat, start_epoch = _resume_point(checkpoint_path, resume)
-        if flat is not None:
-            Wd, Hd, ow, oh = _wide_resume_state(flat, U, I, K, wrows, wrows,
-                                                ow, oh, dev)
         static = [put(a) for a in (u2, i2, rowsu, winw, si, rowsi, wini)]
         kw = dict(opt_name=self.optimizer, lr=self.learning_rate,
                   weight_decay=self.weight_decay, K=K, rw=rw, rh=rh,
                   wrows=wrows)
-
-        def publish():
-            self._state = {"W": Wd[:, :K], "H": Hd[:, :K], "oww": ow,
-                           "ohw": oh}
 
         def prep(epoch):
             j2, mask, sj, rowsj, winj = prep_epoch(
@@ -1009,9 +728,9 @@ class BPR(MFTrainerBase, PersistenceMixin):
             return wide_bpr_epoch(Wd, Hd, ow, oh, *static,
                                   *(put(a) for a in streams), N, **kw)
 
-        self._run_device_epochs(num_epochs, verbose, prep, run, publish,
-                                checkpoint_path, checkpoint_every,
-                                start_epoch)
+        self._run_device_epochs(num_epochs, verbose, prep, run,
+                                layout.publish, checkpoint_path,
+                                checkpoint_every, start_epoch)
 
     def _fit_pallas(self, X, users, positives, num_epochs, verbose, seed,
                     chunk: int = 4096, group: int = 8):
@@ -1035,8 +754,7 @@ class BPR(MFTrainerBase, PersistenceMixin):
         i_pad = np.concatenate([positives, np.zeros(pad, np.int32)])
         in_data = np.concatenate([np.ones(N, np.int32),
                                   np.zeros(pad, np.int32)])
-        coo = X.tocoo()
-        pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+        pos_keys = positive_keys(X)
         # every epoch's negatives and rejection masks in one host pass
         # (fresh draws per epoch, as the reference samples at bpr.pyx:165)
         j_all, keep_all = pe.generate_epoch_negatives(
@@ -1045,8 +763,7 @@ class BPR(MFTrainerBase, PersistenceMixin):
         mask_all = np.tile(in_data, num_epochs) & keep_all.astype(np.int32)
 
         def put(a, epochs=1):
-            return upload(torch.from_numpy(np.ascontiguousarray(
-                a.reshape(epochs * S, 1, chunk))), dev)
+            return upload_array(a.reshape(epochs * S, 1, chunk), dev)
 
         Wp = pe.pack_table(self.W, self.optimizer, dev)
         Hp = pe.pack_table(self.H, self.optimizer, dev)

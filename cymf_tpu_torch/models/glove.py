@@ -77,15 +77,14 @@ from ..ops.glove_epoch import (augment_tables, packed_glove_epoch,
                                supports_packed_glove)
 from ..ops.packed_epoch import PackedAdaGrad, row_dot
 from ..ops.segment import dedup_rows
-from ..optim import AdaGrad, adagrad_kfold_rows
+from ..optim import AdaGrad, adagrad_kfold_rows, choose_update_mode
 from ..parallel.mesh import current_mesh, fetch_to_host, host_array
 from ..parallel.shard_step import (sharded_glove_epoch,
                                    sharded_glove_kfold_epoch,
                                    sharded_packed_glove_epoch)
 from ..utils.checkpoint import AsyncCheckpointer, resume_state
-from ..utils.profiling import spanned
+from ..utils.profiling import spanned, upload_array
 from .base import padded_rows
-from .bpr import choose_update_mode
 PAD_CENTRAL = np.int32(2**31 - 1)  # padding sentinel: sorts last, dropped
 
 
@@ -105,8 +104,8 @@ def _bias_kfold_update(bias, accum, rows, grads, lr: float, k_steps: int,
 def _from_rank0(mesh, *arrays) -> list:
     """Rank 0's ``arrays`` on every rank (one broadcast each, the bits
     kept)."""
-    return [mesh.broadcast(torch.from_numpy(np.ascontiguousarray(a)).to(
-        mesh.device)).cpu().numpy() for a in arrays]
+    return [mesh.broadcast(upload_array(a, mesh.device)).cpu().numpy()
+            for a in arrays]
 
 
 def _gather(v, mesh):
@@ -339,7 +338,7 @@ class GloVe:
             T = np.asarray(T)
             if T.ndim == 1:
                 T = T[:, None]  # column layout: row-addressed bias updates
-            return torch.tensor(T, dtype=config.param_dtype(), device=dev)
+            return upload_array(T, dev, config.param_dtype())
 
         if self.bias_mode == "fused":
             Wc, Wx = (table(T) for T in augment_tables(
@@ -361,8 +360,8 @@ class GloVe:
                                       self._ckpt_rows(V1, V2))
         Wc, Wx, bc, bx, ow, oh, abc, abx = (st[k] for k in (
             "Wc", "Wx", "bc", "bx", "ow", "oh", "abc", "abx"))
-        steps = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                 for a in (c2, x2, n2.astype(np.float32))]
+        steps = [upload_array(a, dev) for a in (c2, x2,
+                                                n2.astype(np.float32))]
         steps[2] = steps[2].to(config.param_dtype())   # the counts
         self.update_mode_ = choose_update_mode(self.update_mode, 2 * B,
                                                V1 + V2)
@@ -437,9 +436,8 @@ class GloVe:
             return mesh.put_table(v) if k in sharded else v.to(dev)
 
         st = {k: place(k, v) for k, v in st.items()}
-        steps = [torch.from_numpy(np.ascontiguousarray(
-            a[:, p * Bn:(p + 1) * Bn])).to(dev)
-            for a in (c2, x2, n2.astype(np.float32))]
+        steps = [upload_array(a[:, p * Bn:(p + 1) * Bn], dev)
+                 for a in (c2, x2, n2.astype(np.float32))]
         steps[2] = steps[2].to(config.param_dtype())   # the counts
         kw = dict(optimizer=opt, x_max=self.x_max, alpha=self.alpha, K=K,
                   num_central=V1)
@@ -500,7 +498,7 @@ class GloVe:
             streams = [c2, x2, m2, f2, l2, sx, rowsx, winx, winw]
 
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            return upload_array(a, dev)
 
         # the central table and its state: this rank's row shard, float32
         # under any param dtype (the kernels' dtype)
@@ -594,8 +592,7 @@ class GloVe:
         logcnt = np.log(np.maximum(counts, 1e-30))
 
         def put(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(
-                a.astype(dtype).reshape(S, 1, chunk))).to(dev)
+            return upload_array(a.astype(dtype).reshape(S, 1, chunk), dev)
 
         Zc_np, Zx_np = augment_tables(W_central, central_bias, W_context,
                                       context_bias)

@@ -46,8 +46,8 @@ against the card's kernels.
 
 Checkpoints hold the JAX package's schemas (``{"W", "H", "ow", "oh"}``
 batch, ``{"W", "H", "owp", "ohp"}`` packed) and either engine resumes
-either's, of either package (BPR's converters, `models/bpr.py`); the
-sequential engine refuses them, as in the JAX package.
+either's, of either package (the layouts of `models/sgd.py`, BPR's too);
+the sequential engine refuses them, as in the JAX package.
 
 Under a mesh of more than one rank (``cymf_tpu_torch.parallel``) the
 routing is the JAX package's (`cymf_tpu/models/relmf.py:190-206`):
@@ -73,19 +73,17 @@ import torch
 from .. import config
 from ..ops import packed as pk
 from ..ops import pallas_engine as pe
-from ..ops.hashset import build_pair_hashset, hashset_contains, to_device
+from ..ops.hashset import hashset_contains
 from ..ops.packed_epoch import (make_packed_optimizer, make_reject_filter,
-                                prep_backend, row_dot, unpack_device)
-from ..ops.relmf_epoch import (epoch_generator, packed_relmf_epoch,
-                               packed_relmf_epoch_device, prep_relmf_epoch,
-                               supports_packed_relmf)
+                                prep_backend, row_dot)
+from ..ops.relmf_epoch import (packed_relmf_epoch, packed_relmf_epoch_device,
+                               prep_relmf_epoch, supports_packed_relmf)
 from ..ops.segment import csr_lookup
-from ..optim import make_optimizer
+from ..optim import choose_update_mode, make_optimizer
 from ..parallel.shard_step import sharded_relmf_epoch
-from ..utils.profiling import spanned
+from ..utils.profiling import spanned, upload_array
 from .base import MFTrainerBase, PersistenceMixin, as_csr
-from .bpr import (_batch_resume_state, _packed_resume_state, _resume_point,
-                  _sharded_batch_state, choose_update_mode)
+from .sgd import Layout, epoch_generator, pair_hashset, positive_keys
 
 # host prep holds an epoch's cells as int64 draws and int32 streams: cap
 # it at the JAX package's default of 2^27 cells (about 3 GiB of prep)
@@ -286,29 +284,18 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         B = self.batch_size
         num_steps = max(1, -(-(U * I) // B))  # N = U*I samples an epoch
         self._samples_per_epoch = num_steps * B
-        self.last_loss = None
 
         label_src = self._labels(X, binary)
         dtype = config.param_dtype()
-        props_d = torch.as_tensor(props[:, None], dtype=dtype).to(dev)
-        # copies in the param dtype: the host tables must not see the
-        # in-place updates
-        W = torch.tensor(self.W, dtype=dtype, device=dev)
-        H = torch.tensor(self.H, dtype=dtype, device=dev)
+        props_d = upload_array(props[:, None], dev, dtype)
         self.update_mode_ = choose_update_mode(self.update_mode, 2 * B,
                                                U + I)
         opt = make_optimizer(self.optimizer, self.learning_rate)
-        ow, oh = opt.init(W), opt.init(H)
-        flat, start_epoch = _resume_point(checkpoint_path, resume)
-        if flat is not None:
-            W, H, ow, oh = _batch_resume_state(flat, U, I,
-                                               self.num_components, ow, oh,
-                                               dev)
+        layout = Layout("logical", U, I, self.num_components)
+        W, H, ow, oh, start_epoch = layout.state(self, opt, checkpoint_path,
+                                                 resume)
         # a float (U * I may pass int32), in the param dtype as in JAX
         total = config.scalar(float(num_steps * B), dtype)
-
-        def publish():
-            self._state = {"W": W, "H": H, "ow": ow, "oh": oh}
 
         def run(epoch):
             return _relmf_epoch(
@@ -319,20 +306,19 @@ class RelMF(MFTrainerBase, PersistenceMixin):
                 update_mode=self.update_mode_,
                 binary_labels=binary) / total
 
-        self._run_device_epochs(num_epochs, verbose, None, run, publish,
-                                checkpoint_path, checkpoint_every,
-                                start_epoch)
+        self._run_device_epochs(num_epochs, verbose, None, run,
+                                layout.publish, checkpoint_path,
+                                checkpoint_every, start_epoch)
 
     def _labels(self, X, binary: bool):
         """Where the batch engines read their labels, on the tables'
         device: the pair hash set of a binary ``X``, else its CSR."""
         dev = self.device
         if binary:
-            coo = X.tocoo()
-            return to_device(build_pair_hashset(coo.row, coo.col), dev)
-        return (torch.as_tensor(X.indptr, dtype=torch.int64).to(dev),
-                torch.as_tensor(X.indices, dtype=torch.int32).to(dev),
-                torch.as_tensor(X.data, dtype=config.param_dtype()).to(dev))
+            return pair_hashset(X, dev)
+        return (upload_array(X.indptr, dev, torch.int64),
+                upload_array(X.indices, dev, torch.int32),
+                upload_array(X.data, dev, config.param_dtype()))
 
     def _fit_batch_sharded(self, X, props, binary, num_epochs, verbose,
                            seed, checkpoint_path, checkpoint_every, resume):
@@ -357,18 +343,16 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         num_steps = max(1, -(-(U * I) // B))
         self._samples_per_epoch = num_steps * B
         self.update_mode_ = "dense"
-        self.last_loss = None
         label_src = self._labels(X, binary)
         dtype = config.param_dtype()
-        props_d = torch.as_tensor(props[:, None], dtype=dtype).to(dev)
+        props_d = upload_array(props[:, None], dev, dtype)
         opt = make_optimizer(self.optimizer, self.learning_rate)
-        W, H, ow, oh, start_epoch = _sharded_batch_state(
-            self, mesh, opt, U, I, checkpoint_path, resume)
+        n = mesh.num_devices
+        layout = Layout("logical", U, I, self.num_components, n, n,
+                        shard=(True, True))
+        W, H, ow, oh, start_epoch = layout.state(self, opt, checkpoint_path,
+                                                 resume)
         total = config.scalar(float(num_steps * B), dtype)
-
-        def publish():
-            self._state = {"W": W, "H": H, "ow": ow, "oh": oh}
-            self._sharded_keys = frozenset(self._state)
 
         def run(epoch):
             return sharded_relmf_epoch(
@@ -378,9 +362,9 @@ class RelMF(MFTrainerBase, PersistenceMixin):
                 num_users=U, num_items=I, num_steps=num_steps, batch_size=B,
                 binary=binary, draw=_draw_cells) / total
 
-        self._run_device_epochs(num_epochs, verbose, None, run, publish,
-                                checkpoint_path, checkpoint_every,
-                                start_epoch)
+        self._run_device_epochs(num_epochs, verbose, None, run,
+                                layout.publish, checkpoint_path,
+                                checkpoint_every, start_epoch)
 
     def _fit_packed_relmf(self, X, props, B, S, num_epochs, verbose, seed,
                           checkpoint_path, checkpoint_every, resume):
@@ -395,54 +379,39 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         prep_mode = self._packed_prep_mode()
         self.prep_backend_ = "device-torch" if prep_mode == "device" \
             else prep_backend()
-        self.last_loss = None
-        coo = X.tocoo()
         invp = np.zeros((rh, 1), np.float32)
         invp[:I, 0] = 1.0 / np.maximum(props, self.clip_value)
-
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-        Wp = put(pk.pack_array(self.W, K, multiple=wrows_w))
-        Hp = put(pk.pack_logical(self.H, K, multiple=wrows_h))
         opt = make_packed_optimizer(self.optimizer, self.learning_rate)
-        ow, oh = opt.init(Wp), opt.init(Hp)
-        flat, start_epoch = _resume_point(checkpoint_path, resume)
-        if flat is not None:
-            # the checkpoint holds Hp[:, :K]: lane K comes back zero
-            Wp, Hp, ow, oh = _packed_resume_state(flat, U, I, K, wrows_w,
-                                                  wrows_h, ow, oh, dev)
-        if prep_mode == "device":
-            # device prep reads 1/max(p_i, M) from lane K of Hp (the item
-            # gather brings it along); gradients are payload-masked, so
-            # every optimizer pass leaves it as it is
-            Hp[:, K] = put(invp[:, 0])
+        layout = Layout("packed", U, I, K, wrows_w, wrows_h)
+        # a checkpoint holds Hp[:, :K]: lane K comes back zero
+        Wp, Hp, ow, oh, start_epoch = layout.state(self, opt,
+                                                   checkpoint_path, resume)
         # a float: ML-20M's 3.7e9 cells an epoch overflow int32
         n_valid = float(S) * B
         kw = dict(opt_name=self.optimizer, lr=self.learning_rate,
                   weight_decay=self.weight_decay, K=K, rw=rw, rh=rh,
                   wrows_w=wrows_w, wrows_h=wrows_h)
 
-        def publish():
-            self._state = {"W": unpack_device(Wp, K), "H": Hp[:, :K],
-                           "owp": ow, "ohp": oh}
-
         if prep_mode == "device":
-            hs = to_device(build_pair_hashset(coo.row, coo.col), dev)
+            # device prep reads 1/max(p_i, M) from lane K of Hp (the item
+            # gather brings it along); gradients are payload-masked, so
+            # every optimizer pass leaves it as it is
+            Hp[:, K] = upload_array(invp[:, 0], dev)
+            hs = pair_hashset(X, dev)
 
             def run(epoch):
                 return packed_relmf_epoch_device(
                     Wp, Hp, ow, oh, hs, epoch_generator(seed, epoch, dev), S,
                     n_valid, B=B, num_users=U, num_items=I, **kw)
 
-            self._run_device_epochs(num_epochs, verbose, None, run, publish,
-                                    checkpoint_path, checkpoint_every,
-                                    start_epoch)
+            self._run_device_epochs(num_epochs, verbose, None, run,
+                                    layout.publish, checkpoint_path,
+                                    checkpoint_every, start_epoch)
             return
 
-        pos_keys = np.sort(coo.row.astype(np.int64) * I + coo.col)
+        pos_keys = positive_keys(X)
         key_filter = make_reject_filter(pos_keys, U, I)
-        invp_d = put(invp)
+        invp_d = upload_array(invp, dev)
 
         def prep(epoch):
             return prep_relmf_epoch(seed, epoch, S, B, U, I, K, rw, rh,
@@ -451,13 +420,13 @@ class RelMF(MFTrainerBase, PersistenceMixin):
 
         def run(epoch, u2, i2, lab, winw, si, rowsi, wini):
             return packed_relmf_epoch(
-                Wp, Hp, ow, oh, *(put(a) for a in (
+                Wp, Hp, ow, oh, *(upload_array(a, dev) for a in (
                     u2, i2, lab, si, rowsi, wini, winw)), invp_d, n_valid,
                 **kw)
 
-        self._run_device_epochs(num_epochs, verbose, prep, run, publish,
-                                checkpoint_path, checkpoint_every,
-                                start_epoch)
+        self._run_device_epochs(num_epochs, verbose, prep, run,
+                                layout.publish, checkpoint_path,
+                                checkpoint_every, start_epoch)
 
     def _fit_pallas(self, X, props, num_epochs, verbose, seed,
                     chunk: int = 4096, group: int = 8):
@@ -480,14 +449,12 @@ class RelMF(MFTrainerBase, PersistenceMixin):
         Np = S * chunk
         clipped = np.maximum(props, self.clip_value)
         rng = np.random.default_rng(seed)
-        coo = X.tocoo()
-        keys = coo.row.astype(np.int64) * I + coo.col
+        keys = positive_keys(X)
         order = np.argsort(keys)
-        pos_keys, pos_vals = keys[order], coo.data[order].astype(np.float32)
+        pos_keys, pos_vals = keys[order], X.data[order].astype(np.float32)
 
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(
-                a.reshape(S, 1, chunk))).to(dev)
+            return upload_array(a.reshape(S, 1, chunk), dev)
 
         Wp = pe.pack_table(self.W, self.optimizer, dev)
         Hp = pe.pack_table(self.H, self.optimizer, dev)

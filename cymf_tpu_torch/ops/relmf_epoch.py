@@ -250,15 +250,6 @@ def device_step(Wp, Hp, ow, oh, opt, u, i, lab, *, weight_decay: float,
                       rw=rw, rh=rh, wrows_w=wrows_w, wrows_h=wrows_h)
 
 
-def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
-    """The device-prep draw stream of one epoch: a ``torch.Generator`` on
-    ``device`` seeded from ``(seed, epoch)``."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(np.random.SeedSequence(
-        (int(seed), int(epoch), 7)).generate_state(1)[0]))
-    return gen
-
-
 @torch.no_grad()
 def packed_relmf_epoch_device(Wp, Hp, ow, oh, hs: PairHashSet, gen, S: int,
                               n_valid, *, B: int, num_users: int,

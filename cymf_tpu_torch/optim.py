@@ -245,6 +245,15 @@ def adagrad_kfold_rows(bias, accum, rows, g, lr: float, k_steps: int) -> None:
     bias.index_add_(0, tgt, masked_addend(delta, keep))
 
 
+def choose_update_mode(mode: str, batch_rows: int, table_rows: int) -> str:
+    """The update a batch engine makes: ``mode`` ("dense" or "sparse"), or
+    for "auto" dense when the batch covers enough of the table that a
+    full-table pass is cheaper than sorted row-scatters."""
+    if mode != "auto":
+        return mode
+    return "dense" if batch_rows * 16 >= table_rows else "sparse"
+
+
 def make_optimizer(name: str, learning_rate: float) -> SparseOptimizer:
     """Optimizer whitelist matching `cymf/bpr.pyx:65-66`."""
     if name == "adam":

@@ -151,6 +151,51 @@ def _rebuild(like: Any, leaves: Dict[str, Any], prefix: str = "") -> Any:
     return leaves[prefix[:-1]]
 
 
+def _fill(like: Any, flat: Dict[str, np.ndarray],
+          rows: Dict[str, int] | None = None) -> Any:
+    """The structure of ``like`` with each leaf read from ``flat``: a
+    tensor leaf of ``like`` as a tensor on its device and of its dtype,
+    any other leaf as the stored array.  ``rows`` as in
+    :func:`resume_state`; any other shape difference raises
+    ``ValueError``, a missing leaf ``KeyError``."""
+    leaves = {}
+    for key, leaf in _leaves(like):
+        if key not in flat:
+            raise KeyError(f"checkpoint missing leaf {key!r}")
+        arr, shape = flat[key], tuple(np.shape(leaf))
+        if arr.shape != shape:
+            n = (rows or {}).get(key.split("/")[0], -1)
+            if arr.shape[1:] != shape[1:] or min(arr.shape[0],
+                                                 shape[0]) < n or n < 0:
+                raise ValueError(
+                    f"checkpoint leaf {key!r} has shape {arr.shape}, "
+                    f"expected {shape}"
+                    + (f" or another row count of at least {n}" if n >= 0
+                       else "")
+                    + " — written by another schema or row padding")
+            out = host_array(leaf) if isinstance(leaf, torch.Tensor) \
+                else np.array(leaf)
+            out[:n] = arr[:n]
+            arr = out
+        if isinstance(leaf, torch.Tensor):
+            arr = torch.as_tensor(arr, dtype=leaf.dtype).to(leaf.device)
+        leaves[key] = arr
+    return _rebuild(like, leaves)
+
+
+def _read(path: str) -> Tuple[Dict[str, np.ndarray], int, Dict[str, Any]]:
+    """The one read of a checkpoint file: ``(leaves, epoch, meta)``, the
+    flat leaves with ``__epoch__`` and the meta entries taken out;
+    a bfloat16 leaf raises ``ValueError`` (:func:`check_leaves`)."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    check_leaves(flat)
+    epoch = int(flat.pop(_EPOCH_KEY, -1))
+    meta = {k[len(_META_PREFIX):]: flat.pop(k)
+            for k in list(flat) if k.startswith(_META_PREFIX)}
+    return flat, epoch, meta
+
+
 def load_checkpoint(path: str, like: Any) -> Tuple[Any, int, Dict[str, Any]]:
     """Load a checkpoint into the structure of ``like`` (the same nested
     dict).
@@ -161,31 +206,20 @@ def load_checkpoint(path: str, like: Any) -> Tuple[Any, int, Dict[str, Any]]:
     another shape or a bfloat16 leaf (:func:`check_leaves`)
     ``ValueError``.
     """
-    with np.load(path) as z:
-        flat = {k: z[k] for k in z.files}
-    check_leaves(flat)
-    epoch = int(flat.pop(_EPOCH_KEY, -1))
-    meta = {k[len(_META_PREFIX):]: flat.pop(k)
-            for k in list(flat) if k.startswith(_META_PREFIX)}
+    flat, epoch, meta = _read(path)
+    return _fill(like, flat), epoch, meta
 
-    leaves = {}
-    for key, leaf in _leaves(like):
-        if key not in flat:
-            raise KeyError(f"checkpoint missing leaf {key!r}")
-        arr = flat[key]
-        like_shape = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) \
-            else tuple(np.shape(leaf))
-        if tuple(arr.shape) != like_shape:
-            raise ValueError(
-                f"checkpoint leaf {key!r} has shape {tuple(arr.shape)}, "
-                f"expected {like_shape} — written by a different "
-                "schema/mesh padding.  Engines that support cross-layout "
-                "resume (BPR) convert through their own raw-load path; "
-                "this loader requires exact shapes so drift fails loudly.")
-        if isinstance(leaf, torch.Tensor):
-            arr = torch.as_tensor(arr, dtype=leaf.dtype).to(leaf.device)
-        leaves[key] = arr
-    return _rebuild(like, leaves), epoch, meta
+
+def resume_point(path: str | None, resume: bool
+                 ) -> Tuple[Dict[str, np.ndarray] | None, int]:
+    """Where a fit starts: ``(leaves, start_epoch)``, the flat leaves of
+    the checkpoint at ``path`` (:func:`_read`) and the epoch after the
+    saved one when ``resume`` is on and the file exists, else ``(None,
+    0)``."""
+    if not (resume and path is not None and os.path.exists(path)):
+        return None, 0
+    flat, epoch, _ = _read(path)
+    return flat, epoch + 1
 
 
 def resume_state(path: str | None, resume: bool, like: Any,
@@ -202,30 +236,7 @@ def resume_state(path: str | None, resume: bool, like: Any,
     difference raises ``ValueError``, a missing leaf ``KeyError``.  A
     tensor leaf of ``like`` comes back as a tensor on its device and of its
     dtype, any other leaf as an array."""
-    if not (resume and path is not None and os.path.exists(path)):
+    flat, start_epoch = resume_point(path, resume)
+    if flat is None:
         return like, 0
-    with np.load(path) as z:
-        flat = {k: z[k] for k in z.files}
-    check_leaves(flat)
-    epoch = int(flat.pop(_EPOCH_KEY, -1))
-    leaves = {}
-    for key, leaf in _leaves(like):
-        if key not in flat:
-            raise KeyError(f"checkpoint missing leaf {key!r}")
-        arr, shape = flat[key], tuple(leaf.shape)
-        if arr.shape != shape:
-            n = (rows or {}).get(key.split("/")[0], -1)
-            if arr.shape[1:] != shape[1:] or min(arr.shape[0],
-                                                 shape[0]) < n or n < 0:
-                raise ValueError(
-                    f"checkpoint leaf {key!r} has shape {arr.shape}, "
-                    f"expected {shape} or another row count of at least "
-                    f"{n}")
-            out = host_array(leaf) if isinstance(leaf, torch.Tensor) \
-                else np.array(leaf)
-            out[:n] = arr[:n]
-            arr = out
-        if isinstance(leaf, torch.Tensor):
-            arr = torch.as_tensor(arr, dtype=leaf.dtype).to(leaf.device)
-        leaves[key] = arr
-    return _rebuild(like, leaves), epoch + 1
+    return _fill(like, flat, rows), start_epoch

@@ -18,8 +18,8 @@ The program's spans: every estimator's ``fit`` opens ``<model>.fit``
 (``bpr.fit``, ``wmf.fit``, ...), ``Evaluator.evaluate`` opens
 ``eval.evaluate`` and ``recommend`` opens ``recommend``; the stages inside
 them are named in their modules.  Two counters are kept: ``h2d_bytes``
-(bytes handed from the host to the device, :func:`upload`) and
-``samples`` (interactions trained, on a fit).
+(bytes handed from the host to the device, :func:`upload` and
+:func:`upload_array`) and ``samples`` (interactions trained, on a fit).
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import threading
 import time
 from typing import Dict, Iterator, List, Optional
 
+import numpy as np
 import torch
 
 # roots the log keeps (the oldest are dropped)
@@ -229,6 +230,18 @@ def upload(t: torch.Tensor, device, dtype: Optional[torch.dtype] = None,
     if t.device.type == "cpu":
         count("h2d_bytes", t.nbytes)
     return t.to(device, dtype, copy=copy)
+
+
+def upload_array(a, device, dtype: Optional[torch.dtype] = None
+                 ) -> torch.Tensor:
+    """The host array ``a`` as a tensor on ``device``, through
+    :func:`upload`.  With ``dtype``, a copy converted on the host, so that
+    only its bytes cross and in-place updates of the result never reach
+    ``a``; without, ``a``'s own bytes (on the CPU the result shares ``a``'s
+    memory)."""
+    t = torch.from_numpy(np.ascontiguousarray(a)) if dtype is None \
+        else torch.tensor(a, dtype=dtype)
+    return upload(t, device)
 
 
 def spans() -> List[Root]:

@@ -110,7 +110,7 @@ def profile_main(d: Path, smi: str) -> None:
     from cymf_tpu_torch.dataset import SyntheticImplicitDataset
     from cymf_tpu_torch.models import glove, relmf
     from cymf_tpu_torch.models.base import padded_rows
-    from cymf_tpu_torch.ops.relmf_epoch import epoch_generator
+    from cymf_tpu_torch.models.sgd import epoch_generator
     from cymf_tpu_torch.parallel import MeshContext, use_mesh
     from cymf_tpu_torch.parallel.shard_step import (sharded_glove_epoch,
                                                     sharded_relmf_epoch)

@@ -13,6 +13,7 @@ the JAX package's own parity tests): at least 99% of elements agree to
 that tolerance and every element within ``3 lr``.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -28,6 +29,8 @@ import cymf_tpu_torch as ct
 from cymf_tpu.parallel import MeshContext, use_mesh
 from cymf_tpu_torch.convert import bpr_from_arrays
 from cymf_tpu_torch.dataset import SyntheticImplicitDataset
+from cymf_tpu_torch.models.base import as_csr
+from cymf_tpu_torch.models.sgd import positive_keys
 from cymf_tpu_torch.ops.packed_epoch import make_packed_optimizer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -318,3 +321,70 @@ def test_import_leaves_jax_and_sklearn_stack_out():
               "ops.glove_epoch", "ops.hashset", "ops.wide_epoch",
               "ops.probes"):
         assert f"'cymf_tpu_torch.{m}'" in modules
+
+
+def _keys_input(case):
+    """An input of ``case`` for :func:`test_positive_keys`, before
+    ``as_csr``."""
+    rng = np.random.default_rng(3)
+    if case == "empty":
+        return sparse.csr_matrix((40, 25))
+    if case == "dense":
+        return (rng.random((40, 25)) < 0.2).astype(np.float64)
+    if case == "unsorted":
+        X = sparse.random(40, 25, density=0.3, random_state=4, format="csr")
+        for u in range(40):      # reverse each row's indices in place
+            lo, hi = X.indptr[u], X.indptr[u + 1]
+            X.indices[lo:hi] = X.indices[lo:hi][::-1].copy()
+            X.data[lo:hi] = X.data[lo:hi][::-1].copy()
+        X.has_sorted_indices = False
+        return X
+    if case == "duplicates":
+        # a CSR whose rows repeat entries, as a caller may build it
+        indptr = np.array([0, 3, 3, 6])
+        indices = np.array([4, 1, 4, 0, 0, 2])
+        return sparse.csr_matrix((np.ones(6), indices, indptr), shape=(3, 5))
+    # empty rows and columns: users 0, 7 and 39 and items 0-4 have none
+    rows = rng.integers(8, 39, 300)
+    return sparse.coo_matrix((np.ones(300), (rows, rng.integers(5, 25, 300))),
+                             shape=(40, 25)).tocsr()
+
+
+@pytest.mark.parametrize("case", ["unsorted", "duplicates", "empty_rows_cols",
+                                  "empty", "dense"])
+def test_positive_keys(case):
+    """``positive_keys`` reads ``as_csr``'s indices in order, with no sort:
+    the same int64 keys as sorting ``u * I + i`` over the COO entries."""
+    X = as_csr(_keys_input(case))
+    coo = X.tocoo()
+    want = np.sort(coo.row.astype(np.int64) * X.shape[1] + coo.col)
+    got = positive_keys(X)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+
+
+MODELS = os.path.join(ROOT, "cymf_tpu_torch", "models")
+
+
+@pytest.mark.parametrize("name", sorted(
+    f for f in os.listdir(MODELS) if f.endswith(".py")))
+def test_models_keep_to_their_own_names(name):
+    """No module of ``models/`` imports an underscore name from a sibling
+    model module, and none but the package's ``__init__`` imports from
+    ``models/bpr.py``: what the SGD engines share is ``models/sgd.py``'s."""
+    siblings = {f[:-3] for f in os.listdir(MODELS) if f.endswith(".py")}
+    with open(os.path.join(MODELS, name)) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.ImportFrom):
+            continue
+        if node.level == 1 and node.module in siblings:
+            mod = node.module
+        elif node.level == 0 and (node.module or "").startswith(
+                "cymf_tpu_torch.models."):
+            mod = node.module.rsplit(".", 1)[1]
+        else:
+            continue
+        private = [a.name for a in node.names if a.name.startswith("_")]
+        assert not private, (name, mod, private)
+        assert mod != "bpr" or name == "__init__.py", (name, node.lineno)

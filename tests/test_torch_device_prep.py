@@ -34,7 +34,7 @@ from cymf_tpu_torch.models.bpr import PAD_USER
 from cymf_tpu_torch.ops import packed as tpk
 from cymf_tpu_torch.ops import packed_epoch as tpe
 from cymf_tpu_torch.ops.hashset import build_pair_hashset, to_device
-from cymf_tpu_torch.ops.relmf_epoch import epoch_generator
+from cymf_tpu_torch.models.sgd import epoch_generator
 
 # tests/test_bpr.py's device-prep shapes
 U, I, K, B, WROWS = 300, 170, 8, 1024, 16

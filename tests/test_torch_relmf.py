@@ -38,6 +38,7 @@ from cymf_tpu.parallel import MeshContext, use_mesh
 from cymf_tpu_torch.convert import from_arrays, packed_state_from_jax
 from cymf_tpu_torch.dataset import SyntheticImplicitDataset
 from cymf_tpu_torch.models import relmf as relmf_model
+from cymf_tpu_torch.models.sgd import epoch_generator
 from cymf_tpu_torch.ops import _kernels
 from cymf_tpu_torch.ops import packed_epoch as tpe
 from cymf_tpu_torch.ops.hashset import (build_pair_hashset,
@@ -215,7 +216,7 @@ def test_draw_cells_uniform_and_labelled():
     density, deterministic per generator seed."""
     _, _, _, (pu, pi), _, _, _ = _problem()
     hs = to_device(build_pair_hashset(pu, pi), "cpu")
-    draws = [tre.draw_cells(tre.epoch_generator(5, 2, "cpu"), 4096, U, I,
+    draws = [tre.draw_cells(epoch_generator(5, 2, "cpu"), 4096, U, I,
                             hs) for _ in range(2)]
     (u, i, lab), (u2, i2, lab2) = draws
     assert u.dtype == i.dtype == torch.int32 and lab.dtype == torch.bool
@@ -224,7 +225,7 @@ def test_draw_cells_uniform_and_labelled():
     assert 0 <= int(i.min()) and int(i.max()) < I
     density = len(pu) / (U * I)
     assert abs(float(lab.float().mean()) - density) < 0.02
-    other = tre.draw_cells(tre.epoch_generator(5, 3, "cpu"), 4096, U, I, hs)
+    other = tre.draw_cells(epoch_generator(5, 3, "cpu"), 4096, U, I, hs)
     assert not torch.equal(other[0], u)
 
 

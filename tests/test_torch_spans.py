@@ -286,6 +286,30 @@ def test_bpr_h2d_bytes_count_every_host_copy(monkeypatch, engine, kwargs,
     assert r.counts["h2d_bytes"] == copies.bytes > 0
 
 
+@pytest.mark.parametrize("kwargs,prep,binary", [
+    ({"packed": "on"}, "device", True),
+    ({"packed": "on"}, "host", True),
+    ({"packed": "off"}, "device", True),
+    ({"packed": "off"}, "device", False),
+])
+def test_relmf_h2d_bytes_count_every_host_copy(monkeypatch, kwargs, prep,
+                                               binary):
+    """RelMF's ``h2d_bytes`` is every byte its fit hands to the device:
+    the tables, the propensities, the hash set or the CSR labels, the
+    host prep's streams."""
+    monkeypatch.setenv("CYMF_TPU_RELMF_PREP", prep)
+    X = _interactions(U=60, I=40, nnz=500)
+    if not binary:
+        X.data = np.arange(1.0, X.nnz + 1.0) % 3 + 1.0
+    m = ct.RelMF(num_components=8, batch_size=1024, device="cpu", **kwargs)
+    copies = HostCopies(monkeypatch)
+    m.fit(X, num_epochs=2, seed=3)
+    monkeypatch.undo()
+    assert m.packed_engine_ == (kwargs["packed"] == "on")
+    r = last_root("relmf.fit")
+    assert r.counts["h2d_bytes"] == copies.bytes > 0
+
+
 def test_bpr_verbose_prints_the_fit_rate(capsys):
     X = _interactions(nnz=3000)
     ct.BPR(num_components=8, batch_size=1024, device="cpu").fit(
